@@ -1,0 +1,39 @@
+"""Carry the JAX package's parameters into the port.
+
+``params_from_jax`` takes the nested dict that ``repro.models.lm.init_params``
+returns, after ``jax.tree.map(np.asarray, ...)`` (numpy leaves, stacked
+``[L, ...]``), and returns the port's parameters (``models/lm.py``).
+bfloat16 arrays cross through a ``uint16`` view, so no JAX or ml_dtypes
+import is needed here.  This is what makes both packages compute the same
+function in the parity tests.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import lm
+
+
+def to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy -> torch, bit-exact; bfloat16 goes through a uint16 view."""
+    a = np.array(a, order="C")           # a writable copy torch may alias
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return to_tensor(np.asarray(tree), device)
+
+
+def params_from_jax(tree: Dict[str, Any], *, device="cuda",
+                    dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The port's parameters from a numpy copy of the JAX parameter tree."""
+    return lm.prepare_params(_convert(tree, resolve_device(device)), dtype)

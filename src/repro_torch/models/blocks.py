@@ -1,0 +1,38 @@
+"""Pre-norm residual attention block.  Counterpart of
+``repro/models/blocks.py::init_attn_block``/``apply_attn_block``."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention as ATT
+from repro_torch.models import layers as L
+from repro_torch.models import mlp as MLP
+
+
+def init_attn_block(cfg: ModelConfig, generator: torch.Generator, layers: int):
+    """Stacked [layers, ...] block parameters (the JAX package's vmapped init)."""
+    dev = generator.device
+    p: Dict[str, Any] = {
+        "norm1": L.init_norm(cfg.norm_kind, cfg.d_model, dev, (layers,)),
+        "norm2": L.init_norm(cfg.norm_kind, cfg.d_model, dev, (layers,)),
+    }
+    p["attn"] = ATT.init_attn(cfg, generator, layers)
+    p["mlp"] = MLP.init_mlp(cfg, generator, layers)
+    return p
+
+
+def apply_attn_block(pctx, cfg: ModelConfig, p, x: torch.Tensor, *,
+                     positions: torch.Tensor,
+                     cache: Optional[ATT.PagedKVCache] = None,
+                     ) -> Tuple[torch.Tensor, Optional[ATT.PagedKVCache]]:
+    """Returns (x, new_cache)."""
+    h = L.apply_norm(cfg.norm_kind, p["norm1"], x)
+    a, new_cache = ATT.apply_attn(pctx, cfg, p["attn"], h, positions=positions,
+                                  cache=cache)
+    x = x + a
+    h = L.apply_norm(cfg.norm_kind, p["norm2"], x)
+    return x + MLP.apply_mlp(pctx, cfg, p["mlp"], h).to(x.dtype), new_cache

@@ -1,0 +1,182 @@
+"""Paged KV block pool of the decode service (docs/DESIGN.md §10).
+
+Counterpart of ``repro/serve/cache.py`` for the attention arena of dense
+models: ``PoolConfig``, ``blocks_for``, ``NULL_BLOCK``, ``CachePool`` and
+``dense_cache_bytes``.  The host accounting is the JAX package's, line for
+line: the admission gate leases ``ceil(prompt_len / block)`` blocks into a
+free slot or leaves the request queued, ``ensure_append`` leases lazily
+before each decode token, ``free_slot`` returns a lease, and the peak of
+``blocks_in_use`` is tracked against the dense ``[slots, max_seq]`` arena.
+The steps write the device arenas in place, so the JAX package's
+``absorb_prefill``/``absorb_decode`` have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention as ATT
+
+
+def dense_cache_bytes(cfg: ModelConfig, batch: int, s_max: int, dtype) -> int:
+    """Bytes of the dense per-sequence cache the JAX package would pin:
+    K and V ``[L, B, S_max, nkv, dh]`` plus one int32 length per layer."""
+    per = cfg.num_layers * batch * s_max * cfg.num_kv_heads * cfg.resolved_head_dim
+    return 2 * per * torch.empty((), dtype=dtype).element_size() + 4 * cfg.num_layers
+
+
+NULL_BLOCK = 0           # reserved trash block backing unleased table entries
+
+
+@dataclass(frozen=True)
+class PoolConfig:
+    """Shape of the paged pool: ``slots`` decode rows, ``block`` tokens per
+    block, ``num_blocks`` including the null block, ``max_seq`` tokens per
+    sequence (sizes the block table)."""
+    slots: int
+    block: int
+    num_blocks: int
+    max_seq: int
+
+    def __post_init__(self):
+        for name in ("slots", "block", "max_seq"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name}={getattr(self, name)} must be >= 1")
+        if self.num_blocks < 2:
+            raise ValueError(f"num_blocks={self.num_blocks}: need the null "
+                             "block + >= 1 leasable block")
+
+    @property
+    def max_blocks_per_slot(self) -> int:
+        return -(-self.max_seq // self.block)
+
+    @property
+    def leasable_blocks(self) -> int:
+        return self.num_blocks - 1          # block 0 is never leased
+
+    @property
+    def dense_equiv_blocks(self) -> int:
+        """Blocks a dense [slots, max_seq] arena would pin up front."""
+        return self.slots * self.max_blocks_per_slot
+
+
+def blocks_for(tokens: int, block: int) -> int:
+    return max(1, -(-tokens // block))
+
+
+class CachePool:
+    """Host-side paged cache manager: device arenas + block accounting.
+
+    The cache tree handed to the steps is assembled per call from the
+    arenas and the CURRENT host block table and lengths (``decode_tree`` /
+    ``prefill_tree``); the host copy of table and lengths is authoritative."""
+
+    def __init__(self, cfg: ModelConfig, pool: PoolConfig, *, device,
+                 dtype=torch.float32):
+        if cfg.family != "dense":
+            raise NotImplementedError(f"paged pool for family {cfg.family!r} "
+                                      "is not ported yet")
+        self.cfg, self.pool = cfg, pool
+        self.device = torch.device(device)
+        mb = pool.max_blocks_per_slot
+        paged = ATT.init_paged_kv(cfg, pool.num_blocks, pool.block, pool.slots, mb,
+                                  dtype, self.device, cfg.num_layers)
+        self.arenas: Dict[str, Any] = {"attn": (paged.k, paged.v)}
+        # host accounting
+        self.table = np.zeros((pool.slots, mb), np.int32)
+        self.lengths = np.zeros(pool.slots, np.int32)
+        self.active = np.zeros(pool.slots, bool)
+        self.free: List[int] = list(range(1, pool.num_blocks))
+        self.owned: List[List[int]] = [[] for _ in range(pool.slots)]
+        self.peak_blocks_in_use = 0
+
+    # -- accounting ------------------------------------------------------
+    @property
+    def blocks_in_use(self) -> int:
+        return self.pool.leasable_blocks - len(self.free)
+
+    @property
+    def free_slots(self) -> List[int]:
+        return [s for s in range(self.pool.slots) if not self.active[s]]
+
+    def _lease(self, slot: int) -> bool:
+        if not self.free:
+            return False
+        b = self.free.pop()
+        self.owned[slot].append(b)
+        self.table[slot, len(self.owned[slot]) - 1] = b
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.blocks_in_use)
+        return True
+
+    def can_admit(self, prompt_len: int) -> bool:
+        return (prompt_len <= self.pool.max_seq
+                and bool(self.free_slots)
+                and len(self.free) >= blocks_for(prompt_len, self.pool.block))
+
+    def admit(self, prompt_len: int) -> Optional[int]:
+        """Admission gate: lease prompt blocks into a free slot, or None."""
+        if not self.can_admit(prompt_len):
+            return None
+        slot = self.free_slots[0]
+        for _ in range(blocks_for(prompt_len, self.pool.block)):
+            self._lease(slot)               # can_admit checked the free list
+        self.active[slot] = True
+        self.lengths[slot] = 0              # prefill commits the real length
+        return slot
+
+    def commit_prefill(self, slot: int, prompt_len: int) -> None:
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} is not active")
+        self.lengths[slot] = prompt_len
+
+    def ensure_append(self, slot: int) -> bool:
+        """Lease the block holding position ``lengths[slot]`` if missing.
+
+        False = out of blocks (caller runs the eviction protocol) or the
+        slot hit ``max_seq``."""
+        need = self.lengths[slot] // self.pool.block + 1
+        if need > self.pool.max_blocks_per_slot:
+            return False
+        while len(self.owned[slot]) < need:
+            if not self._lease(slot):
+                return False
+        return True
+
+    def advance(self, slot: int) -> None:
+        self.lengths[slot] += 1
+
+    def free_slot(self, slot: int) -> None:
+        self.free.extend(self.owned[slot])
+        self.owned[slot] = []
+        self.table[slot] = NULL_BLOCK
+        self.lengths[slot] = 0
+        self.active[slot] = False
+
+    # -- device tree assembly -------------------------------------------
+    def _paged(self, table_rows: np.ndarray, lengths_rows: np.ndarray):
+        k, v = self.arenas["attn"]
+        return ATT.PagedKVCache(
+            k, v, torch.as_tensor(table_rows, dtype=torch.int64).to(self.device),
+            torch.as_tensor(lengths_rows, dtype=torch.int32).to(self.device))
+
+    def decode_tree(self):
+        """Cache tree for one decode tick over all ``slots`` rows."""
+        return {"attn": self._paged(self.table, self.lengths)}
+
+    def prefill_tree(self, slot: int):
+        """Cache tree for a single-slot prefill (batch 1, length 0)."""
+        return {"attn": self._paged(self.table[slot:slot + 1], np.zeros(1, np.int32))}
+
+    # -- reporting -------------------------------------------------------
+    @property
+    def block_bytes(self) -> int:
+        """Bytes one leased block pins across all layers' arenas."""
+        return sum(a[:, 0].numel() * a.element_size() for a in self.arenas["attn"])
+
+    def paged_bytes_peak(self) -> int:
+        return self.block_bytes * self.peak_blocks_in_use
