@@ -9,20 +9,29 @@ Phases, each fatal on failure:
    (one process per source, in parallel) and print the seconds; print the
    card's name and power limit as nvidia-smi reports them;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (qwen3-0.6b at full width), in fp32 and
-   bf16, with the tolerance and its reason; time the kernel, the plain
-   version and, where one PyTorch call computes the same function, that
-   call (a yardstick only: the port never calls it), beside the least time
-   the card could take (bytes over 3.35 TB/s or operations over the peak);
-3. serve full-width qwen3-0.6b in bf16 (random weights from a seed, made on
-   the card) through the port's serving entry point, after checking that
-   one prompt's prefill logits through the kernels match the plain-op
-   forward; the kernels' launch counts are zeroed just before the serving
-   run and read just after, and each must be > 0;
-4. print one JSON line of per-kernel numbers, then the result line.
+   shapes the serving and training paths give it (qwen3-0.6b at full
+   width), in fp32 and bf16, with the tolerance and its reason; time the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call (a yardstick only: the port never calls it), beside
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over the peak);
+3. check that one prompt's prefill logits through the kernels match the
+   plain-op forward;
+4. check the loss and every parameter's gradient of one training
+   microbatch through the kernels against the plain-op path's autograd:
+   bf16 at full depth, fp32 at two layers;
+5. train full-width qwen3-0.6b (bf16 compute, fp32 masters) through the
+   training launcher's code path, then measure peak memory and step time
+   under each remat policy;
+6. serve full-width qwen3-0.6b in bf16 through the serving entry point;
+   random weights from a seed, made on the card, in 5 and 6.  The kernels'
+   launch counts are zeroed just before the training run and the serving
+   run and read just after each, and every kernel of each path must show
+   launches;
+7. print one JSON line of per-kernel numbers, then the result line.
 
-``--profile`` also traces decode ticks with torch.profiler and prints the
-device's busy share and its time per kernel.
+``--profile`` also traces decode ticks and one training step with
+torch.profiler and prints the device's busy share and its time per kernel.
 """
 
 import argparse
@@ -40,19 +49,27 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.config import get_config  # noqa: E402
+from repro_torch.config import ParallelConfig, RunConfig, get_config  # noqa: E402
+from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import matmul as kmm  # noqa: E402
+from repro_torch.kernels import swiglu as ksw  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.parallel.context import PCtx  # noqa: E402
 from repro_torch.serve.cache import CachePool, PoolConfig  # noqa: E402
+from repro_torch.train import step as train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,             # dense bf16 tensor cores
             torch.float32: 67e12}               # fp32 outside the tensor cores
 L2_BYTES = 50 * 2 ** 20
+# keyed on the OUTPUT's dtype: an fp32 output of bf16 inputs (the tied
+# head's logits, the gated kernel's kept products) is exact products summed
+# in fp32 in another order, so it is held to the fp32 bound, and a kernel
+# that rounded it to bf16 on the way out would fail
 TOL = {torch.float32: (2e-4, "fp32 sums in another order; the repo's fp32 bound"),
        torch.bfloat16: (2e-2, "one bf16 rounding of the output (2^-8 relative); "
                               "the repo's bf16 bound")}
@@ -61,13 +78,26 @@ SLOTS, BLOCK, REQUESTS, GEN = 4, 16, 8, 32
 PROMPT_LENS = (64, 256, 512)
 SEED = 0
 DEV = "cuda"
+# training: --batch 8 --seq 512 --microbatches 2, so a microbatch is 4 x 512
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 7     # 1 warm-up + 6
+TRAIN_M = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ                    # tokens per microbatch
 KERNELS = {
     "matmul": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:90"),
     "gated_matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
                      "src/repro/kernels/matmul.py:132"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:84"),
+    "tile_matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+                    "src/repro/kernels/ring_matmul.py:225"),
+    # no Pallas backward exists: these are the derivatives of the kernels above
+    "swiglu_bwd": ("src/repro_torch/kernels/csrc/swiglu_bwd.cu",
+                   "src/repro/kernels/matmul.py:132"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:84"),
 }
+SERVE_KERNELS = ("matmul", "gated_matmul", "flash_attention")
+TRAIN_KERNELS = ("tile_matmul", "gated_matmul", "flash_attention", "swiglu_bwd",
+                 "flash_attention_bwd")
 
 
 def log(*a):
@@ -100,6 +130,27 @@ def bench_ms(calls, reps=10):
     return start.elapsed_time(end) / (reps * len(calls))
 
 
+def event_ms(fn, reps=5, windows=7):
+    """Device ms per call of ``fn``: the median over ``windows`` windows of
+    ``reps`` calls, each between CUDA events, after one warm-up call.  For
+    calls of a millisecond or more (attention backward), whose host launch
+    cost is small beside their device time, and which run autograd, which
+    a graph capture does not take; the median drops the windows that a
+    host stall (autograd, the allocator) stretched."""
+    fn()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
 def n_copies(nbytes):
     return int(min(32, max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1)))))
 
@@ -114,16 +165,27 @@ def randn(gen, shape, dtype, scale=1.0):
 
 
 def record(results, kernel, case, dtype, main, out, want, kern_calls, plain_calls,
-           lib_calls, nbytes, nops):
-    tol, why = TOL[dtype]
-    err = (out.float() - want.float()).abs().max().item()
-    ok = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)) and \
-        bool(torch.isfinite(out.float()).all())
+           lib_calls, nbytes, nops, timer=bench_ms):
+    """``out``/``want`` may be tuples (a backward's gradients, the gated
+    kernel's kept products): each pair is held to the tolerance of its
+    output's dtype and the worst error is reported.  ``dtype`` is the
+    inputs' dtype, which sets the peak rate of the bound."""
+    outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+    errs, ok, tols = [], True, {}
+    for o, w in zip(outs, wants):
+        tol, why = TOL[o.dtype]
+        tols[str(o.dtype).replace("torch.", "")] = (tol, why)
+        errs.append((o.float() - w.float()).abs().max().item())
+        ok &= bool(torch.allclose(o.float(), w.float(), atol=tol, rtol=tol)) and \
+            bool(torch.isfinite(o.float()).all())
+        ok &= o.dtype == w.dtype and o.shape == w.shape
     b_ms, b_by = bound(nbytes, nops, dtype)
     r = dict(kernel=kernel, case=case, dtype=str(dtype).replace("torch.", ""),
-             main=main, max_err=err, tol=tol, reason=why, ok=ok,
-             kernel_ms=bench_ms(kern_calls), plain_ms=bench_ms(plain_calls),
-             library_ms=bench_ms(lib_calls) if lib_calls else None,
+             main=main, max_err=max(errs), errs=errs,
+             tol={k: t for k, (t, _) in tols.items()},
+             reason={k: why for k, (_, why) in tols.items()}, ok=ok,
+             kernel_ms=timer(kern_calls), plain_ms=timer(plain_calls),
+             library_ms=timer(lib_calls) if lib_calls else None,
              bound_ms=b_ms, bound_by=b_by)
     results.append(r)
     log("case " + json.dumps(r))
@@ -131,10 +193,14 @@ def record(results, kernel, case, dtype, main, out, want, kern_calls, plain_call
 
 
 def check_matmul(results, gen, M, K, N, dtype, *, gated=False, act="none",
-                 bias=False, main=True):
+                 bias=False, main=True, keep_ab=False):
+    """``keep_ab`` (gated, the training path): the kernel also writes the
+    fp32 products a = x w1 and b = x w1b, and all three outputs are held
+    against ``ref.gated_products_plain``."""
     elt = torch.tensor([], dtype=dtype).element_size()
     nw = 2 if gated else 1
-    nbytes = (M * K + nw * K * N + M * N + (N if bias else 0)) * elt
+    nbytes = (M * K + nw * K * N + M * N + (N if bias else 0)) * elt + \
+        (2 * M * N * 4 if keep_ab else 0)
     sets = []
     for _ in range(n_copies(nbytes)):
         x = randn(gen, (M, K), dtype)
@@ -142,7 +208,11 @@ def check_matmul(results, gen, M, K, N, dtype, *, gated=False, act="none",
         b = randn(gen, (N,), dtype) if bias else None
         sets.append((x, ws, b))
     x, ws, b = sets[0]
-    if gated:
+    if gated and keep_ab:
+        kern = lambda s: kmm.gated_matmul(s[0], *s[1], act=act, keep_ab=True)
+        plain = lambda s: ref.gated_products_plain(s[0], *s[1], act=act)
+        lib = None
+    elif gated:
         kern = lambda s: kmm.gated_matmul(s[0], *s[1], act=act)
         plain = lambda s: ref.gated_matmul_plain(s[0], *s[1], act=act)
         lib = None
@@ -152,7 +222,8 @@ def check_matmul(results, gen, M, K, N, dtype, *, gated=False, act="none",
         lib = (lambda s: torch.matmul(s[0], s[1][0])) if (act == "none" and not bias) \
             else None
     name = "gated_matmul" if gated else "matmul"
-    case = f"M={M} K={K} N={N} act={act}" + (" bias" if bias else "")
+    case = f"M={M} K={K} N={N} act={act}" + (" bias" if bias else "") + \
+        (" keep_ab" if keep_ab else "")
     return record(results, name, case, dtype, main, kern(sets[0]), plain(sets[0]),
                   [lambda s=s: kern(s) for s in sets],
                   [lambda s=s: plain(s) for s in sets],
@@ -231,6 +302,120 @@ def kernel_phase(cfg):
                           torch.bfloat16, main=False, label="continued-prefill")
     ok &= check_attention(results, gen, 2, 8, 2, 64, 128, 128, [0, 0], [128, 97],
                           torch.float32, main=False, label="dh64")
+    # a slot at kv_len 0: its rows see no key and average all of v, as _sdpa
+    ok &= check_attention(results, gen, SLOTS, nh, nkv, dh, 1, Sk, [63, 300, 511, 0],
+                          [64, 301, 512, 0], torch.bfloat16, main=False, label="empty-row")
+    return results, ok
+
+
+def _stored(t, transposed):
+    """t [rows, cols] as a row-major tensor or as the transposed view of
+    one (the layout the training path hands the tile kernel)."""
+    return t.t().contiguous().t() if transposed else t
+
+
+def check_tile(results, gen, layout, M, K, N, dtype, out_dtype=None, *, main=True):
+    """x @ w through the tile kernel; NT reads w transposed (dx = g w^T, the
+    tied head), TN reads x transposed (dw = x^T g)."""
+    out_dtype = out_dtype or dtype
+    elt = torch.tensor([], dtype=dtype).element_size()
+    oelt = torch.tensor([], dtype=out_dtype).element_size()
+    nbytes = (M * K + K * N) * elt + M * N * oelt
+    sets = [(_stored(randn(gen, (M, K), dtype), layout == "TN"),
+             _stored(randn(gen, (K, N), dtype, K ** -0.5), layout == "NT"))
+            for _ in range(n_copies(nbytes))]
+    kern = lambda s: kmm.tile_matmul(*s, out_dtype=out_dtype)
+    plain = lambda s: ref.tile_matmul_plain(*s, out_dtype=out_dtype)
+    lib = ((lambda s: torch.matmul(*s)) if out_dtype == dtype
+           else (lambda s: torch.mm(*s, out_dtype=out_dtype)))
+    case = f"{layout} M={M} K={K} N={N} out={str(out_dtype).replace('torch.', '')}"
+    return record(results, "tile_matmul", case, dtype, main, kern(sets[0]), plain(sets[0]),
+                  [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(s) for s in sets],
+                  [lambda s=s: lib(s) for s in sets], nbytes, 2 * M * K * N)
+
+
+def check_swiglu_bwd(results, gen, M, F_, dtype, *, main=True):
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = M * F_ * (3 * elt + 8)               # g, dA, dB; a, b in fp32
+    sets = [(randn(gen, (M, F_), dtype), randn(gen, (M, F_), torch.float32, 3.0),
+             randn(gen, (M, F_), torch.float32)) for _ in range(n_copies(nbytes))]
+    kern = lambda s: ksw.swiglu_bwd(*s, act="silu")
+    plain = lambda s: ref.swiglu_bwd_plain(*s, act="silu")
+    return record(results, "swiglu_bwd", f"M={M} F={F_}", dtype, main, kern(sets[0]),
+                  plain(sets[0]), [lambda s=s: kern(s) for s in sets],
+                  [lambda s=s: plain(s) for s in sets], None, nbytes, 20 * M * F_)
+
+
+def check_attention_bwd(results, gen, B, nh, nkv, dh, S, dtype, *, causal=True, main=True):
+    """dq, dk, dv under the training mask against the plain version's
+    autograd; [B,S,heads,dh] tensors go in as transposed views.  The
+    yardstick is the backward of F.scaled_dot_product_attention."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    q = randn(gen, (B, S, nh, dh), dtype).transpose(1, 2)
+    k = randn(gen, (B, S, nkv, dh), dtype).transpose(1, 2)
+    v = randn(gen, (B, S, nkv, dh), dtype).transpose(1, 2)
+    do = randn(gen, (B, S, nh, dh), dtype).transpose(1, 2)
+    o, lse = kfa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    o_p, lse_p = ref.attention_plain(q, k, v, causal=causal, return_lse=True)
+    pairs = B * (S * (S + 1) // 2 if causal else S * S)
+    # read q, k, v, o, dO and the fp32 LSE; write dq, dk, dv
+    nbytes = (3 * B * S * nh * dh + 2 * B * S * nkv * dh) * elt + 4 * B * nh * S \
+        + (B * S * nh * dh + 2 * B * S * nkv * dh) * elt
+    nops = 10 * pairs * nh * dh
+    kern = lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    plain = lambda: ref.attention_bwd_plain(q, k, v, do, causal=causal)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(o_l, (ql, kl, vl), do, retain_graph=True)
+    ok_fwd = bool(torch.allclose(o.float(), o_p.float(), atol=TOL[o.dtype][0],
+                                 rtol=TOL[o.dtype][0])) and \
+        bool(torch.allclose(lse, lse_p, atol=2e-4, rtol=2e-4))
+    case = f"{'causal' if causal else 'full'} B={B} nh={nh} nkv={nkv} dh={dh} S={S}"
+    ok = record(results, "flash_attention_bwd", case, dtype, main, kern(), plain(),
+                [kern], [plain], [lib], nbytes, nops, timer=lambda c: event_ms(c[0]))
+    return ok and ok_fwd
+
+
+def train_kernel_phase(cfg):
+    """The training path's kernels at its shapes: one microbatch of
+    TRAIN_M tokens through every projection, forward (NN) and backward (dx
+    NT, dw TN), the tied head (NT, fp32 logits) and its backward."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv, F_, V = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff, cfg.padded_vocab
+    M, bf = TRAIN_M, torch.bfloat16
+    results, ok = [], True
+    for K, N in ((d, nh * dh), (d, nkv * dh), (nh * dh, d), (F_, d)):
+        ok &= check_tile(results, gen, "NN", M, K, N, bf)           # forward
+        ok &= check_tile(results, gen, "NT", M, N, K, bf)           # dx = g w^T
+        ok &= check_tile(results, gen, "TN", K, M, N, bf)           # dw = x^T g
+    # the FFN's gated up-projection, keeping a and b for the SwiGLU backward
+    ok &= check_matmul(results, gen, M, d, F_, bf, gated=True, act="silu", keep_ab=True)
+    ok &= check_matmul(results, gen, M, d, F_, torch.float32, gated=True, act="silu",
+                       keep_ab=True, main=False)
+    ok &= check_tile(results, gen, "NT", M, F_, d, bf)              # gated dx (twice)
+    ok &= check_tile(results, gen, "TN", d, M, F_, bf)              # gated dw (twice)
+    ok &= check_tile(results, gen, "NT", M, d, V, bf, torch.float32)   # tied head
+    ok &= check_tile(results, gen, "NN", M, V, d, bf)               # head dx = g table
+    ok &= check_tile(results, gen, "TN", d, M, V, bf)               # head dw = x^T g
+    for layout in ("NN", "NT", "TN"):                               # fp32, off the path
+        ok &= check_tile(results, gen, layout, M, d, d, torch.float32, main=False)
+    ok &= check_tile(results, gen, "NN", M, d, nh * dh, bf, torch.float32, main=False)
+    ok &= check_tile(results, gen, "TN", d, M, d, bf, torch.float32, main=False)
+    # ragged: M, N and K each off the tiles where the layout allows
+    ok &= check_tile(results, gen, "NN", 100, d, 2 * d, bf, main=False)
+    ok &= check_tile(results, gen, "NT", 200, d, 1000, bf, main=False)
+    ok &= check_tile(results, gen, "TN", d, 1000, 200, bf, main=False)
+    ok &= check_swiglu_bwd(results, gen, M, F_, bf)
+    ok &= check_swiglu_bwd(results, gen, M, F_, torch.float32, main=False)
+    B = TRAIN_BATCH // TRAIN_MICRO
+    ok &= check_attention(results, gen, B, nh, nkv, dh, TRAIN_SEQ, TRAIN_SEQ, [0] * B,
+                          [TRAIN_SEQ] * B, bf, label="train")
+    ok &= check_attention_bwd(results, gen, B, nh, nkv, dh, TRAIN_SEQ, bf)
+    ok &= check_attention_bwd(results, gen, B, nh, nkv, dh, TRAIN_SEQ, torch.float32,
+                              main=False)
+    ok &= check_attention_bwd(results, gen, 2, 8, 2, 64, 256, bf, main=False)
+    ok &= check_attention_bwd(results, gen, 2, 8, 2, 64, 256, bf, causal=False, main=False)
     return results, ok
 
 
@@ -274,6 +459,153 @@ def model_check(cfg):
     return ok
 
 
+# bf16 kernel path vs bf16 plain path: their forward logits differ by 1.7e-2
+# (relative, model_check above, over 28 layers) because each path rounds
+# its activations to bf16 in other places; the backward walks the same
+# chain again, so gradients differ by about twice that.  Held to 1e-1 per
+# leaf (relative L2), and the kernel path's gradients must be as close to
+# the fp32 plain path's as the bf16 plain path's are (50% margin).  fp32:
+# sums in another order only, 1e-4 per leaf.
+GRAD_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-4}
+
+
+def _grads(cfg, params, batch, plain, dtype):
+    pctx = PCtx(plain=plain, mode="train", pcfg=ParallelConfig())
+    leaves = [t for _, t in lm.flatten(params)]
+    loss, _ = lm.train_loss(pctx, cfg, params, dict(batch, _dtype=dtype), remat="fusion")
+    grads = torch.autograd.grad(loss, leaves)           # every leaf, or it raises
+    return float(loss.detach()), [g.float() for g in grads]
+
+
+def _rel(a, b):
+    return [((x - y).norm() / y.norm().clamp_min(1e-30)).item() for x, y in zip(a, b)]
+
+
+def grad_check(cfg):
+    """Loss and every leaf's gradient of one microbatch through the kernels
+    against the plain-op path: bf16 at full depth, fp32 at two layers."""
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH // TRAIN_MICRO, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in data.batch_at(0).items()}
+    ok, report = True, {}
+    for dtype, layers in ((torch.bfloat16, cfg.num_layers), (torch.float32, 2)):
+        c = cfg.scaled(num_layers=layers)
+        params = lm.init_master_params(c, seed=SEED, device=DEV)
+        for _, t in lm.flatten(params):
+            t.requires_grad_(True)
+        paths = [("kernel", False, dtype), ("plain", True, dtype)]
+        if dtype == torch.bfloat16:
+            paths.append(("plain_fp32", True, torch.float32))
+        res = {name: _grads(c, params, batch, plain, dt) for name, plain, dt in paths}
+        names = [".".join(p) for p, _ in lm.flatten(params)]
+        r_kp = _rel(res["kernel"][1], res["plain"][1])
+        worst = max(range(len(names)), key=lambda i: r_kp[i])
+        finite = all(bool(torch.isfinite(g).all()) for g in res["kernel"][1])
+        tol = GRAD_TOL[dtype]
+        good = finite and r_kp[worst] <= tol and \
+            abs(res["kernel"][0] - res["plain"][0]) <= tol * abs(res["plain"][0])
+        entry = dict(layers=layers, loss_kernel=res["kernel"][0], loss_plain=res["plain"][0],
+                     worst_leaf=names[worst], worst_rel=r_kp[worst], tol_rel=tol,
+                     leaves=len(names))
+        if "plain_fp32" in res:
+            r_k32 = max(_rel(res["kernel"][1], res["plain_fp32"][1]))
+            r_p32 = max(_rel(res["plain"][1], res["plain_fp32"][1]))
+            entry.update(loss_plain_fp32=res["plain_fp32"][0], worst_rel_kernel_vs_fp32=r_k32,
+                         worst_rel_plain_vs_fp32=r_p32)
+            good &= r_k32 <= 1.5 * r_p32 + 1e-3
+        entry["ok"] = good
+        ok &= good
+        report[str(dtype).replace("torch.", "")] = entry
+        del params, res
+        torch.cuda.empty_cache()
+    log("grad_check " + json.dumps(report))
+    return ok
+
+
+def model_flops(cfg, tokens, seq):
+    """6 N tokens over the matmul weights (the tied head counted once) plus
+    the causal attention products, forward and backward (3 x 4 per pair)."""
+    d, dh, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    per_layer = d * nh * dh * 2 + 2 * d * nkv * dh + 3 * d * cfg.d_ff
+    n = L * per_layer + d * cfg.padded_vocab
+    pairs = tokens // seq * seq * (seq + 1) // 2
+    return 6 * n * tokens + 12 * pairs * nh * dh * L
+
+
+def train_phase(profile):
+    """Train full-width qwen3-0.6b through the launcher's code path, then
+    one step under each remat policy for its peak memory."""
+    args = launch_train.parser().parse_args([
+        "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV, "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO),
+        "--steps", str(TRAIN_STEPS)])
+    ops.reset_launches()
+    r = launch_train.run(args, log_fn=log)            # the main path
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    cfg, losses = r["cfg"], [loss for _, loss in r["history"]]
+    timed = r["step_s"][1:]                           # after the warm-up step
+    step_ms = 1e3 * float(np.median(timed))
+    tokens = r["tokens_per_step"]
+    flops = model_flops(cfg, tokens, TRAIN_SEQ)
+    state = r["state"]
+    params, opt = state["params"], state["opt_state"]
+    rc = RunConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in data.batch_at(TRAIN_STEPS).items()}
+    peak = {}
+    for remat in ("none", "fusion", "full"):
+        step = train_step.build_train_step(
+            cfg, ParallelConfig(microbatches=TRAIN_MICRO, remat=remat), rc,
+            compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(2):                            # the second step is timed
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            times.append(1e3 * (time.perf_counter() - t0))
+        peak[remat] = dict(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                           step_ms=times[-1], loss=losses[-1])
+    line = dict(arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO,
+                remat="fusion", dtype="bfloat16", steps_timed=len(timed),
+                step_ms_median=step_ms, step_ms=[1e3 * t for t in timed],
+                warmup_step_ms=1e3 * r["step_s"][0], tokens_per_s=tokens / (step_ms / 1e3),
+                model_tflop_per_step=flops / 1e12,
+                model_tflop_s=flops / (step_ms / 1e3) / 1e12,
+                losses=[loss for _, loss in r["history"]], remat_one_step=peak,
+                setup_s=r["setup_s"])
+    ok = all(math.isfinite(x) for x in losses) and \
+        all(launches[k] > 0 for k in TRAIN_KERNELS)
+    log("train " + json.dumps(line))
+    log("train_kernels " + json.dumps(launches))
+    if profile:
+        profile_train(cfg, params, opt, rc, batch)
+    del state, params, opt, r
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def profile_train(cfg, params, opt, rc, batch):
+    """Device time per kernel, and the device's busy share, over one
+    training step (remat fusion)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    step = train_step.build_train_step(
+        cfg, ParallelConfig(microbatches=TRAIN_MICRO, remat="fusion"), rc,
+        compute_dtype=torch.bfloat16)
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        float(m["loss"])
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = device_ms(events)
+    log("profile_train " + json.dumps(dict(wall_ms=1e3 * wall, device_ms=dev,
+                                           device_busy_share=dev / 1e3 / wall)))
+    log(events.table(sort_by="self_device_time_total", row_limit=40))
+
+
 def serve_phase(profile):
     args = launch_serve.parser().parse_args([
         "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV,
@@ -289,7 +621,7 @@ def serve_phase(profile):
     ok = (len(fin) == REQUESTS
           and all(len(f.tokens) == GEN and all(0 <= t < vocab for t in f.tokens)
                   for f in fin.values())
-          and all(n > 0 for n in launches.values()))
+          and all(launches[k] > 0 for k in SERVE_KERNELS))
     keys = ("sequences", "ticks", "preemptions", "prefill_ms_mean", "prefill_ms_max",
             "decode_tokens", "decode_s", "decode_tok_s", "peak_blocks",
             "dense_equiv_blocks", "paged_peak_bytes", "dense_cache_bytes", "warmup_s")
@@ -298,6 +630,16 @@ def serve_phase(profile):
     if profile:
         profile_decode(r["engine"])
     return ok, launches
+
+
+def device_ms(events):
+    """Device time of a profile: the kernel events' own time.  Operator
+    records also carry the time of kernels they launched (the custom ops'
+    ctypes launches among them), so summing every row counts kernels
+    twice; this is the sum torch's table prints as its device total."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
 
 
 def profile_decode(eng):
@@ -317,10 +659,9 @@ def profile_decode(eng):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    dev = device_ms(events)
     summary = dict(ticks=ticks, wall_ms_per_tick=1e3 * wall / ticks,
-                   device_ms_per_tick=dev_us / 1e3 / ticks,
-                   device_busy_share=dev_us / 1e6 / wall)
+                   device_ms_per_tick=dev / ticks, device_busy_share=dev / 1e3 / wall)
     log("profile " + json.dumps(summary))
     log(events.table(sort_by="self_device_time_total", row_limit=25))
     while eng.queue or eng.running:
@@ -330,7 +671,7 @@ def profile_decode(eng):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace decode ticks with torch.profiler")
+                    help="also trace decode ticks and a training step with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -350,8 +691,15 @@ def main(argv=None):
 
     cfg = get_config(ARCH)
     results, ok_k = kernel_phase(cfg)
+    t_results, ok_tk = train_kernel_phase(cfg)
+    results += t_results
     ok_m = model_check(cfg)
-    ok_s, launches = serve_phase(args.profile)
+    ok_g = grad_check(cfg)
+    ok_t, t_launches = train_phase(args.profile)
+    ok_s, s_launches = serve_phase(args.profile)
+    # the serving kernels' counts from the serving run, the training
+    # kernels' from the training run
+    launches = {k: (s_launches if k in SERVE_KERNELS else t_launches)[k] for k in KERNELS}
 
     line = []
     for name, (src, replaces) in KERNELS.items():
@@ -370,7 +718,9 @@ def main(argv=None):
             "bound_by": max(b_by, key=b_by.get),
             "library_ms": None if None in libs else sum(libs),
         })
-    failed = [n for n, ok in (("kernels", ok_k), ("model_check", ok_m), ("serve", ok_s))
+    failed = [n for n, ok in (("kernels", ok_k), ("train_kernels", ok_tk),
+                              ("model_check", ok_m), ("grad_check", ok_g), ("train", ok_t),
+                              ("serve", ok_s), ("launches", all(launches.values())))
               if not ok]
     if failed:
         print("chip_smoke: failed phases: " + ", ".join(failed), file=sys.stderr)

@@ -2,7 +2,9 @@
 
 ``params_from_jax`` takes the nested dict that ``repro.models.lm.init_params``
 returns, after ``jax.tree.map(np.asarray, ...)`` (numpy leaves, stacked
-``[L, ...]``), and returns the port's parameters (``models/lm.py``).
+``[L, ...]``), and returns the port's serving parameters
+(``models/lm.py``); ``master_params_from_jax`` returns its training
+parameters.
 bfloat16 arrays cross through a ``uint16`` view, so no JAX or ml_dtypes
 import is needed here.  This is what makes both packages compute the same
 function in the parity tests.
@@ -35,5 +37,14 @@ def _convert(tree, device):
 
 def params_from_jax(tree: Dict[str, Any], *, device="cuda",
                     dtype=torch.bfloat16) -> Dict[str, Any]:
-    """The port's parameters from a numpy copy of the JAX parameter tree."""
+    """The port's serving parameters from a numpy copy of the JAX tree."""
     return lm.prepare_params(_convert(tree, resolve_device(device)), dtype)
+
+
+def master_params_from_jax(tree: Dict[str, Any], *, device="cuda") -> Dict[str, Any]:
+    """The port's training parameters (the JAX form, leaves that require
+    grad) from a numpy copy of the JAX tree."""
+    out = _convert(tree, resolve_device(device))
+    for _, t in lm.flatten(out):
+        t.requires_grad_(True)
+    return out

@@ -1,9 +1,12 @@
-"""Model configuration for the port (dense decoder fields only).
+"""Configuration for the port (dense decoder fields only).
 
-A copy of the parts of ``repro/config.py`` the serving slice reads: the
-frozen :class:`ModelConfig` with ``padded_vocab``/``resolved_head_dim``/
-``scaled``, and the arch registry.  MoE/MLA/SSM/enc-dec fields and the
-parallel, checkpoint and guard configs arrive with the slices that use them.
+A copy of the parts of ``repro/config.py`` the serving and single-device
+training slices read: the frozen :class:`ModelConfig` with
+``padded_vocab``/``resolved_head_dim``/``scaled``, the arch registry, and
+the fields of :class:`ParallelConfig`, :class:`GuardConfig` and
+:class:`RunConfig` that the single-device training step reads, with the
+JAX package's defaults.  MoE/MLA/SSM/enc-dec fields, the grid and the
+checkpoint config arrive with the slices that use them.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
+    embed_dropout: float = 0.0              # train mode only
 
     @property
     def padded_vocab(self) -> int:
@@ -41,6 +45,54 @@ class ModelConfig:
 
     def scaled(self, **overrides) -> "ModelConfig":
         return dataclasses.replace(self, **overrides)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """The single-device step's fields of ``repro.config.ParallelConfig``."""
+    microbatches: int = 1
+    # per-microbatch gradient rounding before the fp32 sum: fp32 | bf16
+    grad_reduce_dtype: str = "bf16"
+    remat: str = "fusion"                   # none | fusion | full
+    fused_loss: bool = True                 # fp32 head logits -> lse - gold
+
+
+@dataclass(frozen=True)
+class GuardConfig:
+    """``repro.config.GuardConfig``: the in-graph skip-update guard reads
+    ``grad_spike_factor``/``grad_ewma_alpha``; the loop-side fields are
+    kept for the guard runtime that a later slice ports."""
+    grad_spike_factor: float = 10.0   # skip when gnorm > f * EWMA
+    grad_ewma_alpha: float = 0.1      # EWMA decay for accepted grad norms
+    loss_spike_factor: float = 2.0
+    loss_ewma_alpha: float = 0.1
+    patience: int = 3
+    skip_cap: int = 3
+    hang_timeout: float = 0.0
+    rollback: bool = True
+
+    def __post_init__(self):
+        assert self.grad_spike_factor > 1.0, self.grad_spike_factor
+        assert 0.0 < self.grad_ewma_alpha <= 1.0, self.grad_ewma_alpha
+        assert self.loss_spike_factor > 1.0, self.loss_spike_factor
+        assert 0.0 < self.loss_ewma_alpha <= 1.0, self.loss_ewma_alpha
+        assert self.patience >= 1 and self.skip_cap >= 1
+        assert self.hang_timeout >= 0.0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """``repro.config.RunConfig``: the run's shape and the optimizer."""
+    shape_name: str
+    mode: str                        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}

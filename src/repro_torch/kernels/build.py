@@ -28,7 +28,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "flash_attention")
+SOURCES = ("matmul", "flash_attention", "swiglu_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -36,11 +36,16 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 ARGTYPES = {
     "matmul": {
         "hk_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "hk_gated_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "hk_gated_matmul": [_P] * 7 + [_I] * 6 + [_P],
+        "hk_tile_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P],
     },
     "flash_attention": {
         "hk_flash_attention": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12
-                              + [_I, _F, _I, _P, _I, _P],
+                              + [_I, _F, _I, _P, _P, _I, _P],
+        "hk_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_P, _I, _F, _I, _P],
+    },
+    "swiglu_bwd": {
+        "hk_swiglu_bwd": [_P] * 5 + [_L, _I, _I, _P],
     },
 }
 

@@ -82,6 +82,19 @@ ACTIVATIONS = {kind: EPILOGUE_ACTS[act] for kind, act in EPILOGUE_ACT.items()}
 GATED = {"swiglu": True, "geglu": True, "relu2": False, "gelu": False}
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout; identity when rate is 0 or no generator is given.
+    The mask comes from ``generator`` (on x's device), so its bits differ
+    from ``jax.random``'s: parity with the JAX package holds at rate 0."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

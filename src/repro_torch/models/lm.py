@@ -1,24 +1,33 @@
 """Decoder-only LM assembly (dense family).
 
 Counterpart of ``repro/models/lm.py::init_params``, ``forward`` (dense
-branch) and ``LMOut``.  Parameters are the JAX package's nested dict with
-stacked ``[L, ...]`` leaves; a Python loop over layers takes the place of
-``lax.scan`` and indexes each leaf (a view, no copy).  Two differences in
-storage, neither in the math: matmul weights and the embedding are kept in
-the compute dtype (the JAX package casts its fp32 masters on every call;
-norm scales stay fp32), and ``params["head"]`` holds the LM head as one
-contiguous ``[d, V]`` matrix made at load time — for tied embeddings the
-transposed table, so no step ever copies ``embed.T``.
+branch, with ``remat``, ``skip_head`` and the ``hidden`` output),
+``xent_loss``, ``head_loss``, ``train_loss`` and ``LMOut``.  Parameters
+are the JAX package's nested dict with stacked ``[L, ...]`` leaves; a
+Python loop over layers takes the place of ``lax.scan`` and unbinds each
+leaf once into per-layer views.
+
+Two parameter forms.  Training keeps the JAX form: fp32 masters, each
+cast to the compute dtype at its use, and the tied head reads
+``embed.table`` through a transposed view (the tile kernel's NT layout),
+so the table is one leaf that receives both the embedding's and the
+head's gradient.  Serving (``prepare_params``) stores matmul weights and
+the embedding in the compute dtype (norm scales stay fp32) and adds
+``params["head"]``, one contiguous ``[d, V]`` matrix made at load time —
+for tied embeddings the transposed table — so no decode step ever copies
+``embed.T``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
+from repro_torch.core import hecaton as HEC
+from repro_torch.core import schedule
 from repro_torch.models import blocks as BLK
 from repro_torch.models import layers as L
 
@@ -29,12 +38,31 @@ FP32_LEAVES = ("scale", "bias", "q_norm", "k_norm")
 class LMOut(NamedTuple):
     logits: Any
     caches: Any
+    hidden: Any = None               # post-final-norm states (skip_head)
 
 
 def _map_leaves(tree, fn, key=None):
     if isinstance(tree, dict):
         return {k: _map_leaves(v, fn, k) for k, v in tree.items()}
     return fn(key, tree)
+
+
+def flatten(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) pairs in sorted key order, as ``jax.tree.leaves`` walks
+    a dict."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree) for item in flatten(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def unflatten(paths, leaves) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = leaf
+    return out
 
 
 def prepare_params(params: Dict[str, Any], dtype) -> Dict[str, Any]:
@@ -49,7 +77,15 @@ def prepare_params(params: Dict[str, Any], dtype) -> Dict[str, Any]:
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
                 dtype=torch.bfloat16) -> Dict[str, Any]:
-    """Random parameters from a seeded ``torch.Generator`` on ``device``."""
+    """Random serving parameters from a seeded ``torch.Generator`` on
+    ``device`` (the fp32 masters of :func:`init_master_params`, prepared)."""
+    return prepare_params(init_master_params(cfg, seed=seed, device=device), dtype)
+
+
+def init_master_params(cfg: ModelConfig, *, seed: int = 0,
+                       device="cuda") -> Dict[str, Any]:
+    """Random fp32 parameters in the JAX package's form, from a seeded
+    ``torch.Generator`` on ``device``."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
@@ -63,13 +99,47 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device="cuda",
         params["lm_head"] = {"w": L.normal_init((cfg.d_model, cfg.padded_vocab), g,
                                                 scale=0.02)}
     params["blocks"] = BLK.init_attn_block(cfg, g, cfg.num_layers)
-    return prepare_params(params, dtype)
+    return params
+
+
+def head_weight(cfg: ModelConfig, params, dtype) -> torch.Tensor:
+    """The LM head as [d, V] in ``dtype``: serving's prepared matrix, else
+    the untied ``lm_head.w`` or the transposed view of the tied table."""
+    if "head" in params:
+        return params["head"]
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].to(dtype).t()
+    return params["lm_head"]["w"].to(dtype)
+
+
+def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
+                 positions: torch.Tensor, remat: str, cache=None) -> torch.Tensor:
+    """The layer loop: each stacked leaf is unbound once (one backward
+    node stacks its per-layer gradients), and each layer runs under the
+    remat policy (``core/schedule.py``).  ``cache`` (a PagedKVCache with
+    [L, ...] arenas) gives layer i its arenas, which it writes in place."""
+    items = flatten(stacked)
+    paths = [p for p, _ in items]
+    per_layer = [leaf.unbind(0) for _, leaf in items]
+
+    def layer(x, i, *leaves):
+        cache_l = None if cache is None else cache._replace(k=cache.k[i], v=cache.v[i])
+        return BLK.apply_attn_block(pctx, cfg, unflatten(paths, leaves), x,
+                                    positions=positions, cache=cache_l)[0]
+
+    layer = schedule.apply_remat(layer, remat)
+    for i in range(cfg.num_layers):
+        x = layer(x, i, *(ls[i] for ls in per_layer))
+    return x
 
 
 def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
-            caches: Optional[Dict[str, Any]] = None) -> LMOut:
-    """batch: tokens [B,S] (+ positions [B,S], "_dtype"); caches: {"attn":
-    PagedKVCache with [L, ...] arenas} or None."""
+            caches: Optional[Dict[str, Any]] = None, remat: str = "none",
+            skip_head: bool = False) -> LMOut:
+    """batch: tokens [B,S] (+ positions [B,S], "_dtype", "dropout_rng" a
+    ``torch.Generator``); caches: {"attn": PagedKVCache with [L, ...]
+    arenas} or None.  ``skip_head`` returns the post-final-norm ``hidden``
+    instead of logits (``train_loss``)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     tokens = batch["tokens"]
@@ -80,15 +150,55 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
 
     x = L.apply_embed(params["embed"], tokens, compute_dtype)
+    if cfg.embed_dropout:
+        x = pctx.dropout(x, cfg.embed_dropout, batch.get("dropout_rng"))
     attn = None if caches is None else caches["attn"]
-    for i in range(cfg.num_layers):
-        p_l = _map_leaves(params["blocks"], lambda _, t: t[i])
-        cache_l = None if attn is None else attn._replace(k=attn.k[i], v=attn.v[i])
-        x, _ = BLK.apply_attn_block(pctx, cfg, p_l, x, positions=positions,
-                                    cache=cache_l)
-    new_caches = None if attn is None else {
-        "attn": attn._replace(lengths=attn.lengths + S)}
+    x = _layer_stack(pctx, cfg, params["blocks"], x, positions, remat, attn)
+    new_caches = None if attn is None else {"attn": attn._replace(lengths=attn.lengths + S)}
 
     x = L.apply_norm(cfg.norm_kind, params["final_norm"], x)
-    logits = pctx.lm_head(x.to(compute_dtype), params["head"])
+    if skip_head:
+        return LMOut(None, new_caches, hidden=x)
+    logits = pctx.lm_head(x.to(compute_dtype), head_weight(cfg, params, compute_dtype))
     return LMOut(logits, new_caches)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
+              loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stable softmax cross-entropy in fp32, mean over the (masked) tokens."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if loss_mask is None:
+        return nll.mean()
+    w = loss_mask.float()
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def head_loss(pctx, cfg: ModelConfig, params, hidden: torch.Tensor,
+              labels: torch.Tensor, *, mask: Optional[torch.Tensor] = None,
+              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Post-final-norm hidden states -> mean masked NLL: the fused loss
+    (fp32 logits out of the tile kernel, ``core/hecaton.fused_lm_loss``)
+    under ``pcfg.fused_loss``, else logits in the compute dtype and
+    :func:`xent_loss`."""
+    head_w = head_weight(cfg, params, compute_dtype)
+    hidden = hidden.to(compute_dtype)
+    if pctx.pcfg.fused_loss:
+        nll, cnt = HEC.fused_lm_loss(hidden, head_w, labels, mask,
+                                     tile_matmul=pctx.ops.tile_matmul)
+        return nll / torch.clamp(cnt, min=1.0)
+    return xent_loss(pctx.lm_head(hidden, head_w), labels, mask)
+
+
+def train_loss(pctx, cfg: ModelConfig, params, batch, *, remat: str = "fusion"):
+    """(loss, {"loss", "aux"}); the dense family has no auxiliary loss."""
+    out = forward(pctx, cfg, params, batch, remat=remat, skip_head=True)
+    loss = head_loss(pctx, cfg, params, out.hidden, batch["labels"],
+                     mask=batch.get("loss_mask"),
+                     compute_dtype=batch.get("_dtype", torch.bfloat16))
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"loss": loss, "aux": aux}

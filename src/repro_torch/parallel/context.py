@@ -5,9 +5,16 @@ Counterpart of the ``mesh is None`` branches of ``repro/parallel/context.py``:
 model code calls the methods here and never the kernels directly.  Every
 projection, the FFN, the LM head and attention route through
 ``kernels/ops.py`` (the CUDA kernel for a CUDA tensor, the plain version on
-the CPU).  ``plain=True`` routes them to the plain versions on any
-device: it is the reference forward that ``chip_smoke.py`` holds the
-kernel forward against on the card.  Norms, the embedding and residual
+the CPU).  One signal picks the route, ``ops.needs_grad``: when autograd
+will differentiate, projections, the head and the FFN's down-projection
+go through the differentiable tile matmul, and the FFN's gated
+up-projection and attention through their differentiable ops; otherwise
+(prefill and decode, under ``inference_mode``) the forward-only kernels
+with fused epilogues run.  ``mode="train"`` only enables :meth:`dropout`,
+as in the JAX package.  ``plain=True`` routes them to
+the plain versions on any device, differentiated by PyTorch's autograd:
+it is the reference that ``chip_smoke.py`` holds the kernel path (forward
+and gradients) against on the card.  Norms, the embedding and residual
 adds need no dispatch on one device, so the model calls
 ``models/layers.py`` for them directly.  The data x mx x my grid arrives in a later
 slice.
@@ -15,18 +22,23 @@ slice.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Optional
 
 import torch
 
+from repro_torch.config import ParallelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.models import layers as L
 
 _PLAIN = SimpleNamespace(matmul=ref.matmul_plain,
                          gated_matmul=ref.gated_matmul_plain,
-                         attention=ref.attention_plain)
+                         attention=ref.attention_plain,
+                         tile_matmul=ref.tile_matmul_plain)
+
+MODES = ("serve", "train")
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -37,16 +49,35 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class PCtx:
     plain: bool = False                    # plain versions even on CUDA
+    mode: str = "serve"                    # serve | train (enables dropout)
+    pcfg: ParallelConfig = field(default_factory=ParallelConfig)
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
 
     @property
     def ops(self):
         return _PLAIN if self.plain else ops
 
+    @property
+    def train(self) -> bool:
+        return self.mode == "train"
+
     # ------------------------------------------------------------------
     # projections
     # ------------------------------------------------------------------
     def _proj(self, x: torch.Tensor, w: torch.Tensor, act: str = "none"):
-        y = self.ops.matmul(_rows(x), w.to(x.dtype), act=act)
+        """act(x @ w) with the weight cast to x's dtype (an fp32 master in
+        training: its gradient flows back through the cast)."""
+        w = w.to(x.dtype)
+        if ops.needs_grad(x, w):
+            y = self.ops.tile_matmul(_rows(x), w, out_dtype=torch.float32 if act != "none"
+                                     else None)
+            if act != "none":                      # the epilogue, in fp32 then cast
+                y = ref.EPILOGUE_ACTS[act](y).to(x.dtype)
+        else:
+            y = self.ops.matmul(_rows(x), w, act=act)
         return y.reshape(*x.shape[:-1], w.shape[1])
 
     def ffn(self, x: torch.Tensor, w1, w2, act: str, w1b=None):
@@ -56,8 +87,8 @@ class PCtx:
         if w1b is not None:
             h = self.ops.gated_matmul(x2, w1.to(x.dtype), w1b.to(x.dtype), act=act)
         else:
-            h = self.ops.matmul(x2, w1.to(x.dtype), act=act)
-        return self.ops.matmul(h, w2.to(x.dtype)).reshape(*x.shape[:-1], w2.shape[1])
+            h = _rows(self._proj(x2, w1, act))
+        return self._proj(h, w2).reshape(*x.shape[:-1], w2.shape[1])
 
     def mixer_in_many(self, x: torch.Tensor, *ws: torch.Tensor):
         """Several mixer-in projections of the same residual entry (Q/K/V)."""
@@ -68,7 +99,9 @@ class PCtx:
         return self._proj(y, w)
 
     def lm_head(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """Final projection to vocab logits; ``w`` is a contiguous [d, V]."""
+        """Final projection to vocab logits; ``w`` is [d, V]: a contiguous
+        matrix in serving, in training the untied head or the transposed
+        view of the tied table, which the tile kernel reads in place."""
         return self._proj(x, w)
 
     # ------------------------------------------------------------------
@@ -80,3 +113,14 @@ class PCtx:
         """q [B,nh,Sq,dh]; k,v [B,nkv,Sk,dh] (views of [B,S,heads,dh])."""
         return self.ops.attention(q, k, v, causal=causal, q_offset=q_offset,
                                   kv_len=kv_len)
+
+    # ------------------------------------------------------------------
+    # residual-stream ops
+    # ------------------------------------------------------------------
+    def dropout(self, x: torch.Tensor, rate: float,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Inverted dropout in train mode; identity otherwise, or at rate 0,
+        or without a generator."""
+        if not self.train:
+            return x
+        return L.dropout(x, rate, generator)

@@ -5,18 +5,23 @@ card (the CPU-only tier-1 run).  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances are the repo's (tests/test_kernels.py::_tol): fp32 2e-4 (fp32
-sums in another order), bf16 2e-2 (one bf16 rounding of the output).
+Tolerances are the repo's (tests/test_kernels.py::_tol), keyed on the
+kernel output's dtype: fp32 2e-4 (fp32 sums in another order), bf16 2e-2
+(one bf16 rounding of the output).  The training kernels (tile matmul
+layouts, the SwiGLU and flash-attention backwards) are held to the same
+bounds: each rounds its fp32 sums once, and an fp32 output of bf16 inputs
+(the head's logits, the gated kernel's kept products) not at all.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import swiglu as ksw
 from repro_torch.models import lm
 from repro_torch.parallel.context import PCtx
 from repro_torch.serve.cache import CachePool, PoolConfig
@@ -40,9 +45,11 @@ def _randn(shape, dtype, dev, seed, scale=1.0):
     return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
 
-def _close(a, b, dtype):
+def _close(a, b):
+    """a (the kernel's output) against b, at the bound of a's dtype: an
+    fp32 output of bf16 inputs is held to the fp32 bound."""
     torch.cuda.synchronize()
-    tol = TOL[dtype]
+    tol = TOL[a.dtype]
     torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
 
 
@@ -55,7 +62,7 @@ def test_matmul_kernel(dev, M, dtype, act, bias):
     x = _randn((M, K), dtype, dev, 0)
     w = _randn((K, N), dtype, dev, 1, K ** -0.5)
     b = _randn((N,), dtype, dev, 2) if bias else None
-    _close(kmm.matmul(x, w, b, act=act), ref.matmul_plain(x, w, b, act=act), dtype)
+    _close(kmm.matmul(x, w, b, act=act), ref.matmul_plain(x, w, b, act=act))
 
 
 @pytest.mark.parametrize("M", [4, 33, 128])
@@ -67,7 +74,7 @@ def test_gated_matmul_kernel(dev, M, dtype, act):
     w1 = _randn((K, N), dtype, dev, 4, K ** -0.5)
     w1b = _randn((K, N), dtype, dev, 5, K ** -0.5)
     _close(kmm.gated_matmul(x, w1, w1b, act=act),
-           ref.gated_matmul_plain(x, w1, w1b, act=act), dtype)
+           ref.gated_matmul_plain(x, w1, w1b, act=act))
 
 
 @pytest.mark.parametrize("dh", [64, 128])
@@ -82,7 +89,121 @@ def test_flash_attention_kernel(dev, dh, dtype, B, Sq, Sk, q_off, kv_len):
     v = _randn((B, Sk, nkv, dh), dtype, dev, 8).transpose(1, 2)
     t = lambda a: None if a is None else torch.tensor(a, dtype=torch.int32, device=dev)
     kw = dict(causal=True, q_offset=t(q_off), kv_len=t(kv_len))
-    _close(kfa.flash_attention(q, k, v, **kw), ref.attention_plain(q, k, v, **kw), dtype)
+    _close(kfa.flash_attention(q, k, v, **kw), ref.attention_plain(q, k, v, **kw))
+
+
+def test_flash_attention_row_without_keys(dev):
+    """kv_len 0 empties every row of a slot: like _sdpa, the kernel gives
+    the uniform average of v over all Sk keys (decode and prefill)."""
+    nh, nkv, dh = 4, 2, 64
+    for Sq, Sk, q_off, kv_len in ((1, 48, [3, 0, 7], [4, 0, 8]),
+                                  (16, 40, [0, 0, 5], [16, 0, 21])):
+        B = len(q_off)
+        q = _randn((B, Sq, nh, dh), torch.float32, dev, 11).transpose(1, 2)
+        k = _randn((B, Sk, nkv, dh), torch.float32, dev, 12).transpose(1, 2)
+        v = _randn((B, Sk, nkv, dh), torch.float32, dev, 13).transpose(1, 2)
+        t = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)
+        kw = dict(causal=True, q_offset=t(q_off), kv_len=t(kv_len))
+        out = kfa.flash_attention(q, k, v, **kw)
+        _close(out, ref.attention_plain(q, k, v, **kw))
+        mean_v = v[1].float().mean(dim=1).repeat_interleave(nh // nkv, dim=0)
+        _close(out[1], mean_v[:, None].expand(nh, Sq, dh))
+
+
+def _layout(t: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """t as a row-major tensor, or the transposed view of a row-major one."""
+    return t.t().contiguous().t() if transposed else t
+
+
+# (layout, M, K, N): the dims no operand stores rows along are ragged
+TILE_SHAPES = [("NN", 256, 192, 320), ("NN", 100, 88, 200), ("NT", 256, 192, 320),
+               ("NT", 100, 88, 203), ("TN", 256, 192, 320), ("TN", 96, 101, 200),
+               ("NN", 24, 40, 56), ("NT", 24, 40, 56), ("TN", 24, 40, 56)]
+
+
+@pytest.mark.parametrize("layout,M,K,N", TILE_SHAPES)
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])
+def test_tile_matmul_kernel(dev, layout, dtype, out_dtype, M, K, N):
+    """x @ w in NN, NT (w read transposed) and TN (x read transposed), at
+    ragged shapes; every stored row is a multiple of 8."""
+    x = _layout(_randn((M, K), dtype, dev, 14), layout == "TN")
+    w = _layout(_randn((K, N), dtype, dev, 15, K ** -0.5), layout == "NT")
+    out = kmm.tile_matmul(x, w, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    _close(out, ref.tile_matmul_plain(x, w, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tile_matmul_gradients(dev, dtype):
+    """ops.tile_matmul's backward (dx NT, dw TN through the kernel) against
+    the plain version's autograd; the head layout (w a transposed view)."""
+    for w_t in (False, True):
+        x0 = _randn((64, 96), dtype, dev, 16)
+        w0 = _randn((136, 96) if w_t else (96, 136), dtype, dev, 17, 96 ** -0.5)
+        # bf16-exact: the kernel path rounds g to x's dtype (as _tile_mm_bwd
+        # does), the plain path's autograd does not
+        g = _randn((64, 136), dtype, dev, 18).float()
+        grads = []
+        for fn in (ops.tile_matmul, ref.tile_matmul_plain):
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            y = fn(x, w.t() if w_t else w, out_dtype=torch.float32)
+            grads.append(torch.autograd.grad(y, (x, w), g))
+        for a, b in zip(*grads):
+            _close(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_swiglu_bwd_kernel(dev, dtype, act):
+    M, F = 40, 200
+    g = _randn((M, F), dtype, dev, 19)
+    a = _randn((M, F), torch.float32, dev, 20, 3.0)
+    b = _randn((M, F), torch.float32, dev, 21)
+    for got, want in zip(ksw.swiglu_bwd(g, a, b, act=act),
+                         ref.swiglu_bwd_plain(g, a, b, act=act)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,K,N", [(72, 128, 96), (2048, 128, 2176)])
+def test_gated_matmul_keeps_products(dev, dtype, M, K, N):
+    """(y, a, b) against the plain version; a and b are fp32.  In bf16 the
+    first shape takes the 64x64 tiles, the second (16 x 17 = 272 tiles of
+    128x128, two waves on 132 SMs) the 128x128 ones, as the training path's
+    2048 x 1024 x 3072 does."""
+    x = _randn((M, K), dtype, dev, 22)
+    w1 = _randn((K, N), dtype, dev, 23, K ** -0.5)
+    w1b = _randn((K, N), dtype, dev, 24, K ** -0.5)
+    got = kmm.gated_matmul(x, w1, w1b, act="silu", keep_ab=True)
+    assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32]
+    for a, b in zip(got, ref.gated_products_plain(x, w1, w1b, act="silu")):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,nh,nkv", [(2, 80, 4, 2), (1, 33, 6, 6)])
+def test_flash_attention_bwd_kernel(dev, dh, dtype, causal, B, S, nh, nkv):
+    """(dq, dk, dv) and the forward's LSE against the plain version's
+    autograd, on [B,S,heads,dh] tensors handed over as transposed views."""
+    q = _randn((B, S, nh, dh), dtype, dev, 25).transpose(1, 2)
+    k = _randn((B, S, nkv, dh), dtype, dev, 26).transpose(1, 2)
+    v = _randn((B, S, nkv, dh), dtype, dev, 27).transpose(1, 2)
+    do = _randn((B, S, nh, dh), dtype, dev, 28).transpose(1, 2)
+    o, lse = kfa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    o_p, lse_p = ref.attention_plain(q, k, v, causal=causal, return_lse=True)
+    _close(o, o_p)
+    _close(lse, lse_p)
+    got = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = ref.attention_bwd_plain(q, k, v, do, causal=causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dtype
+        _close(a, b)
+    a2 = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, a2))       # deterministic
 
 
 CFG = ModelConfig(name="cuda-test", family="dense", num_layers=2, d_model=128,
@@ -99,10 +220,11 @@ def test_forward_kernels_match_plain(dev):
     batch = {"tokens": toks, "_dtype": torch.float32}
     ops.reset_launches()
     a = lm.forward(PCtx(), CFG, params, batch, caches=pool.prefill_tree(slot))
-    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] > 0 for k in ("matmul", "gated_matmul", "flash_attention")), \
+        ops.LAUNCHES
     b = lm.forward(PCtx(plain=True), CFG, params, batch,
                    caches=pool.prefill_tree(slot))
-    _close(a.logits, b.logits, torch.float32)
+    _close(a.logits, b.logits)
 
 
 def _to_cpu(tree):
@@ -124,3 +246,27 @@ def test_engine_greedy_tokens_card_vs_cpu(dev):
         toks[str(device)] = [fin[i].tokens for i in range(4)]
         pre[str(device)] = eng.stats["preemptions"]
     assert toks["cuda"] == toks["cpu"] and pre["cuda"] == pre["cpu"]
+
+
+def test_train_loss_and_grads_kernels_match_plain(dev):
+    """fp32 loss and every gradient through the kernels (remat fusion) vs
+    the plain-op path's autograd; every kernel of the path launches."""
+    params = lm.init_master_params(CFG, seed=2, device=dev)
+    leaves = [t.requires_grad_() for _, t in lm.flatten(params)]
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 500, (2, 48))).to(dev),
+             "labels": torch.from_numpy(rng.integers(0, 500, (2, 48))).to(dev),
+             "_dtype": torch.float32}
+    out = {}
+    for plain in (False, True):
+        ops.reset_launches()
+        pctx = PCtx(plain=plain, mode="train", pcfg=ParallelConfig())
+        loss, _ = lm.train_loss(pctx, CFG, params, batch, remat="fusion")
+        out[plain] = (loss, torch.autograd.grad(loss, leaves))
+        if not plain:
+            assert all(ops.LAUNCHES[k] > 0 for k in (
+                "tile_matmul", "gated_matmul", "flash_attention", "swiglu_bwd",
+                "flash_attention_bwd")), ops.LAUNCHES
+    _close(out[False][0], out[True][0])
+    for a, b in zip(out[False][1], out[True][1]):
+        _close(a, b)
