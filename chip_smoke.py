@@ -24,14 +24,21 @@ Phases, each fatal on failure:
    training launcher's code path, then measure peak memory and step time
    under each remat policy;
 6. serve full-width qwen3-0.6b in bf16 through the serving entry point;
-   random weights from a seed, made on the card, in 5 and 6.  The kernels'
-   launch counts are zeroed just before the training run and the serving
+7. the SSM slice (mamba2-130m at full width): hold the SSD scan kernel
+   against its plain version at the prefill shapes (bf16 and fp32, zero
+   and random initial states, plus a small grouped case), check a
+   300-token prefill and 8 decode steps through the kernels against the
+   plain path (bf16 at 24 layers, fp32 at 2), and serve it in bf16
+   through the serving entry point;
+   random weights from a seed, made on the card, in 5 to 7.  The kernels'
+   launch counts are zeroed just before the training run and each serving
    run and read just after each, and every kernel of each path must show
    launches;
-7. print one JSON line of per-kernel numbers, then the result line.
+8. print one JSON line of per-kernel numbers, then the result line.
 
-``--profile`` also traces decode ticks and one training step with
-torch.profiler and prints the device's busy share and its time per kernel.
+``--profile`` also traces decode ticks of both serving runs and one
+training step with torch.profiler and prints the device's busy share and
+its time per kernel.
 """
 
 import argparse
@@ -54,10 +61,12 @@ from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import matmul as kmm  # noqa: E402
+from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels import swiglu as ksw  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.parallel.context import PCtx  # noqa: E402
 from repro_torch.serve.cache import CachePool, PoolConfig  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
@@ -94,8 +103,14 @@ KERNELS = {
                    "src/repro/kernels/matmul.py:132"),
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:84"),
+    "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:88"),
 }
 SERVE_KERNELS = ("matmul", "gated_matmul", "flash_attention")
+# the SSM slice: mamba2-130m served with prompts at their exact lengths
+SSM_ARCH = "mamba2-130m"
+SSM_PROMPT_LENS = (64, 200, 512)
+SSM_CHECK_PROMPT, SSM_CHECK_DECODE = 300, 8
+SSM_SERVE_KERNELS = ("matmul", "ssd")
 TRAIN_KERNELS = ("tile_matmul", "gated_matmul", "flash_attention", "swiglu_bwd",
                  "flash_attention_bwd")
 
@@ -419,6 +434,123 @@ def train_kernel_phase(cfg):
     return results, ok
 
 
+def check_ssd(results, gen, b, S, nh, dh, g, ds, dtype, *, init, main=True):
+    """The SSD scan (y and the fp32 final state) against ``ref.ssd_plain``.
+    x, B and C are slices of one conv output, as the model hands them over;
+    A = -(1..nh) and dt near 0.1 are mamba2-130m's, so cum falls to about
+    -300 in a chunk of 128 (an exp(-cum) would overflow fp32).  The
+    operations counted are the ones these inputs need: per (batch, head)
+    and chunk of q real positions, the lower triangles of C B^T (ds) and of
+    the scores times x (dh), C h^T and the state update (2 q dh ds each)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    chunk, di, gs = min(128, S), nh * dh, g * ds
+    nbytes = (2 * b * S * di + 2 * b * S * gs) * elt + 4 * (b * S * nh + nh + 2 * b * nh * dh * ds)
+    nops = 0
+    for t0 in range(0, S, chunk):
+        q = min(chunk, S - t0)
+        tri = q * (q + 1) // 2
+        nops += 2 * (tri * ds + tri * dh + 2 * q * dh * ds)
+    nops *= b * nh
+    sets = []
+    for _ in range(n_copies(nbytes)):
+        conv = randn(gen, (b, S, di + 2 * gs), dtype)
+        x = conv[..., :di].reshape(b, S, nh, dh)
+        B = conv[..., di:di + gs].reshape(b, S, g, ds)
+        C = conv[..., di + gs:].reshape(b, S, g, ds)
+        dt = F.softplus(randn(gen, (b, S, nh), torch.float32) - 2.5)
+        A = -torch.arange(1, nh + 1, dtype=torch.float32, device=DEV)
+        h0 = (randn(gen, (b, nh, dh, ds), torch.float32) if init == "random"
+              else torch.zeros((b, nh, dh, ds), device=DEV))
+        sets.append((x, dt, A, B, C, h0))
+    kern = lambda s: kssd.ssd(*s[:5], chunk=chunk, init_state=s[5])
+    plain = lambda s: ref.ssd_plain(*s[:5], chunk=chunk, init_state=s[5])
+    case = (f"{init}-state b={b} S={S} nh={nh} dh={dh} g={g} ds={ds} chunk={chunk} "
+            f"blocks={b * nh * dh // kssd.SLICE}")
+    return record(results, "ssd", case, dtype, main, kern(sets[0]), plain(sets[0]),
+                  [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(s) for s in sets],
+                  None, nbytes, nops)
+
+
+def ssd_kernel_phase(cfg):
+    """The SSD scan at mamba2-130m's prefill shapes (batch 1, one
+    exact-length prompt per launch); the path's cases are bf16 from the
+    zero state a prefill starts from."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    s, nh = cfg.ssm, SSM.n_heads(cfg)
+    results, ok = [], True
+    for dtype in (torch.bfloat16, torch.float32):
+        for init in ("zero", "random"):
+            for S in SSM_PROMPT_LENS:
+                ok &= check_ssd(results, gen, 1, S, nh, s.head_dim, s.n_groups, s.state_dim,
+                                dtype, init=init,
+                                main=dtype == torch.bfloat16 and init == "zero")
+    # off the path: groups shared by two heads each, dh 32, batch 2, ragged
+    ok &= check_ssd(results, gen, 2, 200, 8, 32, 2, 64, torch.bfloat16, init="random",
+                    main=False)
+    return results, ok
+
+
+def _ssm_logits(cfg, params, toks, plen, dtype, plain):
+    """Logits of a ``plen``-token prefill from the pool's zero state rows,
+    then one decode step per remaining token of ``toks`` (fed, not
+    sampled, so that both paths see the same inputs): [len(toks), V]."""
+    pool = CachePool(cfg, PoolConfig(1, BLOCK, -(-len(toks) // BLOCK) + 1, len(toks)),
+                     device=DEV, dtype=dtype)
+    slot = pool.admit(plen)
+    pctx, t = PCtx(plain=plain), torch.from_numpy(toks).to(DEV)[None]
+    with torch.inference_mode():
+        out = lm.forward(pctx, cfg, params, {"tokens": t[:, :plen], "_dtype": dtype},
+                         caches=pool.prefill_tree(slot))
+        pool.absorb_prefill(slot, out.caches)
+        logits = [out.logits[0]]
+        for i in range(plen, t.shape[1]):
+            step = lm.forward(pctx, cfg, params, {"tokens": t[:, i:i + 1], "_dtype": dtype},
+                              caches=pool.decode_tree())
+            logits.append(step.logits[0])
+    return torch.cat(logits).float()
+
+
+def ssm_model_check(cfg):
+    """mamba2-130m at full width: a 300-token prompt's prefill and 8 decode
+    steps through the kernels against the plain-op path, bf16 at 24 layers
+    (and both against the plain fp32 forward), fp32 at 2 layers.  bf16
+    is held as the dense model check holds it (5e-2 relative, and the
+    kernel path as close to fp32 as the plain bf16 path, 25% margin);
+    fp32 differs by sums in another order only, 1e-4 relative."""
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=SSM_CHECK_PROMPT + SSM_CHECK_DECODE)
+    ok, report = True, {}
+    for dtype, layers in ((torch.bfloat16, cfg.num_layers), (torch.float32, 2)):
+        c = cfg.scaled(num_layers=layers)
+        paths = [("kernel", dtype, False), ("plain", dtype, True)]
+        if dtype == torch.bfloat16:
+            paths.append(("plain_fp32", torch.float32, True))
+        logits = {}
+        for name, dt_, plain in paths:
+            params = lm.init_params(c, seed=SEED, device=DEV, dtype=dt_)
+            logits[name] = _ssm_logits(c, params, toks, SSM_CHECK_PROMPT, dt_, plain)
+            del params
+            torch.cuda.empty_cache()
+        rel = lambda a, b: ((logits[a] - logits[b]).norm() / logits[b].norm()).item()
+        entry = dict(layers=layers, prompt=SSM_CHECK_PROMPT, decode_steps=SSM_CHECK_DECODE,
+                     max_abs_err=(logits["kernel"] - logits["plain"]).abs().max().item(),
+                     rel_kernel_vs_plain=rel("kernel", "plain"))
+        good = bool(torch.isfinite(logits["kernel"]).all())
+        if dtype == torch.bfloat16:
+            entry.update(rel_kernel_vs_fp32=rel("kernel", "plain_fp32"),
+                         rel_plain_vs_fp32=rel("plain", "plain_fp32"), tol_rel=5e-2)
+            good &= entry["rel_kernel_vs_plain"] <= 5e-2 and \
+                entry["rel_kernel_vs_fp32"] <= 1.25 * entry["rel_plain_vs_fp32"] + 1e-3
+        else:
+            entry["tol_rel"] = 1e-4
+            good &= entry["rel_kernel_vs_plain"] <= 1e-4
+        entry["ok"] = good
+        ok &= good
+        report[str(dtype).replace("torch.", "")] = entry
+    log("ssm_model_check " + json.dumps(report))
+    return ok
+
+
 def model_check(cfg):
     """One prompt's prefill logits: the kernel forward against the plain-op
     forward in bf16, and both against the plain fp32 forward."""
@@ -606,27 +738,30 @@ def profile_train(cfg, params, opt, rc, batch):
     log(events.table(sort_by="self_device_time_total", row_limit=40))
 
 
-def serve_phase(profile):
+def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNELS,
+                suffix=""):
+    """Serve ``arch`` in bf16 through the serving entry point: 8 requests,
+    4 slots, greedy; every kernel in ``kernels`` must launch."""
     args = launch_serve.parser().parse_args([
-        "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV,
+        "--arch", arch, "--dtype", "bfloat16", "--device", DEV,
         "--slots", str(SLOTS), "--block", str(BLOCK), "--requests", str(REQUESTS),
-        "--prompt-lens", ",".join(map(str, PROMPT_LENS)), "--gen", str(GEN),
+        "--prompt-lens", ",".join(map(str, prompt_lens)), "--gen", str(GEN),
         "--seed", str(SEED)])
     ops.reset_launches()
     r = launch_serve.run(args)                    # the main path
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     fin = r["finished"]
-    vocab = get_config(ARCH).padded_vocab
+    vocab = get_config(arch).padded_vocab
     ok = (len(fin) == REQUESTS
           and all(len(f.tokens) == GEN and all(0 <= t < vocab for t in f.tokens)
                   for f in fin.values())
-          and all(launches[k] > 0 for k in SERVE_KERNELS))
+          and all(launches[k] > 0 for k in kernels))
     keys = ("sequences", "ticks", "preemptions", "prefill_ms_mean", "prefill_ms_max",
             "decode_tokens", "decode_s", "decode_tok_s", "peak_blocks",
             "dense_equiv_blocks", "paged_peak_bytes", "dense_cache_bytes", "warmup_s")
-    log("serve " + json.dumps({k: r[k] for k in keys}))
-    log("kernels " + json.dumps(launches))
+    log(f"serve{suffix} " + json.dumps(dict({k: r[k] for k in keys}, arch=arch)))
+    log(f"kernels{suffix} " + json.dumps(launches))
     if profile:
         profile_decode(r["engine"])
     return ok, launches
@@ -697,9 +832,17 @@ def main(argv=None):
     ok_g = grad_check(cfg)
     ok_t, t_launches = train_phase(args.profile)
     ok_s, s_launches = serve_phase(args.profile)
-    # the serving kernels' counts from the serving run, the training
-    # kernels' from the training run
-    launches = {k: (s_launches if k in SERVE_KERNELS else t_launches)[k] for k in KERNELS}
+    ssm_cfg = get_config(SSM_ARCH)
+    s_results, ok_sk = ssd_kernel_phase(ssm_cfg)
+    results += s_results
+    ok_sm = ssm_model_check(ssm_cfg)
+    ok_ss, ss_launches = serve_phase(args.profile, SSM_ARCH, SSM_PROMPT_LENS,
+                                     SSM_SERVE_KERNELS, "_ssm")
+    # each kernel's count from the run of the path it serves: the scan's
+    # from the SSM serving run, the dense serving kernels' from the dense
+    # serving run, the training kernels' from the training run
+    launches = {k: (ss_launches if k == "ssd" else s_launches if k in SERVE_KERNELS
+                    else t_launches)[k] for k in KERNELS}
 
     line = []
     for name, (src, replaces) in KERNELS.items():
@@ -720,7 +863,9 @@ def main(argv=None):
         })
     failed = [n for n, ok in (("kernels", ok_k), ("train_kernels", ok_tk),
                               ("model_check", ok_m), ("grad_check", ok_g), ("train", ok_t),
-                              ("serve", ok_s), ("launches", all(launches.values())))
+                              ("serve", ok_s), ("ssd_kernels", ok_sk),
+                              ("ssm_model_check", ok_sm), ("serve_ssm", ok_ss),
+                              ("launches", all(launches.values())))
               if not ok]
     if failed:
         print("chip_smoke: failed phases: " + ", ".join(failed), file=sys.stderr)

@@ -1,11 +1,11 @@
-"""Configuration for the port (dense decoder fields only).
+"""Configuration for the port (dense decoder and SSM fields).
 
-A copy of the parts of ``repro/config.py`` the serving and single-device
-training slices read: the frozen :class:`ModelConfig` with
-``padded_vocab``/``resolved_head_dim``/``scaled``, the arch registry, and
+A copy of the parts of ``repro/config.py`` the ported slices read: the
+frozen :class:`ModelConfig` with ``padded_vocab``/``resolved_head_dim``/
+``scaled``, :class:`SSMConfig` (the Mamba2 mixer), the arch registry, and
 the fields of :class:`ParallelConfig`, :class:`GuardConfig` and
 :class:`RunConfig` that the single-device training step reads, with the
-JAX package's defaults.  MoE/MLA/SSM/enc-dec fields, the grid and the
+JAX package's defaults.  MoE/MLA/hybrid/enc-dec fields, the grid and the
 checkpoint config arrive with the slices that use them.
 """
 
@@ -17,9 +17,20 @@ from typing import Dict, Optional
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) mixer hyper-parameters."""
+    state_dim: int = 128        # N (ssm_state)
+    head_dim: int = 64          # P
+    expand: int = 2             # d_inner = expand * d_model
+    n_groups: int = 1           # B/C groups
+    conv_kernel: int = 4
+    chunk_size: int = 128       # SSD chunk length
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # only "dense" is served by this slice
+    family: str                  # dense | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -33,6 +44,7 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     embed_dropout: float = 0.0              # train mode only
+    ssm: Optional[SSMConfig] = None
 
     @property
     def padded_vocab(self) -> int:

@@ -28,7 +28,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "flash_attention", "swiglu_bwd")
+SOURCES = ("matmul", "flash_attention", "swiglu_bwd", "ssd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -46,6 +46,9 @@ ARGTYPES = {
     },
     "swiglu_bwd": {
         "hk_swiglu_bwd": [_P] * 5 + [_L, _I, _I, _P],
+    },
+    "ssd": {
+        "hk_ssd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P],
     },
 }
 

@@ -25,8 +25,8 @@ package's ``custom_vjp``), so that a selective-checkpoint policy
 Without a gradient (:func:`needs_grad` false: serving, under
 ``inference_mode``) ``matmul``, ``gated_matmul`` and ``attention`` launch
 their forward kernels directly, without the custom ops' dispatch cost on
-the host-bound decode tick; ``matmul`` is forward-only and raises when
-asked for a gradient.
+the host-bound decode tick; ``matmul`` and ``ssd`` (the Mamba2 prefill
+scan) are forward-only and raise when asked for a gradient.
 """
 
 from __future__ import annotations
@@ -38,10 +38,12 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import swiglu as _sw
 
 LAUNCHES: Dict[str, int] = {"matmul": 0, "gated_matmul": 0, "flash_attention": 0,
-                            "tile_matmul": 0, "swiglu_bwd": 0, "flash_attention_bwd": 0}
+                            "tile_matmul": 0, "swiglu_bwd": 0, "flash_attention_bwd": 0,
+                            "ssd": 0}
 
 
 def reset_launches() -> None:
@@ -108,6 +110,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                               kv_len=kv_len)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, *, chunk: int, init_state: Optional[torch.Tensor] = None):
+    """Mamba2 SSD chunked scan: (y in x's dtype, fp32 final state); shapes
+    of ``ref.ssd_plain``.  Forward only."""
+    if needs_grad(x, dt, A, B, C, init_state):
+        raise RuntimeError("ops.ssd has no backward; SSM training is not ported yet")
+    if _on_cpu(x):
+        return _ref.ssd_plain(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    out = _ssd.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
+    LAUNCHES["ssd"] += 1
     return out
 
 

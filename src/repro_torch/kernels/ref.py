@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each computes exactly what its CUDA kernel computes, in fp32 from the
-input dtype with one cast at the end.  The CPU path of ``kernels/ops.py``
+input dtype with one cast at the end (``ssd_plain`` also returns its fp32
+state).  The CPU path of ``kernels/ops.py``
 runs these, and ``chip_smoke.py`` holds each kernel against its plain
 version on the card.  Counterpart of ``repro/kernels/ref.py``.
 """
@@ -136,3 +137,81 @@ def swiglu_bwd_plain(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
     f, df = _act_and_grad(a.float(), act)
     gf = g.float()
     return (gf * b.float() * df).to(g.dtype), (gf * f).to(g.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x [..., Q] -> pairwise sums over (j, i] as ``cum_i - cum_j`` on the
+    lower triangle, -inf above it (``models/ssm.py::_segsum``).  The
+    difference is formed before any exp: exp(cum_i) * exp(-cum_j) would
+    overflow fp32 once a chunk's decay passes ~88."""
+    Q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    return d.masked_fill(~tri, -torch.inf)
+
+
+def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor, *, chunk: int, init_state: Optional[torch.Tensor] = None):
+    """Mamba2 SSD chunked scan, the plain version of the ``ssd`` kernel and
+    the counterpart of ``repro/models/ssm.py::ssd_chunked``.
+
+    x [b,S,nh,dh]; dt [b,S,nh] (post-softplus); A [nh] (negative); B, C
+    [b,S,g,ds] with g groups shared by nh/g heads each; ``init_state``
+    [b,nh,dh,ds] (zeros when None).  Returns (y [b,S,nh,dh] in x's dtype,
+    without the D skip; the fp32 final state [b,nh,dh,ds]).  A ragged tail
+    is padded with dt = 0 steps (decay 1, no input), which leave the
+    output rows (cut off) and the carried state unchanged."""
+    b, S, nh, dh = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    pad = -S % chunk
+    if pad:
+        x, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc, hpg = (S + pad) // chunk, nh // g
+    xc = x.reshape(b, nc, chunk, nh, dh).float()
+    dtc = dt.reshape(b, nc, chunk, nh).float()
+    Bh = B.reshape(b, nc, chunk, g, ds).float().repeat_interleave(hpg, dim=3)
+    Ch = C.reshape(b, nc, chunk, g, ds).float().repeat_interleave(hpg, dim=3)
+
+    dA = dtc * A.float()                                       # [b,nc,Q,nh]
+    dAcum = torch.cumsum(dA, dim=2)
+    # intra-chunk: the attention-like masked product
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))          # [b,nc,nh,Q,Q]
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh) * Lmat
+    y_diag = torch.einsum("bchqk,bckhd->bcqhd", scores, xc * dtc[..., None])
+    # each chunk's contribution to the state, then the inter-chunk recurrence
+    decay_to_end = torch.exp(dAcum[:, :, -1:, :] - dAcum)      # [b,nc,Q,nh]
+    states = torch.einsum("bcqhn,bcqh,bcqhd->bchdn", Bh, decay_to_end * dtc, xc)
+    chunk_decay = torch.exp(dAcum[:, :, -1, :])                # [b,nc,nh]
+    h = (torch.zeros((b, nh, dh, ds), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    prevs = []
+    for c in range(nc):
+        prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    prevs = torch.stack(prevs, dim=1)                          # [b,nc,nh,dh,ds]
+    # the carried state's contribution
+    y_off = torch.einsum("bcqhn,bchdn,bcqh->bcqhd", Ch, prevs, torch.exp(dAcum))
+    y = (y_diag + y_off).reshape(b, S + pad, nh, dh)[:, :S]
+    return y.to(x.dtype), h
+
+
+def ssd_seq_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor) -> torch.Tensor:
+    """The sequential (non-chunked) SSD recurrence, the strongest oracle
+    (``repro/kernels/ref.py::ssd_ref``): h_t = h_{t-1} exp(dt_t A) +
+    dt_t x_t B_t^T, y_t = h_t C_t.  Shapes as :func:`ssd_plain`."""
+    b, S, nh, dh = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    hpg = nh // g
+    Bh = B.float().repeat_interleave(hpg, dim=2)
+    Ch = C.float().repeat_interleave(hpg, dim=2)
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    h = torch.zeros((b, nh, dh, ds), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t] * Af)[..., None, None]
+        h = h * dA + torch.einsum("bhd,bhn->bhdn", xf[:, t] * dtf[:, t, :, None], Bh[:, t])
+        ys.append(torch.einsum("bhdn,bhn->bhd", h, Ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)

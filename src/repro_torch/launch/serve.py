@@ -4,10 +4,13 @@ Counterpart of ``repro/launch/serve.py``, with the same flags and report:
 a synthetic arrival trace (more requests than slots, mixed prompt lengths)
 runs after a warm-up, and prefill latency and decode tok/s are reported
 separately.  ``--device`` defaults to ``cuda`` (the CUDA kernels);
-``--device cpu`` runs the plain PyTorch versions.
+``--device cpu`` runs the plain PyTorch versions.  The dense archs and
+``mamba2-130m`` (the ssm family, prompts at their exact lengths) serve.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --dtype bfloat16 --slots 4 --requests 8 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --dtype bfloat16 --prompt-lens 64,200,512 --gen 32
 """
 
 from __future__ import annotations

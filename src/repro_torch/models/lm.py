@@ -1,7 +1,8 @@
-"""Decoder-only LM assembly (dense family).
+"""Decoder-only LM assembly (dense and SSM families).
 
 Counterpart of ``repro/models/lm.py::init_params``, ``forward`` (dense
-branch, with ``remat``, ``skip_head`` and the ``hidden`` output),
+and ``ssm`` branches, with ``remat``, ``skip_head`` and the ``hidden``
+output),
 ``xent_loss``, ``head_loss``, ``train_loss`` and ``LMOut``.  Parameters
 are the JAX package's nested dict with stacked ``[L, ...]`` leaves; a
 Python loop over layers takes the place of ``lax.scan`` and unbinds each
@@ -30,9 +31,14 @@ from repro_torch.core import hecaton as HEC
 from repro_torch.core import schedule
 from repro_torch.models import blocks as BLK
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
-# leaves that stay fp32 whatever the compute dtype (norm scales and biases)
-FP32_LEAVES = ("scale", "bias", "q_norm", "k_norm")
+# leaves that stay fp32 whatever the compute dtype: norm scales and biases,
+# and the mamba mixer's small leaves (its dt bias, decay, skip, gated-norm
+# scale and conv taps)
+FP32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "dt_bias", "A_log", "D", "norm",
+               "conv_w")
+FAMILIES = ("dense", "ssm")
 
 
 class LMOut(NamedTuple):
@@ -86,7 +92,7 @@ def init_master_params(cfg: ModelConfig, *, seed: int = 0,
                        device="cuda") -> Dict[str, Any]:
     """Random fp32 parameters in the JAX package's form, from a seeded
     ``torch.Generator`` on ``device``."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
@@ -98,7 +104,8 @@ def init_master_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": L.normal_init((cfg.d_model, cfg.padded_vocab), g,
                                                 scale=0.02)}
-    params["blocks"] = BLK.init_attn_block(cfg, g, cfg.num_layers)
+    init_block = BLK.init_mamba_block if cfg.family == "ssm" else BLK.init_attn_block
+    params["blocks"] = init_block(cfg, g, cfg.num_layers)
     return params
 
 
@@ -116,16 +123,24 @@ def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
                  positions: torch.Tensor, remat: str, cache=None) -> torch.Tensor:
     """The layer loop: each stacked leaf is unbound once (one backward
     node stacks its per-layer gradients), and each layer runs under the
-    remat policy (``core/schedule.py``).  ``cache`` (a PagedKVCache with
-    [L, ...] arenas) gives layer i its arenas, which it writes in place."""
+    remat policy (``core/schedule.py``).  ``cache`` (a PagedKVCache, or
+    for the ssm family an SSMState, with [L, ...] leaves) gives layer i its
+    rows, which it writes in place."""
     items = flatten(stacked)
     paths = [p for p, _ in items]
     per_layer = [leaf.unbind(0) for _, leaf in items]
 
     def layer(x, i, *leaves):
+        p = unflatten(paths, leaves)
+        if cfg.family == "ssm":
+            state = None if cache is None else SSM.SSMState(cache.conv[i], cache.ssm[i])
+            x, new = BLK.apply_mamba_block(pctx, cfg, p, x, state=state)
+            if new is not None:
+                state.conv.copy_(new.conv)
+                state.ssm.copy_(new.ssm)
+            return x
         cache_l = None if cache is None else cache._replace(k=cache.k[i], v=cache.v[i])
-        return BLK.apply_attn_block(pctx, cfg, unflatten(paths, leaves), x,
-                                    positions=positions, cache=cache_l)[0]
+        return BLK.apply_attn_block(pctx, cfg, p, x, positions=positions, cache=cache_l)[0]
 
     layer = schedule.apply_remat(layer, remat)
     for i in range(cfg.num_layers):
@@ -138,9 +153,10 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             skip_head: bool = False) -> LMOut:
     """batch: tokens [B,S] (+ positions [B,S], "_dtype", "dropout_rng" a
     ``torch.Generator``); caches: {"attn": PagedKVCache with [L, ...]
-    arenas} or None.  ``skip_head`` returns the post-final-norm ``hidden``
-    instead of logits (``train_loss``)."""
-    if cfg.family != "dense":
+    arenas} (dense) or {"mamba": SSMState with [L, B, ...] leaves} (ssm),
+    updated in place and returned, or None.  ``skip_head`` returns the
+    post-final-norm ``hidden`` instead of logits (``train_loss``)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -152,9 +168,14 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     x = L.apply_embed(params["embed"], tokens, compute_dtype)
     if cfg.embed_dropout:
         x = pctx.dropout(x, cfg.embed_dropout, batch.get("dropout_rng"))
-    attn = None if caches is None else caches["attn"]
-    x = _layer_stack(pctx, cfg, params["blocks"], x, positions, remat, attn)
-    new_caches = None if attn is None else {"attn": attn._replace(lengths=attn.lengths + S)}
+    if cfg.family == "ssm":
+        states = None if caches is None else caches["mamba"]
+        x = _layer_stack(pctx, cfg, params["blocks"], x, positions, remat, states)
+        new_caches = None if states is None else {"mamba": states}
+    else:
+        attn = None if caches is None else caches["attn"]
+        x = _layer_stack(pctx, cfg, params["blocks"], x, positions, remat, attn)
+        new_caches = None if attn is None else {"attn": attn._replace(lengths=attn.lengths + S)}
 
     x = L.apply_norm(cfg.norm_kind, params["final_norm"], x)
     if skip_head:

@@ -3,7 +3,7 @@ the kernels.
 
 Counterpart of the ``mesh is None`` branches of ``repro/parallel/context.py``:
 model code calls the methods here and never the kernels directly.  Every
-projection, the FFN, the LM head and attention route through
+projection, the FFN, the LM head, attention and the SSD scan route through
 ``kernels/ops.py`` (the CUDA kernel for a CUDA tensor, the plain version on
 the CPU).  One signal picks the route, ``ops.needs_grad``: when autograd
 will differentiate, projections, the head and the FFN's down-projection
@@ -36,7 +36,8 @@ from repro_torch.models import layers as L
 _PLAIN = SimpleNamespace(matmul=ref.matmul_plain,
                          gated_matmul=ref.gated_matmul_plain,
                          attention=ref.attention_plain,
-                         tile_matmul=ref.tile_matmul_plain)
+                         tile_matmul=ref.tile_matmul_plain,
+                         ssd=ref.ssd_plain)
 
 MODES = ("serve", "train")
 
@@ -98,6 +99,12 @@ class PCtx:
         """Projection out of a token mixer."""
         return self._proj(y, w)
 
+    def small_proj(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """Tiny projection (mamba dt/B/C) whose output is too narrow to tile:
+        a plain matmul in x's dtype, as the JAX package leaves its einsum
+        to XLA."""
+        return torch.matmul(x, w.to(x.dtype))
+
     def lm_head(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Final projection to vocab logits; ``w`` is [d, V]: a contiguous
         matrix in serving, in training the untied head or the transposed
@@ -113,6 +120,14 @@ class PCtx:
         """q [B,nh,Sq,dh]; k,v [B,nkv,Sk,dh] (views of [B,S,heads,dh])."""
         return self.ops.attention(q, k, v, causal=causal, q_offset=q_offset,
                                   kv_len=kv_len)
+
+    # ------------------------------------------------------------------
+    # the Mamba2 scan
+    # ------------------------------------------------------------------
+    def ssd(self, x, dt, A, B, C, *, chunk: int, init_state=None):
+        """SSD chunked scan -> (y, fp32 final state); ``ref.ssd_plain``'s
+        shapes (the kernel on the card)."""
+        return self.ops.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
 
     # ------------------------------------------------------------------
     # residual-stream ops

@@ -1,14 +1,17 @@
 """Paged KV block pool of the decode service (docs/DESIGN.md §10).
 
-Counterpart of ``repro/serve/cache.py`` for the attention arena of dense
-models: ``PoolConfig``, ``blocks_for``, ``NULL_BLOCK``, ``CachePool`` and
-``dense_cache_bytes``.  The host accounting is the JAX package's, line for
-line: the admission gate leases ``ceil(prompt_len / block)`` blocks into a
-free slot or leaves the request queued, ``ensure_append`` leases lazily
-before each decode token, ``free_slot`` returns a lease, and the peak of
+Counterpart of ``repro/serve/cache.py`` for dense models' attention arena
+and the ssm family's per-slot states: ``PoolConfig``, ``blocks_for``,
+``NULL_BLOCK``, ``CachePool`` and ``dense_cache_bytes``.  The host
+accounting is the JAX package's, line for line, for both families: the
+admission gate leases ``ceil(prompt_len / block)`` blocks into a free
+slot or leaves the request queued, ``ensure_append`` leases lazily before
+each decode token, ``free_slot`` returns a lease, and the peak of
 ``blocks_in_use`` is tracked against the dense ``[slots, max_seq]`` arena.
-The steps write the device arenas in place, so the JAX package's
-``absorb_prefill``/``absorb_decode`` have no counterpart here.
+The steps write the device arenas and the decode tick's SSM states in
+place, so the JAX package's ``absorb_decode`` has no counterpart here; a
+prefill runs on fresh zero state rows, which ``absorb_prefill`` scatters
+into the slot's row.
 """
 
 from __future__ import annotations
@@ -21,13 +24,22 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as ATT
+from repro_torch.models import ssm as SSM
 
 
 def dense_cache_bytes(cfg: ModelConfig, batch: int, s_max: int, dtype) -> int:
     """Bytes of the dense per-sequence cache the JAX package would pin:
-    K and V ``[L, B, S_max, nkv, dh]`` plus one int32 length per layer."""
+    K and V ``[L, B, S_max, nkv, dh]`` plus one int32 length per layer, or
+    for the ssm family the ``[L, B, ...]`` conv (``dtype``) and SSM (fp32)
+    states."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        conv = (s.conv_kernel - 1) * SSM.conv_channels(cfg) * elt
+        ssm = SSM.n_heads(cfg) * s.head_dim * s.state_dim * 4
+        return cfg.num_layers * batch * (conv + ssm)
     per = cfg.num_layers * batch * s_max * cfg.num_kv_heads * cfg.resolved_head_dim
-    return 2 * per * torch.empty((), dtype=dtype).element_size() + 4 * cfg.num_layers
+    return 2 * per * elt + 4 * cfg.num_layers
 
 
 NULL_BLOCK = 0           # reserved trash block backing unleased table entries
@@ -78,15 +90,22 @@ class CachePool:
 
     def __init__(self, cfg: ModelConfig, pool: PoolConfig, *, device,
                  dtype=torch.float32):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(f"paged pool for family {cfg.family!r} "
                                       "is not ported yet")
         self.cfg, self.pool = cfg, pool
         self.device = torch.device(device)
         mb = pool.max_blocks_per_slot
-        paged = ATT.init_paged_kv(cfg, pool.num_blocks, pool.block, pool.slots, mb,
-                                  dtype, self.device, cfg.num_layers)
-        self.arenas: Dict[str, Any] = {"attn": (paged.k, paged.v)}
+        self.arenas: Dict[str, Any] = {}
+        self.states: Dict[str, SSM.SSMState] = {}
+        if cfg.family == "ssm":
+            # per-slot rows [L, slots, ...]; the ssm family has no attention arena
+            self.states["mamba"] = SSM.init_ssm_state(cfg, cfg.num_layers, pool.slots, dtype,
+                                                      self.device)
+        else:
+            paged = ATT.init_paged_kv(cfg, pool.num_blocks, pool.block, pool.slots, mb,
+                                      dtype, self.device, cfg.num_layers)
+            self.arenas["attn"] = (paged.k, paged.v)
         # host accounting
         self.table = np.zeros((pool.slots, mb), np.int32)
         self.lengths = np.zeros(pool.slots, np.int32)
@@ -165,18 +184,39 @@ class CachePool:
             torch.as_tensor(lengths_rows, dtype=torch.int32).to(self.device))
 
     def decode_tree(self):
-        """Cache tree for one decode tick over all ``slots`` rows."""
-        return {"attn": self._paged(self.table, self.lengths)}
+        """Cache tree for one decode tick over all ``slots`` rows (the SSM
+        states themselves, which the tick updates in place)."""
+        out: Dict[str, Any] = {}
+        if "attn" in self.arenas:
+            out["attn"] = self._paged(self.table, self.lengths)
+        if "mamba" in self.states:
+            out["mamba"] = self.states["mamba"]
+        return out
 
     def prefill_tree(self, slot: int):
-        """Cache tree for a single-slot prefill (batch 1, length 0)."""
-        return {"attn": self._paged(self.table[slot:slot + 1], np.zeros(1, np.int32))}
+        """Cache tree for a single-slot prefill (batch 1, length 0): the
+        slot's paged view, and fresh zero SSM state rows ``[L, 1, ...]``."""
+        out: Dict[str, Any] = {}
+        if "attn" in self.arenas:
+            out["attn"] = self._paged(self.table[slot:slot + 1], np.zeros(1, np.int32))
+        if "mamba" in self.states:
+            out["mamba"] = SSM.SSMState(*(torch.zeros_like(a[:, :1])
+                                          for a in self.states["mamba"]))
+        return out
+
+    def absorb_prefill(self, slot: int, new_tree) -> None:
+        """Scatter a prefill's SSM state rows into ``slot`` (the attention
+        arenas were written in place)."""
+        if "mamba" in self.states:
+            for full, one in zip(self.states["mamba"], new_tree["mamba"]):
+                full[:, slot].copy_(one[:, 0])
 
     # -- reporting -------------------------------------------------------
     @property
     def block_bytes(self) -> int:
-        """Bytes one leased block pins across all layers' arenas."""
-        return sum(a[:, 0].numel() * a.element_size() for a in self.arenas["attn"])
+        """Bytes one leased block pins across all layers' paged arenas
+        (0 for the ssm family, which has none)."""
+        return sum(a[:, 0].numel() * a.element_size() for a in self.arenas.get("attn", ()))
 
     def paged_bytes_peak(self) -> int:
         return self.block_bytes * self.peak_blocks_in_use

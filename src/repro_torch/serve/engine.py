@@ -11,8 +11,10 @@ mid-decode preempts the youngest sequence and requeues it from its prompt;
 greedy decode makes the replay token-identical, and sampling draws from a
 ``torch.Generator`` seeded from (seed, request id, step), which restores
 the same draws on replay.  Attention prompts are right-padded to a block
-multiple.  Times are host clocks around work that ends in
-``torch.cuda.synchronize()`` (where JAX uses ``block_until_ready``).
+multiple; ssm prompts run at their exact length, because padding a
+recurrence would corrupt the carried conv and SSD states.  Times are host
+clocks around work that ends in ``torch.cuda.synchronize()`` (where JAX
+uses ``block_until_ready``).
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ class DecodeEngine:
         self.eos_id = eos_id
         self.method, self.temperature, self.top_p = method, temperature, top_p
         self.seed = seed
+        self.exact_prefill = cfg.family in ("ssm", "hybrid")
         self._prefill = SRV.build_prefill_paged(cfg, compute_dtype=compute_dtype)
         self._decode = SRV.build_decode_step(cfg, compute_dtype=compute_dtype)
         self.queue: deque = deque()
@@ -121,10 +124,10 @@ class DecodeEngine:
 
     def _pad_prompt(self, prompt: np.ndarray):
         """Right-pad to the next block multiple (one prefill width per
-        block count)."""
+        block count), or not at all for an exact-length family."""
         plen = len(prompt)
-        buf = np.zeros(blocks_for(plen, self.pool.pool.block) * self.pool.pool.block,
-                       np.int64)
+        bs = self.pool.pool.block
+        buf = np.zeros(plen if self.exact_prefill else blocks_for(plen, bs) * bs, np.int64)
         buf[:plen] = prompt
         return torch.from_numpy(buf)[None, :].to(self.device), plen
 
@@ -169,10 +172,11 @@ class DecodeEngine:
             self.queue.popleft()
             t0 = time.perf_counter()
             tokens, plen = self._pad_prompt(np.asarray(req.prompt, np.int32))
-            last, _ = self._prefill(self.params, self.pool.prefill_tree(slot),
-                                    tokens, plen)
+            last, tree = self._prefill(self.params, self.pool.prefill_tree(slot),
+                                       tokens, plen)
             self._sync()
             self.stats["prefill_s"].append(time.perf_counter() - t0)
+            self.pool.absorb_prefill(slot, tree)
             self.pool.commit_prefill(slot, len(req.prompt))
             st = _Running(req, slot, self._admit_seq, pending=-1)
             self._admit_seq += 1

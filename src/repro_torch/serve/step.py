@@ -18,12 +18,15 @@ from repro_torch.parallel.context import PCtx
 
 
 def build_prefill_paged(cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
-    """Prefill one admitted sequence into a paged cache tree.
+    """Prefill one admitted sequence into a cache tree (the pool's
+    ``prefill_tree``: a paged K/V view, or the ssm family's zero state rows,
+    which come back updated for ``CachePool.absorb_prefill``).
 
     ``tokens`` is ``[1, P]`` with P possibly past the true prompt length
-    (padding to a block multiple); ``length`` is the true length and picks
-    the logits row.  Padded positions write into the leased tail or the
-    null block and stay masked by the slot's length."""
+    (padding to a block multiple; ssm prompts run at their exact length);
+    ``length`` is the true length and picks the logits row.  Padded
+    positions write into the leased tail or the null block and stay masked
+    by the slot's length."""
     pctx = PCtx()
 
     def prefill(params, caches, tokens: torch.Tensor, length: int):
@@ -38,7 +41,8 @@ def build_prefill_paged(cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
 
 
 def build_decode_step(cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
-    """One-token decode over all slots of a paged cache tree."""
+    """One-token decode over all slots of a cache tree (paged K/V, or the
+    pool's SSM states, advanced in place)."""
     pctx = PCtx()
 
     def decode_step(params, caches, tokens: torch.Tensor, positions: torch.Tensor):

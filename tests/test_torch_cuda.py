@@ -7,7 +7,8 @@ card (the CPU-only tier-1 run).  On the card:
 
 Tolerances are the repo's (tests/test_kernels.py::_tol), keyed on the
 kernel output's dtype: fp32 2e-4 (fp32 sums in another order), bf16 2e-2
-(one bf16 rounding of the output).  The training kernels (tile matmul
+(one bf16 rounding of the output).  The SSD scan holds y to its dtype's
+bound and its fp32 final state to 2e-4.  The training kernels (tile matmul
 layouts, the SwiGLU and flash-attention backwards) are held to the same
 bounds: each rounds its fp32 sums once, and an fp32 output of bf16 inputs
 (the head's logits, the gated kernel's kept products) not at all.
@@ -16,11 +17,13 @@ bounds: each rounds its fp32 sums once, and an fp32 output of bf16 inputs
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig, ParallelConfig
+from repro_torch.config import ModelConfig, ParallelConfig, SSMConfig
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd as kssd
 from repro_torch.kernels import swiglu as ksw
 from repro_torch.models import lm
 from repro_torch.parallel.context import PCtx
@@ -270,3 +273,113 @@ def test_train_loss_and_grads_kernels_match_plain(dev):
     _close(out[False][0], out[True][0])
     for a, b in zip(out[False][1], out[True][1]):
         _close(a, b)
+
+
+def _ssd_inputs(dev, dtype, b, S, nh, dh, g, ds, seed, state):
+    """x, B, C as slices of one conv output [b, S, nh*dh + 2*g*ds], as the
+    model hands them over; mamba2's decays A = -(1..nh) and steps dt near
+    0.1, so cum falls to about -300 within a chunk of 128."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    di, gs = nh * dh, g * ds
+    conv = torch.randn((b, S, di + 2 * gs), generator=gen, device=dev).to(dtype)
+    x = conv[..., :di].reshape(b, S, nh, dh)
+    B = conv[..., di:di + gs].reshape(b, S, g, ds)
+    C = conv[..., di + gs:].reshape(b, S, g, ds)
+    dt = F.softplus(torch.randn((b, S, nh), generator=gen, device=dev) - 2.5)
+    A = -torch.arange(1, nh + 1, dtype=torch.float32, device=dev)
+    h0 = (torch.randn((b, nh, dh, ds), generator=gen, device=dev) if state
+          else torch.zeros((b, nh, dh, ds), device=dev))
+    return x, dt, A, B, C, h0
+
+
+@pytest.mark.parametrize("b,S,nh,dh,g,ds,chunk", [
+    (1, 64, 24, 64, 1, 128, 64), (1, 200, 24, 64, 1, 128, 128), (1, 512, 24, 64, 1, 128, 128),
+    (2, 100, 8, 32, 2, 64, 32), (1, 7, 4, 16, 1, 16, 7), (1, 2, 4, 16, 1, 16, 2),
+    (3, 45, 6, 128, 3, 24, 16)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("state", [False, True])
+def test_ssd_kernel(dev, b, S, nh, dh, g, ds, chunk, dtype, state):
+    """Ragged S, groups, an initial state; y and the final state."""
+    x, dt, A, B, C, h0 = _ssd_inputs(dev, dtype, b, S, nh, dh, g, ds, S + b, state)
+    y, fin = kssd.ssd(x, dt, A, B, C, chunk=chunk, init_state=h0)
+    y_p, fin_p = ref.ssd_plain(x, dt, A, B, C, chunk=chunk, init_state=h0)
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    _close(y, y_p)
+    _close(fin, fin_p)
+    y2, fin2 = kssd.ssd(x, dt, A, B, C, chunk=chunk)          # no state: zeros
+    _close(y2, ref.ssd_plain(x, dt, A, B, C, chunk=chunk)[0])
+    if not state:
+        assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+def test_ssd_kernel_matches_sequential_oracle(dev):
+    """The chunked kernel against the plain sequential recurrence."""
+    x, dt, A, B, C, _ = _ssd_inputs(dev, torch.float32, 1, 300, 8, 32, 1, 64, 9, False)
+    y, _ = kssd.ssd(x, dt, A, B, C, chunk=128)
+    _close(y, ref.ssd_seq_ref(x, dt, A, B, C))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_copies_unaligned_operands(dev, dtype):
+    """x read through a transposed layout and B, C off their 16-byte rows
+    (an odd channel count) are copied once, and give the same result."""
+    x, dt, A, B, C, h0 = _ssd_inputs(dev, dtype, 2, 37, 4, 32, 1, 24, 5, True)
+    xt = x.transpose(2, 3).contiguous().transpose(2, 3)
+    conv = torch.zeros((2, 37, 2 * 24 + 1), dtype=dtype, device=dev)
+    conv[..., 1:25], conv[..., 25:] = B[:, :, 0], C[:, :, 0]
+    Bo, Co = conv[..., 1:25].reshape(2, 37, 1, 24), conv[..., 25:].reshape(2, 37, 1, 24)
+    y, fin = kssd.ssd(xt, dt, A, Bo, Co, chunk=16, init_state=h0)
+    y_p, fin_p = ref.ssd_plain(x, dt, A, B, C, chunk=16, init_state=h0)
+    _close(y, y_p)
+    _close(fin, fin_p)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, dt, A, B, C, _ = _ssd_inputs(dev, torch.float32, 1, 16, 4, 16, 1, 16, 0, False)
+    with pytest.raises(ValueError, match="chunk"):
+        kssd.ssd(x, dt, A, B, C, chunk=129)
+    with pytest.raises(TypeError, match="fp32"):
+        kssd.ssd(x, dt.half(), A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kssd.ssd(x, dt, A, B[..., :12], C[..., :12], chunk=16)
+
+
+SSM_CFG = ModelConfig(name="cuda-ssm", family="ssm", num_layers=2, d_model=128, num_heads=0,
+                      num_kv_heads=0, d_ff=0, vocab_size=500, tie_embeddings=True,
+                      ssm=SSMConfig(state_dim=64, head_dim=32, expand=2, n_groups=2,
+                                    conv_kernel=4, chunk_size=32))
+
+
+def test_ssm_forward_kernels_match_plain(dev):
+    """fp32 prefill of the ssm family through the kernels (the SSD scan
+    and the matmuls) vs the plain-op forward, logits and final states."""
+    params = lm.init_params(SSM_CFG, seed=0, device=dev, dtype=torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 500, (1, 77))).to(dev)
+    batch = {"tokens": toks, "_dtype": torch.float32}
+    pool = CachePool(SSM_CFG, PoolConfig(1, 16, 6, 80), device=dev)
+    slot = pool.admit(77)
+    out = {}
+    for plain in (False, True):
+        ops.reset_launches()
+        tree = pool.prefill_tree(slot)
+        out[plain] = lm.forward(PCtx(plain=plain), SSM_CFG, params, batch, caches=tree)
+        if not plain:
+            assert ops.LAUNCHES["ssd"] == SSM_CFG.num_layers and ops.LAUNCHES["matmul"] > 0
+    _close(out[False].logits, out[True].logits)
+    for a, b in zip(out[False].caches["mamba"], out[True].caches["mamba"]):
+        _close(a, b)
+
+
+def test_ssm_engine_greedy_tokens_card_vs_cpu(dev):
+    """fp32 greedy tokens of the ssm family through the kernels equal the
+    CPU plain path's on an evicting trace with exact-length prompts."""
+    params = lm.init_params(SSM_CFG, seed=1, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 500, n).astype(np.int32) for n in (20, 1, 33, 14)]
+    toks, pre = {}, {}
+    for device, p in ((dev, params), ("cpu", _to_cpu(params))):
+        eng = DecodeEngine(SSM_CFG, p, PoolConfig(2, 16, 5, 48), device=device)
+        fin = eng.run([Request(i, q, 12, i // 2) for i, q in enumerate(prompts)])
+        toks[str(device)] = [fin[i].tokens for i in range(4)]
+        pre[str(device)] = eng.stats["preemptions"]
+    assert toks["cuda"] == toks["cpu"] and pre["cuda"] == pre["cpu"]

@@ -25,7 +25,8 @@ def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and "repro_torch.kernels.ops" in mods
     assert {"repro_torch.train.step", "repro_torch.optim.adamw", "repro_torch.core.schedule",
-            "repro_torch.launch.train", "repro_torch.kernels.swiglu"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.kernels.swiglu",
+            "repro_torch.models.ssm", "repro_torch.kernels.ssd"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
