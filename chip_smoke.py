@@ -34,7 +34,29 @@ Phases, each fatal on failure:
    launch counts are zeroed just before the training run and each serving
    run and read just after each, and every kernel of each path must show
    launches;
-8. print one JSON line of per-kernel numbers, then the result line.
+8. ``ring_kernels``: two rank processes on the card, one ring of n = 2
+   through the symmetric buffers: a ping-pong probe of the cross-process
+   flags (200 round trips in one launch each way, under a watchdog;
+   rounds/s), then each ring kernel (AG-matmul, matmul-RS over columns
+   and the gated pair over tokens, the contracted AG-matmul) held against
+   its plain version at the grid step's five full-width bf16 blocks, the
+   two further blocks its backward passes (matmul-RS over tokens of the
+   K/V and FFN-down input gradients) and ragged shapes (one off 8
+   elements), in bf16 and fp32, timed beside its bound and the
+   compute-only ``torch.matmul`` on the gathered operand;
+9. ``grid_train``: the hecaton grid training step of full-width
+   qwen3-0.6b on a 1x2x2 grid of four rank processes sharing the card
+   (``overlap="fused"``, bf16 over fp32 masters, batch 8 x 512, 2
+   microbatches, remat fusion, 3 steps) through the training launcher's
+   grid entry: its route table, every rank's launches (each of the three
+   ring kernels must launch on every rank), every step's loss and grad
+   norm against the same grid trained through the plain versions from
+   the same parameters (1e-3 and 1e-2 relative), the first step's loss
+   against the single-device port on the same parameters and batch
+   (1e-3), how far each leaf's final value lies from the plain run's
+   (over the plain run's update; reported), and step ms, which four
+   time-sliced ranks on one card make no grid speed;
+10. print one JSON line of per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
@@ -59,14 +81,17 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.config import ParallelConfig, RunConfig, get_config  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import ring_matmul as krm  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import matmul as kmm  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels import swiglu as ksw  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import Grid  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
+from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.context import PCtx  # noqa: E402
 from repro_torch.serve.cache import CachePool, PoolConfig  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
@@ -104,7 +129,43 @@ KERNELS = {
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:84"),
     "ssd": ("src/repro_torch/kernels/csrc/ssd.cu", "src/repro/kernels/ssd.py:88"),
+    "ag_matmul": ("src/repro_torch/kernels/csrc/ring_matmul.cu",
+                  "src/repro/kernels/ring_matmul.py:896"),
+    "matmul_rs": ("src/repro_torch/kernels/csrc/ring_matmul.cu",
+                  "src/repro/kernels/ring_matmul.py:1118"),
+    "ag_matmul_contract": ("src/repro_torch/kernels/csrc/ring_matmul.cu",
+                           "src/repro/kernels/ring_matmul.py:1290"),
 }
+RING_KERNELS = ("ag_matmul", "matmul_rs", "ag_matmul_contract")
+# the grid step's per-rank blocks at full width (qwen3-0.6b, 1x2x2, a
+# microbatch of 4 x 512): the five forward blocks and the two that only the
+# backward passes (its other blocks repeat these shapes), then ragged
+# extents (off the 64 x 64 tiles, and off 8 elements) as the backward
+# passes them without a gate: (kernel, label, x, w, scatter_dim, main)
+RING_CASES = (
+    ("ag_matmul", "K/V in-projection", (4, 256, 512), (512, 512), None, True),
+    ("ag_matmul", "FFN down-projection", (4, 256, 1536), (1536, 512), None, True),
+    ("matmul_rs", "Q in-projection, columns", (4, 512, 512), (512, 1024), 2, True),
+    ("matmul_rs", "gated up pair, tokens", (4, 512, 512), (512, 1536), 1, True),
+    ("ag_matmul_contract", "attention O-projection", (4, 512, 512), (1024, 512), None, True),
+    ("matmul_rs", "K/V input gradient, tokens", (4, 512, 512), (512, 512), 1, True),
+    ("matmul_rs", "FFN-down input gradient, tokens", (4, 512, 512), (512, 1536), 1, True),
+    ("ag_matmul", "ragged", (2, 100, 200), (200, 264), None, False),
+    ("ag_matmul", "ragged off 8", (3, 50, 45), (45, 27), None, False),
+    ("matmul_rs", "ragged off 8 tokens", (3, 52, 45), (45, 27), 1, False),
+    ("matmul_rs", "ragged columns", (2, 100, 200), (200, 264), 2, False),
+    ("matmul_rs", "ragged tokens", (2, 100, 200), (200, 264), 1, False),
+    ("ag_matmul_contract", "ragged", (2, 100, 200), (400, 264), None, False),
+)
+PROBE_ROUNDS = 200
+GRID = (1, 2, 2)
+GRID_STEPS = 3
+GRID_TIMEOUT_S = 900
+# the kernels' grid against the plain versions' grid (and the first loss
+# against the single-device port): bf16 sums in other orders
+GRID_LOSS_TOL, GRID_GNORM_TOL = 1e-3, 1e-2
+RING_TIMEOUT_S = 300
+GRID_LABEL = "4 ranks time-sliced on one card; not a grid speed"
 SERVE_KERNELS = ("matmul", "gated_matmul", "flash_attention")
 # the SSM slice: mamba2-130m served with prompts at their exact lengths
 SSM_ARCH = "mamba2-130m"
@@ -421,6 +482,9 @@ def train_kernel_phase(cfg):
     ok &= check_tile(results, gen, "NN", 100, d, 2 * d, bf, main=False)
     ok &= check_tile(results, gen, "NT", 200, d, 1000, bf, main=False)
     ok &= check_tile(results, gen, "TN", d, 1000, 200, bf, main=False)
+    # stored rows off 8 elements (the ring backward's ragged dw products)
+    ok &= check_tile(results, gen, "NN", 100, 45, 27, bf, main=False)
+    ok &= check_tile(results, gen, "TN", 45, 1000, 27, bf, main=False)
     ok &= check_swiglu_bwd(results, gen, M, F_, bf)
     ok &= check_swiglu_bwd(results, gen, M, F_, torch.float32, main=False)
     B = TRAIN_BATCH // TRAIN_MICRO
@@ -803,6 +867,147 @@ def profile_decode(eng):
         eng.step()
 
 
+def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, n=2, ax="my"):
+    """One ring kernel against its plain version on this rank's inputs."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1000 * idx + rank)
+    x = randn(gen, xs, dtype)
+    elt = x.element_size()
+    b, t, h = xs
+    o = ws[1]
+    pair = kernel == "matmul_rs" and sd == 1 and label.startswith("gated")
+    w = randn(gen, ws, dtype, ws[0] ** -0.5)
+    w1b = randn(gen, ws, dtype, ws[0] ** -0.5) if pair else None
+    if kernel == "ag_matmul":
+        kern = lambda: krm.ag_fwd(x, w, ax, 1, n)
+        plain = lambda: ref.ag_matmul_plain(x, w, ax, dim=1)
+        xg = comm.raw_all_gather(x, ax, 1)
+        lib = lambda: torch.matmul(xg, w)
+        nops = 2 * b * n * t * h * o
+        nbytes = (b * t * h * n + h * o + b * n * t * o) * elt    # own + arriving shards
+    elif kernel == "ag_matmul_contract":
+        kern = lambda: krm.contract_fwd(x, w, ax, n)
+        plain = lambda: ref.ag_matmul_contract_plain(x, w, ax)
+        xg = comm.raw_all_gather(x, ax, 2)
+        lib = lambda: torch.matmul(xg, w)
+        nops = 2 * b * t * n * h * o
+        nbytes = (b * t * h * n + n * h * o + b * t * o) * elt
+    else:
+        ncols = o * (2 if pair else 1)
+        out_elts = b * t * ncols // n
+        if pair:
+            kern = lambda: krm.pair_fwd(x, w, w1b, ax, sd, n)
+            plain = lambda: ref.matmul_rs_pair_plain(x, w, w1b, ax, scatter_dim=sd)
+            wc = torch.cat([w, w1b], dim=1)
+            lib = lambda: torch.matmul(x, wc)
+        else:
+            kern = lambda: krm.rs_fwd(x, w, ax, sd, n)
+            plain = lambda: ref.matmul_rs_plain(x, w, ax, scatter_dim=sd)
+            lib = lambda: torch.matmul(x, w)
+        nops = 2 * b * t * h * ncols
+        # x and w read, the arriving accumulators (n - 1 chunks), the output
+        nbytes = (b * t * h + h * ncols + n * out_elts) * elt
+    out, want = kern(), plain()
+    outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
+    tol = TOL[outs[0].dtype][0]
+    err = max((a.float() - c.float()).abs().max().item() for a, c in zip(outs, wants))
+    ok = all(a.shape == c.shape and a.dtype == c.dtype and bool(torch.isfinite(a.float()).all())
+             and bool(torch.allclose(a.float(), c.float(), atol=tol, rtol=tol))
+             for a, c in zip(outs, wants))
+    b_ms, b_by = bound(nbytes, nops, dtype)
+    return dict(kernel=kernel, case=f"{label} x={list(xs)} w={list(ws)}" +
+                (f" scatter_dim={sd}" if sd else "") + (" pair" if pair else ""),
+                dtype=str(dtype).replace("torch.", ""), main=main and dtype == torch.bfloat16,
+                rank=rank, max_err=err, tol=tol, ok=ok, kernel_ms=event_ms(kern),
+                plain_ms=event_ms(plain), library_ms=event_ms(lib), bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def ring_kernel_rank(rank, init_file):
+    """One of the two ranks of the ring_kernels phase: the probe's seconds
+    and this rank's cases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_world(Grid(1, 1, 2, rank), device=DEV, init_file=init_file)
+    try:
+        secs = krm.pingpong("my", PROBE_ROUNDS)
+        results = [_ring_case(idx, *case, dtype, rank)
+                   for dtype in (torch.bfloat16, torch.float32)
+                   for idx, case in enumerate(RING_CASES)]
+        torch.cuda.synchronize()
+        comm.barrier()
+    finally:
+        comm.shutdown()
+    return dict(probe_s=secs, cases=results)
+
+
+def ring_kernels_phase():
+    """The three ring kernels on a ring of two rank processes sharing the
+    card, after the flag ping-pong probe."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        res = comm.run_ranks(ring_kernel_rank, 2, (comm.temp_init_file(),), RING_TIMEOUT_S)
+    except Exception as e:                      # the phase fails; the script goes on
+        log(f"ring_kernels FAILED: {e}")
+        return [], False
+    probe = {r: PROBE_ROUNDS / res[r]["probe_s"] for r in res}
+    log("ring_probe " + json.dumps(dict(rounds=PROBE_ROUNDS, rounds_per_s=probe,
+                                         device_s={r: res[r]["probe_s"] for r in res},
+                                         phase_s=time.perf_counter() - t0)))
+    results, ok = [], True
+    for r in sorted(res):
+        for c in res[r]["cases"]:
+            ok &= c["ok"]
+            if r == 0:
+                results.append(c)
+                log("case " + json.dumps(c))
+    return results, ok
+
+
+def grid_train_phase():
+    """Train full-width qwen3-0.6b on a 1x2x2 grid of four rank processes
+    through the training launcher's grid entry (overlap fused)."""
+    torch.cuda.empty_cache()
+    d, mx, my = GRID
+    args = launch_train.parser().parse_args([
+        "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV, "--batch", str(TRAIN_BATCH),
+        "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO),
+        "--steps", str(GRID_STEPS), "--strategy", "hecaton", "--data", str(d), "--mx", str(mx),
+        "--my", str(my), "--overlap", "fused", "--timeout", str(GRID_TIMEOUT_S)])
+    try:
+        r = launch_train.run_grid(args, log_fn=log, check_plain=True)   # the main path
+    except Exception as e:
+        log(f"grid_train FAILED: {e}")
+        return False, {}
+    losses = [loss for _, loss in r["history"]]
+    gnorms = r["grad_norms"]
+    checks = r["checks"]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    loss_rel = [rel(k, p) for k, p in zip(losses, checks["plain_losses"])]
+    gnorm_rel = [rel(k, p) for k, p in zip(gnorms, checks["plain_grad_norms"])]
+    single_rel = rel(losses[0], checks["single_step0_loss"])
+    worst_leaf = max(checks["param_rel"], key=checks["param_rel"].get)
+    launches = r["launches"]
+    ok = (all(math.isfinite(x) for x in losses + gnorms) and len(loss_rel) == GRID_STEPS
+          and max(loss_rel) <= GRID_LOSS_TOL and single_rel <= GRID_LOSS_TOL
+          and len(gnorm_rel) == GRID_STEPS and max(gnorm_rel) <= GRID_GNORM_TOL
+          and all(launches[k][n] > 0 for k in launches for n in RING_KERNELS))
+    log("grid_routes " + json.dumps(r["routes"]))
+    log("grid_train_kernels " + json.dumps(launches))
+    log("grid_train " + json.dumps(dict(
+        arch=ARCH, grid="x".join(map(str, GRID)), overlap="fused", batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, remat="fusion", dtype="bfloat16",
+        losses=losses, plain_losses=checks["plain_losses"], loss_rel=loss_rel,
+        grad_norms=gnorms, plain_grad_norms=checks["plain_grad_norms"], gnorm_rel=gnorm_rel,
+        single_step0_loss=checks["single_step0_loss"], single_step0_rel=single_rel,
+        tol_loss_rel=GRID_LOSS_TOL, tol_gnorm_rel=GRID_GNORM_TOL,
+        param_rel_worst=dict(leaf=worst_leaf, rel=checks["param_rel"][worst_leaf]),
+        param_rel_median=sorted(checks["param_rel"].values())[len(checks["param_rel"]) // 2],
+        step_ms=[1e3 * x for x in r["step_s"]], step_ms_note=GRID_LABEL,
+        setup_s=r["setup_s"], wall_s=r["wall_s"], ok=ok)))
+    totals = {n: sum(launches[k][n] for k in launches) for n in RING_KERNELS}
+    return ok, totals
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -838,15 +1043,22 @@ def main(argv=None):
     ok_sm = ssm_model_check(ssm_cfg)
     ok_ss, ss_launches = serve_phase(args.profile, SSM_ARCH, SSM_PROMPT_LENS,
                                      SSM_SERVE_KERNELS, "_ssm")
+    r_results, ok_rk = ring_kernels_phase()
+    results += r_results
+    ok_gt, g_launches = grid_train_phase()
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
-    # serving run, the training kernels' from the training run
+    # serving run, the ring kernels' from the grid run (summed over its
+    # four ranks), the training kernels' from the training run
     launches = {k: (ss_launches if k == "ssd" else s_launches if k in SERVE_KERNELS
-                    else t_launches)[k] for k in KERNELS}
+                    else g_launches if k in RING_KERNELS else t_launches).get(k, 0)
+                for k in KERNELS}
 
     line = []
     for name, (src, replaces) in KERNELS.items():
         rows = [r for r in results if r["kernel"] == name and r["main"]]
+        if not rows:
+            continue
         libs = [r["library_ms"] for r in rows]
         b_by = {}
         for r in rows:
@@ -865,6 +1077,8 @@ def main(argv=None):
                               ("model_check", ok_m), ("grad_check", ok_g), ("train", ok_t),
                               ("serve", ok_s), ("ssd_kernels", ok_sk),
                               ("ssm_model_check", ok_sm), ("serve_ssm", ok_ss),
+                              ("ring_kernels", ok_rk), ("grid_train", ok_gt),
+                              ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]
     if failed:

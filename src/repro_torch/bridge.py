@@ -4,7 +4,8 @@
 returns, after ``jax.tree.map(np.asarray, ...)`` (numpy leaves, stacked
 ``[L, ...]``), and returns the port's serving parameters
 (``models/lm.py``); ``master_params_from_jax`` returns its training
-parameters.
+parameters, and ``shard_master_params_from_jax`` one grid rank's blocks of
+them (``gather_master_params`` is the inverse, for the tests).
 bfloat16 arrays cross through a ``uint16`` view, so no JAX or ml_dtypes
 import is needed here.  This is what makes both packages compute the same
 function in the parity tests.
@@ -48,3 +49,27 @@ def master_params_from_jax(tree: Dict[str, Any], *, device="cuda") -> Dict[str, 
     for _, t in lm.flatten(out):
         t.requires_grad_(True)
     return out
+
+
+def shard_master_params_from_jax(tree: Dict[str, Any], grid, *, device="cuda",
+                                 fused_loss: bool = True) -> Dict[str, Any]:
+    """Rank ``grid.rank``'s blocks of the training parameters (the slices
+    that ``parallel/specs.param_specs`` gives it), as leaves that require
+    grad."""
+    from repro_torch.parallel import specs
+    full = _convert(tree, resolve_device(device))
+    out = specs.shard_tree(full, specs.param_specs(full, grid, fused_loss), grid)
+    for _, t in lm.flatten(out):
+        t.requires_grad_(True)
+    return out
+
+
+def gather_master_params(params: Dict[str, Any], grid, *,
+                         fused_loss: bool = True) -> Dict[str, Any]:
+    """The full parameters from every rank's blocks (collectives over the
+    grid; every rank gets the whole tree, detached)."""
+    from repro_torch.parallel import specs
+    sp = specs.param_specs(params, grid, fused_loss)
+    items = lm.flatten(params)
+    return lm.unflatten([p for p, _ in items],
+                        [specs.gather_full(t.detach(), specs.spec_of(sp, p)) for p, t in items])

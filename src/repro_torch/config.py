@@ -4,9 +4,9 @@ A copy of the parts of ``repro/config.py`` the ported slices read: the
 frozen :class:`ModelConfig` with ``padded_vocab``/``resolved_head_dim``/
 ``scaled``, :class:`SSMConfig` (the Mamba2 mixer), the arch registry, and
 the fields of :class:`ParallelConfig`, :class:`GuardConfig` and
-:class:`RunConfig` that the single-device training step reads, with the
-JAX package's defaults.  MoE/MLA/hybrid/enc-dec fields, the grid and the
-checkpoint config arrive with the slices that use them.
+:class:`RunConfig` that the training steps read (one device and the
+hecaton grid), with the JAX package's defaults.  MoE/MLA/hybrid/enc-dec
+fields and the checkpoint config arrive with the slices that use them.
 """
 
 from __future__ import annotations
@@ -61,7 +61,18 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The single-device step's fields of ``repro.config.ParallelConfig``."""
+    """The fields of ``repro.config.ParallelConfig`` that the ported steps
+    read: the hecaton grid (data x mx x my; one device when all are 1),
+    its overlap mode and wire dtype, and the step's microbatching,
+    gradient rounding, remat and fused loss.  The grid step always keeps
+    its AdamW moments ZeRO-1 sharded over data and solves the attention
+    layout as the JAX package's "auto"."""
+    strategy: str = "hecaton"               # hecaton (megatron: not ported)
+    data: int = 1
+    mx: int = 1
+    my: int = 1
+    overlap: str = "none"                   # none | ring | fused (bidir: not ported)
+    comm_dtype: str = "bf16"                # bf16 (int8: not ported)
     microbatches: int = 1
     # per-microbatch gradient rounding before the fp32 sum: fp32 | bf16
     grad_reduce_dtype: str = "bf16"

@@ -28,11 +28,12 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "flash_attention", "swiglu_bwd", "ssd")
+SOURCES = ("matmul", "flash_attention", "swiglu_bwd", "ssd", "ring_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_ulonglong
 ARGTYPES = {
     "matmul": {
         "hk_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -49,6 +50,17 @@ ARGTYPES = {
     },
     "ssd": {
         "hk_ssd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P],
+    },
+    "ring_matmul": {
+        "hk_set_device": [_I],
+        "hk_sym_alloc": [_L, _P, _P],
+        "hk_sym_open": [_P, _P],
+        "hk_sym_close": [_P],
+        "hk_sym_free": [_P],
+        "hk_pingpong": [_P, _P, _I, _I, _U, _U, _P, _P],
+        "hk_ring_ag_matmul": [_P, _P, _P, _P] + [_I] * 5 + [_P],
+        "hk_ring_matmul_rs": [_P, _P, _P, _P] + [_I] * 6 + [_P],
+        "hk_ring_ag_matmul_contract": [_P] * 5 + [_I] * 5 + [_P],
     },
 }
 
@@ -78,8 +90,20 @@ def build_all() -> Dict[str, str]:
     """Compile every source that has no up-to-date library, all in parallel.
 
     Returns each source's compiler output (empty for a reused library).
-    Raises if any compile fails."""
+    Raises if any compile fails.  A file lock in the build directory keeps
+    processes that start together (the ranks of a grid) from compiling
+    the same sources at once: the first builds, the others then reuse."""
+    import fcntl
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_missing()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_missing() -> Dict[str, str]:
     nvcc = nvcc_path()
     procs = {}
     for name in SOURCES:

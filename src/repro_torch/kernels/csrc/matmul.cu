@@ -21,9 +21,10 @@
 // act is none, relu2, tanh-GELU or SiLU; sums are fp32 and the output is
 // stored in the input dtype (fp32 or bf16), or in fp32 for the tile matmul
 // when asked (the head logits of the training loss).  Each operand's stored
-// row length must be a multiple of 8 (16-byte vector loads); everything
-// else is free: ragged edges are masked here, unlike the Pallas kernel
-// which asserts divisibility.
+// row length must be a multiple of 8 (16-byte vector loads) for matmul and
+// gated_matmul; the tile matmul takes any extent (element loads where a
+// vector is off 16 bytes).  Everything else is free: ragged edges are
+// masked here, unlike the Pallas kernel which asserts divisibility.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16):
 //   * decode (M = number of slots, 4) is weight-byte bound: every weight
@@ -118,19 +119,34 @@ __device__ __forceinline__ void store_out(TO* out, size_t idx, float a, float b,
 // product x^T g); B is w [K,N] row-major or, with TB, stored [N,K] (w^T read
 // in place: g w^T and the tied head x table^T).  WMMA loads the fragments
 // with the matching row/col-major layout, so nothing is transposed in
-// memory.  Every 16-byte vector lies along the stored rows, so the stored
-// row length (K, M, N or K) must be a multiple of 8.
+// memory.  Every 16-byte vector lies along the stored rows.  When a stored
+// row length (K, M, N or K), a leading dim or an operand's address is off
+// 16 bytes (`vec` false; the tile matmul's ragged products in the ring
+// backward), the same 8-element vectors are gathered element by element
+// and masked at the row's end.
 // ---------------------------------------------------------------------------
 namespace tc {
 constexpr int BK = 32;
 }  // namespace tc
+
+// 8 bf16 from p, those at or past `avail` zero (a vector at a ragged edge)
+__device__ __forceinline__ uint4 load8_masked(const bf16* p, int avail) {
+  unsigned int u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned int lo = 2 * i < avail ? __bfloat16_as_ushort(p[2 * i]) : 0u;
+    const unsigned int hi = 2 * i + 1 < avail ? __bfloat16_as_ushort(p[2 * i + 1]) : 0u;
+    u[i] = lo | (hi << 16);
+  }
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, bool GATED, bool TA, bool TB, typename TO>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 mm_tc_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
            const bf16* __restrict__ wb, const bf16* __restrict__ bias,
            TO* __restrict__ out, float* __restrict__ a_out, float* __restrict__ b_out,
-           int M, int N, int K, long long lda, long long ldb, int act) {
+           int M, int N, int K, long long lda, long long ldb, int act, bool vec) {
   using tc::BK;
   constexpr int THREADS = WARPS_M * WARPS_N * 32;
   constexpr int A_COLS = TA ? BM : BK, A_ROWS = TA ? BK : BM, LDA = A_COLS + 8;
@@ -165,21 +181,28 @@ mm_tc_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
     for (int v = 0; v < A_VEC; ++v) {
       const int i = tid + v * THREADS, r = i / (A_COLS / 8), c = (i % (A_COLS / 8)) * 8;
       const int gr = (TA ? k0 : m0) + r, gc = (TA ? m0 : k0) + c;
-      const bool in = TA ? (gr < K && gc < M) : (gr < M && gc < K);
+      const int cols = TA ? M : K;
+      const bool in = (TA ? gr < K : gr < M) && gc < cols;
       ra[v] = make_uint4(0, 0, 0, 0);
-      if (in) ra[v] = *reinterpret_cast<const uint4*>(x + (size_t)gr * lda + gc);
+      if (in) {
+        const bf16* p = x + (size_t)gr * lda + gc;
+        ra[v] = vec ? *reinterpret_cast<const uint4*>(p) : load8_masked(p, cols - gc);
+      }
     }
 #pragma unroll
     for (int v = 0; v < B_VEC; ++v) {
       const int i = tid + v * THREADS, r = i / (B_COLS / 8), c = (i % (B_COLS / 8)) * 8;
       const int gr = (TB ? n0 : k0) + r, gc = (TB ? k0 : n0) + c;
-      const bool in = TB ? (gr < N && gc < K) : (gr < K && gc < N);
+      const int cols = TB ? K : N;
+      const bool in = (TB ? gr < N : gr < K) && gc < cols;
       rb[v] = make_uint4(0, 0, 0, 0);
       rbb[v] = make_uint4(0, 0, 0, 0);
       if (in) {
         const size_t off = (size_t)gr * ldb + gc;
-        rb[v] = *reinterpret_cast<const uint4*>(w + off);
-        if (GATED) rbb[v] = *reinterpret_cast<const uint4*>(wb + off);
+        const int avail = cols - gc;
+        rb[v] = vec ? *reinterpret_cast<const uint4*>(w + off) : load8_masked(w + off, avail);
+        if (GATED)
+          rbb[v] = vec ? *reinterpret_cast<const uint4*>(wb + off) : load8_masked(wb + off, avail);
       }
     }
   };
@@ -428,14 +451,17 @@ template <bool GATED, bool TA, bool TB, typename TO>
 static void launch_tc(const bf16* x, const bf16* w, const bf16* wb, const bf16* bias, TO* out,
                       float* a_out, float* b_out, int M, int N, int K, long long lda,
                       long long ldb, int act, cudaStream_t st) {
+  // 16-byte vectors need every stored row, leading dim and base on 8 elements
+  const bool vec = ((TA ? M : K) % 8 | (TB ? K : N) % 8 | lda % 8 | ldb % 8 |
+                    (long long)(((uintptr_t)x | (uintptr_t)w | (uintptr_t)wb) % 16)) == 0;
   dim3 big((N + 127) / 128, (M + 127) / 128);
   if (big.x * big.y >= 2 * 132) {  // two waves of 128x128 tiles on 132 SMs
     mm_tc_bf16<128, 128, 4, 2, GATED, TA, TB, TO><<<big, 256, 0, st>>>(
-        x, w, wb, bias, out, a_out, b_out, M, N, K, lda, ldb, act);
+        x, w, wb, bias, out, a_out, b_out, M, N, K, lda, ldb, act, vec);
   } else {
     dim3 grid((N + 63) / 64, (M + 63) / 64);
     mm_tc_bf16<64, 64, 2, 2, GATED, TA, TB, TO><<<grid, 128, 0, st>>>(
-        x, w, wb, bias, out, a_out, b_out, M, N, K, lda, ldb, act);
+        x, w, wb, bias, out, a_out, b_out, M, N, K, lda, ldb, act, vec);
   }
 }
 

@@ -1,0 +1,508 @@
+// Hand-written Hopper (sm_90a) ring collective-matmul kernels of the port.
+//
+// Replaces the TPU kernels in repro/kernels/ring_matmul.py, each of which
+// runs a whole ring collective inside one pallas_call with remote DMA
+// between neighbouring chips:
+//   * _ag_matmul_tpu (pallas_call at :896, def :746): x [b,t,h] circulates
+//     over the n ranks of one grid axis; at step s this rank multiplies the
+//     shard of rank (me - s) mod n by its local w [h,o] into that rank's
+//     slot of out [b, n*t, o]                         -> hk_ring_ag_matmul
+//   * _matmul_rs_tpu (pallas_call at :1118, def :916; the gated pair
+//     _matmul_rs_pair_tpu:1308 runs it over [w1 | w1b]): x [b,t,h] @ w
+//     [h,o] reduce-scattered over tokens (out [b, t/n, o]) or columns (out
+//     [b, t, o/n]) by a per-destination accumulator that circulates and
+//     gains this rank's contribution at every step    -> hk_ring_matmul_rs
+//   * _ag_matmul_contract_tpu (pallas_call at :1290, def :1135): x
+//     [b,t,h_loc] circulates; w [n*h_loc, o] row block picked by the
+//     shard's source rank; an fp32 accumulator spans the steps
+//                                                     -> hk_ring_ag_matmul_contract
+// Every product sums in fp32; outputs are stored in the input dtype (the
+// contracted ring may store fp32), as the Pallas kernels do.
+//
+// The ring protocol.  The ranks are processes on one or more cards; each
+// owns a symmetric buffer (hk_sym_alloc) that every peer maps through its
+// CUDA IPC handle (hk_sym_open).  Per grid axis the buffer holds two
+// receive slots and two 64-bit counters: `landed` (hops that have landed in
+// this rank's slots, set by the left neighbour) and `credit` (hops of this
+// rank's that the right neighbour has finished reading).  Hop h of an axis
+// (a host-side count that every rank of the ring advances alike, n - 1 per
+// call) moves one shard into the right neighbour's slot h % 2.  Before
+// writing it a rank waits until credit >= h - 1 (the right neighbour has
+// released the slot's previous contents, hop h - 2); after writing, the
+// last of its blocks to finish stores landed = h + 1 into the right
+// neighbour with st.release.sys.  A rank that needs hop h spins with
+// ld.acquire.sys until landed >= h + 1, and once every block has read the
+// slot (and forwarded it) stores credit = h + 1 into its left neighbour.
+// The counters only grow, so back-to-back calls need no host reset.  This
+// is the TPU kernel's handshake (barrier semaphore, per-slot DMA
+// semaphores, a capacity credit to the left neighbour) with flags in
+// device memory in place of semaphores.  A block that spins would block
+// the blocks behind it, so the grid is at most one block per SM (all
+// resident) and each block loops over the output tiles.  Every wait gives
+// up after a timeout with a trap, so a lost peer fails the launch instead
+// of hanging the card.
+//
+// Bound on an H100 SXM: per call 2 * rows * h * o * n FLOPs at 989 TFLOP/s
+// bf16 against the operand, output and hop bytes at 3.35 TB/s.  The tile
+// loop is the simple one (64 x 64 output tiles, a K step of 32 through
+// shared memory, WMMA m16n16k16 for bf16 and SIMT fp32 otherwise, masked
+// edges, any extent): right first, fast later.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+typedef unsigned long long u64;
+
+enum { DT_F32 = 0, DT_BF16 = 1 };
+
+namespace {
+
+constexpr int TBM = 64, TBN = 64, TBK = 32, THREADS = 256;
+constexpr int LDA = TBK + 8, LDB = TBN + 8, LDC = TBN + 4;
+constexpr int MAX_STEPS = 16;
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+// loads that bypass L1: slots are rewritten by other processes while a
+// kernel runs, and an SM's L1 is not coherent with those writes
+template <typename T> __device__ __forceinline__ T ldcg(const T* p);
+template <> __device__ __forceinline__ float ldcg<float>(const float* p) { return __ldcg(p); }
+template <> __device__ __forceinline__ bf16 ldcg<bf16>(const bf16* p) {
+  return __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+__device__ __forceinline__ u64 ld_acquire(const u64* p) {
+  u64 v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(u64* p, u64 v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ u64 now_ns() {
+  u64 t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+struct Ring {
+  u64* my_landed;
+  u64* right_landed;
+  u64* my_credit;
+  u64* left_credit;
+  char* my_slot[2];
+  char* right_slot[2];
+  unsigned int* counters;  // 2 per step, zeroed before the launch
+  u64 hop0;
+  int n, me;
+  u64 timeout_ns;
+};
+
+// one thread spins, then the block proceeds (called by every thread)
+__device__ void wait_geq(const u64* p, u64 target, u64 timeout_ns) {
+  if (threadIdx.x == 0) {
+    const u64 t0 = now_ns();
+    while (ld_acquire(p) < target) {
+      __nanosleep(200);
+      if (now_ns() - t0 > timeout_ns) __trap();  // a lost peer: fail, do not hang
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// every thread's writes are fenced, then one count per block; true in the
+// last block to arrive (called by every thread)
+__device__ bool arrive_last(unsigned int* counter) {
+  __shared__ bool last;
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int old = atomicAdd(counter, 1u);
+    last = old == gridDim.x - 1;
+    if (last) __threadfence_system();
+  }
+  __syncthreads();
+  return last;
+}
+
+// the grid copies a shard into a peer's slot
+__device__ void grid_copy(void* dst, const void* src, long long bytes) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  if ((((uintptr_t)dst | (uintptr_t)src | (uintptr_t)bytes) & 15) == 0) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    for (long long i = tid; i < bytes / 16; i += stride) d[i] = __ldcg(s + i);
+  } else {
+    unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    for (long long i = tid; i < bytes / 2; i += stride) d[i] = __ldcg(s + i);
+  }
+}
+
+// row r of an operand lies at (r / R) * bstride + (r % R) * ld elements:
+// a batch of R-row blocks (a token chunk of every batch row)
+struct Rows {
+  long long bstride;
+  int R, ld;
+  __device__ __forceinline__ long long off(int r) const {
+    return (long long)(r / R) * bstride + (long long)(r % R) * ld;
+  }
+};
+
+// C = A[m0:m0+64, :K] @ B[:K, n0:n0+64] in fp32; epi(r, c, v) for every
+// in-range element.  A rows through `ra`, B row-major with leading dim ldb.
+template <typename T, typename Epi>
+__device__ void tile_product(const T* a, Rows ra, const T* b, long long ldb, int M, int N,
+                             int K, int m0, int n0, unsigned char* smem, Epi epi) {
+  float* Cs = reinterpret_cast<float*>(smem);
+  unsigned char* ops = smem + TBM * LDC * sizeof(float);
+  const int tid = threadIdx.x;
+  if constexpr (std::is_same<T, bf16>::value) {
+    bf16* As = reinterpret_cast<bf16*>(ops);
+    bf16* Bs = As + TBM * LDA;
+    const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+    wmma::fill_fragment(acc[0], 0.f);
+    wmma::fill_fragment(acc[1], 0.f);
+    for (int k0 = 0; k0 < K; k0 += TBK) {
+      for (int i = tid; i < TBM * TBK; i += THREADS) {
+        const int r = i / TBK, c = i % TBK;
+        As[r * LDA + c] = (m0 + r < M && k0 + c < K) ? ldcg(a + ra.off(m0 + r) + k0 + c)
+                                                     : __float2bfloat16(0.f);
+      }
+      for (int i = tid; i < TBK * TBN; i += THREADS) {
+        const int r = i / TBN, c = i % TBN;
+        Bs[r * LDB + c] = (k0 + r < K && n0 + c < N) ? ldcg(b + (long long)(k0 + r) * ldb + n0 + c)
+                                                     : __float2bfloat16(0.f);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < TBK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, As + (16 * wm) * LDA + kk, LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, Bs + kk * LDB + 32 * wn + 16 * j, LDB);
+          wmma::mma_sync(acc[j], fa, fb, acc[j]);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (16 * wm) * LDC + 32 * wn + 16 * j, acc[j], LDC,
+                              wmma::mem_row_major);
+  } else {
+    float* As = reinterpret_cast<float*>(ops);      // [TBM][TBK + 1]
+    float* Bs = As + TBM * (TBK + 1);               // [TBK][TBN + 1]
+    const int tr = tid / 16, tc = tid % 16;
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < K; k0 += TBK) {
+      for (int i = tid; i < TBM * TBK; i += THREADS) {
+        const int r = i / TBK, c = i % TBK;
+        As[r * (TBK + 1) + c] = (m0 + r < M && k0 + c < K) ? ldcg(a + ra.off(m0 + r) + k0 + c) : 0.f;
+      }
+      for (int i = tid; i < TBK * TBN; i += THREADS) {
+        const int r = i / TBN, c = i % TBN;
+        Bs[r * (TBN + 1) + c] =
+            (k0 + r < K && n0 + c < N) ? ldcg(b + (long long)(k0 + r) * ldb + n0 + c) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < TBK; ++k) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = As[(tr * 4 + i) * (TBK + 1) + k];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bv[j] = Bs[k * (TBN + 1) + tc * 4 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Cs[(tr * 4 + i) * LDC + tc * 4 + j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int i = tid; i < TBM * TBN; i += THREADS) {
+    const int r = i / TBN, c = i % TBN;
+    if (m0 + r < M && n0 + c < N) epi(m0 + r, n0 + c, Cs[r * LDC + c]);
+  }
+  __syncthreads();
+}
+
+constexpr int SMEM_BYTES = TBM * LDC * 4 + (TBM * (TBK + 1) + TBK * (TBN + 1)) * 4;
+static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory");
+static_assert((TBM * LDA + TBK * LDB) * 2 <= (TBM * (TBK + 1) + TBK * (TBN + 1)) * 4, "smem");
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// the shard that circulates at step s: x itself, or the slot of hop hop0+s-1
+template <typename T>
+__device__ const T* step_input(const T* x, const Ring& rg, int s) {
+  if (s == 0) return x;
+  const u64 hin = rg.hop0 + s - 1;
+  wait_geq(rg.my_landed, hin + 1, rg.timeout_ns);
+  return reinterpret_cast<const T*>(rg.my_slot[hin & 1]);
+}
+
+// forward the current shard to the right neighbour (hop hop0+s)
+__device__ void forward_shard(const void* cur, long long bytes, const Ring& rg, int s) {
+  const u64 h = rg.hop0 + s;
+  if (h >= 2) wait_geq(rg.my_credit, h - 1, rg.timeout_ns);
+  grid_copy(rg.right_slot[h & 1], cur, bytes);
+  if (arrive_last(&rg.counters[2 * s]) && threadIdx.x == 0) st_release(rg.right_landed, h + 1);
+}
+
+// every block has read the slot of hop hop0+s-1: credit the left neighbour
+__device__ void release_slot(const Ring& rg, int s) {
+  if (arrive_last(&rg.counters[2 * s + 1]) && threadIdx.x == 0)
+    st_release(rg.left_credit, rg.hop0 + s);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    ring_ag_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, Ring rg,
+                   int b, int t, int h, int o) {
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  const int M = b * t, tn = cdiv(o, TBN), ntiles = cdiv(M, TBM) * tn;
+  const Rows ra{(long long)t * h, t, h};
+  for (int s = 0; s < rg.n; ++s) {
+    const int src = (rg.me - s + rg.n) % rg.n;
+    const T* cur = step_input(x, rg, s);
+    if (s < rg.n - 1) forward_shard(cur, (long long)M * h * sizeof(T), rg, s);
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      tile_product<T>(cur, ra, w, o, M, o, h, (tile / tn) * TBM, (tile % tn) * TBN, smem,
+                      [&](int r, int c, float v) {
+                        const long long row = (long long)(r / t) * rg.n * t + (long long)src * t + r % t;
+                        out[row * o + c] = from_f<T>(v);
+                      });
+    }
+    if (s > 0) release_slot(rg, s);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    ring_rs_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, Ring rg,
+                   int b, int t, int h, int o, int scatter_last) {
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  const int n = rg.n;
+  const int chunk = scatter_last ? o / n : t / n;
+  const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
+  const Rows ra{(long long)t * h, scatter_last ? t : chunk, h};
+  const int tn = cdiv(N, TBN), ntiles = cdiv(M, TBM) * tn;
+  for (int s = 0; s < n; ++s) {
+    const int dest = (rg.me + n - 1 - s) % n;
+    const T* in = s > 0 ? step_input(x, rg, s) : nullptr;     // the arriving accumulator
+    T* dst = out;
+    if (s < n - 1) {
+      const u64 hout = rg.hop0 + s;
+      if (hout >= 2) wait_geq(rg.my_credit, hout - 1, rg.timeout_ns);
+      dst = reinterpret_cast<T*>(rg.right_slot[hout & 1]);
+    }
+    const T* a = scatter_last ? x : x + (long long)dest * chunk * h;
+    const T* bw = scatter_last ? w + (long long)dest * chunk : w;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      tile_product<T>(a, ra, bw, o, M, N, h, (tile / tn) * TBM, (tile % tn) * TBN, smem,
+                      [&](int r, int c, float v) {
+                        const long long i = (long long)r * N + c;
+                        float acc = to_f<T>(from_f<T>(v));   // the contribution, stored
+                        if (in) acc = to_f<T>(ldcg(in + i)) + acc;
+                        dst[i] = from_f<T>(acc);
+                      });
+    }
+    if (s < n - 1 && arrive_last(&rg.counters[2 * s]) && threadIdx.x == 0)
+      st_release(rg.right_landed, rg.hop0 + s + 1);
+    if (s > 0) release_slot(rg, s);
+  }
+}
+
+template <typename T, typename TO>
+__global__ void __launch_bounds__(THREADS)
+    ring_contract_kernel(const T* __restrict__ x, const T* __restrict__ w, TO* __restrict__ out,
+                         float* __restrict__ acc, Ring rg, int m, int hl, int o) {
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  const int n = rg.n, tn = cdiv(o, TBN), ntiles = cdiv(m, TBM) * tn;
+  const Rows ra{0, 0x7fffffff, hl};
+  for (int s = 0; s < n; ++s) {
+    const int src = (rg.me - s + n) % n;
+    const T* cur = step_input(x, rg, s);
+    if (s < n - 1) forward_shard(cur, (long long)m * hl * sizeof(T), rg, s);
+    const T* ws = w + (long long)src * hl * o;
+    const bool first = s == 0, last = s == n - 1;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      tile_product<T>(cur, ra, ws, o, m, o, hl, (tile / tn) * TBM, (tile % tn) * TBN, smem,
+                      [&](int r, int c, float v) {
+                        const long long i = (long long)r * o + c;
+                        const float a = first ? v : acc[i] + v;
+                        if (last) out[i] = from_f<TO>(a);
+                        else acc[i] = a;
+                      });
+    }
+    if (s > 0) release_slot(rg, s);
+  }
+}
+
+__global__ void pingpong_kernel(u64* my_flag, u64* peer_flag, int rounds, int role, u64 base,
+                                u64 timeout_ns, long long* elapsed_ns) {
+  const u64 t0 = now_ns();
+  for (int r = 0; r < rounds; ++r) {
+    const u64 ping = base + 2 * r + 1, pong = base + 2 * r + 2;
+    if (role == 0) {
+      st_release(peer_flag, ping);
+      const u64 ts = now_ns();
+      while (ld_acquire(my_flag) < pong)
+        if (now_ns() - ts > timeout_ns) __trap();
+    } else {
+      const u64 ts = now_ns();
+      while (ld_acquire(my_flag) < ping)
+        if (now_ns() - ts > timeout_ns) __trap();
+      st_release(peer_flag, pong);
+    }
+  }
+  *elapsed_ns = (long long)(now_ns() - t0);
+}
+
+int sm_count() {
+  int dev = 0, n = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// the host array of ring arguments: my_landed, right_landed, my_credit,
+// left_credit, my_slot0, my_slot1, right_slot0, right_slot1, counters,
+// hop0, n, me, timeout_ns
+Ring unpack(const u64* a) {
+  Ring r;
+  r.my_landed = reinterpret_cast<u64*>(a[0]);
+  r.right_landed = reinterpret_cast<u64*>(a[1]);
+  r.my_credit = reinterpret_cast<u64*>(a[2]);
+  r.left_credit = reinterpret_cast<u64*>(a[3]);
+  r.my_slot[0] = reinterpret_cast<char*>(a[4]);
+  r.my_slot[1] = reinterpret_cast<char*>(a[5]);
+  r.right_slot[0] = reinterpret_cast<char*>(a[6]);
+  r.right_slot[1] = reinterpret_cast<char*>(a[7]);
+  r.counters = reinterpret_cast<unsigned int*>(a[8]);
+  r.hop0 = a[9];
+  r.n = (int)a[10];
+  r.me = (int)a[11];
+  r.timeout_ns = a[12];
+  return r;
+}
+
+int grid_for(int tiles) {
+  const int g = tiles < sm_count() ? tiles : sm_count();
+  return g > 0 ? g : 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* hk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// this library's runtime keeps its own current device: the rank's card
+int hk_set_device(int dev) { return (int)cudaSetDevice(dev); }
+
+// one symmetric buffer: allocated, zeroed, and its IPC handle (64 bytes)
+int hk_sym_alloc(long long bytes, void** ptr, unsigned char* handle) {
+  cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaIpcMemHandle_t h;
+  e = cudaIpcGetMemHandle(&h, *ptr);
+  if (e != cudaSuccess) return (int)e;
+  for (int i = 0; i < (int)sizeof(h); ++i) handle[i] = reinterpret_cast<unsigned char*>(&h)[i];
+  return (int)cudaDeviceSynchronize();
+}
+
+int hk_sym_open(const unsigned char* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  for (int i = 0; i < (int)sizeof(h); ++i) reinterpret_cast<unsigned char*>(&h)[i] = handle[i];
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+int hk_sym_close(void* ptr) { return (int)cudaIpcCloseMemHandle(ptr); }
+
+int hk_sym_free(void* ptr) { return (int)cudaFree(ptr); }
+
+int hk_pingpong(void* my_flag, void* peer_flag, int rounds, int role, unsigned long long base,
+                unsigned long long timeout_ns, void* elapsed_ns, void* stream) {
+  pingpong_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (u64*)my_flag, (u64*)peer_flag, rounds, role, base, timeout_ns, (long long*)elapsed_ns);
+  return (int)cudaGetLastError();
+}
+
+int hk_ring_ag_matmul(const void* x, const void* w, void* out, const unsigned long long* ring,
+                      int b, int t, int h, int o, int dtype, void* stream) {
+  const Ring rg = unpack(ring);
+  if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  const int g = grid_for(cdiv(b * t, TBM) * cdiv(o, TBN));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DT_BF16)
+    ring_ag_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out, rg,
+                                               b, t, h, o);
+  else
+    ring_ag_kernel<float><<<g, THREADS, 0, st>>>((const float*)x, (const float*)w, (float*)out,
+                                                rg, b, t, h, o);
+  return (int)cudaGetLastError();
+}
+
+int hk_ring_matmul_rs(const void* x, const void* w, void* out, const unsigned long long* ring,
+                      int b, int t, int h, int o, int scatter_last, int dtype, void* stream) {
+  const Ring rg = unpack(ring);
+  if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  const int chunk = scatter_last ? o / rg.n : t / rg.n;
+  const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
+  const int g = grid_for(cdiv(M, TBM) * cdiv(N, TBN));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DT_BF16)
+    ring_rs_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out, rg,
+                                               b, t, h, o, scatter_last);
+  else
+    ring_rs_kernel<float><<<g, THREADS, 0, st>>>((const float*)x, (const float*)w, (float*)out,
+                                                rg, b, t, h, o, scatter_last);
+  return (int)cudaGetLastError();
+}
+
+int hk_ring_ag_matmul_contract(const void* x, const void* w, void* out, void* acc,
+                               const unsigned long long* ring, int m, int hl, int o, int dtype,
+                               int out_dtype, void* stream) {
+  const Ring rg = unpack(ring);
+  if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  const int g = grid_for(cdiv(m, TBM) * cdiv(o, TBN));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DT_BF16 && out_dtype == DT_BF16)
+    ring_contract_kernel<bf16, bf16><<<g, THREADS, 0, st>>>(
+        (const bf16*)x, (const bf16*)w, (bf16*)out, (float*)acc, rg, m, hl, o);
+  else if (dtype == DT_BF16)
+    ring_contract_kernel<bf16, float><<<g, THREADS, 0, st>>>(
+        (const bf16*)x, (const bf16*)w, (float*)out, (float*)acc, rg, m, hl, o);
+  else
+    ring_contract_kernel<float, float><<<g, THREADS, 0, st>>>(
+        (const float*)x, (const float*)w, (float*)out, (float*)acc, rg, m, hl, o);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

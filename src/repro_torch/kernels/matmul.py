@@ -115,8 +115,8 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, *,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ w on the card with fp32 sums, stored in ``out_dtype`` (x's dtype
     or fp32).  x [M,K] and w [K,N] are each row-major or a transposed view;
-    both transposed is refused.  The stored rows (K for x, M for x.t(),
-    N for w, K for w.t()) must be multiples of 8, the leading dims too."""
+    both transposed is refused.  Any extent: stored rows (K for x, M for
+    x.t(), N for w, K for w.t()) off 8 elements are read element by element."""
     if x.device.type != "cuda":
         raise ValueError(f"CUDA tile matmul kernel got a {x.device} tensor")
     if x.dtype not in DTYPES:
@@ -134,10 +134,6 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, *,
     tb, ldb = layout(w)
     if ta and tb:
         raise ValueError("x and w are both transposed views; the kernel takes one at most")
-    for name, row_len, ld, t in (("x", M if ta else K, lda, x), ("w", K if tb else N, ldb, w)):
-        if row_len % 8 or ld % 8 or t.data_ptr() % 16:
-            raise ValueError(f"{name}: stored rows of {row_len} (leading dim {ld}) must be "
-                             "multiples of 8 and the data 16-byte aligned")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     lib = build.library("matmul")
     code = lib.hk_tile_matmul(

@@ -2,10 +2,11 @@
 
 A tensor on the CPU takes the plain PyTorch version (``kernels/ref.py``);
 a CUDA tensor launches the hand-written kernel or raises — there is no
-fallback.  ``LAUNCHES`` counts kernel launches made through this module,
-one per call that reached the card, so a run can show which kernels its
-main path went through (:func:`reset_launches` zeroes it).  Counterpart of
-``repro/kernels/ops.py``.
+fallback.  ``LAUNCHES`` counts kernel launches made through this module
+(and through ``kernels/ring_matmul.py``, whose ring kernels count here
+too), one per call that reached the card, so a run can show which
+kernels its main path went through (:func:`reset_launches` zeroes it).
+Counterpart of ``repro/kernels/ops.py``.
 
 Training differentiates through three ops, each a ``torch.library``
 custom op with a registered backward (the counterpart of the JAX
@@ -43,7 +44,8 @@ from repro_torch.kernels import swiglu as _sw
 
 LAUNCHES: Dict[str, int] = {"matmul": 0, "gated_matmul": 0, "flash_attention": 0,
                             "tile_matmul": 0, "swiglu_bwd": 0, "flash_attention_bwd": 0,
-                            "ssd": 0}
+                            "ssd": 0, "ag_matmul": 0, "matmul_rs": 0,
+                            "ag_matmul_contract": 0}
 
 
 def reset_launches() -> None:
@@ -167,6 +169,15 @@ def tile_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """x @ w with fp32 sums, stored in ``out_dtype`` (x's dtype or fp32);
     differentiable.  Either operand may be a transposed view."""
     return torch.ops.repro_torch.tile_matmul(x, w, out_dtype)
+
+
+def tile_mm(x: torch.Tensor, w: torch.Tensor, *, out_dtype: Optional[torch.dtype] = None,
+            plain: bool = False) -> torch.Tensor:
+    """x [..., h] @ w [h, o] through :func:`tile_matmul` (x's dtype unless
+    ``out_dtype``); ``plain`` takes its plain version (the reference path)."""
+    tile = _ref.tile_matmul_plain if plain else tile_matmul
+    y = tile(x.reshape(-1, x.shape[-1]), w, out_dtype=out_dtype or x.dtype)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------

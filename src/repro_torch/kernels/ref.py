@@ -14,6 +14,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import comm
+
 NEG_INF = -1e30        # masked score, as models/attention.py uses
 
 
@@ -215,3 +217,37 @@ def ssd_seq_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Ten
         h = h * dA + torch.einsum("bhd,bhn->bhdn", xf[:, t] * dtf[:, t, :, None], Bh[:, t])
         ys.append(torch.einsum("bhdn,bhn->bhd", h, Ch[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the ring collective matmuls (per rank, inside a grid world)
+# ---------------------------------------------------------------------------
+# Each is one rank's part of the collective, written with the bulk
+# collectives of ``parallel/comm.py`` and one matmul in fp32, then cast:
+# what the ring kernels (``csrc/ring_matmul.cu``) compute with the ring
+# inside one launch.
+
+def ag_matmul_plain(x: torch.Tensor, w: torch.Tensor, ax: str, *, dim: int = 1) -> torch.Tensor:
+    """all_gather(x over ``ax`` along ``dim``) @ w; x [b,t,h], w [h,o]."""
+    return (comm.raw_all_gather(x, ax, dim).float() @ w.float()).to(x.dtype)
+
+
+def matmul_rs_plain(x: torch.Tensor, w: torch.Tensor, ax: str, *,
+                    scatter_dim: int) -> torch.Tensor:
+    """psum_scatter(x @ w over ``ax`` along ``scatter_dim``), summed in fp32."""
+    return comm.raw_psum_scatter(x.float() @ w.float(), ax, scatter_dim).to(x.dtype)
+
+
+def ag_matmul_contract_plain(x: torch.Tensor, w: torch.Tensor, ax: str, *,
+                             out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """all_gather(x over ``ax`` along its last dim) @ w: the gathered dim is
+    contracted; w [n*h_loc, o]."""
+    xg = comm.raw_all_gather(x, ax, x.dim() - 1)
+    return (xg.float() @ w.float()).to(out_dtype or x.dtype)
+
+
+def matmul_rs_pair_plain(x: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, ax: str, *,
+                         scatter_dim: int):
+    """(x @ w1, x @ w1b), each reduce-scattered as :func:`matmul_rs_plain`."""
+    return (matmul_rs_plain(x, w1, ax, scatter_dim=scatter_dim),
+            matmul_rs_plain(x, w1b, ax, scatter_dim=scatter_dim))

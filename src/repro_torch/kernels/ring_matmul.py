@@ -1,0 +1,462 @@
+"""Ring collective matmuls: the fused route of the overlap lattice.
+
+Counterpart of ``repro/kernels/ring_matmul.py``:
+
+* the gates ``pick_block``, ``aligned``, ``fused_ok_ag``, ``fused_ok_rs``
+  and ``fused_ok_contract``, with the JAX package's numbers (MXU tiles
+  and VMEM budget), so the port sends each collective down the route the
+  JAX dispatcher would;
+* the public ops ``ag_matmul``, ``matmul_rs``, ``ag_matmul_contract`` and
+  ``matmul_rs_pair``, each a ``torch.autograd.Function`` whose backward is
+  the transposed ring, exactly as ``_ag_mm_bwd``, ``_mm_rs_bwd``,
+  ``_ag_mm_contract_bwd`` and ``_mm_rs_pair_bwd``: the backward calls the
+  forward kernels directly (no gate), so they take any extent;
+* the helper rings ``_contract_rows_ring``, ``_place_cols_ring`` and
+  ``_place_rows_ring`` (backward only; ``_pure_ag`` is
+  ``comm.ring_all_gather``), whose per-step products go through the tile
+  matmul (``kernels/ops.py``), which takes any extent.
+
+A tensor on the CUDA card launches the ring kernels of
+``csrc/ring_matmul.cu`` (one launch per collective, the whole ring
+inside, through the symmetric buffers whose addresses ``comm.ring``
+hands each launch) and counts the launch in ``ops.LAUNCHES``; a tensor
+on the CPU, or ``plain=True``, takes the plain versions of
+``kernels/ref.py`` (bulk collectives and one fp32 matmul).  ``comm`` is
+this package's counterpart of the ``lax`` collectives the JAX kernels
+call: it imports only ``launch/mesh.py`` and ``kernels/build.py``.  All ops run inside a grid world, on per-rank blocks, as
+the JAX ops run inside ``shard_map``.  The ring carries the operands'
+own dtype: ``comm_dtype="int8"`` (the quantized wire) is not ported and
+:func:`check_comm_dtype` refuses it (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build, ops, ref
+from repro_torch.parallel import comm
+
+BLOCK_M, BLOCK_N, BLOCK_K = 128, 128, 512
+VMEM_BUDGET = 12 * 2 ** 20
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_STEPS = 16                     # ring sizes the kernels take (csrc MAX_STEPS)
+# seconds a kernel waits for a peer before it traps (a lost rank fails the
+# launch instead of hanging the card)
+SPIN_TIMEOUT_S = 120.0
+
+
+def check_comm_dtype(comm_dtype: str) -> None:
+    if comm_dtype != "bf16":
+        raise NotImplementedError(
+            f"comm_dtype={comm_dtype!r}: the int8 wire (core/quant.py and the int8 "
+            "variants of the ring kernels) is not ported yet (ROADMAP queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# gates (the JAX package's, unchanged)
+# ---------------------------------------------------------------------------
+
+def pick_block(dim: int, pref: int) -> int:
+    """Largest tile <= ``pref`` that divides ``dim`` (always succeeds)."""
+    if dim <= pref:
+        return max(dim, 1)
+    if dim % pref == 0:
+        return pref
+    for b in range(pref - 1, 0, -1):
+        if dim % b == 0:
+            return b
+    return 1
+
+
+def aligned(dim: int, pref: int) -> bool:
+    """Tile-aligned in the fused-kernel sense: one tile, or MXU-tiled."""
+    return dim <= pref or dim % pref == 0
+
+
+def _mk(shape3) -> Tuple[int, int]:
+    b, t, h = shape3
+    return b * t, h
+
+
+def _prod(shape) -> int:
+    p = 1
+    for s in shape:
+        p *= s
+    return p
+
+
+def _fits_vmem(*byte_counts) -> bool:
+    return sum(byte_counts) <= VMEM_BUDGET
+
+
+def _tile_bytes(itemsize: int) -> int:
+    return (BLOCK_M * BLOCK_N * 4
+            + 2 * (BLOCK_M * BLOCK_K + BLOCK_K * BLOCK_N + BLOCK_M * BLOCK_N) * itemsize)
+
+
+def fused_ok_ag(x_shape, w_shape, n: int, dim: int = 1, itemsize: int = 4) -> bool:
+    """Can ``ag_matmul`` run fused for x [b,t,h] (gather ``dim``), w [h,o]?"""
+    if n <= 1 or len(x_shape) != 3 or dim != 1:
+        return False
+    m, k = _mk(x_shape)
+    return (x_shape[-1] == w_shape[0] and aligned(m, BLOCK_M)
+            and aligned(k, BLOCK_K) and aligned(w_shape[-1], BLOCK_N)
+            and _fits_vmem(2 * _prod(x_shape) * itemsize, _tile_bytes(itemsize)))
+
+
+def fused_ok_rs(x_shape, w_shape, n: int, scatter_dim: int, itemsize: int = 4) -> bool:
+    """Can ``matmul_rs`` run fused for x [b,t,h] @ w [h,o], scatter ``dim``?"""
+    if n <= 1 or len(x_shape) != 3:
+        return False
+    last = scatter_dim == len(x_shape) - 1
+    scattered = w_shape[-1] if last else x_shape[scatter_dim]
+    if scattered % n:
+        return False
+    chunk = scattered // n
+    if last:
+        m, k, nn = x_shape[0] * x_shape[1], x_shape[-1], chunk
+        out_elts = _prod(x_shape[:-1]) * chunk
+    else:
+        m, k, nn = x_shape[0] * chunk, x_shape[-1], w_shape[-1]
+        out_elts = x_shape[0] * chunk * w_shape[-1]
+    return (x_shape[-1] == w_shape[0] and aligned(m, BLOCK_M)
+            and aligned(k, BLOCK_K) and aligned(nn, BLOCK_N)
+            and _fits_vmem(2 * out_elts * itemsize, _tile_bytes(itemsize)))
+
+
+def fused_ok_contract(x_shape, w_shape, n: int, itemsize: int = 4) -> bool:
+    """Can ``ag_matmul_contract`` run fused (gathered dim contracted)?"""
+    if n <= 1 or len(x_shape) != 3 or w_shape[0] != n * x_shape[-1]:
+        return False
+    m, k = _mk(x_shape)
+    return (aligned(m, BLOCK_M) and aligned(k, BLOCK_K)
+            and aligned(w_shape[-1], BLOCK_N)
+            and _fits_vmem(2 * _prod(x_shape) * itemsize,
+                           m * w_shape[-1] * 4, _tile_bytes(itemsize)))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA launches: each takes the ring descriptor of ``comm.ring``
+# ---------------------------------------------------------------------------
+
+_COUNTERS = {}
+
+
+def _counters(device) -> torch.Tensor:
+    """Per-call arrival counters of the kernel's blocks (2 per ring step),
+    zeroed on the stream before each launch."""
+    if device not in _COUNTERS:
+        _COUNTERS[device] = torch.zeros(2 * MAX_STEPS, dtype=torch.int32, device=device)
+    c = _COUNTERS[device]
+    c.zero_()
+    return c
+
+
+def _ring_args(ring: Tuple[int, ...], device):
+    """The kernel's argument array: the descriptor's eight addresses, the
+    block counters, then hop0, n, me and the spin timeout."""
+    n = ring[9]
+    if not 2 <= n <= MAX_STEPS:
+        raise ValueError(f"the ring kernels take rings of 2..{MAX_STEPS}, got {n}")
+    vals = list(ring[:8]) + [_counters(device).data_ptr()] + list(ring[8:]) + [
+        int(SPIN_TIMEOUT_S * 1e9)]
+    return (ctypes.c_ulonglong * len(vals))(*vals)
+
+
+def _check(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"CUDA ring kernel got a {t.device} tensor")
+        if t.dtype not in DTYPES or t.dtype != ts[0].dtype:
+            raise TypeError("ring kernels take fp32 or bf16 operands of one dtype")
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_ag(x, w, ax: str, n: int) -> torch.Tensor:
+    x, w = x.contiguous(), w.contiguous()
+    _check(x, w)
+    b, t, h = x.shape
+    o = w.shape[1]
+    out = torch.empty((b, n * t, o), dtype=x.dtype, device=x.device)
+    ring = _ring_args(comm.ring(ax, n, x.numel() * x.element_size()), x.device)
+    lib = build.library("ring_matmul")
+    build.check(lib, lib.hk_ring_ag_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), ring,
+                                           b, t, h, o, DTYPES[x.dtype], _stream(x)),
+                "hk_ring_ag_matmul")
+    ops.LAUNCHES["ag_matmul"] += 1
+    return out
+
+
+def _launch_rs(x, w, ax: str, scatter_dim: int, n: int) -> torch.Tensor:
+    x, w = x.contiguous(), w.contiguous()
+    _check(x, w)
+    b, t, h = x.shape
+    o = w.shape[1]
+    last = scatter_dim == x.dim() - 1
+    if (o if last else t) % n:
+        raise ValueError(f"matmul-RS: extent {o if last else t} does not chunk by ring {n}")
+    shape = (b, t, o // n) if last else (b, t // n, o)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    ring = _ring_args(comm.ring(ax, n, out.numel() * out.element_size()), x.device)
+    lib = build.library("ring_matmul")
+    build.check(lib, lib.hk_ring_matmul_rs(x.data_ptr(), w.data_ptr(), out.data_ptr(), ring,
+                                           b, t, h, o, int(last), DTYPES[x.dtype], _stream(x)),
+                "hk_ring_matmul_rs")
+    ops.LAUNCHES["matmul_rs"] += 1
+    return out
+
+
+def _launch_contract(x, w, ax: str, n: int, out_dtype) -> torch.Tensor:
+    x, w = x.contiguous(), w.contiguous()
+    _check(x, w)
+    b, t, hl = x.shape
+    o = w.shape[1]
+    if w.shape[0] != n * hl:
+        raise ValueError(f"contracted ring: w rows {w.shape[0]} != {n} x {hl}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be {x.dtype} or float32")
+    out = torch.empty((b, t, o), dtype=out_dtype, device=x.device)
+    acc = torch.empty((b * t, o), dtype=torch.float32, device=x.device)
+    ring = _ring_args(comm.ring(ax, n, x.numel() * x.element_size()), x.device)
+    lib = build.library("ring_matmul")
+    build.check(lib, lib.hk_ring_ag_matmul_contract(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), acc.data_ptr(), ring, b * t, hl, o,
+        DTYPES[x.dtype], DTYPES[out_dtype], _stream(x)), "hk_ring_ag_matmul_contract")
+    ops.LAUNCHES["ag_matmul_contract"] += 1
+    return out
+
+
+def pingpong(ax: str, rounds: int = 200) -> float:
+    """The flag ping-pong probe of ``comm.pingpong`` under this module's
+    spin timeout."""
+    return comm.pingpong(ax, rounds, SPIN_TIMEOUT_S)
+
+
+# ---------------------------------------------------------------------------
+# forward routes (no autograd): the kernel on the card, else the plain version
+# ---------------------------------------------------------------------------
+
+def _plain_route(x, plain: bool) -> bool:
+    return plain or ops._on_cpu(x)
+
+
+def ag_fwd(x, w, ax: str, dim: int, n: int, plain: bool = False):
+    if n <= 1:
+        return ops.tile_mm(x, w, plain=plain)
+    if dim != 1:
+        raise ValueError("the ring AG-matmul gathers the token dim (1)")
+    if _plain_route(x, plain):
+        return ref.ag_matmul_plain(x, w, ax, dim=dim)
+    return _launch_ag(x, w, ax, n)
+
+
+def rs_fwd(x, w, ax: str, scatter_dim: int, n: int, plain: bool = False):
+    if n <= 1:
+        return ops.tile_mm(x, w, plain=plain)
+    scatter_dim = scatter_dim % x.dim()
+    if _plain_route(x, plain):
+        return ref.matmul_rs_plain(x, w, ax, scatter_dim=scatter_dim)
+    return _launch_rs(x, w, ax, scatter_dim, n)
+
+
+def contract_fwd(x, w, ax: str, n: int, out_dtype=None, plain: bool = False):
+    dt = out_dtype or x.dtype
+    if n <= 1:
+        return ops.tile_mm(x, w, out_dtype=dt, plain=plain)
+    if _plain_route(x, plain):
+        return ref.ag_matmul_contract_plain(x, w, ax, out_dtype=dt)
+    return _launch_contract(x, w, ax, n, dt)
+
+
+def pair_fwd(x, w1, w1b, ax: str, scatter_dim: int, n: int, plain: bool = False):
+    o1 = w1.shape[-1]
+    if n <= 1:
+        y = ops.tile_mm(x, torch.cat([w1, w1b], dim=1), plain=plain)
+        return y[..., :o1], y[..., o1:]
+    if _plain_route(x, plain):
+        return ref.matmul_rs_pair_plain(x, w1, w1b, ax, scatter_dim=scatter_dim)
+    if scatter_dim % x.dim() == x.dim() - 1:
+        raise ValueError("the pair variant scatters the token dim")
+    # one kernel over the column-concatenated weights: each x tile is read
+    # once for both products (the shared-x-tile trick), halves split after
+    y = _launch_rs(x, torch.cat([w1, w1b], dim=1), ax, scatter_dim, n)
+    return y[..., :o1].contiguous(), y[..., o1:].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# helper rings (backward only), per-step products on the tile matmul
+# ---------------------------------------------------------------------------
+
+def _flat(x3: torch.Tensor) -> torch.Tensor:
+    return x3.reshape(-1, x3.shape[-1])
+
+
+def _dw_term(a, b, plain: bool):
+    """a^T @ b in fp32 (a [m, h] read transposed in place, b [m, o])."""
+    return ops.tile_mm(_flat(a).contiguous().t(), _flat(b).contiguous(),
+                       out_dtype=torch.float32, plain=plain)
+
+
+def _contract_rows_ring(x, dy, ax: str, scatter_dim: int, n: int, w_dtype, plain: bool):
+    """dw = sum_d take(x, d chunk)^T @ dy_d: dy circulates, contracted per step."""
+    idx = comm.axis_index(ax)
+    chunk = x.shape[scatter_dim] // n
+    dw, cur = None, dy
+    for s in range(n):
+        d = (idx - s) % n
+        term = _dw_term(x.narrow(scatter_dim, d * chunk, chunk), cur.to(x.dtype), plain)
+        dw = term if dw is None else dw + term
+        if s < n - 1:
+            cur = comm.raw_ppermute(cur, ax, 1)
+    return dw.to(w_dtype)
+
+
+def _place_cols_ring(x, dy, ax: str, n: int, w_dtype, plain: bool):
+    """dw[:, d chunk] = x^T @ dy_d: dy circulates, column chunks placed."""
+    idx = comm.axis_index(ax)
+    parts = [None] * n
+    cur = dy
+    for s in range(n):
+        parts[(idx - s) % n] = _dw_term(x, cur.to(x.dtype), plain)
+        if s < n - 1:
+            cur = comm.raw_ppermute(cur, ax, 1)
+    return torch.cat(parts, dim=1).to(w_dtype)
+
+
+def _place_rows_ring(x, dy, ax: str, n: int, w_dtype, plain: bool):
+    """dw[d h_loc, :] = x_d^T @ dy: x circulates, row chunks placed."""
+    idx = comm.axis_index(ax)
+    parts = [None] * n
+    dyc = dy.to(x.dtype)
+    cur = x
+    for s in range(n):
+        parts[(idx - s) % n] = _dw_term(cur, dyc, plain)
+        if s < n - 1:
+            cur = comm.raw_ppermute(cur, ax, 1)
+    return torch.cat(parts, dim=0).to(w_dtype)
+
+
+# ---------------------------------------------------------------------------
+# public ops: the backward is the transposed ring
+# ---------------------------------------------------------------------------
+
+class _AgMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, ax, dim, n, plain):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (ax, dim, n, plain)
+        return ag_fwd(x, w, ax, dim, n, plain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        ax, dim, n, plain = ctx.cfg
+        dy = dy.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:      # transpose(AG-matmul) = matmul-RS
+            dx = rs_fwd(dy, w.t(), ax, dim, n, plain).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _dw_term(comm.ring_all_gather(x, ax, dim=dim, n=n), dy, plain).to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
+class _MatmulRs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, ax, scatter_dim, n, plain):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (ax, scatter_dim % x.dim(), n, plain)
+        return rs_fwd(x, w, ax, scatter_dim, n, plain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        ax, sd, n, plain = ctx.cfg
+        dy = dy.contiguous()
+        dx = dw = None
+        if sd == x.dim() - 1:            # dx = AG_cols(dy) (x) w^T, contracted
+            if ctx.needs_input_grad[0]:
+                dx = contract_fwd(dy.to(x.dtype), w.t(), ax, n, x.dtype, plain).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _place_cols_ring(x, dy, ax, n, w.dtype, plain)
+        else:                            # transpose(matmul-RS) = AG-matmul
+            if ctx.needs_input_grad[0]:
+                dx = ag_fwd(dy.to(x.dtype), w.t(), ax, sd, n, plain)
+            if ctx.needs_input_grad[1]:
+                dw = _contract_rows_ring(x, dy, ax, sd, n, w.dtype, plain)
+        return dx, dw, None, None, None, None
+
+
+class _AgMatmulContract(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, ax, n, out_dtype, plain):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (ax, n, plain)
+        return contract_fwd(x, w, ax, n, out_dtype, plain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        ax, n, plain = ctx.cfg
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:      # dx is a matmul-RS over w^T's columns
+            dx = rs_fwd(dy.to(x.dtype), w.t(), ax, dy.dim() - 1, n, plain).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _place_rows_ring(x, dy, ax, n, w.dtype, plain)
+        return dx, dw, None, None, None, None
+
+
+class _MatmulRsPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, w1b, ax, scatter_dim, n, plain):
+        ctx.save_for_backward(x, w1, w1b)
+        ctx.cfg = (ax, scatter_dim % x.dim(), n, plain)
+        return pair_fwd(x, w1, w1b, ax, scatter_dim, n, plain)
+
+    @staticmethod
+    def backward(ctx, dh, dg):
+        x, w1, w1b = ctx.saved_tensors
+        ax, sd, n, plain = ctx.cfg
+        shape = list(x.shape)
+        shape[sd] //= max(n, 1)
+        dh = torch.zeros(shape[:-1] + [w1.shape[-1]], dtype=x.dtype, device=x.device) \
+            if dh is None else dh.contiguous()
+        dg = torch.zeros(shape[:-1] + [w1b.shape[-1]], dtype=x.dtype, device=x.device) \
+            if dg is None else dg.contiguous()
+        dx = dw1 = dw1b = None
+        if ctx.needs_input_grad[0]:
+            dx = (ag_fwd(dh.to(x.dtype), w1.t(), ax, sd, n, plain)
+                  + ag_fwd(dg.to(x.dtype), w1b.t(), ax, sd, n, plain))
+        if ctx.needs_input_grad[1]:
+            dw1 = _contract_rows_ring(x, dh, ax, sd, n, w1.dtype, plain)
+        if ctx.needs_input_grad[2]:
+            dw1b = _contract_rows_ring(x, dg, ax, sd, n, w1b.dtype, plain)
+        return dx, dw1, dw1b, None, None, None, None
+
+
+def ag_matmul(x, w, ax: str, *, dim: int = 1, n: int, plain: bool = False):
+    """Fused all-gather + matmul; x [b,t,h] gathered over ``ax`` along
+    ``dim`` (tokens), w [h,o]; out [b, n t, o]."""
+    return _AgMatmul.apply(x, w, ax, dim, n, plain)
+
+
+def matmul_rs(x, w, ax: str, *, scatter_dim: int, n: int, plain: bool = False):
+    """Fused matmul + reduce-scatter over ``ax`` along ``scatter_dim``."""
+    return _MatmulRs.apply(x, w, ax, scatter_dim, n, plain)
+
+
+def ag_matmul_contract(x, w, ax: str, *, n: int, out_dtype=None, plain: bool = False):
+    """Fused all-gather + matmul over the contracted (last) dim; w [n h_loc, o]."""
+    return _AgMatmulContract.apply(x, w, ax, n, out_dtype, plain)
+
+
+def matmul_rs_pair(x, w1, w1b, ax: str, *, scatter_dim: int, n: int, plain: bool = False):
+    """Gated pair: (x w1, x w1b), both reduce-scattered over tokens; one
+    kernel over [w1 | w1b].  The caller applies the gate."""
+    return _MatmulRsPair.apply(x, w1, w1b, ax, scatter_dim, n, plain)

@@ -2,7 +2,9 @@
 
 Counterpart of the dense-GQA parts of ``repro/models/attention.py``:
 ``init_attn``, ``PagedKVCache``/``init_paged_kv``, ``paged_write``/
-``paged_gather`` and ``apply_attn``.  The softmax attention itself is
+``paged_gather`` and ``apply_attn`` (one device, and training on the
+hecaton grid, where each rank attends with its own heads over the full
+sequence).  The softmax attention itself is
 ``PCtx.attention`` (the flash-attention kernel on the card), which reads
 the g q-heads of a group against one kv-head, so K/V are never repeated.
 Unlike the JAX package, the arenas are updated in place: a decode step
@@ -91,7 +93,8 @@ def apply_attn(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.T
                cache: Optional[PagedKVCache] = None,
                ) -> Tuple[torch.Tensor, Optional[PagedKVCache]]:
     """Causal self-attention: x [B,S,H] -> (y [B,S,H], cache with lengths
-    advanced by S).
+    advanced by S).  On the grid x and y are canonical blocks and
+    ``positions`` covers the full sequence (the mixer gathers it).
 
     With a paged cache, decode (S == 1) masks each slot at its own length;
     prefill (S > 1) runs one sequence and offsets its queries by the slot's
@@ -101,9 +104,9 @@ def apply_attn(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.T
     B, S, _ = x.shape
 
     qp, kp, vp = pctx.mixer_in_many(x, p["wq"], p["wk"], p["wv"])
-    q = qp.reshape(B, S, nh, dh)
-    k = kp.reshape(B, S, nkv, dh)
-    v = vp.reshape(B, S, nkv, dh)
+    # on the grid: the full sequence and this rank's heads
+    S = qp.shape[1]
+    q, k, v = pctx.local_heads(cfg, qp, kp, vp, B * pctx.data_shards)
     if cfg.qk_norm:
         q = L.rms_head_norm(p["q_norm"], q)
         k = L.rms_head_norm(p["k_norm"], k)
@@ -125,5 +128,5 @@ def apply_attn(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.T
         q_off, kv_len = cache.lengths, new_cache.lengths
     o = pctx.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                        causal=True, q_offset=q_off, kv_len=kv_len)
-    y = pctx.mixer_out(o.transpose(1, 2).reshape(B, S, nh * dh), p["wo"])
+    y = pctx.mixer_out(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
     return y, new_cache

@@ -31,12 +31,13 @@ def apply_attn_block(pctx, cfg: ModelConfig, p, x: torch.Tensor, *,
                      positions: torch.Tensor,
                      cache: Optional[ATT.PagedKVCache] = None,
                      ) -> Tuple[torch.Tensor, Optional[ATT.PagedKVCache]]:
-    """Returns (x, new_cache)."""
-    h = L.apply_norm(cfg.norm_kind, p["norm1"], x)
+    """Returns (x, new_cache).  The norms run on the canonical residual
+    (``PCtx.norm``), the mixers gather and scatter internally."""
+    h = pctx.norm(cfg.norm_kind, p["norm1"], x)
     a, new_cache = ATT.apply_attn(pctx, cfg, p["attn"], h, positions=positions,
                                   cache=cache)
     x = x + a
-    h = L.apply_norm(cfg.norm_kind, p["norm2"], x)
+    h = pctx.norm(cfg.norm_kind, p["norm2"], x)
     return x + MLP.apply_mlp(pctx, cfg, p["mlp"], h).to(x.dtype), new_cache
 
 

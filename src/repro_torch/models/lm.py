@@ -8,6 +8,11 @@ are the JAX package's nested dict with stacked ``[L, ...]`` leaves; a
 Python loop over layers takes the place of ``lax.scan`` and unbinds each
 leaf once into per-layer views.
 
+On the hecaton grid (``pctx.mesh``, training of the dense family) the
+same forward runs on this rank's blocks: ``tokens`` is its [B, S/mx]
+block, the positions cover the full sequence, and the embedding, norms,
+projections and the fused loss are ``PCtx``'s grid methods.
+
 Two parameter forms.  Training keeps the JAX form: fp32 masters, each
 cast to the compute dtype at its use, and the tied head reads
 ``embed.table`` through a transposed view (the tile kernel's NT layout),
@@ -109,12 +114,16 @@ def init_master_params(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
-def head_weight(cfg: ModelConfig, params, dtype) -> torch.Tensor:
+def head_weight(cfg: ModelConfig, params, dtype, pctx=None) -> torch.Tensor:
     """The LM head as [d, V] in ``dtype``: serving's prepared matrix, else
-    the untied ``lm_head.w`` or the transposed view of the tied table."""
+    the untied ``lm_head.w`` or the tied table through ``pctx.head_weight``
+    (its transposed view on one device; on the grid this rank's [H, V/my]
+    vocab chunk)."""
     if "head" in params:
         return params["head"]
     if cfg.tie_embeddings:
+        if pctx is not None:
+            return pctx.head_weight(params["embed"]["table"], dtype)
         return params["embed"]["table"].to(dtype).t()
     return params["lm_head"]["w"].to(dtype)
 
@@ -158,14 +167,17 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     post-final-norm ``hidden`` instead of logits (``train_loss``)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if pctx.use_hecaton and cfg.family != "dense":
+        raise NotImplementedError(f"the grid step takes the dense family, not {cfg.family!r}")
     tokens = batch["tokens"]
     B, S = tokens.shape
+    S *= pctx.seq_shards                      # the grid holds S / mx tokens per rank
     compute_dtype = batch.get("_dtype", torch.bfloat16)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
 
-    x = L.apply_embed(params["embed"], tokens, compute_dtype)
+    x = pctx.embed(params["embed"]["table"], tokens, compute_dtype)
     if cfg.embed_dropout:
         x = pctx.dropout(x, cfg.embed_dropout, batch.get("dropout_rng"))
     if cfg.family == "ssm":
@@ -177,10 +189,10 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         x = _layer_stack(pctx, cfg, params["blocks"], x, positions, remat, attn)
         new_caches = None if attn is None else {"attn": attn._replace(lengths=attn.lengths + S)}
 
-    x = L.apply_norm(cfg.norm_kind, params["final_norm"], x)
+    x = pctx.norm(cfg.norm_kind, params["final_norm"], x)
     if skip_head:
         return LMOut(None, new_caches, hidden=x)
-    logits = pctx.lm_head(x.to(compute_dtype), head_weight(cfg, params, compute_dtype))
+    logits = pctx.lm_head(x.to(compute_dtype), head_weight(cfg, params, compute_dtype, pctx))
     return LMOut(logits, new_caches)
 
 
@@ -206,8 +218,14 @@ def head_loss(pctx, cfg: ModelConfig, params, hidden: torch.Tensor,
     (fp32 logits out of the tile kernel, ``core/hecaton.fused_lm_loss``)
     under ``pcfg.fused_loss``, else logits in the compute dtype and
     :func:`xent_loss`."""
-    head_w = head_weight(cfg, params, compute_dtype)
+    head_w = head_weight(cfg, params, compute_dtype, pctx)
     hidden = hidden.to(compute_dtype)
+    if pctx.use_hecaton:
+        if not pctx.pcfg.fused_loss:
+            raise NotImplementedError("the grid step takes the fused loss only")
+        nll, cnt = HEC.fused_lm_loss(hidden, head_w, labels, mask, mesh=pctx.mesh,
+                                     **pctx.grid_kwargs())
+        return nll / torch.clamp(cnt, min=1.0)
     if pctx.pcfg.fused_loss:
         nll, cnt = HEC.fused_lm_loss(hidden, head_w, labels, mask,
                                      tile_matmul=pctx.ops.tile_matmul)

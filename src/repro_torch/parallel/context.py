@@ -1,23 +1,35 @@
-"""Single-device execution context — the dispatch hub between model code and
-the kernels.
+"""Execution context — the dispatch hub between model code and the kernels
+and, on a grid, the collectives.
 
-Counterpart of the ``mesh is None`` branches of ``repro/parallel/context.py``:
-model code calls the methods here and never the kernels directly.  Every
-projection, the FFN, the LM head, attention and the SSD scan route through
-``kernels/ops.py`` (the CUDA kernel for a CUDA tensor, the plain version on
-the CPU).  One signal picks the route, ``ops.needs_grad``: when autograd
-will differentiate, projections, the head and the FFN's down-projection
-go through the differentiable tile matmul, and the FFN's gated
-up-projection and attention through their differentiable ops; otherwise
-(prefill and decode, under ``inference_mode``) the forward-only kernels
-with fused epilogues run.  ``mode="train"`` only enables :meth:`dropout`,
-as in the JAX package.  ``plain=True`` routes them to
-the plain versions on any device, differentiated by PyTorch's autograd:
-it is the reference that ``chip_smoke.py`` holds the kernel path (forward
-and gradients) against on the card.  Norms, the embedding and residual
-adds need no dispatch on one device, so the model calls
-``models/layers.py`` for them directly.  The data x mx x my grid arrives in a later
-slice.
+Counterpart of ``repro/parallel/context.py``.  Model code calls the
+methods here and never the kernels or the collectives directly.
+
+One device (``mesh=None``): every projection, the FFN, the LM head,
+attention and the SSD scan route through ``kernels/ops.py`` (the CUDA
+kernel for a CUDA tensor, the plain version on the CPU).  One signal
+picks the route, ``ops.needs_grad``: when autograd will differentiate,
+projections, the head and the FFN's down-projection go through the
+differentiable tile matmul, and the FFN's gated up-projection and
+attention through their differentiable ops; otherwise (prefill and
+decode, under ``inference_mode``) the forward-only kernels with fused
+epilogues run.
+
+The hecaton grid (``mesh`` a ``launch/mesh.Grid``, training): every
+method takes and returns this rank's blocks.  The residual stream stays
+in the canonical tiling (tokens over ``mx``, hidden over ``my``); the
+projections are the hecaton ops of ``core/hecaton.py`` on the overlap
+lattice (``pcfg.overlap``); the norms sum their statistics over ``my``
+(``comm.psum``), the embedding and the head use vocab chunks.  Where the
+JAX package leaves a collective to GSPMD (a ``with_sharding_constraint``
+between the ``shard_map`` ops), the port writes it out here: the norm's
+``psum``, the K/V gather when the kv heads do not split over the grid,
+the table's gather into the head's ``[H, V/my]`` layout.
+
+``mode="train"`` only enables :meth:`dropout`, as in the JAX package.
+``plain=True`` routes everything to the plain versions on any device,
+differentiated by PyTorch's autograd: it is the reference that
+``chip_smoke.py`` holds the kernel path (forward and gradients) against
+on the card.
 """
 
 from __future__ import annotations
@@ -29,9 +41,14 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ParallelConfig
+from repro_torch.core import overlap as OV
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels import ring_matmul as RM
+from repro_torch.launch.mesh import Grid
 from repro_torch.models import layers as L
+from repro_torch.parallel import comm
+from repro_torch.parallel import sharding as shd
 
 _PLAIN = SimpleNamespace(matmul=ref.matmul_plain,
                          gated_matmul=ref.gated_matmul_plain,
@@ -52,10 +69,41 @@ class PCtx:
     plain: bool = False                    # plain versions even on CUDA
     mode: str = "serve"                    # serve | train (enables dropout)
     pcfg: ParallelConfig = field(default_factory=ParallelConfig)
+    mesh: Optional[Grid] = None            # the hecaton grid, or one device
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
+        if self.mesh is not None:
+            if self.pcfg.strategy != "hecaton":
+                raise NotImplementedError(
+                    f"strategy {self.pcfg.strategy!r} is not ported (ROADMAP queue 1)")
+            if self.mode != "train":
+                raise NotImplementedError("grid serving is not ported (ROADMAP queue 1)")
+            OV.check_mode(self.pcfg.overlap)
+            RM.check_comm_dtype(self.pcfg.comm_dtype)
+
+    @property
+    def use_hecaton(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def ax(self) -> Optional[shd.AxisInfo]:
+        return shd.axis_info(self.mesh)
+
+    @property
+    def data_shards(self) -> int:
+        """How many ranks split the batch (the data axis)."""
+        return 1 if self.mesh is None else self.mesh.size("data")
+
+    @property
+    def seq_shards(self) -> int:
+        """How many ranks split a sequence (the token axis)."""
+        return 1 if self.mesh is None else self.mesh.size("mx")
+
+    def grid_kwargs(self):
+        """The options every grid op of ``core/hecaton.py`` takes."""
+        return dict(overlap=self.pcfg.overlap, plain=self.plain)
 
     @property
     def ops(self):
@@ -84,6 +132,11 @@ class PCtx:
     def ffn(self, x: torch.Tensor, w1, w2, act: str, w1b=None):
         """FFN: act(x @ w1) [* (x @ w1b)] @ w2; ``act`` names the kernel's
         epilogue activation (``layers.EPILOGUE_ACT``)."""
+        if self.use_hecaton:
+            from repro_torch.core import hecaton as HEC
+            return HEC.ffn_block(x, w1.to(x.dtype), w2.to(x.dtype),
+                                 act_fn=ref.EPILOGUE_ACTS[act],
+                                 w1b=None if w1b is None else w1b.to(x.dtype), **self.grid_kwargs())
         x2 = _rows(x)
         if w1b is not None:
             h = self.ops.gated_matmul(x2, w1.to(x.dtype), w1b.to(x.dtype), act=act)
@@ -92,11 +145,19 @@ class PCtx:
         return self._proj(h, w2).reshape(*x.shape[:-1], w2.shape[1])
 
     def mixer_in_many(self, x: torch.Tensor, *ws: torch.Tensor):
-        """Several mixer-in projections of the same residual entry (Q/K/V)."""
+        """Several mixer-in projections of the same residual entry (Q/K/V);
+        on the grid each is ``hecaton.mixer_in`` (full sequence, hidden over
+        the grid)."""
+        if self.use_hecaton:
+            from repro_torch.core import hecaton as HEC
+            return tuple(HEC.mixer_in(x, w.to(x.dtype), **self.grid_kwargs()) for w in ws)
         return tuple(self._proj(x, w) for w in ws)
 
     def mixer_out(self, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """Projection out of a token mixer."""
+        """Projection out of a token mixer (back to the canonical tiling)."""
+        if self.use_hecaton:
+            from repro_torch.core import hecaton as HEC
+            return HEC.mixer_out(y, w.to(y.dtype), **self.grid_kwargs())
         return self._proj(y, w)
 
     def small_proj(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -108,8 +169,102 @@ class PCtx:
     def lm_head(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Final projection to vocab logits; ``w`` is [d, V]: a contiguous
         matrix in serving, in training the untied head or the transposed
-        view of the tied table, which the tile kernel reads in place."""
+        view of the tied table, which the tile kernel reads in place.  On
+        the grid one seq-scatter linear (tokens over ``my``, vocab over
+        ``mx``)."""
+        if self.use_hecaton:
+            from repro_torch.core import hecaton as HEC
+            return HEC.linear_seq_scatter(x, w.to(x.dtype), **self.grid_kwargs())
         return self._proj(x, w)
+
+    # ------------------------------------------------------------------
+    # embedding, head weight, norms (the collectives GSPMD inserted)
+    # ------------------------------------------------------------------
+    def embed(self, table: torch.Tensor, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
+        """Embedding lookup; on the grid the vocab-parallel ``embed_2d``
+        (ids [B, S/mx], table [V/mx, H/my] -> canonical [B, S/mx, H/my])."""
+        if self.use_hecaton:
+            from repro_torch.core import hecaton as HEC
+            return HEC.embed_2d(ids, table, compute_dtype=compute_dtype, **self.grid_kwargs())
+        return L.apply_embed({"table": table}, ids, compute_dtype)
+
+    def head_weight(self, table: torch.Tensor, dtype) -> torch.Tensor:
+        """The tied head [H, V/my] in ``dtype`` from this rank's table block
+        [V/mx, H/my]: the table gathered over ``my`` and ``mx`` and cut to
+        this rank's vocab chunk of the fused loss's ``(None, my)`` layout
+        (the reshard GSPMD does for ``table.T``).  One device: the
+        transposed view of the table."""
+        if not self.use_hecaton:
+            return table.to(dtype).t()
+        full = comm.all_gather(comm.all_gather(table.to(dtype), "my", 1), "mx", 0)
+        n, j = self.mesh.size("my"), self.mesh.axis_index("my")
+        v = full.shape[0] // n
+        return full[j * v:(j + 1) * v].t()
+
+    def norm(self, kind: str, params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+        """Pre-norm over the hidden dim.  On the grid the hidden dim is split
+        over ``my``: the statistics are summed over ``my`` and this rank
+        applies its slice of the scale."""
+        if not self.use_hecaton or self.mesh.size("my") == 1:
+            return L.apply_norm(kind, params, x, eps=eps)
+        h_loc = x.shape[-1]
+        j = self.mesh.axis_index("my")
+        h_full = h_loc * self.mesh.size("my")
+        scale = params["scale"][..., j * h_loc:(j + 1) * h_loc]
+        xf = x.float()
+        if kind == "rmsnorm":
+            var = comm.psum(torch.sum(torch.square(xf), dim=-1, keepdim=True), "my") / h_full
+            return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+        if kind == "layernorm":
+            mu = comm.psum(torch.sum(xf, dim=-1, keepdim=True), "my") / h_full
+            var = comm.psum(torch.sum(torch.square(xf - mu), dim=-1, keepdim=True),
+                            "my") / h_full
+            bias = params["bias"][..., j * h_loc:(j + 1) * h_loc]
+            return ((xf - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+        raise KeyError(kind)
+
+    # ------------------------------------------------------------------
+    # attention layout
+    # ------------------------------------------------------------------
+    def attn_layout(self, n_heads: int, global_batch: int) -> shd.AttnLayout:
+        a = self.ax
+        if a is None:
+            return shd.AttnLayout((), (), "single device")
+        return shd.solve_attn_layout(a, n_heads, max(1, global_batch // a.n_data))
+
+    def local_heads(self, cfg, q, k, v, global_batch: int):
+        """q, k, v [B, S, heads*dh] out of the mixer-in projections -> this
+        rank's [B, S, heads, dh] with the kv heads its q heads read.
+
+        On the grid the projections come out hidden over (mx, my), so rank
+        r = (i, j) holds q heads r*nh/N .. (r+1)*nh/N - 1 ("heads fully
+        sharded", the only attention layout ported).  When the kv heads
+        split over the grid too, GQA stays local; otherwise K and V are
+        gathered over the grid and the kv heads of this rank's group kept
+        (what GSPMD does for the ``repeat_kv`` constraint)."""
+        dh, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+        B, S = q.shape[:2]
+        if not self.use_hecaton:
+            return (q.reshape(B, S, nh, dh), k.reshape(B, S, nkv, dh),
+                    v.reshape(B, S, nkv, dh))
+        lay = self.attn_layout(nh, global_batch)
+        if lay.note != "heads fully sharded":
+            raise NotImplementedError(f"attention layout {lay.note!r} is not ported; the "
+                                      "grid step takes heads that split over mx x my")
+        N = self.mesh.size(("mx", "my"))
+        r = self.mesh.axis_index(("mx", "my"))
+        nq, g = nh // N, nh // nkv
+        q = q.reshape(B, S, nq, dh)
+        if nkv % N == 0:
+            return q, k.reshape(B, S, nkv // N, dh), v.reshape(B, S, nkv // N, dh)
+        if g % nq:
+            raise NotImplementedError(f"{nq} q heads per rank straddle kv groups of {g}")
+        kv0 = r * nq // g
+
+        def pick(t):
+            full = comm.all_gather(comm.all_gather(t, "my", 2), "mx", 2)
+            return full.reshape(B, S, nkv, dh)[:, :, kv0:kv0 + 1]
+        return q, pick(k), pick(v)
 
     # ------------------------------------------------------------------
     # attention
@@ -135,7 +290,8 @@ class PCtx:
     def dropout(self, x: torch.Tensor, rate: float,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Inverted dropout in train mode; identity otherwise, or at rate 0,
-        or without a generator."""
+        or without a generator.  On the grid each rank draws the mask of its
+        own block."""
         if not self.train:
             return x
         return L.dropout(x, rate, generator)

@@ -1,0 +1,302 @@
+"""Grid worlds for the port's tests: spawn one process per rank on the CPU
+(gloo, ``FileStore`` rendezvous in a temporary directory), run a job in
+every rank, and collect each rank's result.  Imports torch and the port
+only (the rank processes never load JAX).
+
+The jobs read the JAX references that ``tests/_jax_grid_ref.py`` wrote
+and return numpy arrays; the test files compare them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# the ring-op cases of _jax_grid_ref.RING_CASES, with specs as tuples
+RING_CASES = {
+    "ag_matmul": dict(ins=((None, "mx", "my"), ("my", "mx")),
+                      outs=((None, None, ("my", "mx")),)),
+    "matmul_rs_tokens": dict(ins=((None, "mx", "my"), ("my", "mx")),
+                             outs=((None, ("mx", "my"), None),)),
+    "matmul_rs_cols": dict(ins=((None, "mx", "my"), ("my", "mx")),
+                           outs=((None, "mx", "my"),)),
+    "ag_matmul_contract": dict(ins=((None, "mx", "my"), (None, ("mx", "my"))),
+                               outs=((None, None, ("mx", "my")),)),
+    "matmul_rs_pair": dict(ins=((None, "mx", "my"), ("my", "mx"), ("my", "mx")),
+                           outs=((None, ("mx", "my"), None),) * 2),
+}
+RING_SHAPES = ("aligned", "ragged")
+MODES = ("none", "ring", "fused")
+
+# the hecaton ops of _jax_grid_ref.run_ops: input names and specs, output spec
+OP_CASES = {
+    "linear_seq_scatter": dict(ins={"x": ("data", "mx", "my"), "w": ("my", "mx")},
+                               out=("data", "my", "mx")),
+    "mixer_in": dict(ins={"x": ("data", "mx", "my"), "w": ("my", "mx")},
+                     out=("data", None, ("mx", "my"))),
+    "mixer_out": dict(ins={"a": ("data", None, ("mx", "my")), "wo": ("mx", "my")},
+                      out=("data", "mx", "my")),
+    "ffn_block": dict(ins={"x": ("data", "mx", "my"), "w": ("my", "mx"), "w2": ("mx", "my"),
+                           "w1b": ("my", "mx")}, out=("data", "mx", "my")),
+    "embed_2d": dict(ins={"table": ("mx", "my")}, out=("data", "mx", "my")),
+    "fused_lm_loss": dict(ins={"x": ("data", "mx", "my"), "head": (None, "my")}, out=()),
+}
+
+
+def run_world(shape, job, args=(), timeout=600.0, device="cpu"):
+    """Run ``job(grid, *args)`` in every rank of a (data, mx, my) world on
+    ``device``; returns {rank: result}.  A rank that fails or a world that
+    outlives ``timeout`` raises."""
+    from repro_torch.parallel import comm
+    world = shape[0] * shape[1] * shape[2]
+    return comm.run_ranks(_rank_main, world, (shape, job, args, comm.temp_init_file(), device),
+                          timeout)
+
+
+def _rank_main(rank, shape, job, args, init_file, device):
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.parallel import comm
+    grid = Grid(*shape, rank)
+    comm.init_world(grid, device=device, init_file=init_file)
+    try:
+        result = job(grid, *args)
+        comm.barrier()
+        return result
+    finally:
+        comm.shutdown()
+
+
+def _local(a, spec, grid):
+    from repro_torch.parallel import specs
+    return specs.local_slice(torch.from_numpy(np.asarray(a)), spec, grid)
+
+
+def _sum_replicated(g, spec, grid):
+    from repro_torch.parallel import comm, specs
+    for ax in specs.replicated_axes(spec, grid):
+        g = comm.raw_psum(g, ax)
+    return g
+
+
+# ---------------------------------------------------------------------------
+# jobs
+# ---------------------------------------------------------------------------
+
+def ring_job(grid, ref_path):
+    """Every ring op at both shapes: this rank's outputs and the gradients
+    of sum(out * ct) w.r.t. its input blocks."""
+    from repro_torch.kernels import ring_matmul as RM
+    z = np.load(ref_path)
+    fns = {
+        "ag_matmul": lambda x, w: RM.ag_matmul(x, w, "mx", dim=1, n=2),
+        "matmul_rs_tokens": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=1, n=2),
+        "matmul_rs_cols": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=2, n=2),
+        "ag_matmul_contract": lambda x, w: RM.ag_matmul_contract(x, w, "my", n=2),
+        "matmul_rs_pair": lambda x, w1, w1b: RM.matmul_rs_pair(x, w1, w1b, "my",
+                                                              scatter_dim=1, n=2),
+    }
+    res = {}
+    for shape_name in RING_SHAPES:
+        for name, case in RING_CASES.items():
+            key = f"{shape_name}/{name}"
+            ins = [_local(z[f"{key}/in{i}"], s, grid).requires_grad_(True)
+                   for i, s in enumerate(case["ins"])]
+            outs = fns[name](*ins)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            cts = [_local(z[f"{key}/ct{i}"], s, grid) for i, s in enumerate(case["outs"])]
+            loss = sum(torch.sum(o * c) for o, c in zip(outs, cts))
+            grads = torch.autograd.grad(loss, ins)
+            res[key] = ([o.detach().numpy() for o in outs], [g.numpy() for g in grads])
+    return res
+
+
+def grid_job(grid, ref_path, with_ops):
+    """The hecaton ops under each mode (``with_ops``), and two training
+    steps under each mode from the JAX initial parameters."""
+    from repro_torch.core import hecaton as HEC
+    from repro_torch.core import overlap as OV
+    z = np.load(ref_path)
+    res = {}
+    if with_ops:
+        inp = {k[len("op/in/"):]: z[k] for k in z.files if k.startswith("op/in/")}
+        for mode in MODES:
+            kw = dict(overlap=mode)
+            fns = {
+                "linear_seq_scatter": lambda x, w: HEC.linear_seq_scatter(x, w, **kw),
+                "mixer_in": lambda x, w: HEC.mixer_in(x, w, **kw),
+                "mixer_out": lambda a, wo: HEC.mixer_out(a, wo, **kw),
+                "ffn_block": lambda x, w, w2, w1b: HEC.ffn_block(
+                    x, w, w2, act_fn=torch.nn.functional.silu, w1b=w1b, **kw),
+                "embed_2d": lambda table: HEC.embed_2d(
+                    _local(inp["ids"], ("data", "mx"), grid), table,
+                    compute_dtype=torch.float32, **kw),
+                "fused_lm_loss": lambda x, head: torch.stack(HEC.fused_lm_loss(
+                    x, head, _local(inp["labels"], ("data", "mx"), grid),
+                    _local(inp["mask"], ("data", "mx"), grid), mesh=grid, **kw)),
+            }
+            for name, case in OP_CASES.items():
+                key = f"op/{mode}/{name}"
+                ins = [_local(inp[k], s, grid).requires_grad_(True)
+                       for k, s in case["ins"].items()]
+                out = fns[name](*ins)
+                ct = _local(z[f"{key}/ct"], case["out"], grid)
+                if not case["out"]:            # a replicated output: every rank holds it
+                    ct = ct / grid.world
+                grads = torch.autograd.grad(torch.sum(out * ct), ins)
+                grads = [_sum_replicated(g, s, grid).numpy()
+                         for g, s in zip(grads, case["ins"].values())]
+                res[key] = (out.detach().numpy(), grads)
+    res["train"] = train_job(grid, z)
+    return res
+
+
+def train_job(grid, z):
+    from repro_torch import bridge
+    from repro_torch.config import ParallelConfig, RunConfig, get_smoke_config
+    from repro_torch.core import overlap as OV
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel import specs
+    from repro_torch.train import step as TS
+    tree = {}
+    for k in z.files:
+        if k.startswith("train/init/"):
+            d = tree
+            parts = k[len("train/init/"):].split("/")
+            for p in parts[:-1]:
+                d = d.setdefault(p, {})
+            d[parts[-1]] = z[k]
+    cfg = get_smoke_config("qwen3-0.6b")
+    B, S, steps, lr, nm = 4, 16, 2, 1e-3, 2
+    rc = RunConfig("t", "train", S, B, lr=lr, warmup_steps=1)
+    ds = SyntheticLM(cfg.vocab_size, S, B)
+    out = {}
+    for mode in MODES:
+        pcfg = ParallelConfig(data=grid.data, mx=grid.mx, my=grid.my, overlap=mode,
+                              microbatches=nm, grad_reduce_dtype="fp32")
+        params = bridge.shard_master_params_from_jax(tree, grid, device="cpu")
+        opt = TS.init_grid_opt_state(params, grid, pcfg)
+        step = TS.build_train_step(cfg, pcfg, rc, compute_dtype=torch.float32, mesh=grid)
+        OV.clear_routes()
+        losses = []
+        for s in range(steps):
+            lb = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in specs.local_batch(ds.batch_at(s), grid, nm).items()}
+            params, opt, m = step(params, opt, lb)
+            losses.append(float(m["loss"]))
+        routes = OV.route_table()
+        full = bridge.gather_master_params(params, grid)
+        out[mode] = dict(losses=losses, routes=routes,
+                         params={"/".join(p): t.numpy() for p, t in lm.flatten(full)}
+                         if grid.rank == 0 else None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# jobs on the card (tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+# (kernel, x, o, scatter_dim): tile-aligned and ragged extents; w is
+# [h, o], or [n h, o] for the contracted ring.  The last five have h, o
+# (and o / n) off 8 elements, so the backward's tile products store ragged
+# rows, on rings of 2 and of 4.
+CUDA_RING_CASES = (
+    ("ag_matmul", (2, 64, 96), 80, None),
+    ("ag_matmul", (3, 50, 40), 24, None),
+    ("matmul_rs", (2, 64, 96), 80, 1),
+    ("matmul_rs", (2, 64, 96), 96, 2),
+    ("matmul_rs", (3, 50, 40), 64, 2),
+    ("matmul_rs_pair", (2, 64, 96), 80, 1),
+    ("ag_matmul_contract", (2, 64, 96), 80, None),
+    ("ag_matmul_contract", (3, 50, 40), 24, None),
+    ("ag_matmul", (3, 50, 45), 27, None),
+    ("matmul_rs", (3, 52, 45), 27, 1),
+    ("matmul_rs", (3, 50, 45), 36, 2),
+    ("matmul_rs_pair", (3, 52, 45), 27, 1),
+    ("ag_matmul_contract", (3, 50, 45), 27, None),
+)
+
+
+def cuda_ring_job(grid):
+    """Each ring kernel over the ``my`` ring (forward, and its backward
+    through the transposed rings) against the plain route on the same
+    inputs; on a ring of two, also the probe's time."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_matmul as RM
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = grid.my
+    secs = RM.pingpong("my", 50) if n == 2 else None
+    res = {}
+    for i, (kernel, xs, o, sd) in enumerate(CUDA_RING_CASES):
+        ws = (n * xs[2] if kernel == "ag_matmul_contract" else xs[2], o)
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(100 * i + grid.rank)
+            x = torch.randn(xs, generator=g, device=dev).to(dtype)
+            w = (torch.randn(ws, generator=g, device=dev) / ws[0] ** 0.5).to(dtype)
+            w1b = (torch.randn(ws, generator=g, device=dev) / ws[0] ** 0.5).to(dtype)
+
+            def run(plain):
+                ins = [t.detach().clone().requires_grad_(True) for t in (x, w, w1b)]
+                if kernel == "ag_matmul":
+                    outs = (RM.ag_matmul(ins[0], ins[1], "my", n=n, plain=plain),)
+                elif kernel == "matmul_rs":
+                    outs = (RM.matmul_rs(ins[0], ins[1], "my", scatter_dim=sd, n=n,
+                                         plain=plain),)
+                elif kernel == "matmul_rs_pair":
+                    outs = RM.matmul_rs_pair(*ins, "my", scatter_dim=sd, n=n, plain=plain)
+                else:
+                    outs = (RM.ag_matmul_contract(ins[0], ins[1], "my", n=n, plain=plain),)
+                used = ins if kernel == "matmul_rs_pair" else ins[:2]
+                gct = torch.Generator(device=dev).manual_seed(7 + grid.rank)
+                cts = [torch.randn(o_.shape, generator=gct, device=dev).to(dtype)
+                       for o_ in outs]
+                grads = torch.autograd.grad(sum(torch.sum(o_.float() * c.float())
+                                                for o_, c in zip(outs, cts)), used)
+                return [o_.detach().float().cpu().numpy() for o_ in outs], \
+                    [gr.float().cpu().numpy() for gr in grads]
+            before = dict(ops.LAUNCHES)
+            kern = run(False)
+            launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            res[(kernel, xs, o, sd, str(dtype))] = (kern, run(True), launched)
+    torch.cuda.synchronize()
+    return dict(probe_s=secs, cases=res)
+
+
+def cuda_grid_job(grid):
+    """Two fp32 steps of the smoke config, widened to the attention
+    kernel's head dim (64), on the grid through the kernels (overlap
+    fused) and through the plain versions, from one seed."""
+    from repro_torch.config import ParallelConfig, RunConfig, get_smoke_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.parallel import specs
+    from repro_torch.train import step as TS
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_smoke_config("qwen3-0.6b").scaled(d_model=256, head_dim=64, d_ff=512)
+    pcfg = ParallelConfig(data=grid.data, mx=grid.mx, my=grid.my, overlap="fused",
+                          microbatches=2, grad_reduce_dtype="fp32")
+    rc = RunConfig("t", "train", 16, 4, lr=1e-3, warmup_steps=1)
+    ds = SyntheticLM(cfg.vocab_size, 16, 4)
+    out = {}
+    for plain in (False, True):
+        full = lm.init_master_params(cfg, seed=0, device=dev)
+        params = specs.shard_tree(full, specs.param_specs(full, grid), grid)
+        for _, t in lm.flatten(params):
+            t.requires_grad_(True)
+        opt = TS.init_grid_opt_state(params, grid, pcfg)
+        step = TS.build_train_step(cfg, pcfg, rc, compute_dtype=torch.float32, mesh=grid,
+                                   plain=plain)
+        ops.reset_launches()
+        losses = []
+        for s in range(2):
+            lb = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for k, v in specs.local_batch(ds.batch_at(s), grid, 2).items()}
+            params, opt, m = step(params, opt, lb)
+            losses.append(float(m["loss"]))
+        out[plain] = dict(losses=losses, launches=dict(ops.LAUNCHES),
+                          params={"/".join(p): t.detach().cpu().numpy()
+                                  for p, t in lm.flatten(params)})
+    return out

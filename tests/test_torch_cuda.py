@@ -11,7 +11,10 @@ kernel output's dtype: fp32 2e-4 (fp32 sums in another order), bf16 2e-2
 bound and its fp32 final state to 2e-4.  The training kernels (tile matmul
 layouts, the SwiGLU and flash-attention backwards) are held to the same
 bounds: each rounds its fp32 sums once, and an fp32 output of bf16 inputs
-(the head's logits, the gated kernel's kept products) not at all.
+(the head's logits, the gated kernel's kept products) not at all.  The
+ring kernels run in rank processes on the card (``tests/_torch_world.py``:
+two ranks for the kernels and their backward rings, four for two grid
+training steps), each held against the plain route on the same inputs.
 """
 
 import numpy as np
@@ -121,7 +124,9 @@ def _layout(t: torch.Tensor, transposed: bool) -> torch.Tensor:
 # (layout, M, K, N): the dims no operand stores rows along are ragged
 TILE_SHAPES = [("NN", 256, 192, 320), ("NN", 100, 88, 200), ("NT", 256, 192, 320),
                ("NT", 100, 88, 203), ("TN", 256, 192, 320), ("TN", 96, 101, 200),
-               ("NN", 24, 40, 56), ("NT", 24, 40, 56), ("TN", 24, 40, 56)]
+               ("NN", 24, 40, 56), ("NT", 24, 40, 56), ("TN", 24, 40, 56),
+               # stored rows off 8 elements (the ring backward's ragged dw products)
+               ("NN", 100, 45, 27), ("NT", 37, 45, 27), ("TN", 45, 150, 27)]
 
 
 @pytest.mark.parametrize("layout,M,K,N", TILE_SHAPES)
@@ -130,7 +135,7 @@ TILE_SHAPES = [("NN", 256, 192, 320), ("NN", 100, 88, 200), ("NT", 256, 192, 320
                                              (torch.bfloat16, torch.float32)])
 def test_tile_matmul_kernel(dev, layout, dtype, out_dtype, M, K, N):
     """x @ w in NN, NT (w read transposed) and TN (x read transposed), at
-    ragged shapes; every stored row is a multiple of 8."""
+    ragged shapes, some with stored rows off 8 elements."""
     x = _layout(_randn((M, K), dtype, dev, 14), layout == "TN")
     w = _layout(_randn((K, N), dtype, dev, 15, K ** -0.5), layout == "NT")
     out = kmm.tile_matmul(x, w, out_dtype=out_dtype)
@@ -383,3 +388,71 @@ def test_ssm_engine_greedy_tokens_card_vs_cpu(dev):
         toks[str(device)] = [fin[i].tokens for i in range(4)]
         pre[str(device)] = eng.stats["preemptions"]
     assert toks["cuda"] == toks["cpu"] and pre["cuda"] == pre["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the ring kernels, in rank processes sharing the card
+# ---------------------------------------------------------------------------
+
+def _world():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_world
+    return _torch_world
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["ring2", "ring4"])
+def ring_cuda(request):
+    """Rings of two ranks, and of four, where each slot is reused within
+    one call (the credit protocol)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; this host has none")
+    TW = _world()
+    return TW.run_world((1, 1, request.param), TW.cuda_ring_job, timeout=600, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def grid_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card; this host has none")
+    TW = _world()
+    return TW.run_world((1, 2, 2), TW.cuda_grid_job, timeout=900, device="cuda")
+
+
+def test_ring_flag_probe_progresses(ring_cuda):
+    if len(ring_cuda) != 2:
+        pytest.skip("the probe runs on a ring of two")
+    assert all(0 < r["probe_s"] < 60 for r in ring_cuda.values())
+
+
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+@pytest.mark.parametrize("case", range(13))
+def test_ring_kernel_and_backward_match_plain(ring_cuda, case, dtype):
+    TW = _world()
+    kernel, xs, o, sd = TW.CUDA_RING_CASES[case]
+    tol = TOL[torch.float32 if dtype == "torch.float32" else torch.bfloat16]
+    for rank, res in ring_cuda.items():
+        (k_out, k_grad), (p_out, p_grad), launched = res["cases"][(kernel, xs, o, sd, dtype)]
+        name = "matmul_rs" if kernel == "matmul_rs_pair" else kernel
+        assert launched[name] >= 1, (rank, launched)
+        for a, b in zip(k_out + k_grad, p_out + p_grad):
+            scale = max(1.0, float(np.abs(b).max()))
+            np.testing.assert_allclose(a, b, atol=tol * scale, rtol=tol)
+
+
+def test_grid_steps_through_ring_kernels_match_plain(grid_cuda):
+    """fp32: sums in other orders only.  Losses within 1e-5; each gathered
+    leaf within 1e-4 relative (L2): AdamW's first step moves an element
+    by lr g / (|g| + 1e-8), so an element whose gradient is within fp32
+    noise of zero moves by another fraction of lr (worst leaf measured
+    1.0e-5, the tied table)."""
+    for rank, res in grid_cuda.items():
+        kern, plain = res[False], res[True]
+        assert all(kern["launches"][k] > 0
+                   for k in ("ag_matmul", "matmul_rs", "ag_matmul_contract")), kern["launches"]
+        assert all(v == 0 for v in plain["launches"].values())
+        np.testing.assert_allclose(kern["losses"], plain["losses"], rtol=1e-5)
+        for name, p in plain["params"].items():
+            d = np.linalg.norm(kern["params"][name] - p) / np.linalg.norm(p)
+            assert d <= 1e-4, (rank, name, d)

@@ -26,7 +26,10 @@ def test_every_module_imports_without_jax():
     assert "repro_torch.serve.engine" in mods and "repro_torch.kernels.ops" in mods
     assert {"repro_torch.train.step", "repro_torch.optim.adamw", "repro_torch.core.schedule",
             "repro_torch.launch.train", "repro_torch.kernels.swiglu",
-            "repro_torch.models.ssm", "repro_torch.kernels.ssd"} <= set(mods)
+            "repro_torch.models.ssm", "repro_torch.kernels.ssd",
+            "repro_torch.launch.mesh", "repro_torch.parallel.comm",
+            "repro_torch.parallel.sharding", "repro_torch.parallel.specs",
+            "repro_torch.core.overlap", "repro_torch.kernels.ring_matmul"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
