@@ -56,7 +56,19 @@ Phases, each fatal on failure:
    (1e-3), how far each leaf's final value lies from the plain run's
    (over the plain run's update; reported), and step ms, which four
    time-sliced ranks on one card make no grid speed;
-10. print one JSON line of per-kernel numbers, then the result line.
+10. ``grid_train_int8``: the same grid step on the int8 wire
+   (``--comm-dtype int8``, 2 steps, full width, 28 layers): every rank
+   launches each of the three int8 ring-kernel variants, every step's
+   loss and grad norm within 1e-3 and 1e-2 of the plain int8 grid, the
+   first loss within 5e-2 of the bf16 wire's (JAX's QUANT_RTOL); the
+   ``ring_kernels`` phase also holds the int8 variants against their
+   plain versions at the same blocks, in fp32 tightly enough (1e-5 on
+   all but 0.1% of the elements, one int8 level there) that the bf16
+   wire's kernel fails the same check, which it prints;
+11. ``grid_bidir``: ``--overlap bidir --comm-dtype int8`` at 4 layers for
+   one step (the -1 hops through the symmetric buffers; no kernel of its
+   own), against the plain grid;
+12. print one JSON line of per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
@@ -135,8 +147,16 @@ KERNELS = {
                   "src/repro/kernels/ring_matmul.py:1118"),
     "ag_matmul_contract": ("src/repro_torch/kernels/csrc/ring_matmul.cu",
                            "src/repro/kernels/ring_matmul.py:1290"),
+    # the int8 wire: the same pallas_call sites with quant set
+    "ag_matmul_int8": ("src/repro_torch/kernels/csrc/ring_matmul.cu",
+                       "src/repro/kernels/ring_matmul.py:896"),
+    "matmul_rs_int8": ("src/repro_torch/kernels/csrc/ring_matmul.cu",
+                       "src/repro/kernels/ring_matmul.py:1118"),
+    "ag_matmul_contract_int8": ("src/repro_torch/kernels/csrc/ring_matmul.cu",
+                                "src/repro/kernels/ring_matmul.py:1290"),
 }
 RING_KERNELS = ("ag_matmul", "matmul_rs", "ag_matmul_contract")
+INT8_KERNELS = tuple(k + "_int8" for k in RING_KERNELS)
 # the grid step's per-rank blocks at full width (qwen3-0.6b, 1x2x2, a
 # microbatch of 4 x 512): the five forward blocks and the two that only the
 # backward passes (its other blocks repeat these shapes), then ragged
@@ -166,6 +186,17 @@ GRID_TIMEOUT_S = 900
 GRID_LOSS_TOL, GRID_GNORM_TOL = 1e-3, 1e-2
 RING_TIMEOUT_S = 300
 GRID_LABEL = "4 ranks time-sliced on one card; not a grid speed"
+# the int8 wire: 2 full-width steps; the first loss against the bf16
+# wire's (JAX's QUANT_RTOL, tests/_mp/check_overlap.py)
+INT8_STEPS, QUANT_RTOL = 2, 0.05
+# bidir: a short run at cut depth (it runs no kernel of its own)
+BIDIR_LAYERS, BIDIR_STEPS = 4, 1
+# the int8 ring cases in fp32: the kernel and its plain version quantize
+# the same values up to fp32 sums in another order, so all but a share of
+# INT8_SHARE elements agree to INT8_TOL; those may sit one int8 level of
+# the output apart (a value on a rounding boundary); the bf16 wire's kernel
+# on the same inputs must fail this check
+INT8_TOL, INT8_SHARE = 1e-5, 1e-3
 SERVE_KERNELS = ("matmul", "gated_matmul", "flash_attention")
 # the SSM slice: mamba2-130m served with prompts at their exact lengths
 SSM_ARCH = "mamba2-130m"
@@ -867,8 +898,23 @@ def profile_decode(eng):
         eng.step()
 
 
-def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, n=2, ax="my"):
-    """One ring kernel against its plain version on this rank's inputs."""
+def _int8_check(out, want, tol):
+    """The int8 cases' check: every element within ``tol`` (absolute and
+    relative) but a share of at most INT8_SHARE, which may lie one int8
+    level (max |want| / 127) further.  Returns (ok, max error, share off)."""
+    o, w = out.float(), want.float()
+    err = (o - w).abs()
+    off = err > tol * (1 + w.abs())
+    level = float(w.abs().max()) / 127
+    share = float(off.float().mean())
+    ok = (o.shape == w.shape and bool(torch.isfinite(o).all()) and share <= INT8_SHARE
+          and float(err.max()) <= tol * (1 + float(w.abs().max())) + level)
+    return ok, float(err.max()), share
+
+
+def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, wire="bf16", n=2, ax="my"):
+    """One ring kernel (on the bf16 or the int8 wire) against its plain
+    version on this rank's inputs."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1000 * idx + rank)
     x = randn(gen, xs, dtype)
     elt = x.element_size()
@@ -877,49 +923,80 @@ def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, n=2, ax="my"):
     pair = kernel == "matmul_rs" and sd == 1 and label.startswith("gated")
     w = randn(gen, ws, dtype, ws[0] ** -0.5)
     w1b = randn(gen, ws, dtype, ws[0] ** -0.5) if pair else None
+    int8 = wire == "int8"
+    # bytes of the n - 1 arriving hops of a [rows, cols] shard with nseg
+    # scales a row: the operand's own width, or the int8 payload + scales
+    hop = (lambda rows, cols, nseg=1: (n - 1) * (rows * cols + 4 * rows * nseg)) if int8 \
+        else (lambda rows, cols, nseg=1: (n - 1) * rows * cols * elt)
     if kernel == "ag_matmul":
-        kern = lambda: krm.ag_fwd(x, w, ax, 1, n)
-        plain = lambda: ref.ag_matmul_plain(x, w, ax, dim=1)
-        xg = comm.raw_all_gather(x, ax, 1)
+        kern = lambda cd=wire: krm.ag_fwd(x, w, ax, 1, n, cd)
+        plain = lambda: (ref.ag_matmul_int8_plain if int8 else ref.ag_matmul_plain)(
+            x, w, ax, dim=1)
+        xg = ref.gather_over_int8(x, ax, 1) if int8 else comm.raw_all_gather(x, ax, 1)
         lib = lambda: torch.matmul(xg, w)
         nops = 2 * b * n * t * h * o
-        nbytes = (b * t * h * n + h * o + b * n * t * o) * elt    # own + arriving shards
+        nbytes = (b * t * h + h * o + b * n * t * o) * elt + hop(b * t, h)
     elif kernel == "ag_matmul_contract":
-        kern = lambda: krm.contract_fwd(x, w, ax, n)
-        plain = lambda: ref.ag_matmul_contract_plain(x, w, ax)
-        xg = comm.raw_all_gather(x, ax, 2)
+        kern = lambda cd=wire: krm.contract_fwd(x, w, ax, n, comm_dtype=cd)
+        plain = lambda: (ref.ag_matmul_contract_int8_plain if int8
+                         else ref.ag_matmul_contract_plain)(x, w, ax)
+        xg = ref.gather_over_int8(x, ax, 2) if int8 else comm.raw_all_gather(x, ax, 2)
         lib = lambda: torch.matmul(xg, w)
         nops = 2 * b * t * n * h * o
-        nbytes = (b * t * h * n + n * h * o + b * t * o) * elt
+        nbytes = (b * t * h + n * h * o + b * t * o) * elt + hop(b * t, h)
     else:
         ncols = o * (2 if pair else 1)
         out_elts = b * t * ncols // n
+        out_cols = ncols if sd == 1 else ncols // n
         if pair:
-            kern = lambda: krm.pair_fwd(x, w, w1b, ax, sd, n)
-            plain = lambda: ref.matmul_rs_pair_plain(x, w, w1b, ax, scatter_dim=sd)
+            kern = lambda cd=wire: krm.pair_fwd(x, w, w1b, ax, sd, n, cd)
+            plain = lambda: (ref.matmul_rs_pair_int8_plain if int8 else
+                             ref.matmul_rs_pair_plain)(x, w, w1b, ax, scatter_dim=sd)
             wc = torch.cat([w, w1b], dim=1)
             lib = lambda: torch.matmul(x, wc)
         else:
-            kern = lambda: krm.rs_fwd(x, w, ax, sd, n)
-            plain = lambda: ref.matmul_rs_plain(x, w, ax, scatter_dim=sd)
+            kern = lambda cd=wire: krm.rs_fwd(x, w, ax, sd, n, cd)
+            plain = lambda: (ref.matmul_rs_int8_plain if int8 else ref.matmul_rs_plain)(
+                x, w, ax, scatter_dim=sd)
             lib = lambda: torch.matmul(x, w)
         nops = 2 * b * t * h * ncols
-        # x and w read, the arriving accumulators (n - 1 chunks), the output
-        nbytes = (b * t * h + h * ncols + n * out_elts) * elt
+        # x and w read, the output written, the arriving accumulators
+        nbytes = (b * t * h + h * ncols + out_elts) * elt + \
+            hop(out_elts // out_cols, out_cols, 2 if pair else 1)
     out, want = kern(), plain()
     outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
-    tol = TOL[outs[0].dtype][0]
-    err = max((a.float() - c.float()).abs().max().item() for a, c in zip(outs, wants))
-    ok = all(a.shape == c.shape and a.dtype == c.dtype and bool(torch.isfinite(a.float()).all())
-             and bool(torch.allclose(a.float(), c.float(), atol=tol, rtol=tol))
-             for a, c in zip(outs, wants))
+    r = dict(kernel=kernel + ("_int8" if int8 else ""),
+             case=f"{label} x={list(xs)} w={list(ws)}" + (f" scatter_dim={sd}" if sd else "")
+             + (" pair" if pair else ""), wire=wire,
+             dtype=str(dtype).replace("torch.", ""), main=main and dtype == torch.bfloat16,
+             rank=rank)
+    if int8:
+        tol = INT8_TOL if dtype == torch.float32 else TOL[torch.bfloat16][0]
+        checks = [_int8_check(a, c, tol) for a, c in zip(outs, wants)]
+        ok = all(c[0] and a.dtype == w_.dtype for c, a, w_ in zip(checks, outs, wants))
+        err, share = max(c[1] for c in checks), max(c[2] for c in checks)
+        r.update(tol=tol, share_off=share, share_allowed=INT8_SHARE)
+        if dtype == torch.float32:
+            # the same case through the bf16 wire's kernel must fail the check
+            full = kern("bf16")
+            fulls = full if isinstance(full, tuple) else (full,)
+            fchecks = [_int8_check(a, c, tol) for a, c in zip(fulls, wants)]
+            r.update(bf16_wire_err=max(c[1] for c in fchecks),
+                     bf16_wire_share_off=max(c[2] for c in fchecks),
+                     bf16_wire_fails=not all(c[0] for c in fchecks))
+            ok &= r["bf16_wire_fails"]
+    else:
+        tol = TOL[outs[0].dtype][0]
+        err = max((a.float() - c.float()).abs().max().item() for a, c in zip(outs, wants))
+        ok = all(a.shape == c.shape and a.dtype == c.dtype
+                 and bool(torch.isfinite(a.float()).all())
+                 and bool(torch.allclose(a.float(), c.float(), atol=tol, rtol=tol))
+                 for a, c in zip(outs, wants))
+        r.update(tol=tol)
     b_ms, b_by = bound(nbytes, nops, dtype)
-    return dict(kernel=kernel, case=f"{label} x={list(xs)} w={list(ws)}" +
-                (f" scatter_dim={sd}" if sd else "") + (" pair" if pair else ""),
-                dtype=str(dtype).replace("torch.", ""), main=main and dtype == torch.bfloat16,
-                rank=rank, max_err=err, tol=tol, ok=ok, kernel_ms=event_ms(kern),
-                plain_ms=event_ms(plain), library_ms=event_ms(lib), bound_ms=b_ms,
-                bound_by=b_by)
+    r.update(max_err=err, ok=ok, kernel_ms=event_ms(kern), plain_ms=event_ms(plain),
+             library_ms=event_ms(lib), bound_ms=b_ms, bound_by=b_by)
+    return r
 
 
 def ring_kernel_rank(rank, init_file):
@@ -929,7 +1006,8 @@ def ring_kernel_rank(rank, init_file):
     comm.init_world(Grid(1, 1, 2, rank), device=DEV, init_file=init_file)
     try:
         secs = krm.pingpong("my", PROBE_ROUNDS)
-        results = [_ring_case(idx, *case, dtype, rank)
+        results = [_ring_case(idx, *case, dtype, rank, wire)
+                   for wire in ("bf16", "int8")
                    for dtype in (torch.bfloat16, torch.float32)
                    for idx, case in enumerate(RING_CASES)]
         torch.cuda.synchronize()
@@ -940,8 +1018,8 @@ def ring_kernel_rank(rank, init_file):
 
 
 def ring_kernels_phase():
-    """The three ring kernels on a ring of two rank processes sharing the
-    card, after the flag ping-pong probe."""
+    """The three ring kernels and their int8 variants on a ring of two rank
+    processes sharing the card, after the flag ping-pong probe."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
@@ -963,21 +1041,29 @@ def ring_kernels_phase():
     return results, ok
 
 
-def grid_train_phase():
-    """Train full-width qwen3-0.6b on a 1x2x2 grid of four rank processes
-    through the training launcher's grid entry (overlap fused)."""
+def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID_STEPS,
+                     layers=0, kernels=RING_KERNELS, bf16_step0=None):
+    """Train qwen3-0.6b (full width; ``layers`` cuts the depth) on a 1x2x2
+    grid of four rank processes through the training launcher's grid entry
+    under ``overlap`` on the ``wire``, beside the plain grid from the same
+    parameters.  Every rank must launch each of ``kernels``.  On the bf16
+    wire the first loss is held against the single-device port's (1e-3);
+    on the int8 wire against it and ``bf16_step0`` (the bf16 wire's first
+    loss) to QUANT_RTOL.  Returns (ok, launches summed over the ranks,
+    the first loss)."""
     torch.cuda.empty_cache()
     d, mx, my = GRID
     args = launch_train.parser().parse_args([
         "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV, "--batch", str(TRAIN_BATCH),
-        "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO),
-        "--steps", str(GRID_STEPS), "--strategy", "hecaton", "--data", str(d), "--mx", str(mx),
-        "--my", str(my), "--overlap", "fused", "--timeout", str(GRID_TIMEOUT_S)])
+        "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--layers", str(layers),
+        "--steps", str(steps), "--strategy", "hecaton", "--data", str(d), "--mx", str(mx),
+        "--my", str(my), "--overlap", overlap, "--comm-dtype", wire,
+        "--timeout", str(GRID_TIMEOUT_S)])
     try:
         r = launch_train.run_grid(args, log_fn=log, check_plain=True)   # the main path
     except Exception as e:
-        log(f"grid_train FAILED: {e}")
-        return False, {}
+        log(f"{name} FAILED: {e}")
+        return False, {}, None
     losses = [loss for _, loss in r["history"]]
     gnorms = r["grad_norms"]
     checks = r["checks"]
@@ -985,27 +1071,32 @@ def grid_train_phase():
     loss_rel = [rel(k, p) for k, p in zip(losses, checks["plain_losses"])]
     gnorm_rel = [rel(k, p) for k, p in zip(gnorms, checks["plain_grad_norms"])]
     single_rel = rel(losses[0], checks["single_step0_loss"])
+    single_tol = GRID_LOSS_TOL if wire == "bf16" else QUANT_RTOL
+    wire_rel = None if bf16_step0 is None else rel(losses[0], bf16_step0)
     worst_leaf = max(checks["param_rel"], key=checks["param_rel"].get)
     launches = r["launches"]
-    ok = (all(math.isfinite(x) for x in losses + gnorms) and len(loss_rel) == GRID_STEPS
-          and max(loss_rel) <= GRID_LOSS_TOL and single_rel <= GRID_LOSS_TOL
-          and len(gnorm_rel) == GRID_STEPS and max(gnorm_rel) <= GRID_GNORM_TOL
-          and all(launches[k][n] > 0 for k in launches for n in RING_KERNELS))
-    log("grid_routes " + json.dumps(r["routes"]))
-    log("grid_train_kernels " + json.dumps(launches))
-    log("grid_train " + json.dumps(dict(
-        arch=ARCH, grid="x".join(map(str, GRID)), overlap="fused", batch=TRAIN_BATCH,
-        seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, remat="fusion", dtype="bfloat16",
+    ok = (all(math.isfinite(x) for x in losses + gnorms) and len(loss_rel) == steps
+          and max(loss_rel) <= GRID_LOSS_TOL and single_rel <= single_tol
+          and len(gnorm_rel) == steps and max(gnorm_rel) <= GRID_GNORM_TOL
+          and (wire_rel is None or wire_rel <= QUANT_RTOL)
+          and all(launches[k][n] > 0 for k in launches for n in kernels))
+    log(f"{name}_routes " + json.dumps(r["routes"]))
+    log(f"{name}_kernels " + json.dumps(launches))
+    log(f"{name} " + json.dumps(dict(
+        arch=ARCH, layers=r["cfg"].num_layers, grid="x".join(map(str, GRID)), overlap=overlap,
+        comm_dtype=wire, batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO,
+        remat="fusion", dtype="bfloat16",
         losses=losses, plain_losses=checks["plain_losses"], loss_rel=loss_rel,
         grad_norms=gnorms, plain_grad_norms=checks["plain_grad_norms"], gnorm_rel=gnorm_rel,
         single_step0_loss=checks["single_step0_loss"], single_step0_rel=single_rel,
-        tol_loss_rel=GRID_LOSS_TOL, tol_gnorm_rel=GRID_GNORM_TOL,
+        tol_single_rel=single_tol, bf16_wire_step0_loss=bf16_step0, bf16_wire_step0_rel=wire_rel,
+        tol_loss_rel=GRID_LOSS_TOL, tol_gnorm_rel=GRID_GNORM_TOL, tol_wire_rel=QUANT_RTOL,
         param_rel_worst=dict(leaf=worst_leaf, rel=checks["param_rel"][worst_leaf]),
         param_rel_median=sorted(checks["param_rel"].values())[len(checks["param_rel"]) // 2],
         step_ms=[1e3 * x for x in r["step_s"]], step_ms_note=GRID_LABEL,
         setup_s=r["setup_s"], wall_s=r["wall_s"], ok=ok)))
-    totals = {n: sum(launches[k][n] for k in launches) for n in RING_KERNELS}
-    return ok, totals
+    totals = {n: sum(launches[k][n] for k in launches) for n in launches[0]}
+    return ok, totals, losses[0]
 
 
 def main(argv=None):
@@ -1045,13 +1136,19 @@ def main(argv=None):
                                      SSM_SERVE_KERNELS, "_ssm")
     r_results, ok_rk = ring_kernels_phase()
     results += r_results
-    ok_gt, g_launches = grid_train_phase()
+    ok_gt, g_launches, bf16_step0 = grid_train_phase()
+    ok_gq, q_launches, _ = grid_train_phase("grid_train_int8", wire="int8", steps=INT8_STEPS,
+                                            kernels=INT8_KERNELS, bf16_step0=bf16_step0)
+    ok_gb, _, _ = grid_train_phase("grid_bidir", overlap="bidir", wire="int8",
+                                   steps=BIDIR_STEPS, layers=BIDIR_LAYERS, kernels=())
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
-    # serving run, the ring kernels' from the grid run (summed over its
-    # four ranks), the training kernels' from the training run
+    # serving run, the ring kernels' from the bf16 grid run and their int8
+    # variants' from the int8 grid run (summed over the four ranks), the
+    # training kernels' from the training run
     launches = {k: (ss_launches if k == "ssd" else s_launches if k in SERVE_KERNELS
-                    else g_launches if k in RING_KERNELS else t_launches).get(k, 0)
+                    else g_launches if k in RING_KERNELS
+                    else q_launches if k in INT8_KERNELS else t_launches).get(k, 0)
                 for k in KERNELS}
 
     line = []
@@ -1078,6 +1175,7 @@ def main(argv=None):
                               ("serve", ok_s), ("ssd_kernels", ok_sk),
                               ("ssm_model_check", ok_sm), ("serve_ssm", ok_ss),
                               ("ring_kernels", ok_rk), ("grid_train", ok_gt),
+                              ("grid_train_int8", ok_gq), ("grid_bidir", ok_gb),
                               ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]

@@ -59,6 +59,10 @@ class ModelConfig:
         return dataclasses.replace(self, **overrides)
 
 
+OVERLAP_MODES = ("none", "ring", "bidir", "fused")
+COMM_DTYPES = ("bf16", "int8")
+
+
 @dataclass(frozen=True)
 class ParallelConfig:
     """The fields of ``repro.config.ParallelConfig`` that the ported steps
@@ -66,18 +70,25 @@ class ParallelConfig:
     its overlap mode and wire dtype, and the step's microbatching,
     gradient rounding, remat and fused loss.  The grid step always keeps
     its AdamW moments ZeRO-1 sharded over data and solves the attention
-    layout as the JAX package's "auto"."""
+    layout as the JAX package's "auto".  ``overlap`` and ``comm_dtype``
+    are validated as the JAX package validates them: a typo raises."""
     strategy: str = "hecaton"               # hecaton (megatron: not ported)
     data: int = 1
     mx: int = 1
     my: int = 1
-    overlap: str = "none"                   # none | ring | fused (bidir: not ported)
-    comm_dtype: str = "bf16"                # bf16 (int8: not ported)
+    overlap: str = "none"                   # none | ring | bidir | fused
+    comm_dtype: str = "bf16"                # bf16 | int8 (the ring hops' wire)
     microbatches: int = 1
     # per-microbatch gradient rounding before the fp32 sum: fp32 | bf16
     grad_reduce_dtype: str = "bf16"
     remat: str = "fusion"                   # none | fusion | full
     fused_loss: bool = True                 # fp32 head logits -> lse - gold
+
+    def __post_init__(self):
+        if self.overlap not in OVERLAP_MODES:
+            raise ValueError(f"overlap={self.overlap!r} not in {OVERLAP_MODES}")
+        if self.comm_dtype not in COMM_DTYPES:
+            raise ValueError(f"comm_dtype={self.comm_dtype!r} not in {COMM_DTYPES}")
 
 
 @dataclass(frozen=True)

@@ -8,7 +8,10 @@ grid branch of ``fused_lm_loss`` (vocab chunks over the hidden axis, a
 log-sum-exp reduced across the chunks, loss and mask count summed over
 every rank).  ``overlap`` picks bulk collectives (``"none"``, Algorithm 1
 verbatim) or the ring lattice of ``core/overlap.py`` (``"ring"``,
-``"fused"``); every collective's route is logged there (``OV.ROUTES``).
+``"bidir"``, ``"fused"``), whose hops cross in ``comm_dtype`` (``"int8"``:
+quantized where ``core/quant.quant_ok`` admits the shard; the bulk path
+ignores it, as in JAX); every collective's route is logged there
+(``OV.ROUTES``).
 ``plain=True`` sends every product to its plain version (the reference
 path).  ``fused_lm_loss`` with ``mesh=None`` is the single-device branch:
 the head logits come out of the tile matmul in fp32.
@@ -46,14 +49,15 @@ def _rs(x, ax, dim, op):
 # ---------------------------------------------------------------------------
 
 def linear_seq_scatter(x, w, *, t_ax: str = "mx", h_ax: str = "my", overlap: str = "none",
-                       plain: bool = False):
+                       comm_dtype: str = "bf16", plain: bool = False):
     """x [B, T/t, H/h] (tokens over t_ax, hidden over h_ax), w [H/h, O/t]
     -> y [B, T/h, O/t] (the transposed tiling)."""
     OV.check_mode(overlap)
     n_t, n_h = comm.axis_size(t_ax), comm.axis_size(h_ax)
     if overlap != "none":
         return OV.ring_linear(x, w, g_ax=t_ax, n_g=n_t, s_ax=h_ax, n_s=n_h, gather_dim=1,
-                              scatter_dim=1, overlap=overlap, plain=plain)
+                              scatter_dim=1, overlap=overlap, comm_dtype=comm_dtype,
+                              plain=plain)
     xg = _ag(x, t_ax, 1, "linear_seq_scatter")
     return _rs(ops.tile_mm(xg, w, plain=plain), h_ax, 1, "linear_seq_scatter")
 
@@ -63,37 +67,40 @@ def linear_seq_scatter(x, w, *, t_ax: str = "mx", h_ax: str = "my", overlap: str
 # ---------------------------------------------------------------------------
 
 def mixer_in(x, w, *, t_ax: str = "mx", h_ax: str = "my", overlap: str = "none",
-             plain: bool = False):
+             comm_dtype: str = "bf16", plain: bool = False):
     """x [B, T/t, H/h] -> [B, T, O/(t,h)]: the sequence gathered, the
     output hidden sharded over the whole grid (chunk t_idx * n_h + h_idx)."""
     OV.check_mode(overlap)
     n_t, n_h = comm.axis_size(t_ax), comm.axis_size(h_ax)
     if overlap != "none":
         return OV.ring_linear(x, w, g_ax=t_ax, n_g=n_t, s_ax=h_ax, n_s=n_h, gather_dim=1,
-                              scatter_dim=2, overlap=overlap, plain=plain)
+                              scatter_dim=2, overlap=overlap, comm_dtype=comm_dtype,
+                              plain=plain)
     xg = _ag(x, t_ax, 1, "mixer_in")
     return _rs(ops.tile_mm(xg, w, plain=plain), h_ax, 2, "mixer_in")
 
 
 def mixer_out(a, w, *, t_ax: str = "mx", h_ax: str = "my", overlap: str = "none",
-              plain: bool = False):
+              comm_dtype: str = "bf16", plain: bool = False):
     """a [B, T, Hm/(t,h)] -> [B, T/t, O/h]; w [Hm/t, O/h].  The gathered dim
     is the contraction dim, so the overlapped gather accumulates partial
     products (``ag_matmul_contract``)."""
     OV.check_mode(overlap)
     n_t, n_h = comm.axis_size(t_ax), comm.axis_size(h_ax)
     if overlap != "none":
+        bidir, kw = overlap == "bidir", dict(comm_dtype=comm_dtype)
         rs_ok = OV.rs_ok(a.shape[1], n_t)
         if OV.fuse_side(a.shape[-1], w.shape[-1]) == "rs" and rs_ok:
-            OV.log_route("mixer_out", "all_gather", "ring", h_ax, n_h, a)
-            ag = OV.ring_all_gather(a, h_ax, dim=2, n=n_h)
+            OV.log_ring("mixer_out", "all_gather", overlap, a.shape[2], h_ax, n_h, a, **kw)
+            ag = OV.ring_all_gather(a, h_ax, dim=2, n=n_h, bidir=bidir, **kw)
             return OV.matmul_rs(ag, w, t_ax, scatter_dim=1, n=n_t, overlap=overlap,
-                                plain=plain)
-        yp = OV.ag_matmul_contract(a, w, h_ax, n=n_h, overlap=overlap, plain=plain)
+                                plain=plain, **kw)
+        yp = OV.ag_matmul_contract(a, w, h_ax, n=n_h, overlap=overlap, plain=plain, **kw)
         if not rs_ok:
             return _rs(yp, t_ax, 1, "mixer_out")
-        OV.log_route("mixer_out", "reduce_scatter", "ring", t_ax, n_t, yp)
-        return OV.ring_reduce_scatter(yp, t_ax, dim=1, n=n_t)
+        OV.log_ring("mixer_out", "reduce_scatter", overlap, yp.shape[1] // n_t, t_ax, n_t, yp,
+                    **kw)
+        return OV.ring_reduce_scatter(yp, t_ax, dim=1, n=n_t, bidir=bidir, **kw)
     ag = _ag(a, h_ax, 2, "mixer_out")
     return _rs(ops.tile_mm(ag, w, plain=plain), t_ax, 1, "mixer_out")
 
@@ -103,28 +110,28 @@ def mixer_out(a, w, *, t_ax: str = "mx", h_ax: str = "my", overlap: str = "none"
 # ---------------------------------------------------------------------------
 
 def ffn_block(x, w1, w2, *, act_fn: Callable, t_ax: str = "mx", h_ax: str = "my", w1b=None,
-              overlap: str = "none", plain: bool = False):
+              overlap: str = "none", comm_dtype: str = "bf16", plain: bool = False):
     """Two chained seq-scatter linears with swapped axis roles: x [B, T/t,
     H/h], w1 (and w1b) [H/h, F/t], w2 [F/t, H/h] -> [B, T/t, H/h].  The
     gated up-projections share one gathered x (the pair)."""
     OV.check_mode(overlap)
     n_t, n_h = comm.axis_size(t_ax), comm.axis_size(h_ax)
     if overlap != "none":
+        kw = dict(overlap=overlap, comm_dtype=comm_dtype, plain=plain)
         if w1b is not None:
-            OV.log_route("ffn_block", "all_gather", "ring", t_ax, n_t, x)
-            xg = OV.ring_all_gather(x, t_ax, dim=1, n=n_t)
+            OV.log_ring("ffn_block", "all_gather", overlap, x.shape[1], t_ax, n_t, x,
+                        comm_dtype=comm_dtype)
+            xg = OV.ring_all_gather(x, t_ax, dim=1, n=n_t, bidir=overlap == "bidir",
+                                    comm_dtype=comm_dtype)
             if OV.rs_ok(xg.shape[1], n_h):
-                h, g = OV.matmul_rs_pair(xg, w1, w1b, h_ax, scatter_dim=1, n=n_h,
-                                         overlap=overlap, plain=plain)
+                h, g = OV.matmul_rs_pair(xg, w1, w1b, h_ax, scatter_dim=1, n=n_h, **kw)
             else:
                 h = _rs(ops.tile_mm(xg, w1, plain=plain), h_ax, 1, "ffn_block")
                 g = _rs(ops.tile_mm(xg, w1b, plain=plain), h_ax, 1, "ffn_block")
             h = act_fn(h) * g
         else:
-            h = act_fn(OV.ring_linear(x, w1, g_ax=t_ax, n_g=n_t, s_ax=h_ax, n_s=n_h,
-                                      overlap=overlap, plain=plain))
-        return OV.ring_linear(h, w2, g_ax=h_ax, n_g=n_h, s_ax=t_ax, n_s=n_t, overlap=overlap,
-                              plain=plain)
+            h = act_fn(OV.ring_linear(x, w1, g_ax=t_ax, n_g=n_t, s_ax=h_ax, n_s=n_h, **kw))
+        return OV.ring_linear(h, w2, g_ax=h_ax, n_g=n_h, s_ax=t_ax, n_s=n_t, **kw)
     xg = _ag(x, t_ax, 1, "ffn_block")
     h = _rs(ops.tile_mm(xg, w1, plain=plain), h_ax, 1, "ffn_block")
     if w1b is not None:
@@ -140,15 +147,18 @@ def ffn_block(x, w1, w2, *, act_fn: Callable, t_ax: str = "mx", h_ax: str = "my"
 # ---------------------------------------------------------------------------
 
 def embed_2d(ids, table, *, t_ax: str = "mx", compute_dtype=torch.bfloat16,
-             overlap: str = "none", plain: bool = False):
+             overlap: str = "none", comm_dtype: str = "bf16", plain: bool = False):
     """ids [B, S/t] (tokens over t_ax), table [V/t, H/h] -> [B, S/t, H/h]:
     each rank looks up its vocab slice for all tokens of its column, and a
     reduce-scatter over t_ax sums the vocab partials and tiles the tokens."""
     OV.check_mode(overlap)
     n_t = comm.axis_size(t_ax)
+    bidir = overlap == "bidir"
     if overlap != "none":
-        OV.log_route("embed_2d", "all_gather", "ring", t_ax, n_t, ids)
-        idg = OV.ring_all_gather(ids, t_ax, dim=1, n=n_t)
+        # integer ids: quant_ok keeps these hops full width
+        OV.log_ring("embed_2d", "all_gather", overlap, ids.shape[1], t_ax, n_t, ids,
+                    comm_dtype=comm_dtype)
+        idg = OV.ring_all_gather(ids, t_ax, dim=1, n=n_t, bidir=bidir, comm_dtype=comm_dtype)
     else:
         idg = _ag(ids, t_ax, 1, "embed_2d")
     v_loc = table.shape[0]
@@ -160,12 +170,14 @@ def embed_2d(ids, table, *, t_ax: str = "mx", compute_dtype=torch.bfloat16,
         onehot = (torch.where(ok, lid, v_loc)[..., None]
                   == torch.arange(v_loc, device=ids.device)).to(compute_dtype)
         return OV.matmul_rs(onehot, table.to(compute_dtype), t_ax, scatter_dim=1, n=n_t,
-                            overlap=overlap, plain=plain)
+                            overlap=overlap, comm_dtype=comm_dtype, plain=plain)
     emb = table[lid.clamp(0, v_loc - 1)]
     emb = (emb * ok[..., None]).to(compute_dtype)
     if overlap != "none" and OV.rs_ok(emb.shape[1], n_t):
-        OV.log_route("embed_2d", "reduce_scatter", "ring", t_ax, n_t, emb)
-        return OV.ring_reduce_scatter(emb, t_ax, dim=1, n=n_t)
+        OV.log_ring("embed_2d", "reduce_scatter", overlap, emb.shape[1] // n_t, t_ax, n_t, emb,
+                    comm_dtype=comm_dtype)
+        return OV.ring_reduce_scatter(emb, t_ax, dim=1, n=n_t, bidir=bidir,
+                                      comm_dtype=comm_dtype)
     return _rs(emb, t_ax, 1, "embed_2d")
 
 
@@ -176,7 +188,7 @@ def embed_2d(ids, table, *, t_ax: str = "mx", compute_dtype=torch.bfloat16,
 def fused_lm_loss(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
                   loss_mask: Optional[torch.Tensor], *, mesh=None,
                   tile_matmul=ops.tile_matmul, t_ax: str = "mx", h_ax: str = "my",
-                  n_chunks: int = 8, overlap: str = "none",
+                  n_chunks: int = 8, overlap: str = "none", comm_dtype: str = "bf16",
                   plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of masked NLL, mask count); the caller divides.
 
@@ -214,7 +226,8 @@ def fused_lm_loss(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     def chunk(xc, wl, lc, mc):
         if overlap != "none":
             lg = OV.ag_matmul_contract(xc, wl, h_ax, n=n_h, overlap=overlap,
-                                       out_dtype=torch.float32, plain=plain)
+                                       out_dtype=torch.float32, comm_dtype=comm_dtype,
+                                       plain=plain)
         else:
             lg = ops.tile_mm(_ag(xc, h_ax, 2, "fused_lm_loss"), wl, out_dtype=torch.float32,
                              plain=plain)

@@ -19,6 +19,28 @@
 // Every product sums in fp32; outputs are stored in the input dtype (the
 // contracted ring may store fp32), as the Pallas kernels do.
 //
+// The int8 wire (comm_dtype="int8", the same three pallas_call sites with
+// `quant` set: _ag_matmul_tpu :766/:864, _matmul_rs_tpu :955/:1033-1064,
+// _ag_matmul_contract_tpu :1154/:1251) moves, per hop, an int8 payload and
+// one fp32 scale per row (per row half for the gated pair) under the same
+// landed/credit handshake: one copy writes both into the slot, one release
+// publishes them.
+//   * hk_ring_ag_matmul_int8 / hk_ring_ag_matmul_contract_int8: the shard is
+//     quantized once before the launch and circulates unchanged; a tile of an
+//     arriving shard dequantizes (q * scale, fp32, then the input dtype) as
+//     it loads; this rank's own shard is used as it is (the emulated ring's
+//     step 0); the contracted ring's fp32 accumulator never quantizes.
+//   * hk_ring_matmul_rs_int8: the accumulator changes every hop and its row
+//     scale needs the whole row, so each step folds dequant(arriving) + this
+//     step's tile, each rounded to the input dtype, into a full-width buffer,
+//     then a grid-wide barrier (every block is resident) lets the blocks
+//     quantize whole rows into the right neighbour's slot.  Only the hop is
+//     int8; the buffer, the fp32 tiles and the output are not.
+// Quantization is core/quant.quant_int8's: scale = max|x| / 127 by an IEEE
+// division (1 for a zero row), rint (half to even), clipped to +-127; build.py
+// passes no fast-math flag, and the dequantizing product is __fmul_rn so it
+// is never contracted into an FMA.
+//
 // The ring protocol.  The ranks are processes on one or more cards; each
 // owns a symmetric buffer (hk_sym_alloc) that every peer maps through its
 // CUDA IPC handle (hk_sym_open).  Per grid axis the buffer holds two
@@ -43,7 +65,8 @@
 // of hanging the card.
 //
 // Bound on an H100 SXM: per call 2 * rows * h * o * n FLOPs at 989 TFLOP/s
-// bf16 against the operand, output and hop bytes at 3.35 TB/s.  The tile
+// bf16 against the operand, output and hop bytes at 3.35 TB/s (an int8 hop:
+// the payload plus 4 bytes of scale per row).  The tile
 // loop is the simple one (64 x 64 output tiles, a K step of 32 through
 // shared memory, WMMA m16n16k16 for bf16 and SIMT fp32 otherwise, masked
 // edges, any extent): right first, fast later.
@@ -103,7 +126,7 @@ struct Ring {
   u64* left_credit;
   char* my_slot[2];
   char* right_slot[2];
-  unsigned int* counters;  // 2 per step, zeroed before the launch
+  unsigned int* counters;  // 2 per step, then 1 per step (grid barriers); zeroed per launch
   u64 hop0;
   int n, me;
   u64 timeout_ns;
@@ -162,11 +185,29 @@ struct Rows {
   }
 };
 
+// A loaders: element (r, k) of the left operand in the compute dtype
+template <typename T>
+struct LoadRows {                 // a T operand whose rows lie as `ra` says
+  const T* a;
+  Rows ra;
+  __device__ __forceinline__ T operator()(int r, int k) const { return ldcg(a + ra.off(r) + k); }
+};
+template <typename T>
+struct LoadDequant {              // an int8 payload [rows, ld] and its fp32 row scales
+  const signed char* q;
+  const float* scale;
+  int ld;
+  __device__ __forceinline__ T operator()(int r, int k) const {
+    // one fp32 product, never contracted into an FMA, then the compute dtype
+    return from_f<T>(__fmul_rn((float)__ldcg(q + (long long)r * ld + k), __ldcg(scale + r)));
+  }
+};
+
 // C = A[m0:m0+64, :K] @ B[:K, n0:n0+64] in fp32; epi(r, c, v) for every
-// in-range element.  A rows through `ra`, B row-major with leading dim ldb.
-template <typename T, typename Epi>
-__device__ void tile_product(const T* a, Rows ra, const T* b, long long ldb, int M, int N,
-                             int K, int m0, int n0, unsigned char* smem, Epi epi) {
+// in-range element.  A through the loader `la`, B row-major with leading dim ldb.
+template <typename T, typename LoadA, typename Epi>
+__device__ void tile_product(LoadA la, const T* b, long long ldb, int M, int N, int K, int m0,
+                             int n0, unsigned char* smem, Epi epi) {
   float* Cs = reinterpret_cast<float*>(smem);
   unsigned char* ops = smem + TBM * LDC * sizeof(float);
   const int tid = threadIdx.x;
@@ -180,8 +221,7 @@ __device__ void tile_product(const T* a, Rows ra, const T* b, long long ldb, int
     for (int k0 = 0; k0 < K; k0 += TBK) {
       for (int i = tid; i < TBM * TBK; i += THREADS) {
         const int r = i / TBK, c = i % TBK;
-        As[r * LDA + c] = (m0 + r < M && k0 + c < K) ? ldcg(a + ra.off(m0 + r) + k0 + c)
-                                                     : __float2bfloat16(0.f);
+        As[r * LDA + c] = (m0 + r < M && k0 + c < K) ? la(m0 + r, k0 + c) : __float2bfloat16(0.f);
       }
       for (int i = tid; i < TBK * TBN; i += THREADS) {
         const int r = i / TBN, c = i % TBN;
@@ -214,7 +254,7 @@ __device__ void tile_product(const T* a, Rows ra, const T* b, long long ldb, int
     for (int k0 = 0; k0 < K; k0 += TBK) {
       for (int i = tid; i < TBM * TBK; i += THREADS) {
         const int r = i / TBK, c = i % TBK;
-        As[r * (TBK + 1) + c] = (m0 + r < M && k0 + c < K) ? ldcg(a + ra.off(m0 + r) + k0 + c) : 0.f;
+        As[r * (TBK + 1) + c] = (m0 + r < M && k0 + c < K) ? la(m0 + r, k0 + c) : 0.f;
       }
       for (int i = tid; i < TBK * TBN; i += THREADS) {
         const int r = i / TBN, c = i % TBN;
@@ -290,8 +330,8 @@ __global__ void __launch_bounds__(THREADS)
     const T* cur = step_input(x, rg, s);
     if (s < rg.n - 1) forward_shard(cur, (long long)M * h * sizeof(T), rg, s);
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      tile_product<T>(cur, ra, w, o, M, o, h, (tile / tn) * TBM, (tile % tn) * TBN, smem,
-                      [&](int r, int c, float v) {
+      tile_product<T>(LoadRows<T>{cur, ra}, w, o, M, o, h, (tile / tn) * TBM, (tile % tn) * TBN,
+                      smem, [&](int r, int c, float v) {
                         const long long row = (long long)(r / t) * rg.n * t + (long long)src * t + r % t;
                         out[row * o + c] = from_f<T>(v);
                       });
@@ -322,7 +362,8 @@ __global__ void __launch_bounds__(THREADS)
     const T* a = scatter_last ? x : x + (long long)dest * chunk * h;
     const T* bw = scatter_last ? w + (long long)dest * chunk : w;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      tile_product<T>(a, ra, bw, o, M, N, h, (tile / tn) * TBM, (tile % tn) * TBN, smem,
+      tile_product<T>(LoadRows<T>{a, ra}, bw, o, M, N, h, (tile / tn) * TBM, (tile % tn) * TBN,
+                      smem,
                       [&](int r, int c, float v) {
                         const long long i = (long long)r * N + c;
                         float acc = to_f<T>(from_f<T>(v));   // the contribution, stored
@@ -350,13 +391,212 @@ __global__ void __launch_bounds__(THREADS)
     const T* ws = w + (long long)src * hl * o;
     const bool first = s == 0, last = s == n - 1;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      tile_product<T>(cur, ra, ws, o, m, o, hl, (tile / tn) * TBM, (tile % tn) * TBN, smem,
+      tile_product<T>(LoadRows<T>{cur, ra}, ws, o, m, o, hl, (tile / tn) * TBM, (tile % tn) * TBN,
+                      smem,
                       [&](int r, int c, float v) {
                         const long long i = (long long)r * o + c;
                         const float a = first ? v : acc[i] + v;
                         if (last) out[i] = from_f<TO>(a);
                         else acc[i] = a;
                       });
+    }
+    if (s > 0) release_slot(rg, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the int8 wire (comm_dtype="int8"): a hop moves the pair (int8 payload, fp32
+// scale per row segment) instead of the shard; one copy and one release
+// publish both, so a receiver never reads new scales with an old payload
+// ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ long long align16(long long v) { return (v + 15) & ~15LL; }
+
+// bytes of the pair of a [rows, cols] shard with `nseg` scales a row: the
+// payload, then the scales, each padded to 16 bytes
+__host__ __device__ __forceinline__ long long qpair_bytes(long long rows, long long cols,
+                                                          int nseg) {
+  return align16(rows * cols) + align16(4 * rows * nseg);
+}
+
+__device__ __forceinline__ unsigned int ld_acquire_gpu(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// every block of the grid arrives before any leaves; sound because every
+// block is resident (at most one per SM).  `counter` is zeroed before the launch.
+__device__ void grid_barrier(unsigned int* counter, u64 timeout_ns) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    atomicAdd(counter, 1u);
+    const u64 t0 = now_ns();
+    while (ld_acquire_gpu(counter) < gridDim.x) {
+      __nanosleep(100);
+      if (now_ns() - t0 > timeout_ns) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// the block's max of v (called by every thread; `red` holds THREADS / 32 floats)
+__device__ float block_max(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();                       // the previous call's readers are done
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float m = red[0];
+  for (int i = 1; i < THREADS / 32; ++i) m = fmaxf(m, red[i]);
+  return m;
+}
+
+// quantize rows of src [M, N] (this block's rows: blockIdx.x + k * gridDim.x)
+// into the pair at q / scale: per row segment ([0, split), [split, N); one
+// segment when split is 0) scale = max|x| / 127 (1 for a zero segment) and
+// q = rint(x / scale) clipped to 127, as core/quant.quant_int8.  src was
+// written by other blocks: read around L1.
+template <typename T>
+__device__ void quant_rows(const T* src, int M, int N, int split, signed char* q, float* scale,
+                           float* red) {
+  const int nseg = split > 0 ? 2 : 1;
+  for (int r = blockIdx.x; r < M; r += gridDim.x) {
+    const T* row = src + (long long)r * N;
+    for (int g = 0; g < nseg; ++g) {
+      const int c0 = g == 0 ? 0 : split, c1 = nseg == 2 && g == 0 ? split : N;
+      float m = 0.f;
+      for (int c = c0 + threadIdx.x; c < c1; c += THREADS)
+        m = fmaxf(m, fabsf(to_f<T>(ldcg(row + c))));
+      m = block_max(m, red);
+      const float sc = m > 0.f ? m / 127.f : 1.f;      // an IEEE division, as in PyTorch
+      for (int c = c0 + threadIdx.x; c < c1; c += THREADS) {
+        const float v = rintf(to_f<T>(ldcg(row + c)) / sc);
+        q[(long long)r * N + c] = (signed char)fminf(fmaxf(v, -127.f), 127.f);
+      }
+      if (threadIdx.x == 0) scale[(long long)r * nseg + g] = sc;
+    }
+  }
+}
+
+// AG-matmul over the int8 wire: x [b,t,h] is this rank's own shard, used as
+// it is at step 0; `pair` is x quantized once (before the launch), which is
+// what circulates.  A tile of an arriving shard dequantizes as it loads.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    ring_ag_int8_kernel(const T* __restrict__ x, const unsigned char* __restrict__ pair,
+                        const T* __restrict__ w, T* __restrict__ out, Ring rg, int b, int t,
+                        int h, int o) {
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  const int M = b * t, tn = cdiv(o, TBN), ntiles = cdiv(M, TBM) * tn;
+  const Rows ra{(long long)t * h, t, h};
+  const long long bytes = qpair_bytes(M, h, 1), soff = align16((long long)M * h);
+  for (int s = 0; s < rg.n; ++s) {
+    const int src = (rg.me - s + rg.n) % rg.n;
+    const unsigned char* cur = step_input(pair, rg, s);
+    if (s < rg.n - 1) forward_shard(cur, bytes, rg, s);
+    auto epi = [&](int r, int c, float v) {
+      const long long row = (long long)(r / t) * rg.n * t + (long long)src * t + r % t;
+      out[row * o + c] = from_f<T>(v);
+    };
+    const LoadDequant<T> deq{reinterpret_cast<const signed char*>(cur),
+                             reinterpret_cast<const float*>(cur + soff), h};
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int m0 = (tile / tn) * TBM, n0 = (tile % tn) * TBN;
+      if (s == 0) tile_product<T>(LoadRows<T>{x, ra}, w, o, M, o, h, m0, n0, smem, epi);
+      else tile_product<T>(deq, w, o, M, o, h, m0, n0, smem, epi);
+    }
+    if (s > 0) release_slot(rg, s);
+  }
+}
+
+// matmul-RS over the int8 wire.  The accumulator changes at every hop, and
+// a row's scale needs the whole row: every step folds dequant(arriving
+// pair) + this step's tile, each rounded to T, into a full-width T buffer
+// (out and work in turn, the last step's being out); a grid-wide barrier
+// then lets the blocks quantize whole rows of it straight into the right
+// neighbour's slot.  Two buffers: a block that is still quantizing step s's
+// rows reads a buffer that nobody folds into before the barrier of step s+1.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    ring_rs_int8_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                        T* __restrict__ work, Ring rg, int b, int t, int h, int o,
+                        int scatter_last, int split) {
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  const int n = rg.n;
+  const int chunk = scatter_last ? o / n : t / n;
+  const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
+  const Rows ra{(long long)t * h, scatter_last ? t : chunk, h};
+  const int tn = cdiv(N, TBN), ntiles = cdiv(M, TBM) * tn;
+  const int nseg = split > 0 ? 2 : 1;
+  const long long soff = align16((long long)M * N);
+  for (int s = 0; s < n; ++s) {
+    const int dest = (rg.me + n - 1 - s) % n;
+    const unsigned char* in = s > 0 ? step_input<unsigned char>(nullptr, rg, s) : nullptr;
+    const signed char* inq = reinterpret_cast<const signed char*>(in);
+    const float* ins = in ? reinterpret_cast<const float*>(in + soff) : nullptr;
+    T* acc = ((n - 1 - s) & 1) ? work : out;
+    const T* a = scatter_last ? x : x + (long long)dest * chunk * h;
+    const T* bw = scatter_last ? w + (long long)dest * chunk : w;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      tile_product<T>(LoadRows<T>{a, ra}, bw, o, M, N, h, (tile / tn) * TBM, (tile % tn) * TBN,
+                      smem, [&](int r, int c, float v) {
+                        const long long i = (long long)r * N + c;
+                        float y = to_f<T>(from_f<T>(v));       // the contribution, stored
+                        if (in) {                               // + the arriving accumulator
+                          const int g = split > 0 && c >= split;
+                          const float sc = __ldcg(ins + (long long)r * nseg + g);
+                          y = to_f<T>(from_f<T>(__fmul_rn((float)__ldcg(inq + i), sc))) + y;
+                        }
+                        acc[i] = from_f<T>(y);
+                      });
+    }
+    if (s < n - 1) {
+      grid_barrier(&rg.counters[2 * MAX_STEPS + s], rg.timeout_ns);
+      if (s > 0) release_slot(rg, s);
+      const u64 hout = rg.hop0 + s;
+      if (hout >= 2) wait_geq(rg.my_credit, hout - 1, rg.timeout_ns);
+      unsigned char* dst = reinterpret_cast<unsigned char*>(rg.right_slot[hout & 1]);
+      quant_rows<T>(acc, M, N, split, reinterpret_cast<signed char*>(dst),
+                    reinterpret_cast<float*>(dst + soff), reinterpret_cast<float*>(smem));
+      if (arrive_last(&rg.counters[2 * s]) && threadIdx.x == 0)
+        st_release(rg.right_landed, hout + 1);
+    } else if (s > 0) {
+      release_slot(rg, s);
+    }
+  }
+}
+
+// the contracted AG-matmul over the int8 wire: as ring_ag_int8_kernel, with
+// the fp32 accumulator across steps (never quantized)
+template <typename T, typename TO>
+__global__ void __launch_bounds__(THREADS)
+    ring_contract_int8_kernel(const T* __restrict__ x, const unsigned char* __restrict__ pair,
+                              const T* __restrict__ w, TO* __restrict__ out,
+                              float* __restrict__ acc, Ring rg, int m, int hl, int o) {
+  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  const int n = rg.n, tn = cdiv(o, TBN), ntiles = cdiv(m, TBM) * tn;
+  const Rows ra{0, 0x7fffffff, hl};
+  const long long bytes = qpair_bytes(m, hl, 1), soff = align16((long long)m * hl);
+  for (int s = 0; s < n; ++s) {
+    const int src = (rg.me - s + n) % n;
+    const unsigned char* cur = step_input(pair, rg, s);
+    if (s < n - 1) forward_shard(cur, bytes, rg, s);
+    const T* ws = w + (long long)src * hl * o;
+    const bool first = s == 0, last = s == n - 1;
+    auto epi = [&](int r, int c, float v) {
+      const long long i = (long long)r * o + c;
+      const float a = first ? v : acc[i] + v;
+      if (last) out[i] = from_f<TO>(a);
+      else acc[i] = a;
+    };
+    const LoadDequant<T> deq{reinterpret_cast<const signed char*>(cur),
+                             reinterpret_cast<const float*>(cur + soff), hl};
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int m0 = (tile / tn) * TBM, n0 = (tile % tn) * TBN;
+      if (first) tile_product<T>(LoadRows<T>{x, ra}, ws, o, m, o, hl, m0, n0, smem, epi);
+      else tile_product<T>(deq, ws, o, m, o, hl, m0, n0, smem, epi);
     }
     if (s > 0) release_slot(rg, s);
   }
@@ -502,6 +742,64 @@ int hk_ring_ag_matmul_contract(const void* x, const void* w, void* out, void* ac
   else
     ring_contract_kernel<float, float><<<g, THREADS, 0, st>>>(
         (const float*)x, (const float*)w, (float*)out, (float*)acc, rg, m, hl, o);
+  return (int)cudaGetLastError();
+}
+
+int hk_ring_ag_matmul_int8(const void* x, const void* pair, const void* w, void* out,
+                           const unsigned long long* ring, int b, int t, int h, int o, int dtype,
+                           void* stream) {
+  const Ring rg = unpack(ring);
+  if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  const int g = grid_for(cdiv(b * t, TBM) * cdiv(o, TBN));
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned char* p = (const unsigned char*)pair;
+  if (dtype == DT_BF16)
+    ring_ag_int8_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, p, (const bf16*)w,
+                                                    (bf16*)out, rg, b, t, h, o);
+  else
+    ring_ag_int8_kernel<float><<<g, THREADS, 0, st>>>((const float*)x, p, (const float*)w,
+                                                     (float*)out, rg, b, t, h, o);
+  return (int)cudaGetLastError();
+}
+
+int hk_ring_matmul_rs_int8(const void* x, const void* w, void* out, void* work,
+                           const unsigned long long* ring, int b, int t, int h, int o,
+                           int scatter_last, int split, int dtype, void* stream) {
+  const Ring rg = unpack(ring);
+  if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  const int chunk = scatter_last ? o / rg.n : t / rg.n;
+  const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
+  if (split < 0 || split >= N) return (int)cudaErrorInvalidValue;
+  const int g = grid_for(cdiv(M, TBM) * cdiv(N, TBN));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DT_BF16)
+    ring_rs_int8_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out,
+                                                    (bf16*)work, rg, b, t, h, o, scatter_last,
+                                                    split);
+  else
+    ring_rs_int8_kernel<float><<<g, THREADS, 0, st>>>((const float*)x, (const float*)w,
+                                                     (float*)out, (float*)work, rg, b, t, h, o,
+                                                     scatter_last, split);
+  return (int)cudaGetLastError();
+}
+
+int hk_ring_ag_matmul_contract_int8(const void* x, const void* pair, const void* w, void* out,
+                                    void* acc, const unsigned long long* ring, int m, int hl,
+                                    int o, int dtype, int out_dtype, void* stream) {
+  const Ring rg = unpack(ring);
+  if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  const int g = grid_for(cdiv(m, TBM) * cdiv(o, TBN));
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned char* p = (const unsigned char*)pair;
+  if (dtype == DT_BF16 && out_dtype == DT_BF16)
+    ring_contract_int8_kernel<bf16, bf16><<<g, THREADS, 0, st>>>(
+        (const bf16*)x, p, (const bf16*)w, (bf16*)out, (float*)acc, rg, m, hl, o);
+  else if (dtype == DT_BF16)
+    ring_contract_int8_kernel<bf16, float><<<g, THREADS, 0, st>>>(
+        (const bf16*)x, p, (const bf16*)w, (float*)out, (float*)acc, rg, m, hl, o);
+  else
+    ring_contract_int8_kernel<float, float><<<g, THREADS, 0, st>>>(
+        (const float*)x, p, (const float*)w, (float*)out, (float*)acc, rg, m, hl, o);
   return (int)cudaGetLastError();
 }
 

@@ -45,7 +45,8 @@ from repro_torch.kernels import swiglu as _sw
 LAUNCHES: Dict[str, int] = {"matmul": 0, "gated_matmul": 0, "flash_attention": 0,
                             "tile_matmul": 0, "swiglu_bwd": 0, "flash_attention_bwd": 0,
                             "ssd": 0, "ag_matmul": 0, "matmul_rs": 0,
-                            "ag_matmul_contract": 0}
+                            "ag_matmul_contract": 0, "ag_matmul_int8": 0,
+                            "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0}
 
 
 def reset_launches() -> None:

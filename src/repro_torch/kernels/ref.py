@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import quant as Q
 from repro_torch.parallel import comm
 
 NEG_INF = -1e30        # masked score, as models/attention.py uses
@@ -251,3 +252,60 @@ def matmul_rs_pair_plain(x: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, a
     """(x @ w1, x @ w1b), each reduce-scattered as :func:`matmul_rs_plain`."""
     return (matmul_rs_plain(x, w1, ax, scatter_dim=scatter_dim),
             matmul_rs_plain(x, w1b, ax, scatter_dim=scatter_dim))
+
+
+# ---------------------------------------------------------------------------
+# the int8 wire (comm_dtype="int8"): what the ring kernels' int8 variants
+# compute, the ring's emulated semantics of the JAX package
+# ---------------------------------------------------------------------------
+
+def gather_over_int8(x: torch.Tensor, ax: str, dim: int) -> torch.Tensor:
+    """all_gather(x over ``ax`` along ``dim``) as the int8 wire delivers it:
+    every other rank's shard quantized once per row, gathered and
+    dequantized into x's dtype; this rank's own shard exact, as the ring
+    uses it at step 0."""
+    q, s = Q.quant_int8(x)
+    d = Q.dequant_int8(comm.raw_all_gather(q[None], ax, 0), comm.raw_all_gather(s[None], ax, 0),
+                       x.dtype)
+    d[comm.axis_index(ax)] = x
+    return torch.cat(list(d.unbind(0)), dim=dim)
+
+
+def ag_matmul_int8_plain(x: torch.Tensor, w: torch.Tensor, ax: str, *,
+                         dim: int = 1) -> torch.Tensor:
+    """:func:`ag_matmul_plain` with the other ranks' shards over the int8 wire."""
+    return (gather_over_int8(x, ax, dim).float() @ w.float()).to(x.dtype)
+
+
+def ag_matmul_contract_int8_plain(x: torch.Tensor, w: torch.Tensor, ax: str, *,
+                                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`ag_matmul_contract_plain` with the other ranks' shards over the
+    int8 wire; the fp32 sum is never quantized."""
+    xg = gather_over_int8(x, ax, x.dim() - 1)
+    return (xg.float() @ w.float()).to(out_dtype or x.dtype)
+
+
+def matmul_rs_int8_plain(x: torch.Tensor, w: torch.Tensor, ax: str, *,
+                         scatter_dim: int) -> torch.Tensor:
+    """:func:`matmul_rs_plain` as a ring whose accumulator crosses every hop
+    quantized: the arriving accumulator is dequantized into x's dtype and
+    this step's contribution, rounded to x's dtype, is added in x's dtype
+    before the next quantized hop (the TPU kernel's fold and requantize)."""
+    n, idx = comm.axis_size(ax), comm.axis_index(ax)
+    y = (x.float() @ w.float()).to(x.dtype)
+    if y.shape[scatter_dim] % n:
+        raise ValueError(f"matmul-RS: extent {y.shape[scatter_dim]} does not chunk by ring {n}")
+    chunk = y.shape[scatter_dim] // n
+    acc = y.narrow(scatter_dim, ((idx - 1) % n) * chunk, chunk)
+    for s in range(1, n):
+        acc = comm.raw_ring_hop(acc, ax, 1, "int8") + \
+            y.narrow(scatter_dim, ((idx + n - 1 - s) % n) * chunk, chunk)
+    return acc.contiguous()
+
+
+def matmul_rs_pair_int8_plain(x: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, ax: str, *,
+                              scatter_dim: int):
+    """(x @ w1, x @ w1b), each a ring of :func:`matmul_rs_int8_plain`: each
+    half of a row crosses with its own scale."""
+    return (matmul_rs_int8_plain(x, w1, ax, scatter_dim=scatter_dim),
+            matmul_rs_int8_plain(x, w1b, ax, scatter_dim=scatter_dim))

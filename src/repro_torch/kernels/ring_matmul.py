@@ -16,17 +16,22 @@ Counterpart of ``repro/kernels/ring_matmul.py``:
   ``comm.ring_all_gather``), whose per-step products go through the tile
   matmul (``kernels/ops.py``), which takes any extent.
 
+Every op, forward and backward, carries ``comm_dtype``.  Under ``"int8"``
+a collective whose hopped shard ``core/quant.quant_ok`` admits (the AG
+and contracted rings: x; the RS: the accumulator, of the output's shape)
+runs the int8 variant; the helper rings' hops are ``comm.raw_ring_hop``
+of the wire dtype, as JAX's are ``quant.ring_hop``.
+
 A tensor on the CUDA card launches the ring kernels of
 ``csrc/ring_matmul.cu`` (one launch per collective, the whole ring
 inside, through the symmetric buffers whose addresses ``comm.ring``
-hands each launch) and counts the launch in ``ops.LAUNCHES``; a tensor
-on the CPU, or ``plain=True``, takes the plain versions of
-``kernels/ref.py`` (bulk collectives and one fp32 matmul).  ``comm`` is
-this package's counterpart of the ``lax`` collectives the JAX kernels
-call: it imports only ``launch/mesh.py`` and ``kernels/build.py``.  All ops run inside a grid world, on per-rank blocks, as
-the JAX ops run inside ``shard_map``.  The ring carries the operands'
-own dtype: ``comm_dtype="int8"`` (the quantized wire) is not ported and
-:func:`check_comm_dtype` refuses it (ROADMAP queue 1).
+hands each launch) and counts the launch in ``ops.LAUNCHES`` under its
+own key (``ag_matmul``, ``matmul_rs``, ``ag_matmul_contract`` and the
+int8 variants ``*_int8``); a tensor on the CPU, or ``plain=True``, takes
+the plain versions of ``kernels/ref.py`` (bulk collectives and one fp32
+matmul; under int8 the shards quantized once, the RS as a ring that
+requantizes its accumulator at every hop).  All ops run inside a grid
+world, on per-rank blocks, as the JAX ops run inside ``shard_map``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core import quant as Q
 from repro_torch.kernels import build, ops, ref
 from repro_torch.parallel import comm
 
@@ -47,12 +53,7 @@ MAX_STEPS = 16                     # ring sizes the kernels take (csrc MAX_STEPS
 # launch instead of hanging the card)
 SPIN_TIMEOUT_S = 120.0
 
-
-def check_comm_dtype(comm_dtype: str) -> None:
-    if comm_dtype != "bf16":
-        raise NotImplementedError(
-            f"comm_dtype={comm_dtype!r}: the int8 wire (core/quant.py and the int8 "
-            "variants of the ring kernels) is not ported yet (ROADMAP queue 1)")
+check_comm_dtype = Q.check_comm_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -146,10 +147,11 @@ _COUNTERS = {}
 
 
 def _counters(device) -> torch.Tensor:
-    """Per-call arrival counters of the kernel's blocks (2 per ring step),
-    zeroed on the stream before each launch."""
+    """Per-call counters of the kernel's blocks (2 arrival counts per ring
+    step, then one grid-barrier count per step), zeroed on the stream
+    before each launch."""
     if device not in _COUNTERS:
-        _COUNTERS[device] = torch.zeros(2 * MAX_STEPS, dtype=torch.int32, device=device)
+        _COUNTERS[device] = torch.zeros(3 * MAX_STEPS, dtype=torch.int32, device=device)
     c = _COUNTERS[device]
     c.zero_()
     return c
@@ -178,14 +180,44 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_ag(x, w, ax: str, n: int) -> torch.Tensor:
+def _align16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def _qpair_bytes(rows: int, cols: int, nseg: int = 1) -> int:
+    """Bytes of one int8 hop of a [rows, cols] shard with ``nseg`` scales a
+    row: the payload, then the fp32 scales, each padded to 16 bytes (the
+    slot layout of ``csrc/ring_matmul.cu``)."""
+    return _align16(rows * cols) + _align16(4 * rows * nseg)
+
+
+def _quant_pair(x2: torch.Tensor) -> torch.Tensor:
+    """x [rows, cols] quantized once (``quant_int8``) into one pair buffer."""
+    rows, cols = x2.shape
+    q, s = Q.quant_int8(x2)
+    buf = torch.empty(_qpair_bytes(rows, cols), dtype=torch.uint8, device=x2.device)
+    off = _align16(rows * cols)
+    buf[:rows * cols] = q.reshape(-1).view(torch.uint8)
+    buf[off:off + 4 * rows] = s.reshape(-1).view(torch.uint8)
+    return buf
+
+
+def _launch_ag(x, w, ax: str, n: int, int8: bool = False) -> torch.Tensor:
     x, w = x.contiguous(), w.contiguous()
     _check(x, w)
     b, t, h = x.shape
     o = w.shape[1]
     out = torch.empty((b, n * t, o), dtype=x.dtype, device=x.device)
-    ring = _ring_args(comm.ring(ax, n, x.numel() * x.element_size()), x.device)
     lib = build.library("ring_matmul")
+    if int8:
+        pair = _quant_pair(x.view(b * t, h))
+        ring = _ring_args(comm.ring(ax, n, pair.numel()), x.device)
+        build.check(lib, lib.hk_ring_ag_matmul_int8(
+            x.data_ptr(), pair.data_ptr(), w.data_ptr(), out.data_ptr(), ring, b, t, h, o,
+            DTYPES[x.dtype], _stream(x)), "hk_ring_ag_matmul_int8")
+        ops.LAUNCHES["ag_matmul_int8"] += 1
+        return out
+    ring = _ring_args(comm.ring(ax, n, x.numel() * x.element_size()), x.device)
     build.check(lib, lib.hk_ring_ag_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), ring,
                                            b, t, h, o, DTYPES[x.dtype], _stream(x)),
                 "hk_ring_ag_matmul")
@@ -193,7 +225,10 @@ def _launch_ag(x, w, ax: str, n: int) -> torch.Tensor:
     return out
 
 
-def _launch_rs(x, w, ax: str, scatter_dim: int, n: int) -> torch.Tensor:
+def _launch_rs(x, w, ax: str, scatter_dim: int, n: int, int8: bool = False,
+               split: int = 0) -> torch.Tensor:
+    """``split`` (int8, the gated pair): the column where the second half of
+    each accumulator row starts; each half crosses with its own scale."""
     x, w = x.contiguous(), w.contiguous()
     _check(x, w)
     b, t, h = x.shape
@@ -203,8 +238,18 @@ def _launch_rs(x, w, ax: str, scatter_dim: int, n: int) -> torch.Tensor:
         raise ValueError(f"matmul-RS: extent {o if last else t} does not chunk by ring {n}")
     shape = (b, t, o // n) if last else (b, t // n, o)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    ring = _ring_args(comm.ring(ax, n, out.numel() * out.element_size()), x.device)
     lib = build.library("ring_matmul")
+    if int8:
+        rows, cols = out.numel() // shape[-1], shape[-1]
+        work = torch.empty_like(out)
+        ring = _ring_args(comm.ring(ax, n, _qpair_bytes(rows, cols, 2 if split else 1)),
+                          x.device)
+        build.check(lib, lib.hk_ring_matmul_rs_int8(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(), ring, b, t, h, o,
+            int(last), split, DTYPES[x.dtype], _stream(x)), "hk_ring_matmul_rs_int8")
+        ops.LAUNCHES["matmul_rs_int8"] += 1
+        return out
+    ring = _ring_args(comm.ring(ax, n, out.numel() * out.element_size()), x.device)
     build.check(lib, lib.hk_ring_matmul_rs(x.data_ptr(), w.data_ptr(), out.data_ptr(), ring,
                                            b, t, h, o, int(last), DTYPES[x.dtype], _stream(x)),
                 "hk_ring_matmul_rs")
@@ -212,7 +257,7 @@ def _launch_rs(x, w, ax: str, scatter_dim: int, n: int) -> torch.Tensor:
     return out
 
 
-def _launch_contract(x, w, ax: str, n: int, out_dtype) -> torch.Tensor:
+def _launch_contract(x, w, ax: str, n: int, out_dtype, int8: bool = False) -> torch.Tensor:
     x, w = x.contiguous(), w.contiguous()
     _check(x, w)
     b, t, hl = x.shape
@@ -223,8 +268,17 @@ def _launch_contract(x, w, ax: str, n: int, out_dtype) -> torch.Tensor:
         raise TypeError(f"out_dtype must be {x.dtype} or float32")
     out = torch.empty((b, t, o), dtype=out_dtype, device=x.device)
     acc = torch.empty((b * t, o), dtype=torch.float32, device=x.device)
-    ring = _ring_args(comm.ring(ax, n, x.numel() * x.element_size()), x.device)
     lib = build.library("ring_matmul")
+    if int8:
+        pair = _quant_pair(x.view(b * t, hl))
+        ring = _ring_args(comm.ring(ax, n, pair.numel()), x.device)
+        build.check(lib, lib.hk_ring_ag_matmul_contract_int8(
+            x.data_ptr(), pair.data_ptr(), w.data_ptr(), out.data_ptr(), acc.data_ptr(), ring,
+            b * t, hl, o, DTYPES[x.dtype], DTYPES[out_dtype], _stream(x)),
+            "hk_ring_ag_matmul_contract_int8")
+        ops.LAUNCHES["ag_matmul_contract_int8"] += 1
+        return out
+    ring = _ring_args(comm.ring(ax, n, x.numel() * x.element_size()), x.device)
     build.check(lib, lib.hk_ring_ag_matmul_contract(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), acc.data_ptr(), ring, b * t, hl, o,
         DTYPES[x.dtype], DTYPES[out_dtype], _stream(x)), "hk_ring_ag_matmul_contract")
@@ -246,46 +300,66 @@ def _plain_route(x, plain: bool) -> bool:
     return plain or ops._on_cpu(x)
 
 
-def ag_fwd(x, w, ax: str, dim: int, n: int, plain: bool = False):
+def ag_fwd(x, w, ax: str, dim: int, n: int, comm_dtype: str = "bf16", plain: bool = False):
     if n <= 1:
         return ops.tile_mm(x, w, plain=plain)
     if dim != 1:
         raise ValueError("the ring AG-matmul gathers the token dim (1)")
+    int8 = Q.hop_int8(comm_dtype, x.shape, x.dtype)
     if _plain_route(x, plain):
-        return ref.ag_matmul_plain(x, w, ax, dim=dim)
-    return _launch_ag(x, w, ax, n)
+        return (ref.ag_matmul_int8_plain if int8 else ref.ag_matmul_plain)(x, w, ax, dim=dim)
+    return _launch_ag(x, w, ax, n, int8)
 
 
-def rs_fwd(x, w, ax: str, scatter_dim: int, n: int, plain: bool = False):
+def _rs_out_shape(x, o: int, scatter_dim: int, n: int):
+    shape = list(x.shape[:-1]) + [o]
+    shape[scatter_dim] //= n
+    return shape
+
+
+def rs_fwd(x, w, ax: str, scatter_dim: int, n: int, comm_dtype: str = "bf16",
+           plain: bool = False):
     if n <= 1:
         return ops.tile_mm(x, w, plain=plain)
     scatter_dim = scatter_dim % x.dim()
+    int8 = Q.hop_int8(comm_dtype, _rs_out_shape(x, w.shape[-1], scatter_dim, n), x.dtype)
     if _plain_route(x, plain):
-        return ref.matmul_rs_plain(x, w, ax, scatter_dim=scatter_dim)
-    return _launch_rs(x, w, ax, scatter_dim, n)
+        return (ref.matmul_rs_int8_plain if int8 else ref.matmul_rs_plain)(
+            x, w, ax, scatter_dim=scatter_dim)
+    return _launch_rs(x, w, ax, scatter_dim, n, int8)
 
 
-def contract_fwd(x, w, ax: str, n: int, out_dtype=None, plain: bool = False):
+def contract_fwd(x, w, ax: str, n: int, out_dtype=None, comm_dtype: str = "bf16",
+                 plain: bool = False):
     dt = out_dtype or x.dtype
     if n <= 1:
         return ops.tile_mm(x, w, out_dtype=dt, plain=plain)
+    int8 = Q.hop_int8(comm_dtype, x.shape, x.dtype)
     if _plain_route(x, plain):
-        return ref.ag_matmul_contract_plain(x, w, ax, out_dtype=dt)
-    return _launch_contract(x, w, ax, n, dt)
+        return (ref.ag_matmul_contract_int8_plain if int8 else ref.ag_matmul_contract_plain)(
+            x, w, ax, out_dtype=dt)
+    return _launch_contract(x, w, ax, n, dt, int8)
 
 
-def pair_fwd(x, w1, w1b, ax: str, scatter_dim: int, n: int, plain: bool = False):
+def pair_fwd(x, w1, w1b, ax: str, scatter_dim: int, n: int, comm_dtype: str = "bf16",
+             plain: bool = False):
+    """w1 and w1b of one shape (the gated up-projections)."""
     o1 = w1.shape[-1]
     if n <= 1:
         y = ops.tile_mm(x, torch.cat([w1, w1b], dim=1), plain=plain)
         return y[..., :o1], y[..., o1:]
+    scatter_dim = scatter_dim % x.dim()
+    int8 = Q.hop_int8(comm_dtype, _rs_out_shape(x, o1, scatter_dim, n), x.dtype)
     if _plain_route(x, plain):
-        return ref.matmul_rs_pair_plain(x, w1, w1b, ax, scatter_dim=scatter_dim)
-    if scatter_dim % x.dim() == x.dim() - 1:
+        return (ref.matmul_rs_pair_int8_plain if int8 else ref.matmul_rs_pair_plain)(
+            x, w1, w1b, ax, scatter_dim=scatter_dim)
+    if scatter_dim == x.dim() - 1:
         raise ValueError("the pair variant scatters the token dim")
     # one kernel over the column-concatenated weights: each x tile is read
-    # once for both products (the shared-x-tile trick), halves split after
-    y = _launch_rs(x, torch.cat([w1, w1b], dim=1), ax, scatter_dim, n)
+    # once for both products (the shared-x-tile trick), halves split after;
+    # on the int8 wire each half of a row crosses with its own scale
+    y = _launch_rs(x, torch.cat([w1, w1b], dim=1), ax, scatter_dim, n, int8,
+                   split=o1 if int8 else 0)
     return y[..., :o1].contiguous(), y[..., o1:].contiguous()
 
 
@@ -303,7 +377,8 @@ def _dw_term(a, b, plain: bool):
                        out_dtype=torch.float32, plain=plain)
 
 
-def _contract_rows_ring(x, dy, ax: str, scatter_dim: int, n: int, w_dtype, plain: bool):
+def _contract_rows_ring(x, dy, ax: str, scatter_dim: int, n: int, w_dtype, comm_dtype: str,
+                        plain: bool):
     """dw = sum_d take(x, d chunk)^T @ dy_d: dy circulates, contracted per step."""
     idx = comm.axis_index(ax)
     chunk = x.shape[scatter_dim] // n
@@ -313,11 +388,11 @@ def _contract_rows_ring(x, dy, ax: str, scatter_dim: int, n: int, w_dtype, plain
         term = _dw_term(x.narrow(scatter_dim, d * chunk, chunk), cur.to(x.dtype), plain)
         dw = term if dw is None else dw + term
         if s < n - 1:
-            cur = comm.raw_ppermute(cur, ax, 1)
+            cur = comm.raw_ring_hop(cur, ax, 1, comm_dtype)
     return dw.to(w_dtype)
 
 
-def _place_cols_ring(x, dy, ax: str, n: int, w_dtype, plain: bool):
+def _place_cols_ring(x, dy, ax: str, n: int, w_dtype, comm_dtype: str, plain: bool):
     """dw[:, d chunk] = x^T @ dy_d: dy circulates, column chunks placed."""
     idx = comm.axis_index(ax)
     parts = [None] * n
@@ -325,11 +400,11 @@ def _place_cols_ring(x, dy, ax: str, n: int, w_dtype, plain: bool):
     for s in range(n):
         parts[(idx - s) % n] = _dw_term(x, cur.to(x.dtype), plain)
         if s < n - 1:
-            cur = comm.raw_ppermute(cur, ax, 1)
+            cur = comm.raw_ring_hop(cur, ax, 1, comm_dtype)
     return torch.cat(parts, dim=1).to(w_dtype)
 
 
-def _place_rows_ring(x, dy, ax: str, n: int, w_dtype, plain: bool):
+def _place_rows_ring(x, dy, ax: str, n: int, w_dtype, comm_dtype: str, plain: bool):
     """dw[d h_loc, :] = x_d^T @ dy: x circulates, row chunks placed."""
     idx = comm.axis_index(ax)
     parts = [None] * n
@@ -338,7 +413,7 @@ def _place_rows_ring(x, dy, ax: str, n: int, w_dtype, plain: bool):
     for s in range(n):
         parts[(idx - s) % n] = _dw_term(cur, dyc, plain)
         if s < n - 1:
-            cur = comm.raw_ppermute(cur, ax, 1)
+            cur = comm.raw_ring_hop(cur, ax, 1, comm_dtype)
     return torch.cat(parts, dim=0).to(w_dtype)
 
 
@@ -348,81 +423,82 @@ def _place_rows_ring(x, dy, ax: str, n: int, w_dtype, plain: bool):
 
 class _AgMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, ax, dim, n, plain):
+    def forward(ctx, x, w, ax, dim, n, comm_dtype, plain):
         ctx.save_for_backward(x, w)
-        ctx.cfg = (ax, dim, n, plain)
-        return ag_fwd(x, w, ax, dim, n, plain)
+        ctx.cfg = (ax, dim, n, comm_dtype, plain)
+        return ag_fwd(x, w, ax, dim, n, comm_dtype, plain)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        ax, dim, n, plain = ctx.cfg
+        ax, dim, n, cd, plain = ctx.cfg
         dy = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:      # transpose(AG-matmul) = matmul-RS
-            dx = rs_fwd(dy, w.t(), ax, dim, n, plain).to(x.dtype)
+            dx = rs_fwd(dy, w.t(), ax, dim, n, cd, plain).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _dw_term(comm.ring_all_gather(x, ax, dim=dim, n=n), dy, plain).to(w.dtype)
-        return dx, dw, None, None, None, None
+            xg = comm.ring_all_gather(x, ax, dim=dim, n=n, comm_dtype=cd)
+            dw = _dw_term(xg, dy, plain).to(w.dtype)
+        return dx, dw, None, None, None, None, None
 
 
 class _MatmulRs(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, ax, scatter_dim, n, plain):
+    def forward(ctx, x, w, ax, scatter_dim, n, comm_dtype, plain):
         ctx.save_for_backward(x, w)
-        ctx.cfg = (ax, scatter_dim % x.dim(), n, plain)
-        return rs_fwd(x, w, ax, scatter_dim, n, plain)
+        ctx.cfg = (ax, scatter_dim % x.dim(), n, comm_dtype, plain)
+        return rs_fwd(x, w, ax, scatter_dim, n, comm_dtype, plain)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        ax, sd, n, plain = ctx.cfg
+        ax, sd, n, cd, plain = ctx.cfg
         dy = dy.contiguous()
         dx = dw = None
         if sd == x.dim() - 1:            # dx = AG_cols(dy) (x) w^T, contracted
             if ctx.needs_input_grad[0]:
-                dx = contract_fwd(dy.to(x.dtype), w.t(), ax, n, x.dtype, plain).to(x.dtype)
+                dx = contract_fwd(dy.to(x.dtype), w.t(), ax, n, x.dtype, cd, plain).to(x.dtype)
             if ctx.needs_input_grad[1]:
-                dw = _place_cols_ring(x, dy, ax, n, w.dtype, plain)
+                dw = _place_cols_ring(x, dy, ax, n, w.dtype, cd, plain)
         else:                            # transpose(matmul-RS) = AG-matmul
             if ctx.needs_input_grad[0]:
-                dx = ag_fwd(dy.to(x.dtype), w.t(), ax, sd, n, plain)
+                dx = ag_fwd(dy.to(x.dtype), w.t(), ax, sd, n, cd, plain)
             if ctx.needs_input_grad[1]:
-                dw = _contract_rows_ring(x, dy, ax, sd, n, w.dtype, plain)
-        return dx, dw, None, None, None, None
+                dw = _contract_rows_ring(x, dy, ax, sd, n, w.dtype, cd, plain)
+        return dx, dw, None, None, None, None, None
 
 
 class _AgMatmulContract(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, ax, n, out_dtype, plain):
+    def forward(ctx, x, w, ax, n, out_dtype, comm_dtype, plain):
         ctx.save_for_backward(x, w)
-        ctx.cfg = (ax, n, plain)
-        return contract_fwd(x, w, ax, n, out_dtype, plain)
+        ctx.cfg = (ax, n, comm_dtype, plain)
+        return contract_fwd(x, w, ax, n, out_dtype, comm_dtype, plain)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        ax, n, plain = ctx.cfg
+        ax, n, cd, plain = ctx.cfg
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:      # dx is a matmul-RS over w^T's columns
-            dx = rs_fwd(dy.to(x.dtype), w.t(), ax, dy.dim() - 1, n, plain).to(x.dtype)
+            dx = rs_fwd(dy.to(x.dtype), w.t(), ax, dy.dim() - 1, n, cd, plain).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _place_rows_ring(x, dy, ax, n, w.dtype, plain)
-        return dx, dw, None, None, None, None
+            dw = _place_rows_ring(x, dy, ax, n, w.dtype, cd, plain)
+        return dx, dw, None, None, None, None, None
 
 
 class _MatmulRsPair(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, w1b, ax, scatter_dim, n, plain):
+    def forward(ctx, x, w1, w1b, ax, scatter_dim, n, comm_dtype, plain):
         ctx.save_for_backward(x, w1, w1b)
-        ctx.cfg = (ax, scatter_dim % x.dim(), n, plain)
-        return pair_fwd(x, w1, w1b, ax, scatter_dim, n, plain)
+        ctx.cfg = (ax, scatter_dim % x.dim(), n, comm_dtype, plain)
+        return pair_fwd(x, w1, w1b, ax, scatter_dim, n, comm_dtype, plain)
 
     @staticmethod
     def backward(ctx, dh, dg):
         x, w1, w1b = ctx.saved_tensors
-        ax, sd, n, plain = ctx.cfg
+        ax, sd, n, cd, plain = ctx.cfg
         shape = list(x.shape)
         shape[sd] //= max(n, 1)
         dh = torch.zeros(shape[:-1] + [w1.shape[-1]], dtype=x.dtype, device=x.device) \
@@ -431,32 +507,37 @@ class _MatmulRsPair(torch.autograd.Function):
             if dg is None else dg.contiguous()
         dx = dw1 = dw1b = None
         if ctx.needs_input_grad[0]:
-            dx = (ag_fwd(dh.to(x.dtype), w1.t(), ax, sd, n, plain)
-                  + ag_fwd(dg.to(x.dtype), w1b.t(), ax, sd, n, plain))
+            dx = (ag_fwd(dh.to(x.dtype), w1.t(), ax, sd, n, cd, plain)
+                  + ag_fwd(dg.to(x.dtype), w1b.t(), ax, sd, n, cd, plain))
         if ctx.needs_input_grad[1]:
-            dw1 = _contract_rows_ring(x, dh, ax, sd, n, w1.dtype, plain)
+            dw1 = _contract_rows_ring(x, dh, ax, sd, n, w1.dtype, cd, plain)
         if ctx.needs_input_grad[2]:
-            dw1b = _contract_rows_ring(x, dg, ax, sd, n, w1b.dtype, plain)
-        return dx, dw1, dw1b, None, None, None, None
+            dw1b = _contract_rows_ring(x, dg, ax, sd, n, w1b.dtype, cd, plain)
+        return dx, dw1, dw1b, None, None, None, None, None
 
 
-def ag_matmul(x, w, ax: str, *, dim: int = 1, n: int, plain: bool = False):
+def ag_matmul(x, w, ax: str, *, dim: int = 1, n: int, comm_dtype: str = "bf16",
+              plain: bool = False):
     """Fused all-gather + matmul; x [b,t,h] gathered over ``ax`` along
     ``dim`` (tokens), w [h,o]; out [b, n t, o]."""
-    return _AgMatmul.apply(x, w, ax, dim, n, plain)
+    return _AgMatmul.apply(x, w, ax, dim, n, check_comm_dtype(comm_dtype), plain)
 
 
-def matmul_rs(x, w, ax: str, *, scatter_dim: int, n: int, plain: bool = False):
+def matmul_rs(x, w, ax: str, *, scatter_dim: int, n: int, comm_dtype: str = "bf16",
+              plain: bool = False):
     """Fused matmul + reduce-scatter over ``ax`` along ``scatter_dim``."""
-    return _MatmulRs.apply(x, w, ax, scatter_dim, n, plain)
+    return _MatmulRs.apply(x, w, ax, scatter_dim, n, check_comm_dtype(comm_dtype), plain)
 
 
-def ag_matmul_contract(x, w, ax: str, *, n: int, out_dtype=None, plain: bool = False):
+def ag_matmul_contract(x, w, ax: str, *, n: int, out_dtype=None, comm_dtype: str = "bf16",
+                       plain: bool = False):
     """Fused all-gather + matmul over the contracted (last) dim; w [n h_loc, o]."""
-    return _AgMatmulContract.apply(x, w, ax, n, out_dtype, plain)
+    return _AgMatmulContract.apply(x, w, ax, n, out_dtype, check_comm_dtype(comm_dtype), plain)
 
 
-def matmul_rs_pair(x, w1, w1b, ax: str, *, scatter_dim: int, n: int, plain: bool = False):
+def matmul_rs_pair(x, w1, w1b, ax: str, *, scatter_dim: int, n: int, comm_dtype: str = "bf16",
+                   plain: bool = False):
     """Gated pair: (x w1, x w1b), both reduce-scattered over tokens; one
     kernel over [w1 | w1b].  The caller applies the gate."""
-    return _MatmulRsPair.apply(x, w1, w1b, ax, scatter_dim, n, plain)
+    return _MatmulRsPair.apply(x, w1, w1b, ax, scatter_dim, n, check_comm_dtype(comm_dtype),
+                               plain)

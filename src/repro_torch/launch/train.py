@@ -17,9 +17,12 @@ computes the right function, not how fast a grid runs.  Every rank
 builds the same seeded parameters and keeps its blocks
 (``parallel/specs.py``), and reads its block of each global batch.
 ``--overlap`` picks the collectives: ``none`` (bulk), ``ring`` (ppermute
-rings) or ``fused`` (the ring kernels where the JAX gates allow them);
-``bidir`` and ``--comm-dtype int8`` are not ported and raise.  The
-kernels are built in the launcher before the ranks start.
+rings), ``bidir`` (half shards circulating both ways) or ``fused`` (the
+ring kernels where the JAX gates allow them); ``--comm-dtype int8``
+sends the ring hops as int8 payloads with fp32 row scales (the fused
+route: the int8 variants of the ring kernels).  ``--layers`` cuts the
+depth of the chosen arch.  The kernels are built in the launcher before
+the ranks start.
 
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``--device cpu``
 runs the plain PyTorch versions (gloo carries the grid's data).
@@ -27,13 +30,16 @@ runs the plain PyTorch versions (gloo carries the grid's data).
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --dtype bfloat16 --steps 20 --batch 8 --seq 512 --microbatches 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
-        --dtype bfloat16 --strategy hecaton --data 1 --mx 2 --my 2 --overlap fused
+        --dtype bfloat16 --strategy hecaton --data 1 --mx 2 --my 2 --overlap fused \\
+        --comm-dtype int8
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+from repro_torch.config import COMM_DTYPES, OVERLAP_MODES
 
 DTYPES = ("float32", "bfloat16")
 
@@ -42,6 +48,8 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--smoke", action="store_true", help="use the reduced smoke config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the arch to this many layers (0: all of them)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -55,10 +63,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--mx", type=int, default=1)
     ap.add_argument("--my", type=int, default=1)
-    ap.add_argument("--overlap", default="none", choices=("none", "ring", "bidir", "fused"),
-                    help="grid collectives: bulk, ppermute rings, or the ring kernels")
-    ap.add_argument("--comm-dtype", default="bf16", choices=("bf16", "int8"),
-                    help="ring wire dtype (int8 is not ported)")
+    ap.add_argument("--overlap", default="none", choices=OVERLAP_MODES,
+                    help="grid collectives: bulk, ppermute rings (one way or both), or the "
+                         "ring kernels")
+    ap.add_argument("--comm-dtype", default="bf16", choices=COMM_DTYPES,
+                    help="ring wire dtype: the operands' own, or int8 with fp32 row scales")
     ap.add_argument("--timeout", type=float, default=0.0,
                     help="seconds before a grid run is stopped as hung (0: none)")
     return ap
@@ -70,13 +79,13 @@ def run(args, log_fn=print) -> dict:
         return run_grid(args, log_fn=log_fn)
     import torch
     from repro_torch import resolve_device
-    from repro_torch.config import ParallelConfig, RunConfig, get_config, get_smoke_config
+    from repro_torch.config import ParallelConfig, RunConfig
     from repro_torch.data.synthetic import Prefetcher, SyntheticLM
     from repro_torch.train import loop as train_loop
     from repro_torch.train import step as TS
 
     dev = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = _config(args)
     rc = RunConfig("custom", "train", args.seq, args.batch, lr=args.lr)
     pcfg = ParallelConfig(microbatches=args.microbatches)
     t0 = time.perf_counter()
@@ -100,13 +109,19 @@ def run(args, log_fn=print) -> dict:
 # the grid
 # ---------------------------------------------------------------------------
 
+def _config(args):
+    from repro_torch.config import get_config, get_smoke_config
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    return cfg.scaled(num_layers=args.layers) if args.layers else cfg
+
+
 def _check_grid_args(args) -> None:
     from repro_torch.core import overlap as OV
-    from repro_torch.kernels import ring_matmul as RM
+    from repro_torch.core import quant as Q
     if args.strategy != "hecaton":
         raise NotImplementedError(f"strategy {args.strategy!r} is not ported (ROADMAP queue 1)")
     OV.check_mode(args.overlap)
-    RM.check_comm_dtype(args.comm_dtype)
+    Q.check_comm_dtype(args.comm_dtype)
 
 
 def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
@@ -118,7 +133,6 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     from the plain run's), and rank 0 compute the first batch's loss
     through the single-device path on the full parameters."""
     from repro_torch import resolve_device
-    from repro_torch.config import get_config, get_smoke_config
     from repro_torch.parallel import comm
 
     _check_grid_args(args)
@@ -133,7 +147,7 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     for line in results[0]["log"]:
         log_fn(line)
     r0 = results[0]
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = _config(args)
     h = r0["history"]
     log_fn(f"grid[{args.data}x{args.mx}x{args.my}] final loss {h[-1][1]:.4f} "
            f"(first {h[0][1]:.4f})")
@@ -149,7 +163,7 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     import numpy as np
     import torch
     from repro_torch import resolve_device
-    from repro_torch.config import ParallelConfig, RunConfig, get_config, get_smoke_config
+    from repro_torch.config import ParallelConfig, RunConfig
     from repro_torch.core import overlap as OV
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import ops
@@ -168,7 +182,7 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     w = comm.init_world(grid, device=dev, init_file=init_file)
     try:
         dev = w.device
-        cfg = get_smoke_config(a.arch) if a.smoke else get_config(a.arch)
+        cfg = _config(a)
         dtype = getattr(torch, a.dtype)
         rc = RunConfig("custom", "train", a.seq, a.batch, lr=a.lr)
         pcfg = ParallelConfig(data=a.data, mx=a.mx, my=a.my, overlap=a.overlap,

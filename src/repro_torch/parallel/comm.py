@@ -9,6 +9,12 @@ the processes of one axis group:
 * :func:`all_gather` (tiled, rank order), :func:`psum_scatter` (tiled),
   :func:`psum` over one axis or a tuple of axes, and :func:`ppermute` to
   the neighbour ``shift`` places along one axis;
+* the ring hop of the wire dtype, :func:`ring_hop` (``quant.ring_hop``
+  of the JAX package): under ``comm_dtype="int8"`` a shard that
+  ``core/quant.quant_ok`` admits crosses as :func:`q_hop`, which sends
+  the (int8 payload, fp32 row scales) pair and dequantizes on receipt,
+  and whose backward is the same quantized hop over the inverse shift;
+  every other shard is a plain :func:`ppermute`;
 * each is a ``torch.autograd.Function`` whose backward is its transpose
   over the group: all-gather <-> reduce-scatter, ppermute <-> the reverse
   ppermute, psum -> psum.  A rank's gradient is its own contribution
@@ -47,6 +53,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import quant as Q
 from repro_torch.kernels import build
 from repro_torch.launch.mesh import AXES, Grid
 
@@ -525,18 +532,81 @@ def ppermute(x: torch.Tensor, ax: str, shift: int = 1) -> torch.Tensor:
     return _Ppermute.apply(x, ax, shift)
 
 
-def ring_all_gather(x: torch.Tensor, ax: str, *, dim: int, n: int) -> torch.Tensor:
+def raw_q_hop(x: torch.Tensor, ax: str, shift: int = 1) -> torch.Tensor:
+    """One quantized hop without autograd: x quantized per row, the pair
+    sent as one byte buffer (the scales first, then the payload) to the
+    rank ``shift`` places along ``ax``; returns what arrives, dequantized
+    into x's dtype."""
+    q, s = Q.quant_int8(x)
+    ns = 4 * s.numel()
+    buf = torch.cat([s.reshape(-1).view(torch.uint8), q.reshape(-1).view(torch.uint8)])
+    got = raw_ppermute(buf, ax, shift)
+    return Q.dequant_int8(got[ns:].view(torch.int8).view(q.shape),
+                          got[:ns].view(torch.float32).view(s.shape), x.dtype)
+
+
+class _QHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, shift):
+        ctx.ax, ctx.shift = ax, shift
+        return raw_q_hop(x, ax, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the transpose of a hop is the reverse hop; the cotangent crosses
+        # the wire quantized, as the forward's shard did
+        return raw_q_hop(g.contiguous(), ctx.ax, -ctx.shift), None, None
+
+
+def q_hop(x: torch.Tensor, ax: str, shift: int = 1) -> torch.Tensor:
+    if _n(ax) == 1:
+        return x
+    return _QHop.apply(x, ax, shift)
+
+
+def ring_hop(x: torch.Tensor, ax: str, shift: int = 1, comm_dtype: str = "bf16"):
+    """One ring hop of the wire dtype: x lands on rank ``(k + shift) % n``."""
+    if Q.hop_int8(comm_dtype, x.shape, x.dtype):
+        return q_hop(x, ax, shift)
+    return ppermute(x, ax, shift)
+
+
+def raw_ring_hop(x: torch.Tensor, ax: str, shift: int = 1, comm_dtype: str = "bf16"):
+    """:func:`ring_hop` without autograd (the backward's helper rings)."""
+    if _n(ax) == 1:
+        return x
+    if Q.hop_int8(comm_dtype, x.shape, x.dtype):
+        return raw_q_hop(x, ax, shift)
+    return raw_ppermute(x, ax, shift)
+
+
+def ring_all_gather(x: torch.Tensor, ax: str, *, dim: int, n: int, comm_dtype: str = "bf16",
+                    bidir: bool = False) -> torch.Tensor:
     """== all_gather(x, ax, dim) in rank order, as n - 1 hops to the right
-    neighbour (the backward is the reverse ring)."""
+    neighbour (the backward is the reverse ring).  ``bidir``: the two
+    halves of the shard circulate in opposite directions, or the whole
+    shard one way when its extent is odd."""
     if n <= 1:
         return x
     idx = axis_index(ax)
+    chunk = x.shape[dim]
+    if bidir and chunk % 2 == 0:
+        half = chunk // 2
+        fwd, bwd = [None] * n, [None] * n
+        curf, curb = x.narrow(dim, 0, half), x.narrow(dim, half, half)
+        for s in range(n):
+            fwd[(idx - s) % n] = curf
+            bwd[(idx + s) % n] = curb
+            if s < n - 1:
+                curf = ring_hop(curf, ax, 1, comm_dtype)
+                curb = ring_hop(curb, ax, -1, comm_dtype)
+        return torch.cat([p for k in range(n) for p in (fwd[k], bwd[k])], dim=dim)
     parts = [None] * n
     cur = x
     for s in range(n):
         parts[(idx - s) % n] = cur
         if s < n - 1:
-            cur = ppermute(cur, ax, 1)
+            cur = ring_hop(cur, ax, 1, comm_dtype)
     return torch.cat(parts, dim=dim)
 
 

@@ -18,8 +18,9 @@ The hecaton grid (``mesh`` a ``launch/mesh.Grid``, training): every
 method takes and returns this rank's blocks.  The residual stream stays
 in the canonical tiling (tokens over ``mx``, hidden over ``my``); the
 projections are the hecaton ops of ``core/hecaton.py`` on the overlap
-lattice (``pcfg.overlap``); the norms sum their statistics over ``my``
-(``comm.psum``), the embedding and the head use vocab chunks.  Where the
+lattice (``pcfg.overlap``, its ring hops in ``pcfg.comm_dtype``); the
+norms sum their statistics over ``my`` (``comm.psum``), the embedding
+and the head use vocab chunks.  Where the
 JAX package leaves a collective to GSPMD (a ``with_sharding_constraint``
 between the ``shard_map`` ops), the port writes it out here: the norm's
 ``psum``, the K/V gather when the kv heads do not split over the grid,
@@ -41,10 +42,8 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ParallelConfig
-from repro_torch.core import overlap as OV
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
-from repro_torch.kernels import ring_matmul as RM
 from repro_torch.launch.mesh import Grid
 from repro_torch.models import layers as L
 from repro_torch.parallel import comm
@@ -80,8 +79,6 @@ class PCtx:
                     f"strategy {self.pcfg.strategy!r} is not ported (ROADMAP queue 1)")
             if self.mode != "train":
                 raise NotImplementedError("grid serving is not ported (ROADMAP queue 1)")
-            OV.check_mode(self.pcfg.overlap)
-            RM.check_comm_dtype(self.pcfg.comm_dtype)
 
     @property
     def use_hecaton(self) -> bool:
@@ -101,9 +98,14 @@ class PCtx:
         """How many ranks split a sequence (the token axis)."""
         return 1 if self.mesh is None else self.mesh.size("mx")
 
+    @property
+    def comm_dtype(self) -> str:
+        """The ring hops' wire dtype (``ParallelConfig.comm_dtype``)."""
+        return self.pcfg.comm_dtype
+
     def grid_kwargs(self):
         """The options every grid op of ``core/hecaton.py`` takes."""
-        return dict(overlap=self.pcfg.overlap, plain=self.plain)
+        return dict(overlap=self.pcfg.overlap, comm_dtype=self.comm_dtype, plain=self.plain)
 
     @property
     def ops(self):

@@ -7,14 +7,23 @@ starts):
         python tests/_jax_grid_ref.py ring OUT.npz
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/_jax_grid_ref.py grid OUT.npz
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/_jax_grid_ref.py qhop OUT.npz
 
 ``ring``: the four ring ops of ``repro.kernels.ring_matmul`` under
 ``shard_map`` on a (1, 2, 2) mesh, fp32, forward and the gradients of
-``sum(out * ct)``, at a tile-aligned and a ragged shape.
+``sum(out * ct)``, at a tile-aligned and a ragged shape on the bf16
+wire, and at those and two wide ones on the int8 wire
+(``comm_dtype="int8"``, keys ``int8/...``).
 ``grid``: the hecaton ops of ``repro.core.hecaton`` (forward and
-gradients) under each overlap mode, and two steps of
-``repro.train.step.build_train_step`` on the qwen3-0.6b smoke config in
-fp32 for the (1, 2, 2) and (2, 1, 2) meshes under each overlap mode.
+gradients) under each variant (an overlap mode, ``-int8`` for the int8
+wire), and two steps of ``repro.train.step.build_train_step`` on the
+qwen3-0.6b smoke config in fp32 for the (1, 2, 2) and (2, 1, 2) meshes
+under each variant.
+``qhop``: one quantized ring hop (``repro.core.quant.ring_hop`` with
+``comm_dtype="int8"``) on a ring of two, shift +1 and -1, fp32 and bf16
+shards (wide rows, a zero row, a narrow shard that stays full width),
+forward and the gradient of ``sum(out * ct)``.
 Inputs come from numpy with fixed seeds; every array lands in the npz.
 """
 
@@ -30,10 +39,17 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
 
 from repro import compat  # noqa: E402
 
-MODES = ("none", "ring", "fused")
+# overlap mode, and "-int8" for comm_dtype="int8"
+VARIANTS = ("none", "ring", "fused", "bidir", "ring-int8", "bidir-int8", "fused-int8")
+WIRES = ("bf16", "int8")
 MESHES = ((1, 2, 2), (2, 1, 2))
-# ring-op cases: (name, B, T, H, O); T, H, O split over two ranks twice
-RING_SHAPES = (("aligned", 2, 16, 32, 48), ("ragged", 2, 12, 20, 28))
+# ring-op cases: (name, B, T, H, O); T, H, O split over two ranks twice.
+# The bf16 wire runs the first two; the int8 wire all four: at the first
+# two most hopped shards are narrower than quant.MIN_QUANT_DIM and cross
+# full width, at the wide ones every hopped shard crosses as int8
+RING_SHAPES = (("aligned", 2, 16, 32, 48), ("ragged", 2, 12, 20, 28),
+               ("wide", 2, 16, 64, 96), ("wide_ragged", 2, 12, 36, 68))
+BF16_RING_SHAPES = ("aligned", "ragged")
 
 
 def _mesh(d, mx, my):
@@ -96,17 +112,28 @@ def ring_out_shapes(name, B, T, H, O):
     return [(B, T, O // 2)] * 2
 
 
+def variant(v):
+    """(overlap, comm_dtype) of a variant name."""
+    mode, _, wire = v.partition("-")
+    return mode, wire or "bf16"
+
+
 def run_ring(out_path):
     from repro.kernels import ring_matmul as RM
     mesh = _mesh(1, 2, 2)
-    fns = {
-        "ag_matmul": lambda x, w: RM.ag_matmul(x, w, "mx", dim=1, n=2),
-        "matmul_rs_tokens": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=1, n=2),
-        "matmul_rs_cols": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=2, n=2),
-        "ag_matmul_contract": lambda x, w: RM.ag_matmul_contract(x, w, "my", n=2),
-        "matmul_rs_pair": lambda x, w1, w1b: RM.matmul_rs_pair(x, w1, w1b, "my",
-                                                              scatter_dim=1, n=2),
-    }
+
+    def fns(cd):
+        return {
+            "ag_matmul": lambda x, w: RM.ag_matmul(x, w, "mx", dim=1, n=2, comm_dtype=cd),
+            "matmul_rs_tokens": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=1, n=2,
+                                                          comm_dtype=cd),
+            "matmul_rs_cols": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=2, n=2,
+                                                        comm_dtype=cd),
+            "ag_matmul_contract": lambda x, w: RM.ag_matmul_contract(x, w, "my", n=2,
+                                                                     comm_dtype=cd),
+            "matmul_rs_pair": lambda x, w1, w1b: RM.matmul_rs_pair(
+                x, w1, w1b, "my", scatter_dim=1, n=2, comm_dtype=cd),
+        }
     res = {}
     for k, (shape_name, B, T, H, O) in enumerate(RING_SHAPES):
         for j, (name, case) in enumerate(RING_CASES.items()):
@@ -114,17 +141,21 @@ def run_ring(out_path):
             rng = np.random.default_rng(1000 + 100 * k + j)
             cts = [rng.standard_normal(s).astype(np.float32)
                    for s in ring_out_shapes(name, B, T, H, O)]
-            outs, grads = _vjp(mesh, fns[name], case["ins"], case["outs"][0]
-                               if len(case["outs"]) == 1 else case["outs"], args, cts)
             key = f"{shape_name}/{name}"
             for i, a in enumerate(args):
                 res[f"{key}/in{i}"] = a
             for i, c in enumerate(cts):
                 res[f"{key}/ct{i}"] = c
-            for i, o in enumerate(outs):
-                res[f"{key}/out{i}"] = o
-            for i, g in enumerate(grads):
-                res[f"{key}/grad{i}"] = g
+            for cd in WIRES:
+                if cd == "bf16" and shape_name not in BF16_RING_SHAPES:
+                    continue
+                outs, grads = _vjp(mesh, fns(cd)[name], case["ins"], case["outs"][0]
+                                   if len(case["outs"]) == 1 else case["outs"], args, cts)
+                wkey = key if cd == "bf16" else f"int8/{key}"
+                for i, o in enumerate(outs):
+                    res[f"{wkey}/out{i}"] = o
+                for i, g in enumerate(grads):
+                    res[f"{wkey}/grad{i}"] = g
     np.savez(out_path, **res)
 
 
@@ -156,32 +187,31 @@ def run_ops(res):
     mesh = _mesh(1, 2, 2)
     inp = op_inputs()
     rng = np.random.default_rng(11)
-    kw = dict(mesh=mesh, t_ax="mx", h_ax="my")
-    for mode in MODES:
+    for var in VARIANTS:
+        mode, cd = variant(var)
+        kw = dict(mesh=mesh, t_ax="mx", h_ax="my", overlap=mode, comm_dtype=cd)
         cases = {
-            "linear_seq_scatter": (lambda x, w: H.linear_seq_scatter(x, w, overlap=mode, **kw),
-                                   ("x", "w")),
-            "mixer_in": (lambda x, w: H.mixer_in(x, w, overlap=mode, **kw), ("x", "w")),
-            "mixer_out": (lambda a, wo: H.mixer_out(a, wo, overlap=mode, **kw), ("a", "wo")),
+            "linear_seq_scatter": (lambda x, w: H.linear_seq_scatter(x, w, **kw), ("x", "w")),
+            "mixer_in": (lambda x, w: H.mixer_in(x, w, **kw), ("x", "w")),
+            "mixer_out": (lambda a, wo: H.mixer_out(a, wo, **kw), ("a", "wo")),
             "ffn_block": (lambda x, w, w2, w1b: H.ffn_block(
-                x, w, w2, act_fn=jax.nn.silu, w1b=w1b, overlap=mode, **kw),
-                ("x", "w", "w2", "w1b")),
+                x, w, w2, act_fn=jax.nn.silu, w1b=w1b, **kw), ("x", "w", "w2", "w1b")),
             "embed_2d": (lambda table: H.embed_2d(
-                jnp.asarray(inp["ids"]), table, compute_dtype=jnp.float32, overlap=mode, **kw),
+                jnp.asarray(inp["ids"]), table, compute_dtype=jnp.float32, **kw),
                 ("table",)),
             "fused_lm_loss": (lambda x, head: jnp.stack(H.fused_lm_loss(
-                x, head, jnp.asarray(inp["labels"]), jnp.asarray(inp["mask"]), overlap=mode,
-                **kw)), ("x", "head")),
+                x, head, jnp.asarray(inp["labels"]), jnp.asarray(inp["mask"]), **kw)),
+                ("x", "head")),
         }
         for name, (fn, names) in cases.items():
             args = [jnp.asarray(inp[k]) for k in names]
             out, vjp = jax.vjp(jax.jit(fn), *args)
             ct = rng.standard_normal(out.shape).astype(np.float32)
             grads = vjp(jnp.asarray(ct))
-            res[f"op/{mode}/{name}/out"] = np.asarray(out)
-            res[f"op/{mode}/{name}/ct"] = ct
+            res[f"op/{var}/{name}/out"] = np.asarray(out)
+            res[f"op/{var}/{name}/ct"] = ct
             for k, g in zip(names, grads):
-                res[f"op/{mode}/{name}/grad_{k}"] = np.asarray(g)
+                res[f"op/{var}/{name}/grad_{k}"] = np.asarray(g)
     for k, v in inp.items():
         res[f"op/in/{k}"] = v
 
@@ -208,10 +238,11 @@ def run_train(res):
     ds = SyntheticLM(cfg.vocab_size, TRAIN["S"], TRAIN["B"])
     for (d, mx, my) in MESHES:
         mesh = make_small_mesh("hecaton", d, mx, my)
-        for mode in MODES:
+        for var in VARIANTS:
+            mode, cd = variant(var)
             pcfg = ParallelConfig(strategy="hecaton", data=d, model=mx * my, mx=mx, my=my,
                                   microbatches=TRAIN["microbatches"], overlap=mode,
-                                  grad_reduce_dtype="fp32")
+                                  comm_dtype=cd, grad_reduce_dtype="fp32")
             pspecs = SP.param_specs(params0, mesh, pcfg)
             params = jax.device_put(params0, SP.sharding_tree(pspecs, mesh))
             opt = adamw.init(params0)
@@ -219,7 +250,7 @@ def run_train(res):
                 SP.opt_state_specs(pspecs, params0, mesh, pcfg), mesh))
             bspec = SP.sharding_tree(SP.batch_specs(mesh, pcfg, microbatched=False), mesh)
             step = jax.jit(TS.build_train_step(cfg, pcfg, rc, mesh, compute_dtype=jnp.float32))
-            key = f"train/{d}x{mx}x{my}/{mode}"
+            key = f"train/{d}x{mx}x{my}/{var}"
             losses = []
             for s in range(TRAIN["steps"]):
                 batch = jax.device_put({k: jnp.asarray(v) for k, v in ds.batch_at(s).items()},
@@ -232,10 +263,48 @@ def run_train(res):
                 res[f"{key}/params/{name}"] = np.asarray(v)
 
 
+# q-hop cases: (name, rows, h, dtype); each rank holds [rows, h]
+QHOP_CASES = (("f32", 6, 40, "float32"), ("bf16", 5, 33, "bfloat16"),
+              ("narrow", 4, 12, "float32"))
+
+
+def qhop_inputs(rows, h, dtype, seed):
+    """Both ranks' shards [2 rows, h] (bf16-exact for bf16), row 1 zero, and
+    the cotangent."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((2 * rows, h)) * rng.lognormal(size=(2 * rows, 1))).astype(
+        np.float32)
+    x[1] = 0.0
+    ct = rng.standard_normal((2 * rows, h)).astype(np.float32)
+    if dtype == "bfloat16":
+        x = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+        ct = np.asarray(jnp.asarray(ct, jnp.bfloat16).astype(jnp.float32))
+    return x, ct
+
+
+def run_qhop(out_path):
+    from repro.core import quant as Q
+    mesh = _mesh(1, 1, 2)
+    res = {}
+    for k, (name, rows, h, dtype) in enumerate(QHOP_CASES):
+        x, ct = qhop_inputs(rows, h, dtype, 500 + k)
+        dt = getattr(jnp, dtype)
+        for shift in (1, -1):
+            f = lambda xl, _s=shift: Q.ring_hop(xl.astype(dt), "my", 2, _s, "int8").astype(
+                jnp.float32)
+            outs, grads = _vjp(mesh, f, (P("my", None),), P("my", None), [x], [ct])
+            key = f"qhop/{name}/{shift}"
+            res[f"{key}/out"], res[f"{key}/grad"] = outs[0], grads[0]
+        res[f"qhop/{name}/in"], res[f"qhop/{name}/ct"] = x, ct
+    np.savez(out_path, **res)
+
+
 def main():
     what, out = sys.argv[1], sys.argv[2]
     if what == "ring":
         run_ring(out)
+    elif what == "qhop":
+        run_qhop(out)
     else:
         res = {}
         run_ops(res)

@@ -25,8 +25,22 @@ RING_CASES = {
     "matmul_rs_pair": dict(ins=((None, "mx", "my"), ("my", "mx"), ("my", "mx")),
                            outs=((None, ("mx", "my"), None),) * 2),
 }
-RING_SHAPES = ("aligned", "ragged")
-MODES = ("none", "ring", "fused")
+RING_SHAPES = ("aligned", "ragged")                 # both wires
+INT8_RING_SHAPES = RING_SHAPES + ("wide", "wide_ragged")
+WIRES = ("bf16", "int8")
+# _jax_grid_ref.VARIANTS: an overlap mode, "-int8" for the int8 wire
+VARIANTS = ("none", "ring", "fused", "bidir", "ring-int8", "bidir-int8", "fused-int8")
+
+
+def variant(v):
+    """(overlap, comm_dtype) of a variant name."""
+    mode, _, wire = v.partition("-")
+    return mode, wire or "bf16"
+
+
+def wire_key(key, comm_dtype):
+    """The npz key of a ring case on a wire."""
+    return key if comm_dtype == "bf16" else f"int8/{key}"
 
 # the hecaton ops of _jax_grid_ref.run_ops: input names and specs, output spec
 OP_CASES = {
@@ -85,44 +99,52 @@ def _sum_replicated(g, spec, grid):
 # ---------------------------------------------------------------------------
 
 def ring_job(grid, ref_path):
-    """Every ring op at both shapes: this rank's outputs and the gradients
-    of sum(out * ct) w.r.t. its input blocks."""
+    """Every ring op at both shapes on both wires: this rank's outputs and
+    the gradients of sum(out * ct) w.r.t. its input blocks."""
     from repro_torch.kernels import ring_matmul as RM
     z = np.load(ref_path)
-    fns = {
-        "ag_matmul": lambda x, w: RM.ag_matmul(x, w, "mx", dim=1, n=2),
-        "matmul_rs_tokens": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=1, n=2),
-        "matmul_rs_cols": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=2, n=2),
-        "ag_matmul_contract": lambda x, w: RM.ag_matmul_contract(x, w, "my", n=2),
-        "matmul_rs_pair": lambda x, w1, w1b: RM.matmul_rs_pair(x, w1, w1b, "my",
-                                                              scatter_dim=1, n=2),
-    }
+
+    def fns(cd):
+        return {
+            "ag_matmul": lambda x, w: RM.ag_matmul(x, w, "mx", dim=1, n=2, comm_dtype=cd),
+            "matmul_rs_tokens": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=1, n=2,
+                                                          comm_dtype=cd),
+            "matmul_rs_cols": lambda x, w: RM.matmul_rs(x, w, "my", scatter_dim=2, n=2,
+                                                        comm_dtype=cd),
+            "ag_matmul_contract": lambda x, w: RM.ag_matmul_contract(x, w, "my", n=2,
+                                                                     comm_dtype=cd),
+            "matmul_rs_pair": lambda x, w1, w1b: RM.matmul_rs_pair(
+                x, w1, w1b, "my", scatter_dim=1, n=2, comm_dtype=cd),
+        }
     res = {}
-    for shape_name in RING_SHAPES:
-        for name, case in RING_CASES.items():
-            key = f"{shape_name}/{name}"
-            ins = [_local(z[f"{key}/in{i}"], s, grid).requires_grad_(True)
-                   for i, s in enumerate(case["ins"])]
-            outs = fns[name](*ins)
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            cts = [_local(z[f"{key}/ct{i}"], s, grid) for i, s in enumerate(case["outs"])]
-            loss = sum(torch.sum(o * c) for o, c in zip(outs, cts))
-            grads = torch.autograd.grad(loss, ins)
-            res[key] = ([o.detach().numpy() for o in outs], [g.numpy() for g in grads])
+    for cd in WIRES:
+        for shape_name in (RING_SHAPES if cd == "bf16" else INT8_RING_SHAPES):
+            for name, case in RING_CASES.items():
+                key = f"{shape_name}/{name}"
+                ins = [_local(z[f"{key}/in{i}"], s, grid).requires_grad_(True)
+                       for i, s in enumerate(case["ins"])]
+                outs = fns(cd)[name](*ins)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                cts = [_local(z[f"{key}/ct{i}"], s, grid) for i, s in enumerate(case["outs"])]
+                loss = sum(torch.sum(o * c) for o, c in zip(outs, cts))
+                grads = torch.autograd.grad(loss, ins)
+                res[wire_key(key, cd)] = ([o.detach().numpy() for o in outs],
+                                          [g.numpy() for g in grads])
     return res
 
 
 def grid_job(grid, ref_path, with_ops):
-    """The hecaton ops under each mode (``with_ops``), and two training
-    steps under each mode from the JAX initial parameters."""
+    """The hecaton ops under each variant (``with_ops``), and two training
+    steps under each variant from the JAX initial parameters."""
     from repro_torch.core import hecaton as HEC
     from repro_torch.core import overlap as OV
     z = np.load(ref_path)
     res = {}
     if with_ops:
         inp = {k[len("op/in/"):]: z[k] for k in z.files if k.startswith("op/in/")}
-        for mode in MODES:
-            kw = dict(overlap=mode)
+        for var in VARIANTS:
+            mode, cd = variant(var)
+            kw = dict(overlap=mode, comm_dtype=cd)
             fns = {
                 "linear_seq_scatter": lambda x, w: HEC.linear_seq_scatter(x, w, **kw),
                 "mixer_in": lambda x, w: HEC.mixer_in(x, w, **kw),
@@ -137,7 +159,7 @@ def grid_job(grid, ref_path, with_ops):
                     _local(inp["mask"], ("data", "mx"), grid), mesh=grid, **kw)),
             }
             for name, case in OP_CASES.items():
-                key = f"op/{mode}/{name}"
+                key = f"op/{var}/{name}"
                 ins = [_local(inp[k], s, grid).requires_grad_(True)
                        for k, s in case["ins"].items()]
                 out = fns[name](*ins)
@@ -173,9 +195,10 @@ def train_job(grid, z):
     rc = RunConfig("t", "train", S, B, lr=lr, warmup_steps=1)
     ds = SyntheticLM(cfg.vocab_size, S, B)
     out = {}
-    for mode in MODES:
+    for var in VARIANTS:
+        mode, cd = variant(var)
         pcfg = ParallelConfig(data=grid.data, mx=grid.mx, my=grid.my, overlap=mode,
-                              microbatches=nm, grad_reduce_dtype="fp32")
+                              comm_dtype=cd, microbatches=nm, grad_reduce_dtype="fp32")
         params = bridge.shard_master_params_from_jax(tree, grid, device="cpu")
         opt = TS.init_grid_opt_state(params, grid, pcfg)
         step = TS.build_train_step(cfg, pcfg, rc, compute_dtype=torch.float32, mesh=grid)
@@ -188,7 +211,7 @@ def train_job(grid, z):
             losses.append(float(m["loss"]))
         routes = OV.route_table()
         full = bridge.gather_master_params(params, grid)
-        out[mode] = dict(losses=losses, routes=routes,
+        out[var] = dict(losses=losses, routes=routes,
                          params={"/".join(p): t.numpy() for p, t in lm.flatten(full)}
                          if grid.rank == 0 else None)
     return out
@@ -222,7 +245,8 @@ CUDA_RING_CASES = (
 def cuda_ring_job(grid):
     """Each ring kernel over the ``my`` ring (forward, and its backward
     through the transposed rings) against the plain route on the same
-    inputs; on a ring of two, also the probe's time."""
+    inputs, on the bf16 wire (keyed by the case and dtype) and on the int8
+    wire (the key and "int8"); on a ring of two, also the probe's time."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ring_matmul as RM
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -231,7 +255,7 @@ def cuda_ring_job(grid):
     res = {}
     for i, (kernel, xs, o, sd) in enumerate(CUDA_RING_CASES):
         ws = (n * xs[2] if kernel == "ag_matmul_contract" else xs[2], o)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, wire in ((d, w) for w in WIRES for d in (torch.float32, torch.bfloat16)):
             g = torch.Generator(device=dev).manual_seed(100 * i + grid.rank)
             x = torch.randn(xs, generator=g, device=dev).to(dtype)
             w = (torch.randn(ws, generator=g, device=dev) / ws[0] ** 0.5).to(dtype)
@@ -239,15 +263,15 @@ def cuda_ring_job(grid):
 
             def run(plain):
                 ins = [t.detach().clone().requires_grad_(True) for t in (x, w, w1b)]
+                kw = dict(n=n, comm_dtype=wire, plain=plain)
                 if kernel == "ag_matmul":
-                    outs = (RM.ag_matmul(ins[0], ins[1], "my", n=n, plain=plain),)
+                    outs = (RM.ag_matmul(ins[0], ins[1], "my", **kw),)
                 elif kernel == "matmul_rs":
-                    outs = (RM.matmul_rs(ins[0], ins[1], "my", scatter_dim=sd, n=n,
-                                         plain=plain),)
+                    outs = (RM.matmul_rs(ins[0], ins[1], "my", scatter_dim=sd, **kw),)
                 elif kernel == "matmul_rs_pair":
-                    outs = RM.matmul_rs_pair(*ins, "my", scatter_dim=sd, n=n, plain=plain)
+                    outs = RM.matmul_rs_pair(*ins, "my", scatter_dim=sd, **kw)
                 else:
-                    outs = (RM.ag_matmul_contract(ins[0], ins[1], "my", n=n, plain=plain),)
+                    outs = (RM.ag_matmul_contract(ins[0], ins[1], "my", **kw),)
                 used = ins if kernel == "matmul_rs_pair" else ins[:2]
                 gct = torch.Generator(device=dev).manual_seed(7 + grid.rank)
                 cts = [torch.randn(o_.shape, generator=gct, device=dev).to(dtype)
@@ -259,7 +283,8 @@ def cuda_ring_job(grid):
             before = dict(ops.LAUNCHES)
             kern = run(False)
             launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
-            res[(kernel, xs, o, sd, str(dtype))] = (kern, run(True), launched)
+            key = (kernel, xs, o, sd, str(dtype)) + (("int8",) if wire == "int8" else ())
+            res[key] = (kern, run(True), launched)
     torch.cuda.synchronize()
     return dict(probe_s=secs, cases=res)
 
@@ -299,4 +324,99 @@ def cuda_grid_job(grid):
         out[plain] = dict(losses=losses, launches=dict(ops.LAUNCHES),
                           params={"/".join(p): t.detach().cpu().numpy()
                                   for p, t in lm.flatten(params)})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the quantized hop (tests/test_torch_quant.py)
+# ---------------------------------------------------------------------------
+
+QHOP_CASES = (("f32", torch.float32), ("bf16", torch.bfloat16), ("narrow", torch.float32))
+
+
+def qhop_job(grid, ref_path):
+    """``comm.ring_hop(x, "my", shift, "int8")`` on this rank's rows of each
+    case, forward and the gradient of sum(out * ct), shift +1 and -1."""
+    from repro_torch.parallel import comm
+    z = np.load(ref_path)
+    res = {}
+    for name, dtype in QHOP_CASES:
+        x = _local(z[f"qhop/{name}/in"], ("my", None), grid).to(dtype).requires_grad_(True)
+        ct = _local(z[f"qhop/{name}/ct"], ("my", None), grid)
+        for shift in (1, -1):
+            out = comm.ring_hop(x, "my", shift, "int8").float()
+            (g,) = torch.autograd.grad(torch.sum(out * ct), [x])
+            res[f"qhop/{name}/{shift}"] = (out.detach().numpy(), g.float().numpy())
+    return res
+
+
+# ---------------------------------------------------------------------------
+# bidir's degradation (tests/test_torch_grid.py)
+# ---------------------------------------------------------------------------
+
+# (name, an extent that halves, an odd one): the extent is the chunk bidir
+# halves (the shard's tokens, the scattered chunk, the contracted h_loc);
+# column extents are at least 16 so that the int8 wire quantizes them
+BIDIR_CASES = (("ag_matmul", 6, 5), ("matmul_rs_tokens", 4, 3), ("matmul_rs_cols", 18, 17),
+               ("ag_matmul_contract", 18, 17), ("matmul_rs_pair", 4, 3),
+               ("ring_all_gather", 6, 5), ("ring_reduce_scatter", 4, 3))
+
+
+def bidir_job(grid):
+    """Each case on the ``my`` ring under overlap bidir and ring, and its
+    bulk collective: (bidir routes logged, bidir out, ring out, bulk out)."""
+    from repro_torch.core import overlap as OV
+    from repro_torch.parallel import comm
+    n, ax = grid.my, "my"
+    g = torch.Generator().manual_seed(5 + grid.rank)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g)
+
+    def case(name, c, mode, wire):
+        kw = dict(overlap=mode, comm_dtype=wire)
+        bidir = mode == "bidir"
+        if name == "ag_matmul":
+            x, w = rnd(2, c, 32), rnd(32, 24)
+            return (lambda: OV.ag_matmul(x, w, ax, dim=1, n=n, **kw),
+                    lambda: comm.raw_all_gather(x, ax, 1) @ w)
+        if name in ("matmul_rs_tokens", "matmul_rs_pair", "ring_reduce_scatter"):
+            x, w, w1b = rnd(2, n * c, 32), rnd(32, 24), rnd(32, 24)
+            if name == "matmul_rs_pair":
+                return (lambda: torch.cat(OV.matmul_rs_pair(x, w, w1b, ax, scatter_dim=1, n=n,
+                                                            **kw), -1),
+                        lambda: comm.raw_psum_scatter(x @ torch.cat([w, w1b], 1), ax, 1))
+            if name == "ring_reduce_scatter":
+                return (lambda: OV.ring_reduce_scatter(x, ax, dim=1, n=n, bidir=bidir,
+                                                       comm_dtype=wire),
+                        lambda: comm.raw_psum_scatter(x, ax, 1))
+            return (lambda: OV.matmul_rs(x, w, ax, scatter_dim=1, n=n, **kw),
+                    lambda: comm.raw_psum_scatter(x @ w, ax, 1))
+        if name == "matmul_rs_cols":
+            x, w = rnd(2, 4, 32), rnd(32, n * c)
+            return (lambda: OV.matmul_rs(x, w, ax, scatter_dim=2, n=n, **kw),
+                    lambda: comm.raw_psum_scatter(x @ w, ax, 2))
+        if name == "ag_matmul_contract":
+            x, w = rnd(2, 4, c), rnd(n * c, 24)
+            return (lambda: OV.ag_matmul_contract(x, w, ax, n=n, **kw),
+                    lambda: comm.raw_all_gather(x, ax, 2) @ w)
+        x = rnd(2, c, 32)
+        return (lambda: OV.ring_all_gather(x, ax, dim=1, n=n, bidir=bidir, comm_dtype=wire),
+                lambda: comm.raw_all_gather(x, ax, 1))
+
+    out = {}
+    for wire in WIRES:
+        for name, even, odd in BIDIR_CASES:
+            for c in (even, odd):
+                state = g.get_state()
+                res = []
+                for mode in ("bidir", "ring"):
+                    g.set_state(state)                 # the same inputs for both modes
+                    fn, bulk = case(name, c, mode, wire)
+                    OV.clear_routes()
+                    y = fn().numpy()
+                    res.append(([r["route"] for r in OV.ROUTES], y))
+                # the pure rings log no route (None)
+                routes = None if name.startswith("ring_") else res[0][0]
+                out[(name, c, wire)] = (routes, res[0][1], res[1][1], bulk().numpy())
     return out

@@ -14,7 +14,8 @@ bounds: each rounds its fp32 sums once, and an fp32 output of bf16 inputs
 (the head's logits, the gated kernel's kept products) not at all.  The
 ring kernels run in rank processes on the card (``tests/_torch_world.py``:
 two ranks for the kernels and their backward rings, four for two grid
-training steps), each held against the plain route on the same inputs.
+training steps), each held against the plain route on the same inputs,
+on the bf16 wire and on the int8 wire.
 """
 
 import numpy as np
@@ -439,6 +440,40 @@ def test_ring_kernel_and_backward_match_plain(ring_cuda, case, dtype):
         for a, b in zip(k_out + k_grad, p_out + p_grad):
             scale = max(1.0, float(np.abs(b).max()))
             np.testing.assert_allclose(a, b, atol=tol * scale, rtol=tol)
+
+
+def _hopped_shape(kernel, xs, o, sd, n):
+    """The shard the forward's hops carry: x, or the RS accumulator."""
+    if kernel in ("ag_matmul", "ag_matmul_contract"):
+        return xs
+    return (xs[0], xs[1] // n, o) if sd == 1 else (xs[0], xs[1], o // n)
+
+
+@pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
+@pytest.mark.parametrize("case", range(13))
+def test_ring_kernel_int8_and_backward_match_plain(ring_cuda, case, dtype):
+    """The int8 wire: the kernel's int8 variant (forward) and the
+    transposed rings over it (backward) against the plain int8 route.
+    Within the dtype's bound except on at most 0.1% of the elements, which
+    may lie one int8 level (the tensor's largest magnitude over 127) apart:
+    the kernel quantizes its own fp32 sums, which may sit on the other side
+    of a rounding boundary from the plain version's."""
+    from repro_torch.core import quant as Q
+    TW = _world()
+    kernel, xs, o, sd = TW.CUDA_RING_CASES[case]
+    tol = TOL[torch.float32 if dtype == "torch.float32" else torch.bfloat16]
+    for rank, res in ring_cuda.items():
+        n = len(ring_cuda)
+        (k_out, k_grad), (p_out, p_grad), launched = \
+            res["cases"][(kernel, xs, o, sd, dtype, "int8")]
+        name = "matmul_rs" if kernel == "matmul_rs_pair" else kernel
+        quantized = Q.quant_ok(_hopped_shape(kernel, xs, o, sd, n), torch.float32)
+        assert launched[name + "_int8" if quantized else name] >= 1, (rank, launched)
+        for a, b in zip(k_out + k_grad, p_out + p_grad):
+            scale = max(1.0, float(np.abs(b).max()))
+            off = np.abs(a - b) > tol * scale + tol * np.abs(b)
+            assert off.mean() <= 1e-3, (rank, off.mean())
+            np.testing.assert_allclose(a, b, rtol=tol, atol=tol * scale + np.abs(b).max() / 127)
 
 
 def test_grid_steps_through_ring_kernels_match_plain(grid_cuda):

@@ -6,20 +6,30 @@ writes an npz (``tests/_jax_grid_ref.py``); two gloo worlds run the port
 
 * each hecaton op's grid branch (``linear_seq_scatter``, ``mixer_in``,
   ``mixer_out``, ``ffn_block`` with the gated pair, ``embed_2d``,
-  ``fused_lm_loss``) under ``overlap`` none, ring and fused on 1x2x2,
+  ``fused_lm_loss``) under each variant (``overlap`` none, ring, fused,
+  bidir on the bf16 wire; ring, bidir, fused on the int8 wire) on 1x2x2,
   forward and the gradients of sum(out * ct), each rank's blocks against
   the JAX global arrays cut by the same specs; tolerance 2e-5, as
-  ``tests/_mp/check_hecaton.py``;
+  ``tests/_mp/check_hecaton.py`` (measured ~2e-7 on both wires);
 * two steps of the grid training step on the qwen3-0.6b smoke config (2
-  layers) on 1x2x2 and 2x1x2 under each mode, from the JAX initial
+  layers) on 1x2x2 and 2x1x2 under each variant, from the JAX initial
   parameters, against ``repro.train.step.build_train_step`` on the same
-  mesh and mode (fp32 gradient reduction, lr 1e-3 from the first step):
-  the loss and every updated parameter, gathered, within 1e-5 relative
-  (per leaf, L2; measured ~1e-6);
-* the port's route log against the JAX gates' decisions, the layout
-  helpers (leaf specs, ZeRO-1 moment specs, the attention solver, the
-  rank layout) against the JAX package's, ``bidir`` and the int8 wire
-  raising, and the launcher's grid run on the CPU.
+  mesh and variant (fp32 gradient reduction, lr 1e-3 from the first
+  step): on the bf16 wire the loss and every updated parameter,
+  gathered, within 1e-5 relative (per leaf, L2; measured ~1e-6).  On the
+  int8 wire the first step's loss within 1e-5 too, the second's within
+  1e-4 and each leaf within 5e-3 (measured 5.1e-6, 3.4e-5 and 1.6e-3):
+  an fp32 product that sums in another order than JAX's can round to
+  the neighbouring int8 level where it sits on a rounding boundary (a
+  few of the ~1e5 quantized values a step), and AdamW's first update,
+  lr * g / |g|, turns such a change into a 2 lr move of any element
+  whose gradient it flips.  The int8 losses also stay within 5% of the
+  bf16 wire's (JAX's ``QUANT_RTOL``);
+* the port's route log against the JAX gates' decisions (``bidir``
+  degrading to ``ring`` on odd extents), the layout helpers (leaf specs,
+  ZeRO-1 moment specs, the attention solver, the rank layout) against
+  the JAX package's, the validation of the mode and wire strings, and
+  the launcher's grid run on the CPU.
 """
 
 import os
@@ -76,7 +86,7 @@ def worlds(grid_ref):
 # hecaton ops
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode", TW.MODES)
+@pytest.mark.parametrize("mode", TW.VARIANTS)
 @pytest.mark.parametrize("op", sorted(TW.OP_CASES))
 def test_hecaton_op_matches_jax(worlds, grid_ref, op, mode):
     z = np.load(grid_ref)
@@ -100,23 +110,43 @@ def _rel(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-@pytest.mark.parametrize("mode", TW.MODES)
+# per step: loss and leaf tolerances (relative), by wire
+STEP_TOL = {"bf16": ((1e-5, 1e-5), 1e-5), "int8": ((1e-5, 1e-4), 5e-3)}
+QUANT_RTOL = 0.05           # int8 against bf16 wire losses (tests/_mp/check_overlap.py)
+
+
+@pytest.mark.parametrize("mode", TW.VARIANTS)
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
 def test_train_steps_match_jax(worlds, grid_ref, shape, mode):
     z = np.load(grid_ref)
     key = f"train/{shape[0]}x{shape[1]}x{shape[2]}/{mode}"
     runs = worlds[shape]
     want = z[f"{key}/losses"]
+    loss_tol, leaf_tol = STEP_TOL[TW.variant(mode)[1]]
     for rank, res in runs.items():          # every rank reports the global loss
         got = np.asarray(res["train"][mode]["losses"])
-        assert np.all(np.abs(got - want) <= 1e-5 * np.abs(want)), (rank, got, want)
+        assert np.all(np.abs(got - want) <= np.asarray(loss_tol) * np.abs(want)), \
+            (rank, got, want)
     params = runs[0]["train"][mode]["params"]
     names = [k[len(f"{key}/params/"):] for k in z.files if k.startswith(f"{key}/params/")]
     assert sorted(names) == sorted(params)
     worst = max(names, key=lambda n: _rel(params[n], z[f"{key}/params/{n}"]))
-    assert _rel(params[worst], z[f"{key}/params/{worst}"]) <= 1e-5, worst
+    assert _rel(params[worst], z[f"{key}/params/{worst}"]) <= leaf_tol, worst
     moved = _rel(params[worst], z[f"train/init/{worst}"])
     assert moved > 1e-4                      # the steps did update the parameters
+
+
+@pytest.mark.parametrize("mode", ["ring", "bidir", "fused"])
+@pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
+def test_int8_losses_track_the_bf16_wire(worlds, shape, mode):
+    """The int8 wire's losses within JAX's QUANT_RTOL of the bf16 wire's,
+    and not equal to them (the hops did quantize)."""
+    train = worlds[shape][0]["train"]
+    q, b = np.asarray(train[f"{mode}-int8"]["losses"]), np.asarray(train[mode]["losses"])
+    assert np.all(np.abs(q - b) <= QUANT_RTOL * np.abs(b)), (q, b)
+    assert np.any(q != b)
+    assert {r["comm_dtype"] for r in train[f"{mode}-int8"]["routes"]
+            if r["route"] != "bulk"} == {"int8"}
 
 
 _GATES = {
@@ -129,23 +159,40 @@ _GATES = {
 }
 
 
-@pytest.mark.parametrize("mode", TW.MODES)
+def _extents(r):
+    """The extents a ring record's halvable chunk can be: a dim of x, or a
+    dim of x or w's last dim split over the ring."""
+    dims = list(r["x"]) + ([r["w"][-1]] if r["w"] else [])
+    return set(dims) | {d // r["n"] for d in dims}
+
+
+def _ring_want(mode, r):
+    """JAX's ring primitives halve the chunk under bidir when it is even."""
+    assert r["chunk"] in _extents(r), r
+    return "bidir" if mode == "bidir" and r["chunk"] % 2 == 0 else "ring"
+
+
+@pytest.mark.parametrize("mode", TW.VARIANTS)
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))
 def test_routes_follow_jax_gates(worlds, shape, mode):
     routes = worlds[shape][0]["train"][mode]["routes"]
+    overlap, wire = TW.variant(mode)
     assert routes
     seen = set()
     for r in routes:
         seen.add(r["route"])
-        if mode == "none":
+        if overlap == "none":
             assert r["route"] == "bulk", r
-        elif r["op"] in _GATES:
-            want = "fused" if mode == "fused" and _GATES[r["op"]](r) else "ring"
-            assert r["route"] == want, r
-        else:
-            assert r["route"] in ("ring", "bulk"), r
-    if mode == "fused":
+        elif r["op"] in _GATES and overlap == "fused" and _GATES[r["op"]](r):
+            assert r["route"] == "fused", r
+        elif r["route"] != "bulk":
+            assert r["route"] == _ring_want(overlap, r), r
+        if r["route"] != "bulk":
+            assert r["comm_dtype"] == wire, r
+    if overlap == "fused":
         assert "fused" in seen
+    if overlap == "bidir":
+        assert "bidir" in seen
 
 
 # ---------------------------------------------------------------------------
@@ -205,19 +252,31 @@ def test_rank_layout_is_the_jax_device_layout(shape):
 
 
 def test_bidir_and_int8_raise():
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        OV.check_mode("bidir")
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        PCtx(mode="train", pcfg=ParallelConfig(mx=2, overlap="bidir"), mesh=Grid(1, 2, 1))
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        PCtx(mode="train", pcfg=ParallelConfig(mx=2, comm_dtype="int8"), mesh=Grid(1, 2, 1))
-    for extra in (["--overlap", "bidir"], ["--comm-dtype", "int8"]):
-        args = launch_train.parser().parse_args(["--smoke", "--device", "cpu", "--mx", "2",
-                                                 *extra])
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            launch_train.run(args)
-    with pytest.raises(ValueError):
+    """bidir and int8 are taken; a typo of either raises ValueError in
+    check_mode / check_comm_dtype, ParallelConfig (so PCtx never sees
+    one), and the launcher's checks."""
+    from repro_torch.kernels import ring_matmul as RM
+    assert OV.check_mode("bidir") == "bidir" and RM.check_comm_dtype("int8") == "int8"
+    ctx = PCtx(mode="train", pcfg=ParallelConfig(mx=2, overlap="bidir", comm_dtype="int8"),
+               mesh=Grid(1, 2, 1))
+    assert ctx.comm_dtype == "int8" and ctx.grid_kwargs()["comm_dtype"] == "int8"
+    with pytest.raises(ValueError, match="overlap"):
         OV.check_mode("rings")
+    with pytest.raises(ValueError, match="comm_dtype"):
+        RM.check_comm_dtype("int4")
+    with pytest.raises(ValueError, match="overlap"):
+        ParallelConfig(mx=2, overlap="rings")
+    with pytest.raises(ValueError, match="comm_dtype"):
+        ParallelConfig(mx=2, comm_dtype="int4")
+    args = launch_train.parser().parse_args(["--smoke", "--device", "cpu", "--mx", "2",
+                                             "--overlap", "bidir", "--comm-dtype", "int8"])
+    launch_train._check_grid_args(args)
+    for field, bad in (("overlap", "rings"), ("comm_dtype", "int4")):
+        with pytest.raises(ValueError, match=field):
+            launch_train._check_grid_args(SimpleNamespace(**dict(vars(args), **{field: bad})))
+    for extra in (["--overlap", "rings"], ["--comm-dtype", "int4"]):
+        with pytest.raises(SystemExit):          # argparse refuses it first
+            launch_train.parser().parse_args(["--smoke", *extra])
 
 
 def test_launcher_grid_on_cpu():
@@ -238,3 +297,42 @@ def test_launcher_grid_on_cpu():
     assert max(checks["param_rel"].values()) <= 1e-5, checks["param_rel"]
     assert sorted(r["launches"]) == [0, 1, 2, 3]
     assert any(x["route"] == "fused" for x in r["routes"])
+
+
+def test_launcher_grid_bidir_int8_on_cpu():
+    """The launcher's grid path with --overlap bidir --comm-dtype int8 (1x2x2,
+    smoke config): the plain-version grid trained alongside runs the
+    same rings on the same wire, so the two agree as on the bf16 wire;
+    the single-device port has no wire, so its first loss is within
+    JAX's QUANT_RTOL."""
+    args = launch_train.parser().parse_args(
+        "--smoke --device cpu --steps 2 --batch 4 --seq 16 --microbatches 2 --mx 2 --my 2 "
+        "--overlap bidir --comm-dtype int8 --timeout 300".split())
+    r = launch_train.run_grid(args, log_fn=lambda *a: None, check_plain=True)
+    losses = [loss for _, loss in r["history"]]
+    checks = r["checks"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    np.testing.assert_allclose(checks["plain_losses"], losses, rtol=1e-5)
+    np.testing.assert_allclose(checks["plain_grad_norms"], r["grad_norms"], rtol=1e-5)
+    assert abs(checks["single_step0_loss"] - losses[0]) <= QUANT_RTOL * abs(losses[0])
+    routes = {(x["route"], x["comm_dtype"]) for x in r["routes"]}
+    assert ("bidir", "int8") in routes and not any(x == "fused" for x, _ in routes)
+
+
+def test_bidir_degrades_to_ring_on_odd_chunks():
+    """Each bidir dispatcher (and the pure rings) on an extent that halves
+    and on an odd one (1x1x2 world, fp32, both wires): the dispatchers'
+    route log says bidir or ring as JAX's primitives decide, a degraded
+    collective (the pure rings' too) equals the ring's result exactly, and
+    every result matches the bulk collective (bf16 wire; int8 within its
+    quantization)."""
+    res = TW.run_world((1, 1, 2), TW.bidir_job)
+    for rank, cases in res.items():
+        for (name, chunk, wire), (routes, got, ring, bulk) in cases.items():
+            want = "bidir" if chunk % 2 == 0 else "ring"
+            assert routes is None or routes == [want], (name, chunk, routes)
+            if want == "ring":
+                np.testing.assert_array_equal(got, ring, err_msg=f"{name} {chunk} {wire}")
+            tol = 2e-5 if wire == "bf16" else 0.05 * float(np.abs(bulk).max())
+            np.testing.assert_allclose(got, bulk, rtol=2e-5, atol=tol,
+                                       err_msg=f"{name} {chunk} {wire} rank {rank}")

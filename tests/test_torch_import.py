@@ -29,7 +29,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.models.ssm", "repro_torch.kernels.ssd",
             "repro_torch.launch.mesh", "repro_torch.parallel.comm",
             "repro_torch.parallel.sharding", "repro_torch.parallel.specs",
-            "repro_torch.core.overlap", "repro_torch.kernels.ring_matmul"} <= set(mods)
+            "repro_torch.core.overlap", "repro_torch.kernels.ring_matmul",
+            "repro_torch.core.quant"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

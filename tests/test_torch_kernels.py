@@ -135,7 +135,8 @@ def test_ops_take_plain_on_cpu_and_count_nothing():
     assert ops.LAUNCHES == {"matmul": 0, "gated_matmul": 0, "flash_attention": 0,
                             "tile_matmul": 0, "swiglu_bwd": 0, "flash_attention_bwd": 0,
                             "ssd": 0, "ag_matmul": 0, "matmul_rs": 0,
-                            "ag_matmul_contract": 0}
+                            "ag_matmul_contract": 0, "ag_matmul_int8": 0,
+                            "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0}
     assert torch.equal(ops.tile_matmul(x, w), ref.tile_matmul_plain(x, w))
     assert all(n == 0 for n in ops.LAUNCHES.values())
 

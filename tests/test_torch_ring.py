@@ -14,6 +14,15 @@
   collectives, one fp32 matmul) and its backward the transposed rings;
   the JAX package runs its ppermute-emulated rings with the Pallas tile
   loop in interpret mode.  Tolerance 2e-5, as ``tests/_mp/check_hecaton.py``.
+* The same ops on the int8 wire (``comm_dtype="int8"``) against JAX's
+  int8 rings (each hop ``quant.q_hop``), at those shapes and two wide
+  ones where every hopped shard quantizes.  Tolerance 2e-5 on all but
+  0.1% of the elements, and one int8 level (the tensor's largest
+  magnitude over 127) on those: a product that sums in another order
+  can round to the neighbouring level where its value sits on a rounding
+  boundary.  The int8 results lie far outside that tolerance of the bf16
+  wire's (checked), and at the narrow shapes, where ``quant_ok`` keeps
+  every hop full width, they equal it.
 """
 
 import os
@@ -109,8 +118,11 @@ def test_full_width_routes(name):
 
 
 def test_int8_wire_raises():
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        RM.check_comm_dtype("int8")
+    """The wire dtype is validated: a typo raises, int8 is taken."""
+    for bad in ("int4", "fp8", "INT8"):
+        with pytest.raises(ValueError, match="comm_dtype"):
+            RM.check_comm_dtype(bad)
+    assert RM.check_comm_dtype("int8") == "int8" and RM.check_comm_dtype("bf16") == "bf16"
 
 
 # ---------------------------------------------------------------------------
@@ -133,3 +145,66 @@ def test_ring_op_matches_jax(ring_world, ring_ref, name, shape):
         for i, (g, s) in enumerate(zip(grads, case["ins"])):
             want = specs.local_slice(torch.from_numpy(z[f"{key}/grad{i}"]), s, grid).numpy()
             np.testing.assert_allclose(g, want, err_msg=f"{key} grad{i} rank {rank}", **TOL)
+
+
+def _int8_close(got, want, err_msg):
+    """Within TOL except on at most 0.1% of the elements, and there within
+    one int8 level of the tensor."""
+    bad = np.abs(got - want) > TOL["atol"] + TOL["rtol"] * np.abs(want)
+    level = float(np.abs(want).max()) / 127
+    assert bad.mean() <= 1e-3, (err_msg, bad.mean())
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL["atol"] + level, err_msg=err_msg)
+
+
+def _local_ref(z, key, spec, grid):
+    from repro_torch.parallel import specs
+    return specs.local_slice(torch.from_numpy(z[key]), spec, grid).numpy()
+
+
+@pytest.mark.parametrize("shape", TW.INT8_RING_SHAPES)
+@pytest.mark.parametrize("name", sorted(TW.RING_CASES))
+def test_ring_op_int8_matches_jax(ring_world, ring_ref, name, shape):
+    from repro_torch.launch.mesh import Grid
+    z = np.load(ring_ref)
+    case, key = TW.RING_CASES[name], f"int8/{shape}/{name}"
+    for rank, res in sorted(ring_world.items()):
+        grid = Grid(1, 2, 2, rank)
+        outs, grads = res[key]
+        for i, (o, s) in enumerate(zip(outs, case["outs"])):
+            _int8_close(o, _local_ref(z, f"{key}/out{i}", s, grid), f"{key} out{i} rank {rank}")
+        for i, (g, s) in enumerate(zip(grads, case["ins"])):
+            _int8_close(g, _local_ref(z, f"{key}/grad{i}", s, grid), f"{key} grad{i} rank {rank}")
+
+
+# ops whose every hopped shard (forward and backward) is at least
+# quant.MIN_QUANT_DIM wide at the aligned shape; matmul_rs_cols scatters a
+# 12-wide chunk there, and at the ragged shape every hop is narrower
+QUANTIZED_AT_ALIGNED = ("ag_matmul", "matmul_rs_tokens", "ag_matmul_contract", "matmul_rs_pair")
+
+
+@pytest.mark.parametrize("shape", TW.RING_SHAPES)
+@pytest.mark.parametrize("name", sorted(TW.RING_CASES))
+def test_int8_tolerance_tells_the_wires_apart(ring_world, ring_ref, name, shape):
+    """Where the hops quantize, every output and gradient of the int8 op
+    differs from the bf16 wire's (JAX bf16 = port bf16 to 2e-5) by at
+    least 10x the int8 test's tolerance, on at least 10x the share of
+    elements that test lets off: the int8 check could not pass on the
+    bf16 wire.  Where quant_ok keeps every hop full width, they agree."""
+    from repro_torch.launch.mesh import Grid
+    z = np.load(ring_ref)
+    case, key = TW.RING_CASES[name], f"{shape}/{name}"
+    quantized = shape == "aligned" and name in QUANTIZED_AT_ALIGNED
+    for rank, res in sorted(ring_world.items()):
+        grid = Grid(1, 2, 2, rank)
+        outs, grads = res[f"int8/{key}"]
+        specs_ = [(f"out{i}", s) for i, s in enumerate(case["outs"])] + \
+            [(f"grad{i}", s) for i, s in enumerate(case["ins"])]
+        for got, (k, s) in zip(outs + grads, specs_):
+            bf16 = _local_ref(z, f"{key}/{k}", s, grid)
+            gap = np.abs(got - bf16)
+            tol = TOL["atol"] + TOL["rtol"] * np.abs(bf16)
+            if quantized:
+                assert gap.max() >= 10 * tol.max(), (key, k, rank, gap.max(), tol.max())
+                assert (gap > tol).mean() >= 1e-2, (key, k, rank, (gap > tol).mean())
+            else:
+                np.testing.assert_allclose(got, bf16, err_msg=f"{key} {k} rank {rank}", **TOL)
