@@ -7,14 +7,19 @@ Phases, each fatal on failure:
 
 1. build every CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc
    (one process per source, in parallel) and print the seconds; print the
-   card's name and power limit as nvidia-smi reports them;
+   card's name and power limit as nvidia-smi reports them; print how many
+   HGMMA (wgmma) and HMMA instructions each kernel function of the
+   flash-attention library holds (``cuobjdump -sass``), and fail unless
+   each tensor-core attention kernel holds HGMMA;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (qwen3-0.6b at full
    width), in fp32 and bf16, with the tolerance and its reason; time the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (a yardstick only: the port never calls it), beside
    the least time the card could take (bytes over 3.35 TB/s or operations
-   over the peak);
+   over the peak); where the attention forward or backward takes the
+   tensor cores (bf16), the SIMT path is held and timed on the same inputs
+   too, the two timed in turns, and each ``case`` line names its path;
 3. check that one prompt's prefill logits through the kernels match the
    plain-op forward;
 4. check the loss and every parameter's gradient of one training
@@ -33,7 +38,9 @@ Phases, each fatal on failure:
    random weights from a seed, made on the card, in 5 to 7.  The kernels'
    launch counts are zeroed just before the training run and each serving
    run and read just after each, and every kernel of each path must show
-   launches;
+   launches; the attention wrapper's per-path counts must show every
+   training forward and backward on the tensor cores, and every served
+   prefill of 256 or 512 tokens;
 8. ``ring_kernels``: two rank processes on the card, one ring of n = 2
    through the symmetric buffers: a ping-pong probe of the cross-process
    flags (200 round trips in one launch each way, under a watchdog;
@@ -205,6 +212,11 @@ SSM_CHECK_PROMPT, SSM_CHECK_DECODE = 300, 8
 SSM_SERVE_KERNELS = ("matmul", "ssd")
 TRAIN_KERNELS = ("tile_matmul", "gated_matmul", "flash_attention", "swiglu_bwd",
                  "flash_attention_bwd")
+# prefill lengths that must take the tensor-core attention path when served
+TC_PREFILLS = (256, 512)
+# the tensor-core attention kernels tc::fwd, tc::bwd_dq, tc::bwd_dkdv, as the
+# prefixes of their mangled names in the library's SASS
+TC_FUNCTIONS = ("_ZN2tc3fwd", "_ZN2tc6bwd_dq", "_ZN2tc8bwd_dkdv")
 
 
 def log(*a):
@@ -272,11 +284,13 @@ def randn(gen, shape, dtype, scale=1.0):
 
 
 def record(results, kernel, case, dtype, main, out, want, kern_calls, plain_calls,
-           lib_calls, nbytes, nops, timer=bench_ms):
+           lib_calls, nbytes, nops, timer=bench_ms, kernel_ms=None, path=None):
     """``out``/``want`` may be tuples (a backward's gradients, the gated
     kernel's kept products): each pair is held to the tolerance of its
     output's dtype and the worst error is reported.  ``dtype`` is the
-    inputs' dtype, which sets the peak rate of the bound."""
+    inputs' dtype, which sets the peak rate of the bound.  ``kernel_ms``,
+    when given, was timed by the caller (two paths in turns); ``path``
+    names the attention kernel's path in the case line."""
     outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
     errs, ok, tols = [], True, {}
     for o, w in zip(outs, wants):
@@ -291,9 +305,12 @@ def record(results, kernel, case, dtype, main, out, want, kern_calls, plain_call
              main=main, max_err=max(errs), errs=errs,
              tol={k: t for k, (t, _) in tols.items()},
              reason={k: why for k, (_, why) in tols.items()}, ok=ok,
-             kernel_ms=timer(kern_calls), plain_ms=timer(plain_calls),
+             kernel_ms=timer(kern_calls) if kernel_ms is None else kernel_ms,
+             plain_ms=timer(plain_calls),
              library_ms=timer(lib_calls) if lib_calls else None,
              bound_ms=b_ms, bound_by=b_by)
+    if path is not None:
+        r["path"] = path
     results.append(r)
     log("case " + json.dumps(r))
     return ok
@@ -364,14 +381,32 @@ def check_attention(results, gen, B, nh, nkv, dh, Sq, Sk, q_off, kv_len, dtype, 
         v = randn(gen, (B, Sk, nkv, dh), dtype).transpose(1, 2)
         sets.append((q, k, v))
     mask = sdpa_mask(B, Sq, Sk, qo, kl, DEV)
-    kern = lambda s: kfa.flash_attention(*s, causal=True, q_offset=qo, kv_len=kl)
+    kern = lambda s, p: kfa.flash_attention(*s, causal=True, q_offset=qo, kv_len=kl, impl=p)
     plain = lambda s: ref.attention_plain(*s, causal=True, q_offset=qo, kv_len=kl)
     lib = lambda s: F.scaled_dot_product_attention(*s, attn_mask=mask, enable_gqa=True)
     case = f"{label} B={B} nh={nh} nkv={nkv} dh={dh} Sq={Sq} Sk={Sk}"
-    return record(results, "flash_attention", case, dtype, main, kern(sets[0]),
-                  plain(sets[0]), [lambda s=s: kern(s) for s in sets],
-                  [lambda s=s: plain(s) for s in sets],
-                  [lambda s=s: lib(s) for s in sets], nbytes, nops)
+    impl = kfa.forward_impl(dtype, B, nh, nkv, Sq, Sk, dh)
+    calls = {p: [lambda s=s, p=p: kern(s, p) for s in sets] for p in kfa.IMPLS}
+    times = paired_ms(bench_ms, calls) if impl == "wgmma" else {impl: None}
+    ok = True
+    for p in times:                     # the chosen path first: its row is the main one
+        ok &= record(results, "flash_attention", case, dtype, main and p == impl,
+                     kern(sets[0], p), plain(sets[0]), calls[p],
+                     [lambda s=s: plain(s) for s in sets],
+                     [lambda s=s: lib(s) for s in sets], nbytes, nops,
+                     kernel_ms=times[p], path=p)
+    return ok
+
+
+def paired_ms(timer, calls):
+    """Each path's ms per call, the wgmma path's first: the two are timed in
+    turns (simt, wgmma, wgmma, simt) and each path's two readings averaged,
+    so a drift of the card's clock over the case falls on both alike."""
+    order = ("simt", "wgmma", "wgmma", "simt")
+    got = {"wgmma": [], "simt": []}
+    for p in order:
+        got[p].append(timer(calls[p]))
+    return {p: sum(got[p]) / len(got[p]) for p in ("wgmma", "simt")}
 
 
 def kernel_phase(cfg):
@@ -412,7 +447,58 @@ def kernel_phase(cfg):
     # a slot at kv_len 0: its rows see no key and average all of v, as _sdpa
     ok &= check_attention(results, gen, SLOTS, nh, nkv, dh, 1, Sk, [63, 300, 511, 0],
                           [64, 301, 512, 0], torch.bfloat16, main=False, label="empty-row")
+    # the tensor-core path off the main path: 3 q-heads a kv-head (a row tile
+    # ends inside a query's group), dh 64, ragged lengths, a prefill with an
+    # empty row
+    ok &= check_attention(results, gen, 2, 6, 2, 64, 80, 80, [0, 0], [80, 33],
+                          torch.bfloat16, main=False, label="ragged-g3")
+    ok &= check_attention(results, gen, 3, 6, 2, dh, 40, 130, [0, 50, 7], [40, 90, 0],
+                          torch.bfloat16, main=False, label="prefill-empty-row")
     return results, ok
+
+
+def _short(demangled):
+    """``void tc::fwd<(int)128>(CUtensorMap_st, ...)`` -> ``tc::fwd<128>``:
+    the name up to its parameter list, which opens at the first "(" outside
+    the template arguments."""
+    depth = 0
+    for i, c in enumerate(demangled):
+        depth += (c == "<") - (c == ">")
+        if c == "(" and depth == 0:
+            demangled = demangled[:i]
+            break
+    return demangled.replace("void ", "").replace("(int)", "")
+
+
+def sass_counts():
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel function
+    of the flash-attention library, from ``cuobjdump -sass``; ok when every
+    tensor-core kernel (TC_FUNCTIONS) holds HGMMA."""
+    lib = build.library("flash_attention")._name
+    bindir = os.path.dirname(build.nvcc_path())
+    sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            counts[name]["HGMMA"] += " HGMMA." in line
+            counts[name]["HMMA"] += " HMMA." in line
+    names = list(counts)
+    filt = os.path.join(bindir, "cu++filt")
+    if os.path.exists(filt):
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):
+            names = [_short(n) for n in out]
+    shown = dict(zip(names, counts.values()))
+    ok = all(any(m.startswith(pre) and c["HGMMA"] > 0 for m, c in counts.items())
+             for pre in TC_FUNCTIONS)
+    log("sass " + json.dumps(dict(library=os.path.basename(lib), functions=shown, ok=ok)))
+    return ok
 
 
 def _stored(t, transposed):
@@ -469,7 +555,7 @@ def check_attention_bwd(results, gen, B, nh, nkv, dh, S, dtype, *, causal=True, 
     nbytes = (3 * B * S * nh * dh + 2 * B * S * nkv * dh) * elt + 4 * B * nh * S \
         + (B * S * nh * dh + 2 * B * S * nkv * dh) * elt
     nops = 10 * pairs * nh * dh
-    kern = lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    kern = lambda p: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, impl=p)
     plain = lambda: ref.attention_bwd_plain(q, k, v, do, causal=causal)
     ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
     o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
@@ -478,9 +564,18 @@ def check_attention_bwd(results, gen, B, nh, nkv, dh, S, dtype, *, causal=True, 
                                  rtol=TOL[o.dtype][0])) and \
         bool(torch.allclose(lse, lse_p, atol=2e-4, rtol=2e-4))
     case = f"{'causal' if causal else 'full'} B={B} nh={nh} nkv={nkv} dh={dh} S={S}"
-    ok = record(results, "flash_attention_bwd", case, dtype, main, kern(), plain(),
-                [kern], [plain], [lib], nbytes, nops, timer=lambda c: event_ms(c[0]))
-    return ok and ok_fwd
+    impl = kfa.backward_impl(dtype, B, nh, nkv, S, S, dh)
+    timer = lambda c: event_ms(c[0])
+    calls = {p: [lambda p=p: kern(p)] for p in kfa.IMPLS}
+    times = paired_ms(timer, calls) if impl == "wgmma" else {impl: None}
+    ok = ok_fwd
+    for p in times:
+        got = kern(p)
+        ok &= record(results, "flash_attention_bwd", case, dtype, main and p == impl, got,
+                     plain(), calls[p], [plain], [lib], nbytes, nops, timer=timer,
+                     kernel_ms=times[p], path=p)
+        ok &= all(torch.equal(a, b) for a, b in zip(got, kern(p)))     # deterministic
+    return ok
 
 
 def train_kernel_phase(cfg):
@@ -770,6 +865,7 @@ def train_phase(profile):
     r = launch_train.run(args, log_fn=log)            # the main path
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    paths = {k: dict(v) for k, v in kfa.IMPL_LAUNCHES.items()}
     cfg, losses = r["cfg"], [loss for _, loss in r["history"]]
     timed = r["step_s"][1:]                           # after the warm-up step
     step_ms = 1e3 * float(np.median(timed))
@@ -803,10 +899,15 @@ def train_phase(profile):
                 model_tflop_s=flops / (step_ms / 1e3) / 1e12,
                 losses=[loss for _, loss in r["history"]], remat_one_step=peak,
                 setup_s=r["setup_s"])
+    # every bf16 forward (each fills a row tile) and backward of the run went
+    # through the tensor cores
+    ok_paths = all(paths[k]["simt"] == 0 and paths[k]["wgmma"] == launches[k]
+                   for k in ("flash_attention", "flash_attention_bwd"))
     ok = all(math.isfinite(x) for x in losses) and \
-        all(launches[k] > 0 for k in TRAIN_KERNELS)
+        all(launches[k] > 0 for k in TRAIN_KERNELS) and ok_paths
     log("train " + json.dumps(line))
     log("train_kernels " + json.dumps(launches))
+    log("train_paths " + json.dumps(dict(paths, ok=ok_paths)))
     if profile:
         profile_train(cfg, params, opt, rc, batch)
     del state, params, opt, r
@@ -846,6 +947,7 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
     r = launch_serve.run(args)                    # the main path
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    by_sq = dict(kfa.SQ_LAUNCHES)
     fin = r["finished"]
     vocab = get_config(arch).padded_vocab
     ok = (len(fin) == REQUESTS
@@ -857,6 +959,12 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
             "dense_equiv_blocks", "paged_peak_bytes", "dense_cache_bytes", "warmup_s")
     log(f"serve{suffix} " + json.dumps(dict({k: r[k] for k in keys}, arch=arch)))
     log(f"kernels{suffix} " + json.dumps(launches))
+    if "flash_attention" in kernels:
+        ok_paths = all(by_sq.get(("simt", n), 0) == 0 and by_sq.get(("wgmma", n), 0) > 0
+                       for n in TC_PREFILLS)
+        ok &= ok_paths
+        log(f"serve_paths{suffix} " + json.dumps(dict(
+            {f"{p} Sq={n}": c for (p, n), c in sorted(by_sq.items())}, ok=ok_paths)))
     if profile:
         profile_decode(r["engine"])
     return ok, launches
@@ -1120,6 +1228,7 @@ def main(argv=None):
                           "--format=csv,noheader", "--id=0"],
                          check=True, capture_output=True, text=True).stdout.strip()
 
+    ok_sass = sass_counts()
     cfg = get_config(ARCH)
     results, ok_k = kernel_phase(cfg)
     t_results, ok_tk = train_kernel_phase(cfg)
@@ -1170,7 +1279,7 @@ def main(argv=None):
             "bound_by": max(b_by, key=b_by.get),
             "library_ms": None if None in libs else sum(libs),
         })
-    failed = [n for n, ok in (("kernels", ok_k), ("train_kernels", ok_tk),
+    failed = [n for n, ok in (("sass", ok_sass), ("kernels", ok_k), ("train_kernels", ok_tk),
                               ("model_check", ok_m), ("grad_check", ok_g), ("train", ok_t),
                               ("serve", ok_s), ("ssd_kernels", ok_sk),
                               ("ssm_model_check", ok_sm), ("serve_ssm", ok_ss),

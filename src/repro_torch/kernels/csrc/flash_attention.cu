@@ -32,25 +32,53 @@
 // Layout: q [B, nh, Sq, dh], k/v [B, nkv, Sk, dh], o, dO and the gradients
 // like their inputs, each given by element strides (batch, head, position)
 // with dh contiguous, so the model hands over its [B, S, heads, dh]
-// tensors without a transpose.  dh is 64 or 128; fp32 or bf16 in, the
-// outputs in the input dtype.
+// tensors without a transpose.  dh is 64 or 128.
 //
 // Bound on an H100 SXM: decode (Sq = 1) reads each slot's K/V once,
 // kv_len * nkv * dh * 2 tensors * 2 bytes per layer, and is byte bound;
-// prefill at a 512-token prompt does 4 * Sq * kv * nh * dh operations
-// (half of them under the causal mask skipped) and is operation bound, as
-// is the backward (10 * pairs * nh * dh operations: the two score
-// products again, and dV, dK, dQ).  The design: one block per (batch,
-// kv-head, tile of 16 "rows"), where a row is one (query position, q-head
-// of the group) pair, so the g q-heads sharing a kv-head read each K/V
-// tile once; decode fills g rows of the tile instead of one.  K/V tiles of
-// 32 keys are staged in shared memory as fp32 with 16-byte loads, scores
-// and the products are fp32 SIMT FMAs (no tensor cores yet: a later PR
-// moves them onto mma), 8 threads own a row and reduce its max and sum
-// with warp shuffles.  When that grid is too small to fill the card
-// (decode: batch x kv-heads blocks), the keys are also split over blocks
-// and a second kernel merges the partial softmax states (flash-decoding).
+// prefill at a 512-token prompt does 4 * pairs * nh * dh operations (the
+// visible (query, key) pairs) and the backward 10 * pairs * nh * dh (the two
+// score products again, and dV, dK, dQ).  At the training case (B 4,
+// 16/8 heads, dh 128, S 512) the bytes bound both: 7.5 and 15 us at
+// 3.35 TB/s against 4.3 and 10.9 us of operations at 989 TFLOP/s.
+//
+// Two paths.  The wrapper (kernels/flash_attention.py, forward_impl and
+// backward_impl) picks one from the shapes:
+//
+// * bf16 on the tensor cores (namespace tc: the forward when the Sq * g
+//   rows of a (batch, kv-head) fill at least one 64-row tile, and every
+//   bf16 backward).  One consumer warpgroup runs wgmma (m64, bf16 in, fp32
+//   accumulators in registers) and one producer warp keeps TMA copies of
+//   64-key K/V tiles in flight into a ring of two shared-memory stages
+//   (mbarriers for full and empty), 128-byte swizzled as the wgmma
+//   descriptors read them.  Forward: one block per (64 rows, kv-head,
+//   batch), rows as above so the g q-heads of a kv-head share each K/V
+//   tile, Q gathered through the strides into shared memory once (g need
+//   not divide the tile).  S = Q K^T from shared memory; the online
+//   softmax in fp32 registers, in log2 units, a row's max reduced across
+//   the 4 threads that hold it; P rounded to bf16 in registers and fed as
+//   the register A operand of O += P V, V read as an MN-major B operand;
+//   the mask only on tiles that straddle a limit, tiles past it skipped.
+//   Backward: flash_bwd_dot for D, then a dK/dV kernel (one block per 64
+//   keys, K and V held in shared memory, the producer streaming 32-row
+//   tiles of Q and dO of every q-head of the group from the causal start:
+//   S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q with P^T and
+//   dS^T as register A operands) and a dQ kernel (the forward's blocks:
+//   S, dP = dO V^T, dQ += dS K).  Each block owns its outputs, so the
+//   backward has no atomics and is deterministic.
+// * fp32 FMAs (the SIMT kernels below): fp32 inputs, held to 2e-4, which a
+//   bf16 or TF32 product cannot meet; and the decode and short-prefill
+//   forward, byte bound, whose few rows (4 slots x 2) would fill 8 of a
+//   wgmma's 64 and which keeps the flash-decoding key split.  One block per
+//   (batch, kv-head, tile of 16 rows); K/V tiles of 32 keys staged in shared
+//   memory as fp32 with 16-byte loads, 8 threads own a row and reduce its
+//   max and sum with warp shuffles.  When that grid is too small to fill
+//   the card (decode: batch x kv-heads blocks), the keys are also split
+//   over blocks and a second kernel merges the partial softmax states.
+//   Their backward is the same FA2 split as the tensor cores' (a dK/dV and
+//   a dQ kernel), on 16-row and 32-key tiles.
 
+#include <cuda.h>  // CUtensorMap and its encode function's types (no link to libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -537,6 +565,740 @@ static int launch_bwd_dh(const void* q, const void* k, const void* v, const void
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: wgmma, with K/V (and the backward's Q/dO) staged
+// by TMA into a ring of shared-memory stages that a producer warp fills
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BM = 64;        // rows of a forward or dQ block: the wgmma's M, one warpgroup
+constexpr int BN = 64;        // keys of a K/V tile
+constexpr int BMB = 32;       // query rows of one dK/dV iteration (the wgmma's N there)
+constexpr int NST = 2;        // stages of the ring
+constexpr int THREADS = 160;  // one consumer warpgroup (128) + one producer warp
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory descriptor of a tile stored as 128-byte rows (64 bf16) in the
+// 128-byte swizzle that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes, 8-row groups 1024 bytes
+// apart (SBO).  K-major operands pass lbo 16 (unused); MN-major ones the distance between
+// their 64-column halves.  A k-step advances a K-major start by 32 bytes within a half
+// (and to the next half after 4), an MN-major one by 16 rows (2048 bytes).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(b)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(b)) : "memory");
+}
+__device__ __forceinline__ uint32_t bar_try(uint64_t* b, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(saddr(b)), "r"(parity) : "memory");
+  return done;
+}
+// Wait for the phase of the given parity to complete.  A wait that lasts SPIN_CYCLES (~15 s)
+// traps, so a lost arrival fails the launch instead of hanging the card.
+constexpr long long SPIN_CYCLES = 1ll << 35;
+__device__ __forceinline__ void bar_wait(uint64_t* b, int parity) {
+  if (bar_try(b, parity)) return;
+  const long long t0 = clock64();
+  while (!bar_try(b, parity))
+    if (clock64() - t0 > SPIN_CYCLES) __trap();
+}
+
+// One box of 64 columns x rows positions of (batch bb, head h) at column d, position s.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* b, int d,
+                                         int s, int h, int bb) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(b)), "r"(d), "r"(s), "r"(h), "r"(bb)
+      : "memory");
+}
+// ROWS positions from s0 of one (batch, head): DH / 64 halves of ROWS x 128 bytes
+template <int DH, int ROWS>
+__device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* b,
+                                         int s0, int h, int bb) {
+#pragma unroll
+  for (int hf = 0; hf < DH / 64; ++hf) tma_load(dst + hf * ROWS * 128, map, b, hf * 64, s0, h, bb);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of wgmma operands across the asynchronous
+// product (an accumulator is only valid after wg_wait; an A fragment must live until then)
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A (bf16 pairs) in registers, B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A (bf16 pairs) in registers, B MN-major in
+// shared memory
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int DH>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t* a, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a, uint64_t db) {
+  wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a, uint64_t db) {
+  wgmma_rs_n128(d, a, db);
+}
+
+// The accumulator of an m64nN product (thread: rows r, r + 8; columns 8i + 2(lane % 4) + {0, 1})
+// as the register A operand of the next product over those N columns: k-step kk takes
+// a[4kk .. 4kk + 3], the pairs of columns 16kk .. 16kk + 15, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void to_frag(const float (&s)[N / 2], uint32_t (&a)[N / 4]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(s[2 * j], s[2 * j + 1]);
+    a[j] = *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// Rows R0 .. R0 + 63 of a block (row R = query R / g, q-head kvh g + R % g, read through the
+// strides) into [DH / 64][64 rows][128 B] in the 128-byte swizzle; rows past rows_total are 0.
+template <int DH>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const bf16* t, long long sb, long long sh,
+                                          long long ss, int b, int kvh, int g, int R0,
+                                          int rows_total, int tid) {
+  constexpr int CH = DH / 8;  // 16-byte chunks of a row
+  for (int i = tid; i < BM * CH; i += 128) {
+    const int r = i / CH, cc = i % CH, R = R0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (R < rows_total)
+      val = *reinterpret_cast<const uint4*>(t + b * sb + (long long)(kvh * g + R % g) * sh +
+                                            (long long)(R / g) * ss + cc * 8);
+    *reinterpret_cast<uint4*>(dst + (cc / 8) * BM * 128 + r * 128 + (((cc % 8) ^ (r & 7)) << 4)) =
+        val;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+}
+
+__device__ __forceinline__ uint8_t* align1k(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
+
+// The K/V producer of a forward or dQ block: tiles 0 .. ntiles - 1 of (b, kvh) into the ring.
+template <int DH>
+__device__ __forceinline__ void produce_kv(uint8_t* KV, uint64_t* full, uint64_t* empty,
+                                           const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                           int ntiles, int kvh, int b) {
+  constexpr int TILE = DH * 128;
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % NST;
+    if (t >= NST) bar_wait(&empty[s], (t / NST - 1) & 1);
+    bar_expect(&full[s], 2 * TILE);
+    tma_tile<DH, BN>(KV + 2 * s * TILE, kmap, &full[s], t * BN, kvh, b);
+    tma_tile<DH, BN>(KV + (2 * s + 1) * TILE, vmap, &full[s], t * BN, kvh, b);
+  }
+}
+
+// Forward: one block per (tile of 64 rows, kv-head, batch), rows as in the SIMT kernel;
+// heavier (later) causal tiles are scheduled first.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+    const bf16* __restrict__ q, bf16* __restrict__ o, const int* __restrict__ q_off,
+    const int* __restrict__ kv_len, int nh, int nkv, int Sq, int Sk, Strides st, int causal,
+    float scale, float* __restrict__ lse) {
+  constexpr int TILE = DH * 128;  // 64 rows (or keys) x DH in bf16
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1k(smem_raw);
+  uint8_t* KV = Qs + TILE;  // stage s: K at KV + 2 s TILE, V after it
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + NST * 2 * TILE);
+  uint64_t* empty = full + NST;
+
+  const int tid = threadIdx.x, b = blockIdx.z, kvh = blockIdx.y, g = nh / nkv;
+  const int rows_total = Sq * g, R0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int qoff = q_off != nullptr ? q_off[b] : 0;
+  const int klen = kv_len != nullptr ? min(kv_len[b], Sk) : Sk;
+  const bool none = klen <= 0;  // no visible key: all Sk keys count, as in the SIMT kernel
+  int kend = none ? Sk : klen;
+  if (causal && !none) kend = min(kend, qoff + min(Sq - 1, (R0 + BM - 1) / g) + 1);
+  const int ntiles = (kend + BN - 1) / BN;
+
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid >= 128) {  // the producer warp
+    if (tid == 128) produce_kv<DH>(KV, full, empty, &kmap, &vmap, ntiles, kvh, b);
+    return;
+  }
+
+  load_rows<DH>(Qs, q, st.qb, st.qh, st.qs, b, kvh, g, R0, rows_total, tid);
+  consumers_sync();
+  const int lane = tid % 32, ra = (tid / 32) * 16 + lane / 4, cb = 2 * (lane % 4);
+  const int qp[2] = {qoff + (R0 + ra) / g, qoff + (R0 + ra + 8) / g};
+  const int qfirst = qoff + R0 / g;
+  const float sl2 = scale * LOG2E;  // scores in log2 units
+  const uint32_t qaddr = saddr(Qs);
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[DH / 2];
+  zero(acc);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % NST, k0 = t * BN;
+    const uint32_t kaddr = saddr(KV + 2 * s * TILE), vaddr = kaddr + TILE;
+    float sc[BN / 2];
+    zero(sc);
+    bar_wait(&full[s], (t / NST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < DH / 16; ++k) {
+      const uint32_t off = (k / 4) * BN * 128 + (k % 4) * 32;  // BM == BN rows in Q and K
+      wgmma_ss_n64(sc, desc(qaddr + off, 16), desc(kaddr + off, 16), k);
+    }
+    wg_commit();
+    wg_wait();
+    keep(sc);
+
+    // the mask only on a tile that straddles a limit
+    const bool straddle = none ? k0 + BN > Sk
+                               : (k0 + BN > klen || (causal && k0 + BN - 1 > qfirst));
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = none ? 0.f : sc[4 * i + 2 * h + e] * sl2;
+          if (straddle) {
+            const int kp = k0 + 8 * i + cb + e;
+            if (!(none ? kp < Sk : kp < klen && (!causal || kp <= qp[h]))) x = NEG_INF;
+          }
+          sc[4 * i + 2 * h + e] = x;
+          mx[h] = fmaxf(mx[h], x);
+        }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+      l[h] *= alpha[h];  // this thread's part of the row sum; reduced at the end
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(sc[4 * i + 2 * h + e] - m[h]);
+          l[h] += p;
+          sc[4 * i + 2 * h + e] = p;
+        }
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[4 * i + j] *= alpha[j / 2];
+    uint32_t pf[BN / 4];
+    to_frag<BN>(sc, pf);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<DH>(acc, &pf[4 * kk], desc(vaddr + kk * 2048, BN * 128));
+    wg_commit();
+    wg_wait();
+    keep(acc);
+    keep(pf);
+    if (tid == 0) bar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int R = R0 + ra + 8 * h;
+    if (R >= rows_total) continue;
+    const int qi = R / g, hh = kvh * g + R % g;
+    bf16* orow = o + b * st.ob + (long long)hh * st.oh + (long long)qi * st.os;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + cb) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((long long)b * nh + hh) * Sq + qi] = m[h] * LN2 + logf(l[h]);
+  }
+}
+
+// dQ: one block per (tile of 64 rows, kv-head, batch), as the forward; loops over the K/V
+// tiles its rows see: S = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 2)
+bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+       const bf16* __restrict__ q, const bf16* __restrict__ dout, const float* __restrict__ lse,
+       const float* __restrict__ D, bf16* __restrict__ dq, int nh, int nkv, int Sq, int Sk,
+       BwdStrides st, int causal, float scale) {
+  constexpr int TILE = DH * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1k(smem_raw);
+  uint8_t* Gs = Qs + TILE;
+  uint8_t* KV = Gs + TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + NST * 2 * TILE);
+  uint64_t* empty = full + NST;
+
+  const int tid = threadIdx.x, b = blockIdx.z, kvh = blockIdx.y, g = nh / nkv;
+  const int rows_total = Sq * g, R0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int kend = causal ? min(Sk, min(Sq - 1, (R0 + BM - 1) / g) + 1) : Sk;
+  const int ntiles = (kend + BN - 1) / BN;
+
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid >= 128) {
+    if (tid == 128) produce_kv<DH>(KV, full, empty, &kmap, &vmap, ntiles, kvh, b);
+    return;
+  }
+
+  load_rows<DH>(Qs, q, st.qb, st.qh, st.qs, b, kvh, g, R0, rows_total, tid);
+  load_rows<DH>(Gs, dout, st.gb, st.gh, st.gs, b, kvh, g, R0, rows_total, tid);
+  consumers_sync();
+  const int lane = tid % 32, ra = (tid / 32) * 16 + lane / 4, cb = 2 * (lane % 4);
+  int qp[2];
+  float l2[2], dd[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = R0 + ra + 8 * h;
+    qp[h] = R < rows_total ? R / g : -1;  // -1: a padding row sees no key
+    const long long ri = ((long long)b * nh + kvh * g + R % g) * Sq + R / g;
+    l2[h] = R < rows_total ? lse[ri] * LOG2E : 0.f;
+    dd[h] = R < rows_total ? D[ri] : 0.f;
+  }
+  const float sl2 = scale * LOG2E;
+  const uint32_t qaddr = saddr(Qs), gaddr = saddr(Gs);
+  float acc[DH / 2];
+  zero(acc);
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % NST, k0 = t * BN;
+    const uint32_t kaddr = saddr(KV + 2 * s * TILE), vaddr = kaddr + TILE;
+    float sc[BN / 2], dp[BN / 2];
+    zero(sc);
+    zero(dp);
+    bar_wait(&full[s], (t / NST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < DH / 16; ++k) {
+      const uint32_t off = (k / 4) * BN * 128 + (k % 4) * 32;
+      wgmma_ss_n64(sc, desc(qaddr + off, 16), desc(kaddr + off, 16), k);
+    }
+#pragma unroll
+    for (int k = 0; k < DH / 16; ++k) {
+      const uint32_t off = (k / 4) * BN * 128 + (k % 4) * 32;
+      wgmma_ss_n64(dp, desc(gaddr + off, 16), desc(vaddr + off, 16), k);
+    }
+    wg_commit();
+    wg_wait();
+    keep(sc);
+    keep(dp);
+    const bool straddle =
+        k0 + BN > Sk || R0 + BM > rows_total || (causal && k0 + BN - 1 > R0 / g);
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * i + 2 * h + e, kp = k0 + 8 * i + cb + e;
+          float p = exp2f(sc[x] * sl2 - l2[h]);
+          if (straddle && !(kp < Sk && qp[h] >= 0 && (!causal || kp <= qp[h]))) p = 0.f;
+          sc[x] = p * (dp[x] - dd[h]);
+        }
+    uint32_t df[BN / 4];
+    to_frag<BN>(sc, df);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<DH>(acc, &df[4 * kk], desc(kaddr + kk * 2048, BN * 128));
+    wg_commit();
+    wg_wait();
+    keep(acc);
+    keep(df);
+    if (tid == 0) bar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int R = R0 + ra + 8 * h;
+    if (R >= rows_total) continue;
+    bf16* row = dq + b * st.dqb + (long long)(kvh * g + R % g) * st.dqh + (long long)(R / g) * st.dqs;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + cb) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * h] * scale, acc[4 * i + 2 * h + 1] * scale);
+  }
+}
+
+// dK, dV: one block per (tile of 64 keys, kv-head, batch).  K and V stay in shared memory;
+// the producer streams tiles of 32 query positions of each q-head of the group from the
+// causal start (Q and dO by TMA), and the products run transposed so the keys are the
+// wgmma's M: S^T = K Q^T, P^T = exp(S^T scale - LSE), dV += P^T dO, dP^T = V dO^T,
+// dS^T = P^T (dP^T - D), dK += dS^T Q.  No atomics: the block owns its keys.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
+         const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
+         const float* __restrict__ lse, const float* __restrict__ D, bf16* __restrict__ dk,
+         bf16* __restrict__ dv, int nh, int nkv, int Sq, int Sk, BwdStrides st, int causal,
+         float scale) {
+  constexpr int KT = DH * 128;       // 64 keys x DH
+  constexpr int RT = DH * BMB * 2;   // 32 rows x DH
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1k(smem_raw);
+  uint8_t* Vs = Ks + KT;
+  uint8_t* RS = Vs + KT;  // stage s: Q at RS + 2 s RT, dO after it
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(RS + NST * 2 * RT);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + NST;
+
+  const int tid = threadIdx.x, b = blockIdx.z, kvh = blockIdx.y, g = nh / nkv;
+  const int k0 = blockIdx.x * BN;
+  const int qstart = causal ? min(k0, Sq) / BMB * BMB : 0;
+  const int per_head = (Sq - qstart + BMB - 1) / BMB, n_it = g * per_head;
+
+  if (tid == 0) {
+    bar_init(kvbar, 1);
+    for (int s = 0; s < NST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid >= 128) {
+    if (tid == 128) {
+      bar_expect(kvbar, 2 * KT);
+      tma_tile<DH, BN>(Ks, &kmap, kvbar, k0, kvh, b);
+      tma_tile<DH, BN>(Vs, &vmap, kvbar, k0, kvh, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % NST, h = kvh * g + it / per_head;
+        const int qi0 = qstart + (it % per_head) * BMB;
+        if (it >= NST) bar_wait(&empty[s], (it / NST - 1) & 1);
+        bar_expect(&full[s], 2 * RT);
+        tma_tile<DH, BMB>(RS + 2 * s * RT, &qmap, &full[s], qi0, h, b);
+        tma_tile<DH, BMB>(RS + (2 * s + 1) * RT, &gmap, &full[s], qi0, h, b);
+      }
+    }
+    return;
+  }
+
+  const int lane = tid % 32, ra = (tid / 32) * 16 + lane / 4, cb = 2 * (lane % 4);
+  const int kp[2] = {k0 + ra, k0 + ra + 8};
+  const float sl2 = scale * LOG2E;
+  const uint32_t kaddr = saddr(Ks), vaddr = saddr(Vs);
+  float dka[DH / 2], dva[DH / 2];
+  zero(dka);
+  zero(dva);
+  bar_wait(kvbar, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % NST, h = kvh * g + it / per_head;
+    const int qi0 = qstart + (it % per_head) * BMB;
+    // LSE (log2 units) and D of this thread's 8 query columns
+    float l2[BMB / 8][2], dd[BMB / 8][2];
+#pragma unroll
+    for (int i = 0; i < BMB / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = qi0 + 8 * i + cb + e;
+        const long long ri = ((long long)b * nh + h) * Sq + qi;
+        l2[i][e] = qi < Sq ? lse[ri] * LOG2E : 0.f;
+        dd[i][e] = qi < Sq ? D[ri] : 0.f;
+      }
+    const uint32_t qaddr = saddr(RS + 2 * s * RT), gaddr = qaddr + RT;
+    float sc[BMB / 2], dp[BMB / 2];
+    zero(sc);
+    zero(dp);
+    bar_wait(&full[s], (it / NST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < DH / 16; ++k) {
+      const uint32_t offk = (k / 4) * BN * 128 + (k % 4) * 32;
+      const uint32_t offq = (k / 4) * BMB * 128 + (k % 4) * 32;
+      wgmma_ss_n32(sc, desc(kaddr + offk, 16), desc(qaddr + offq, 16), k);
+    }
+#pragma unroll
+    for (int k = 0; k < DH / 16; ++k) {
+      const uint32_t offk = (k / 4) * BN * 128 + (k % 4) * 32;
+      const uint32_t offq = (k / 4) * BMB * 128 + (k % 4) * 32;
+      wgmma_ss_n32(dp, desc(vaddr + offk, 16), desc(gaddr + offq, 16), k);
+    }
+    wg_commit();
+    wg_wait();
+    keep(sc);
+    keep(dp);
+    const bool straddle = qi0 + BMB > Sq || k0 + BN > Sk || (causal && k0 + BN - 1 > qi0);
+#pragma unroll
+    for (int i = 0; i < BMB / 8; ++i)
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * i + 2 * h2 + e, qi = qi0 + 8 * i + cb + e;
+          float p = exp2f(sc[x] * sl2 - l2[i][e]);
+          if (straddle && !(qi < Sq && kp[h2] < Sk && (!causal || kp[h2] <= qi))) p = 0.f;
+          sc[x] = p;
+          dp[x] = p * (dp[x] - dd[i][e]);
+        }
+    uint32_t pf[BMB / 4], df[BMB / 4];
+    to_frag<BMB>(sc, pf);
+    to_frag<BMB>(dp, df);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BMB / 16; ++kk)
+      wgmma_rs<DH>(dva, &pf[4 * kk], desc(gaddr + kk * 2048, BMB * 128));
+#pragma unroll
+    for (int kk = 0; kk < BMB / 16; ++kk)
+      wgmma_rs<DH>(dka, &df[4 * kk], desc(qaddr + kk * 2048, BMB * 128));
+    wg_commit();
+    wg_wait();
+    keep(dva);
+    keep(dka);
+    keep(pf);
+    keep(df);
+    if (tid == 0) bar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kp[h] >= Sk) continue;
+    bf16* krow = dk + b * st.dkb + (long long)kvh * st.dkh + (long long)kp[h] * st.dks;
+    bf16* vrow = dv + b * st.dvb + (long long)kvh * st.dvh + (long long)kp[h] * st.dvs;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i + cb) =
+          __floats2bfloat162_rn(dka[4 * i + 2 * h] * scale, dka[4 * i + 2 * h + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * i + cb) =
+          __floats2bfloat162_rn(dva[4 * i + 2 * h], dva[4 * i + 2 * h + 1]);
+    }
+  }
+}
+
+// ---- host side ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to libcuda)
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 [B, heads, S, dh] tensor given by element strides (dh contiguous) as a 4-D TMA map
+// whose box is 64 columns x rows positions of one (batch, head), 128-byte swizzled; positions
+// past S read as 0.
+static bool tensor_map(CUtensorMap* m, const void* base, int dh, int S, int heads, int B,
+                       long long sb, long long sh, long long ss, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+constexpr size_t fwd_smem() { return 1024 + DH * 128 * (1 + 2 * NST) + 2 * NST * 8; }
+template <int DH>
+constexpr size_t dq_smem() { return 1024 + DH * 128 * (2 + 2 * NST) + 2 * NST * 8; }
+template <int DH>
+constexpr size_t dkdv_smem() { return 1024 + 2 * DH * 128 + 2 * NST * DH * BMB * 2 + (1 + 2 * NST) * 8; }
+
+template <int DH>
+static int launch_fwd(const void* q, const void* k, const void* v, void* o, const int* q_off,
+                      const int* kv_len, int B, int nh, int nkv, int Sq, int Sk,
+                      const Strides& st, int causal, float scale, float* lse,
+                      cudaStream_t stream) {
+  CUtensorMap km, vm;
+  if (!tensor_map(&km, k, DH, Sk, nkv, B, st.kb, st.kh, st.ks, BN) ||
+      !tensor_map(&vm, v, DH, Sk, nkv, B, st.vb, st.vh, st.vs, BN))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = fwd_smem<DH>();
+  cudaFuncSetAttribute(fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const dim3 grid((Sq * (nh / nkv) + BM - 1) / BM, nkv, B);
+  fwd<DH><<<grid, THREADS, smem, stream>>>(km, vm, static_cast<const bf16*>(q),
+                                             static_cast<bf16*>(o), q_off, kv_len, nh, nkv, Sq,
+                                             Sk, st, causal, scale, lse);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+static int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
+                      int B, int nh, int nkv, int Sq, int Sk, const BwdStrides& st, int causal,
+                      float scale, cudaStream_t stream) {
+  CUtensorMap km, vm, qm, gm;
+  if (!tensor_map(&km, k, DH, Sk, nkv, B, st.kb, st.kh, st.ks, BN) ||
+      !tensor_map(&vm, v, DH, Sk, nkv, B, st.vb, st.vh, st.vs, BN) ||
+      !tensor_map(&qm, q, DH, Sq, nh, B, st.qb, st.qh, st.qs, BMB) ||
+      !tensor_map(&gm, dout, DH, Sq, nh, B, st.gb, st.gh, st.gs, BMB))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * nh * Sq;
+  flash_bwd_dot<bf16, DH><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), D, B, nh, Sq, st);
+  constexpr size_t s_kv = dkdv_smem<DH>(), s_q = dq_smem<DH>();
+  cudaFuncSetAttribute(bwd_dkdv<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_kv);
+  cudaFuncSetAttribute(bwd_dq<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_q);
+  bwd_dkdv<DH><<<dim3((Sk + BN - 1) / BN, nkv, B), THREADS, s_kv, stream>>>(
+      km, vm, qm, gm, lse, D, static_cast<bf16*>(dk), static_cast<bf16*>(dv), nh, nkv, Sq, Sk,
+      st, causal, scale);
+  bwd_dq<DH><<<dim3((Sq * (nh / nkv) + BM - 1) / BM, nkv, B), THREADS, s_q, stream>>>(
+      km, vm, static_cast<const bf16*>(q), static_cast<const bf16*>(dout), lse, D,
+      static_cast<bf16*>(dq), nh, nkv, Sq, Sk, st, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 extern "C" {
 
 // q_off / kv_len: int32 [B] on the device, or null (0 / Sk).  Strides are
@@ -598,6 +1360,47 @@ int hk_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
                                               Sq, Sk, st, causal, scale, s)
                   : launch_bwd_dh<float, 128>(q, k, v, o, dout, lp, Dp, dq, dk, dv, B, nh, nkv,
                                                Sq, Sk, st, causal, scale, s);
+}
+
+// The bf16 tensor-core forward (wgmma; K/V by TMA): the contract of hk_flash_attention
+// without the key split.  Returns a cudaError_t (cudaErrorInvalidValue for a dh it does not
+// take or a layout TMA refuses).
+int hk_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
+                          const void* q_off, const void* kv_len, int B, int nh, int nkv, int Sq,
+                          int Sk, int dh, long long qb, long long qh, long long qs, long long kb,
+                          long long kh, long long ks, long long vb, long long vh, long long vs,
+                          long long ob, long long oh, long long os, int causal, float scale,
+                          void* lse, void* stream) {
+  if ((dh != 64 && dh != 128) || nh % nkv) return (int)cudaErrorInvalidValue;
+  const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* qo = static_cast<const int*>(q_off);
+  const int* kl = static_cast<const int*>(kv_len);
+  float* lp = static_cast<float*>(lse);
+  return dh == 64 ? tc::launch_fwd<64>(q, k, v, o, qo, kl, B, nh, nkv, Sq, Sk, st, causal, scale,
+                                       lp, s)
+                  : tc::launch_fwd<128>(q, k, v, o, qo, kl, B, nh, nkv, Sq, Sk, st, causal,
+                                        scale, lp, s);
+}
+
+// The bf16 tensor-core backward: the contract of hk_flash_attention_bwd.
+int hk_flash_attention_bwd_tc(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const void* lse, void* D, void* dq, void* dk,
+                              void* dv, int B, int nh, int nkv, int Sq, int Sk, int dh,
+                              const long long* strides, int causal, float scale, void* stream) {
+  if (dh != 64 && dh != 128) return (int)cudaErrorInvalidValue;
+  if (Sq != Sk || nh % nkv) return (int)cudaErrorInvalidValue;
+  const long long* t = strides;
+  const BwdStrides st{t[0],  t[1],  t[2],  t[3],  t[4],  t[5],  t[6],  t[7],
+                      t[8],  t[9],  t[10], t[11], t[12], t[13], t[14], t[15],
+                      t[16], t[17], t[18], t[19], t[20], t[21], t[22], t[23]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(lse);
+  float* Dp = static_cast<float*>(D);
+  return dh == 64 ? tc::launch_bwd<64>(q, k, v, o, dout, lp, Dp, dq, dk, dv, B, nh, nkv, Sq, Sk,
+                                       st, causal, scale, s)
+                  : tc::launch_bwd<128>(q, k, v, o, dout, lp, Dp, dq, dk, dv, B, nh, nkv, Sq, Sk,
+                                        st, causal, scale, s);
 }
 
 const char* hk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
