@@ -9,8 +9,9 @@ Phases, each fatal on failure:
    (one process per source, in parallel) and print the seconds; print the
    card's name and power limit as nvidia-smi reports them; print how many
    HGMMA (wgmma) and HMMA instructions each kernel function of the
-   flash-attention library holds (``cuobjdump -sass``), and fail unless
-   each tensor-core attention kernel holds HGMMA;
+   flash-attention and matmul libraries holds (``cuobjdump -sass``), and
+   fail unless each tensor-core attention kernel and the wgmma matmul
+   (``wg::mm``) hold HGMMA;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (qwen3-0.6b at full
    width), in fp32 and bf16, with the tolerance and its reason; time the
@@ -20,6 +21,8 @@ Phases, each fatal on failure:
    over the peak); where the attention forward or backward takes the
    tensor cores (bf16), the SIMT path is held and timed on the same inputs
    too, the two timed in turns, and each ``case`` line names its path;
+   likewise a bf16 matmul or tile matmul on the wgmma path is held and
+   timed on the wmma path too, in turns;
 3. check that one prompt's prefill logits through the kernels match the
    plain-op forward;
 4. check the loss and every parameter's gradient of one training
@@ -40,7 +43,9 @@ Phases, each fatal on failure:
    run and read just after each, and every kernel of each path must show
    launches; the attention wrapper's per-path counts must show every
    training forward and backward on the tensor cores, and every served
-   prefill of 256 or 512 tokens;
+   prefill of 256 or 512 tokens; the matmul wrapper's must show every
+   training tile matmul, and every served matmul with M > 16 (a prefill),
+   on wgmma;
 8. ``ring_kernels``: two rank processes on the card, one ring of n = 2
    through the symmetric buffers: a ping-pong probe of the cross-process
    flags (200 round trips in one launch each way, under a watchdog;
@@ -79,7 +84,8 @@ Phases, each fatal on failure:
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
-its time per kernel.
+its time per kernel, the step's also summed by kernel family
+(``profile_train_kernels``: wg::mm, mm_tc_bf16, the attention kernels).
 """
 
 import argparse
@@ -217,6 +223,11 @@ TC_PREFILLS = (256, 512)
 # the tensor-core attention kernels tc::fwd, tc::bwd_dq, tc::bwd_dkdv, as the
 # prefixes of their mangled names in the library's SASS
 TC_FUNCTIONS = ("_ZN2tc3fwd", "_ZN2tc6bwd_dq", "_ZN2tc8bwd_dkdv")
+# the wgmma matmul wg::mm, likewise in the matmul library's SASS
+WG_FUNCTIONS = ("_ZN2wg2mm",)
+# kernel families of the training step's device time (--profile): name fragments
+PROFILE_FAMILIES = ("wg::mm<", "wg::sum_splits", "mm_tc_bf16", "tc::fwd", "tc::bwd_dq",
+                    "tc::bwd_dkdv", "swiglu")
 
 
 def log(*a):
@@ -341,18 +352,39 @@ def check_matmul(results, gen, M, K, N, dtype, *, gated=False, act="none",
         plain = lambda s: ref.gated_matmul_plain(s[0], *s[1], act=act)
         lib = None
     else:
-        kern = lambda s: kmm.matmul(s[0], s[1][0], s[2], act=act)
+        kern = lambda s, p=None: kmm.matmul(s[0], s[1][0], s[2], act=act, impl=p)
         plain = lambda s: ref.matmul_plain(s[0], s[1][0], s[2], act=act)
         lib = (lambda s: torch.matmul(s[0], s[1][0])) if (act == "none" and not bias) \
             else None
     name = "gated_matmul" if gated else "matmul"
     case = f"M={M} K={K} N={N} act={act}" + (" bias" if bias else "") + \
         (" keep_ab" if keep_ab else "")
-    return record(results, name, case, dtype, main, kern(sets[0]), plain(sets[0]),
-                  [lambda s=s: kern(s) for s in sets],
-                  [lambda s=s: plain(s) for s in sets],
-                  [lambda s=s: lib(s) for s in sets] if lib else None,
-                  nbytes, nw * 2 * M * K * N)
+    # the gated kernel: skinny for M <= 16, else wmma (bf16) or simt (fp32)
+    impl = (("skinny" if M <= kmm.SKINNY_M else "wmma" if dtype == torch.bfloat16 else "simt")
+            if gated else kmm.mm_impl(dtype, M, N, K))
+    return _record_paths(results, name, case, dtype, main, impl, kern, plain, lib, sets,
+                         nbytes, nw * 2 * M * K * N, both=not gated)
+
+
+def _record_paths(results, name, case, dtype, main, impl, kern, plain, lib, sets, nbytes, nops,
+                  both):
+    """One case of a matmul kernel on its chosen path ``impl``; when that
+    is wgmma (and ``both``), the wmma path is held and timed on the same
+    inputs too, the two timed in turns, and only the chosen path's row is
+    a main one."""
+    plains = [lambda s=s: plain(s) for s in sets]
+    libs = [lambda s=s: lib(s) for s in sets] if lib else None
+    if not (both and impl == "wgmma"):
+        return record(results, name, case, dtype, main, kern(sets[0]), plain(sets[0]),
+                      [lambda s=s: kern(s) for s in sets], plains, libs, nbytes, nops,
+                      path=impl)
+    calls = {p: [lambda s=s, p=p: kern(s, p) for s in sets] for p in ("wgmma", "wmma")}
+    times = paired_ms(bench_ms, calls)
+    ok, want = True, plain(sets[0])
+    for p in times:                     # the chosen path first: its row is the main one
+        ok &= record(results, name, case, dtype, main and p == impl, kern(sets[0], p), want,
+                     calls[p], plains, libs, nbytes, nops, kernel_ms=times[p], path=p)
+    return ok
 
 
 def sdpa_mask(B, Sq, Sk, q_off, kv_len, device):
@@ -399,14 +431,15 @@ def check_attention(results, gen, B, nh, nkv, dh, Sq, Sk, q_off, kv_len, dtype, 
 
 
 def paired_ms(timer, calls):
-    """Each path's ms per call, the wgmma path's first: the two are timed in
-    turns (simt, wgmma, wgmma, simt) and each path's two readings averaged,
-    so a drift of the card's clock over the case falls on both alike."""
-    order = ("simt", "wgmma", "wgmma", "simt")
-    got = {"wgmma": [], "simt": []}
-    for p in order:
+    """Each path's ms per call for the two paths of ``calls``, the first
+    key's (wgmma) first: the two are timed in turns (other, wgmma, wgmma,
+    other) and each path's two readings averaged, so a drift of the card's
+    clock over the case falls on both alike."""
+    a, b = calls
+    got = {a: [], b: []}
+    for p in (b, a, a, b):
         got[p].append(timer(calls[p]))
-    return {p: sum(got[p]) / len(got[p]) for p in ("wgmma", "simt")}
+    return {p: sum(got[p]) / len(got[p]) for p in (a, b)}
 
 
 def kernel_phase(cfg):
@@ -470,11 +503,10 @@ def _short(demangled):
     return demangled.replace("void ", "").replace("(int)", "")
 
 
-def sass_counts():
-    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel function
-    of the flash-attention library, from ``cuobjdump -sass``; ok when every
-    tensor-core kernel (TC_FUNCTIONS) holds HGMMA."""
-    lib = build.library("flash_attention")._name
+def _sass(libname):
+    """{function: {"HGMMA": n, "HMMA": n}} of one library, by mangled name,
+    and the same keyed by short demangled names."""
+    lib = build.library(libname)._name
     bindir = os.path.dirname(build.nvcc_path())
     sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
@@ -494,10 +526,21 @@ def sass_counts():
                              text=True).stdout.splitlines()
         if len(out) == len(names):
             names = [_short(n) for n in out]
-    shown = dict(zip(names, counts.values()))
-    ok = all(any(m.startswith(pre) and c["HGMMA"] > 0 for m, c in counts.items())
-             for pre in TC_FUNCTIONS)
-    log("sass " + json.dumps(dict(library=os.path.basename(lib), functions=shown, ok=ok)))
+    return os.path.basename(lib), counts, dict(zip(names, counts.values()))
+
+
+def sass_counts():
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel function
+    of the flash-attention and matmul libraries, from ``cuobjdump -sass``;
+    ok when every tensor-core attention kernel (TC_FUNCTIONS) and the wgmma
+    matmul (WG_FUNCTIONS) hold HGMMA."""
+    shown, ok = {}, True
+    for libname, prefixes in (("flash_attention", TC_FUNCTIONS), ("matmul", WG_FUNCTIONS)):
+        lib, counts, short = _sass(libname)
+        shown[lib] = short
+        ok &= all(any(m.startswith(pre) and c["HGMMA"] > 0 for m, c in counts.items())
+                  for pre in prefixes)
+    log("sass " + json.dumps(dict(libraries=shown, ok=ok)))
     return ok
 
 
@@ -517,14 +560,17 @@ def check_tile(results, gen, layout, M, K, N, dtype, out_dtype=None, *, main=Tru
     sets = [(_stored(randn(gen, (M, K), dtype), layout == "TN"),
              _stored(randn(gen, (K, N), dtype, K ** -0.5), layout == "NT"))
             for _ in range(n_copies(nbytes))]
-    kern = lambda s: kmm.tile_matmul(*s, out_dtype=out_dtype)
+    kern = lambda s, p=None: kmm.tile_matmul(*s, out_dtype=out_dtype, impl=p)
     plain = lambda s: ref.tile_matmul_plain(*s, out_dtype=out_dtype)
     lib = ((lambda s: torch.matmul(*s)) if out_dtype == dtype
            else (lambda s: torch.mm(*s, out_dtype=out_dtype)))
     case = f"{layout} M={M} K={K} N={N} out={str(out_dtype).replace('torch.', '')}"
-    return record(results, "tile_matmul", case, dtype, main, kern(sets[0]), plain(sets[0]),
-                  [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(s) for s in sets],
-                  [lambda s=s: lib(s) for s in sets], nbytes, 2 * M * K * N)
+    x, w = sets[0]
+    ta, lda = kmm.layout(x)
+    tb, ldb = kmm.layout(w)
+    impl = kmm.mm_impl(dtype, M, N, K, ta, tb, lda, ldb, kmm.shared_align(x, w), tile=True)
+    return _record_paths(results, "tile_matmul", case, dtype, main, impl, kern, plain, lib,
+                         sets, nbytes, 2 * M * K * N, both=True)
 
 
 def check_swiglu_bwd(results, gen, M, F_, dtype, *, main=True):
@@ -866,6 +912,7 @@ def train_phase(profile):
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     paths = {k: dict(v) for k, v in kfa.IMPL_LAUNCHES.items()}
+    mm_paths = dict(kmm.IMPL_LAUNCHES["tile_matmul"])
     cfg, losses = r["cfg"], [loss for _, loss in r["history"]]
     timed = r["step_s"][1:]                           # after the warm-up step
     step_ms = 1e3 * float(np.median(timed))
@@ -903,11 +950,15 @@ def train_phase(profile):
     # through the tensor cores
     ok_paths = all(paths[k]["simt"] == 0 and paths[k]["wgmma"] == launches[k]
                    for k in ("flash_attention", "flash_attention_bwd"))
+    # every (bf16) tile matmul of the run went through wgmma
+    ok_mm = mm_paths["wgmma"] == launches["tile_matmul"] > 0 and \
+        mm_paths["wgmma"] == sum(mm_paths.values())
     ok = all(math.isfinite(x) for x in losses) and \
-        all(launches[k] > 0 for k in TRAIN_KERNELS) and ok_paths
+        all(launches[k] > 0 for k in TRAIN_KERNELS) and ok_paths and ok_mm
     log("train " + json.dumps(line))
     log("train_kernels " + json.dumps(launches))
     log("train_paths " + json.dumps(dict(paths, ok=ok_paths)))
+    log("train_mm_paths " + json.dumps(dict(tile_matmul=mm_paths, ok=ok_mm)))
     if profile:
         profile_train(cfg, params, opt, rc, batch)
     del state, params, opt, r
@@ -931,6 +982,7 @@ def profile_train(cfg, params, opt, rc, batch):
     dev = device_ms(events)
     log("profile_train " + json.dumps(dict(wall_ms=1e3 * wall, device_ms=dev,
                                            device_busy_share=dev / 1e3 / wall)))
+    log("profile_train_kernels " + json.dumps(family_ms(events)))
     log(events.table(sort_by="self_device_time_total", row_limit=40))
 
 
@@ -948,6 +1000,7 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     by_sq = dict(kfa.SQ_LAUNCHES)
+    mm_paths = dict(kmm.IMPL_LAUNCHES["matmul"])
     fin = r["finished"]
     vocab = get_config(arch).padded_vocab
     ok = (len(fin) == REQUESTS
@@ -959,6 +1012,12 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
             "dense_equiv_blocks", "paged_peak_bytes", "dense_cache_bytes", "warmup_s")
     log(f"serve{suffix} " + json.dumps(dict({k: r[k] for k in keys}, arch=arch)))
     log(f"kernels{suffix} " + json.dumps(launches))
+    # every served matmul with M > 16 (a prefill) went through wgmma, decode
+    # through the skinny path
+    ok_mm = mm_paths["wgmma"] > 0 and mm_paths["wmma"] == mm_paths["simt"] == 0 and \
+        mm_paths["wgmma"] + mm_paths["skinny"] == launches["matmul"]
+    ok &= ok_mm
+    log(f"serve_mm_paths{suffix} " + json.dumps(dict(matmul=mm_paths, ok=ok_mm)))
     if "flash_attention" in kernels:
         ok_paths = all(by_sq.get(("simt", n), 0) == 0 and by_sq.get(("wgmma", n), 0) > 0
                        for n in TC_PREFILLS)
@@ -978,6 +1037,18 @@ def device_ms(events):
     from torch.autograd import DeviceType
     return sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+
+
+def family_ms(events):
+    """Device ms and calls of each kernel family (PROFILE_FAMILIES: name
+    fragments), over the kernel events only, as ``device_ms`` sums them."""
+    from torch.autograd import DeviceType
+    out = {}
+    for fam in PROFILE_FAMILIES:
+        rows = [e for e in events if e.device_type == DeviceType.CUDA and fam in e.key]
+        out[fam] = dict(ms=sum(e.self_device_time_total for e in rows) / 1e3,
+                        calls=sum(e.count for e in rows))
+    return out
 
 
 def profile_decode(eng):

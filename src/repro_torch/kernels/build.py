@@ -8,8 +8,9 @@ parallel), then loaded with ``ctypes``:
         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
 The build directory is ``build/kernels`` at the root of the checkout (git
-ignores it); a library is named by the hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing is built
+ignores it); a library is named by the hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  Nothing is built
 or loaded at import: the first call that needs a kernel builds them.
 Pointer and stream arguments are ``ctypes.c_void_p``; every C entry returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
@@ -36,9 +37,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _U = ctypes.c_ulonglong
 ARGTYPES = {
     "matmul": {
-        "hk_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "hk_matmul": [_P] * 5 + [_I] * 8 + [_P],
         "hk_gated_matmul": [_P] * 7 + [_I] * 6 + [_P],
-        "hk_tile_matmul": [_P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _P],
+        "hk_tile_matmul": [_P] * 4 + [_I] * 3 + [_L, _L] + [_I] * 7 + [_P],
     },
     "flash_attention": {
         "hk_flash_attention": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12
@@ -87,6 +88,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):      # an edited header rebuilds every source
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -78,10 +78,11 @@
 //   Their backward is the same FA2 split as the tensor cores' (a dK/dV and
 //   a dQ kernel), on 16-row and 32-key tiles.
 
-#include <cuda.h>  // CUtensorMap and its encode function's types (no link to libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -571,6 +572,8 @@ static int launch_bwd_dh(const void* q, const void* k, const void* v, const void
 // ---------------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BM = 64;        // rows of a forward or dQ block: the wgmma's M, one warpgroup
 constexpr int BN = 64;        // keys of a K/V tile
 constexpr int BMB = 32;       // query rows of one dK/dV iteration (the wgmma's N there)
@@ -579,83 +582,12 @@ constexpr int THREADS = 160;  // one consumer warpgroup (128) + one producer war
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor of a tile stored as 128-byte rows (64 bf16) in the
-// 128-byte swizzle that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes, 8-row groups 1024 bytes
-// apart (SBO).  K-major operands pass lbo 16 (unused); MN-major ones the distance between
-// their 64-column halves.  A k-step advances a K-major start by 32 bytes within a half
-// (and to the next half after 4), an MN-major one by 16 rows (2048 bytes).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(b)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(b)),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(b)) : "memory");
-}
-__device__ __forceinline__ uint32_t bar_try(uint64_t* b, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(saddr(b)), "r"(parity) : "memory");
-  return done;
-}
-// Wait for the phase of the given parity to complete.  A wait that lasts SPIN_CYCLES (~15 s)
-// traps, so a lost arrival fails the launch instead of hanging the card.
-constexpr long long SPIN_CYCLES = 1ll << 35;
-__device__ __forceinline__ void bar_wait(uint64_t* b, int parity) {
-  if (bar_try(b, parity)) return;
-  const long long t0 = clock64();
-  while (!bar_try(b, parity))
-    if (clock64() - t0 > SPIN_CYCLES) __trap();
-}
-
-// One box of 64 columns x rows positions of (batch bb, head h) at column d, position s.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* b, int d,
-                                         int s, int h, int bb) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(saddr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(b)), "r"(d), "r"(s), "r"(h), "r"(bb)
-      : "memory");
-}
 // ROWS positions from s0 of one (batch, head): DH / 64 halves of ROWS x 128 bytes
 template <int DH, int ROWS>
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* b,
                                          int s0, int h, int bb) {
 #pragma unroll
   for (int hf = 0; hf < DH / 64; ++hf) tma_load(dst + hf * ROWS * 128, map, b, hf * 64, s0, h, bb);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of wgmma operands across the asynchronous
-// product (an accumulator is only valid after wg_wait; an A fragment must live until then)
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory
@@ -772,12 +704,6 @@ __device__ __forceinline__ void to_frag(const float (&s)[N / 2], uint32_t (&a)[N
   }
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
-
 // Rows R0 .. R0 + 63 of a block (row R = query R / g, q-head kvh g + R % g, read through the
 // strides) into [DH / 64][64 rows][128 B] in the 128-byte swizzle; rows past rows_total are 0.
 template <int DH>
@@ -797,9 +723,6 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const bf16* t, long long
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
 }
 
-__device__ __forceinline__ uint8_t* align1k(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
 
 // The K/V producer of a forward or dQ block: tiles 0 .. ntiles - 1 of (b, kvh) into the ring.
@@ -877,7 +800,7 @@ fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMa
       wgmma_ss_n64(sc, desc(qaddr + off, 16), desc(kaddr + off, 16), k);
     }
     wg_commit();
-    wg_wait();
+    wg_wait<0>();
     keep(sc);
 
     // the mask only on a tile that straddles a limit
@@ -928,7 +851,7 @@ fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMa
     for (int kk = 0; kk < BN / 16; ++kk)
       wgmma_rs<DH>(acc, &pf[4 * kk], desc(vaddr + kk * 2048, BN * 128));
     wg_commit();
-    wg_wait();
+    wg_wait<0>();
     keep(acc);
     keep(pf);
     if (tid == 0) bar_arrive(&empty[s]);
@@ -1024,7 +947,7 @@ bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtenso
       wgmma_ss_n64(dp, desc(gaddr + off, 16), desc(vaddr + off, 16), k);
     }
     wg_commit();
-    wg_wait();
+    wg_wait<0>();
     keep(sc);
     keep(dp);
     const bool straddle =
@@ -1047,7 +970,7 @@ bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtenso
     for (int kk = 0; kk < BN / 16; ++kk)
       wgmma_rs<DH>(acc, &df[4 * kk], desc(kaddr + kk * 2048, BN * 128));
     wg_commit();
-    wg_wait();
+    wg_wait<0>();
     keep(acc);
     keep(df);
     if (tid == 0) bar_arrive(&empty[s]);
@@ -1160,7 +1083,7 @@ bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUten
       wgmma_ss_n32(dp, desc(vaddr + offk, 16), desc(gaddr + offq, 16), k);
     }
     wg_commit();
-    wg_wait();
+    wg_wait<0>();
     keep(sc);
     keep(dp);
     const bool straddle = qi0 + BMB > Sq || k0 + BN > Sk || (causal && k0 + BN - 1 > qi0);
@@ -1187,7 +1110,7 @@ bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUten
     for (int kk = 0; kk < BMB / 16; ++kk)
       wgmma_rs<DH>(dka, &df[4 * kk], desc(qaddr + kk * 2048, BMB * 128));
     wg_commit();
-    wg_wait();
+    wg_wait<0>();
     keep(dva);
     keep(dka);
     keep(pf);
@@ -1211,24 +1134,6 @@ bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUten
 }
 
 // ---- host side ----
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to libcuda)
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A bf16 [B, heads, S, dh] tensor given by element strides (dh contiguous) as a 4-D TMA map
 // whose box is 64 columns x rows positions of one (batch, head), 128-byte swizzled; positions

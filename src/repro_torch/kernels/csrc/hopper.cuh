@@ -1,0 +1,128 @@
+// Hopper (sm_90a) pieces shared by the port's tensor-core kernels
+// (flash_attention.cu's namespace tc, matmul.cu's namespace wg): shared
+// addresses, the wgmma shared-memory descriptor, mbarriers whose waits trap
+// instead of hanging the card, TMA tile loads, the wgmma group fences, and
+// the host's cuTensorMapEncodeTiled looked up through the CUDA runtime (so
+// nothing links libcuda).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its encode function's types (no link to libcuda)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint8_t* align1k(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// wgmma shared-memory descriptor of a tile stored as 128-byte rows (64 bf16) in the
+// 128-byte swizzle that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes, 8-row groups 1024 bytes
+// apart (SBO).  K-major operands pass lbo 16 (unused); MN-major ones the distance between
+// their 64-column halves.  A k-step advances a K-major start by 32 bytes within a half
+// (and to the next half after 4), an MN-major one by 16 rows (2048 bytes).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(b)),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(b)) : "memory");
+}
+__device__ __forceinline__ uint32_t bar_try(uint64_t* b, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(saddr(b)), "r"(parity) : "memory");
+  return done;
+}
+// Wait for the phase of the given parity to complete.  A wait that lasts SPIN_CYCLES (~15 s)
+// traps, so a lost arrival fails the launch instead of hanging the card.
+constexpr long long SPIN_CYCLES = 1ll << 35;
+__device__ __forceinline__ void bar_wait(uint64_t* b, int parity) {
+  if (bar_try(b, parity)) return;
+  const long long t0 = clock64();
+  while (!bar_try(b, parity))
+    if (clock64() - t0 > SPIN_CYCLES) __trap();
+}
+
+// One box of a 4-D map at (d, s, h, bb) into shared memory; completes on b.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* b, int d,
+                                         int s, int h, int bb) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(b)), "r"(d), "r"(s), "r"(h), "r"(bb)
+      : "memory");
+}
+// One box of a 2-D map at (inner x, outer y); elements past the map's dims read as 0.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* b, int x,
+                                         int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(b)), "r"(x), "r"(y)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of wgmma operands across the asynchronous
+// product (an accumulator is only valid after wg_wait; an A fragment must live until then)
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// ---- host side ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to libcuda)
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+}  // namespace hopper

@@ -22,30 +22,42 @@
 // stored in the input dtype (fp32 or bf16), or in fp32 for the tile matmul
 // when asked (the head logits of the training loss).  Each operand's stored
 // row length must be a multiple of 8 (16-byte vector loads) for matmul and
-// gated_matmul; the tile matmul takes any extent (element loads where a
-// vector is off 16 bytes).  Everything else is free: ragged edges are
-// masked here, unlike the Pallas kernel which asserts divisibility.
+// gated_matmul; the tile matmul takes any extent.  Everything else is free:
+// ragged edges are masked here, unlike the Pallas kernel which asserts
+// divisibility.
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s dense bf16):
 //   * decode (M = number of slots, 4) is weight-byte bound: every weight
 //     byte is read once per step, about 1.19 GB for qwen3-0.6b in bf16,
-//     so about 0.36 ms per step at the memory rate.  The skinny path below
-//     (M <= 16) streams w once with coalesced vector loads and splits K
-//     over blocks so that enough loads are in flight to cover the card;
-//     the split partials are fp32 and summed in a fixed order by the
-//     epilogue kernel, so results are deterministic.
+//     so about 0.36 ms per step at the memory rate.
 //   * prefill, training (M = 2048 tokens per microbatch, and the dw
 //     products with M = d_in, K = 2048) and head matmuls are near the FLOP
 //     bound (2*M*K*N operations against (M*K + K*N + M*N) * 2 bytes; the
-//     training head 2048 x 1024 x 152064 is 0.64 TFLOP, 0.65 ms at peak).
-//     The tensor-core path below stages bf16 tiles (K step 32) through
-//     shared memory in each operand's own layout, prefetching the next step
-//     into registers, and runs WMMA m16n16k16 with fp32 accumulators; it is
-//     the simple route to the tensor cores (no wgmma, no TMA, no
-//     multi-stage pipeline yet), so it reaches a fraction of the peak.
-//   * fp32 with M > 16 runs a plain SIMT tiled kernel (64x64 tiles, 4x4
-//     outputs per thread): fp32 is the checking dtype, not the serving or
-//     training one.
+//     training head 2048 x 1024 x 152064 is 0.64 TFLOP, 0.65 ms at peak,
+//     and writes 1.25 GB of fp32 logits, 0.37 ms at the memory rate).
+//
+// Four paths; the wrapper (kernels/matmul.py, mm_impl) picks one from the
+// dtype, the shapes and the strides alone, never from whether a launch failed:
+//   * wgmma (namespace wg below): bf16 with M > 16 in matmul, every bf16 tile
+//     matmul whose operands TMA can address (stored rows, leading dims and
+//     bases on 16 bytes).  Persistent blocks, a producer warp feeding a ring
+//     of TMA stages, two consumer warpgroups on wgmma with fp32 accumulators
+//     in registers, the epilogue (bias, act, bf16 or fp32) stored straight
+//     from them; the tile width (128 or 256) and a split of K over an fp32
+//     workspace come from the wrapper's wg_plan so that small products still
+//     fill the 132 SMs.  Only this path reaches the tensor cores' full rate.
+//   * wmma (mm_tc_bf16): bf16 operands TMA cannot address (the ring
+//     backward's ragged dw products, stored rows off 8 elements, read element
+//     by element) and the gated matmul with M > 16: BK = 32 tiles staged
+//     through shared memory with register prefetch, WMMA m16n16k16
+//     (mma.sync), a fraction of the peak.
+//   * skinny (M <= 16, decode): streams w once with coalesced vector loads
+//     and splits K over blocks so that enough loads are in flight to cover
+//     the card; the split partials are fp32 and summed in a fixed order by
+//     the epilogue kernel, so results are deterministic.
+//   * simt: fp32 operands (64x64 tiles, 4x4 outputs per thread): fp32 is the
+//     checking dtype, held to 2e-4, which only fp32 sums of exact products
+//     meet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,11 +66,15 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 enum { ACT_NONE = 0, ACT_RELU2 = 1, ACT_GELU = 2, ACT_SILU = 3 };
 enum { DT_F32 = 0, DT_BF16 = 1 };
+// the paths, as kernels/matmul.py::IMPLS numbers them
+enum { IMPL_WGMMA = 0, IMPL_WMMA = 1, IMPL_SIMT = 2, IMPL_SKINNY = 3 };
 
 __device__ __forceinline__ float apply_act(float y, int act) {
   switch (act) {
@@ -107,8 +123,8 @@ __device__ __forceinline__ void store_out(TO* out, size_t idx, float a, float b,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path, M > 16: one BM x BN output tile per block, warps
-// laid out WARPS_M x WARPS_N, each owning FM x FN WMMA fragments.  Two tile
+// The wmma path (bf16 operands TMA cannot address, and the gated matmul with
+// M > 16): one BM x BN output tile per block, warps laid out WARPS_M x WARPS_N, each owning FM x FN WMMA fragments.  Two tile
 // shapes: 128x128 (8 warps) when that grid fills the card twice over, else
 // 64x64 (4 warps) so that mid-size products still spread over the SMs.  The
 // next K step's tiles are loaded into registers while the tensor cores work
@@ -444,8 +460,398 @@ mm_splitk_epilogue(const float* __restrict__ part, const T* __restrict__ bias,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 on the tensor cores through wgmma, operands staged by TMA (M > 16 in
+// matmul, every size in the tile matmul, whenever TMA can address both
+// operands: stored rows, leading dims and bases on 16 bytes).
+//
+// Persistent blocks: one per SM (or one per work unit when there are fewer),
+// each walking the work units blockIdx.x, blockIdx.x + gridDim.x, ...  A unit
+// is a BM x BN output tile and one of `splits` ranges of K.  Tiles are taken
+// m fastest within bands of GM row tiles, so the blocks of one wave share a
+// few B column bands (the tied head's 311 MB table is read about once).
+//
+// A block is three warpgroups.  The producer (warpgroup 0, one thread
+// working, its registers given up with setmaxnreg) keeps TMA loads in flight
+// into a ring of NST shared-memory stages of BK = 64, each stage a full and
+// an empty mbarrier.  Each stage holds the A tile (BM rows x 64 of K, 128-byte
+// rows in the 128-byte swizzle) and the B tile.  The two consumer
+// warpgroups each own 64 rows of the tile and issue wgmma m64nBNk16 over
+// them, fp32 accumulators in registers; a stage is released once the
+// products that read it have completed (one wgmma group stays in flight
+// across the next stage's wait).
+//
+// Layouts, read in place (`wgmma`'s transpose bits, one descriptor form):
+//   A [M,K] row-major (NN, NT): K-major, one 64 x 128 box of 128 rows;
+//   A stored [K,M] (TN):        MN-major, two boxes of 64 (M) x 64 (K);
+//   B stored [N,K] (NT):        K-major, one 64 x BN box;
+//   B [K,N] row-major (NN, TN): MN-major, BN / 64 boxes of 64 (N) x 64 (K).
+// Boxes past the edges read zeros, which masks ragged M, N and K on the load
+// side; the epilogue masks the stores.  With splits > 1 each unit writes its
+// fp32 partial sum to `part` [splits, M, N] and sum_splits adds the splits in
+// a fixed order, so the result does not depend on timing (no atomics).
+// ---------------------------------------------------------------------------
+namespace wg {
+using namespace hopper;
+
+constexpr int BM = 128, BK = 64, GM = 16, THREADS = 384;
+constexpr int A_BYTES = BM * BK * 2;  // 16 KB
+constexpr int BOX = 64 * 128;         // one 64-row box of 128-byte rows, 8 KB
+
+template <int BN>
+struct Tile {
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int NST = BN == 256 ? 4 : 6;  // 192 KB of stages either way
+  static constexpr size_t SMEM = 1024 + (size_t)NST * STAGE + 2 * NST * 8;
+};
+
+struct Unit {
+  int m0, n0, kb0, kb1, split;
+};
+
+// Work unit u: its tile's first row and column, its range of k-blocks and its split.
+template <int BN>
+__device__ __forceinline__ Unit unit_at(int u, int mt, int nt, int splits, int kper, int kbt) {
+  Unit w;
+  w.split = u % splits;
+  const int tile = u / splits, band = GM * nt;
+  const int g = tile / band, r = tile % band, gm = min(GM, mt - g * GM);
+  w.m0 = (g * GM + r % gm) * BM;
+  w.n0 = (r / gm) * BN;
+  w.kb0 = w.split * kper;
+  w.kb1 = min(kbt, w.kb0 + kper);
+  return w;
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory; acc 0 overwrites D.
+// TA and TB are the instruction's transpose bits: 1 for an MN-major A, 0 for a K-major B.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], both from shared memory; acc 0 overwrites D.
+// TA and TB are the instruction's transpose bits: 1 for an MN-major A, 0 for a K-major B.
+template <int TA, int TB>
+__device__ __forceinline__ void mma_n256(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int BN, int TA, int TB>
+__device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db, int acc);
+template <>
+__device__ __forceinline__ void mma<128, 0, 0>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  mma_n128<0, 1>(d, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void mma<128, 0, 1>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  mma_n128<0, 0>(d, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void mma<128, 1, 0>(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  mma_n128<1, 1>(d, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void mma<256, 0, 0>(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  mma_n256<0, 1>(d, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void mma<256, 0, 1>(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  mma_n256<0, 0>(d, da, db, acc);
+}
+template <>
+__device__ __forceinline__ void mma<256, 1, 0>(float (&d)[128], uint64_t da, uint64_t db, int acc) {
+  mma_n256<1, 1>(d, da, db, acc);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <int BN, bool TA, bool TB, typename TO>
+__global__ void __launch_bounds__(THREADS, 1)
+mm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+   TO* __restrict__ out, float* __restrict__ part, const bf16* __restrict__ bias, int M, int N,
+   int K, int splits, int act) {
+  using T = Tile<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::NST * T::STAGE);
+  uint64_t* empty = full + T::NST;
+  const int mt = (M + BM - 1) / BM, nt = (N + BN - 1) / BN, kbt = (K + BK - 1) / BK;
+  const int kper = (kbt + splits - 1) / splits, units = mt * nt * splits;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::NST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 2);  // one arrival from each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit w = unit_at<BN>(u, mt, nt, splits, kper, kbt);
+        for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
+          const int s = it % T::NST;
+          if (it >= T::NST) bar_wait(&empty[s], (it / T::NST - 1) & 1);
+          uint8_t* as = ring + s * T::STAGE;
+          uint8_t* bs = as + A_BYTES;
+          bar_expect(&full[s], T::STAGE);
+          if (TA) {
+            tma_load(as, &amap, &full[s], w.m0, kb * BK);
+            tma_load(as + BOX, &amap, &full[s], w.m0 + 64, kb * BK);
+          } else {
+            tma_load(as, &amap, &full[s], kb * BK, w.m0);
+          }
+          if (TB) {
+            tma_load(bs, &bmap, &full[s], kb * BK, w.n0);
+          } else {
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load(bs + j * BOX, &bmap, &full[s], w.n0 + 64 * j, kb * BK);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = threadIdx.x / 128 - 1, t = threadIdx.x % 128, lane = t % 32;
+  float acc[BN / 2];
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const Unit w = unit_at<BN>(u, mt, nt, splits, kper, kbt);
+    zero(acc);
+    int prev = -1;
+    for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
+      const int s = it % T::NST;
+      bar_wait(&full[s], (it / T::NST) & 1);
+      // this warpgroup's 64 rows of A: rows 64c.. of a K-major tile, or box c of an MN-major one
+      const uint32_t a = saddr(ring + s * T::STAGE) + c * BOX;
+      const uint32_t b = saddr(ring + s * T::STAGE + A_BYTES);
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k)
+        mma<BN, TA, TB>(acc, TA ? desc(a + k * 2048, BOX) : desc(a + k * 32, 16),
+                        TB ? desc(b + k * 32, 16) : desc(b + k * 2048, BOX), 1);
+      wg_commit();
+      wg_wait<1>();  // the previous stage's products are done: release it
+      if (prev >= 0 && t == 0) bar_arrive(&empty[prev]);
+      prev = s;
+    }
+    wg_wait<0>();
+    keep(acc);
+    if (prev >= 0 && t == 0) bar_arrive(&empty[prev]);
+
+    // epilogue from the registers: thread t holds rows r, r + 8 and the column pairs
+    // 8i + 2 (lane % 4) + {0, 1} of its warpgroup's 64 x BN accumulator
+    const int r0 = w.m0 + c * 64 + (t / 32) * 16 + lane / 4;
+    const int c0 = w.n0 + 2 * (lane % 4);
+    const bool pairs = (N & 1) == 0;  // an even row length keeps each pair 2-element aligned
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + 8 * h;
+      if (m >= M) continue;
+      const size_t row = (size_t)m * N;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int n = c0 + 8 * i;
+        if (n >= N) continue;
+        float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];
+        if (part != nullptr) {
+          float* p = part + (size_t)w.split * M * N + row + n;
+          if (pairs) {
+            store2(p, v0, v1);
+          } else {
+            p[0] = v0;
+            if (n + 1 < N) p[1] = v1;
+          }
+          continue;
+        }
+        if (bias != nullptr) {
+          v0 += __bfloat162float(bias[n]);
+          if (n + 1 < N) v1 += __bfloat162float(bias[n + 1]);
+        }
+        v0 = apply_act(v0, act);
+        v1 = apply_act(v1, act);
+        if (pairs) {
+          store2(out + row + n, v0, v1);
+        } else {
+          out[row + n] = from_f<TO>(v0);
+          if (n + 1 < N) out[row + n + 1] = from_f<TO>(v1);
+        }
+      }
+    }
+  }
+}
+
+// out = act(sum of the splits' fp32 partials in split order + bias)
+template <typename TO>
+__global__ void __launch_bounds__(256)
+sum_splits(const float* __restrict__ part, const bf16* __restrict__ bias, TO* __restrict__ out,
+           int M, int N, int splits, int act) {
+  const size_t MN = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float a = 0.f;
+    for (int s = 0; s < splits; ++s) a += part[s * MN + i];
+    if (bias != nullptr) a += __bfloat162float(bias[i % N]);
+    out[i] = from_f<TO>(apply_act(a, act));
+  }
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+namespace wg {
+
+// A bf16 matrix of `outer` rows of `inner` elements, rows `ld` elements apart, as a 2-D
+// TMA map with a box of 64 x box_outer, 128-byte swizzled; elements past the dims read 0.
+static bool map2d(CUtensorMap* m, const void* base, long long inner, long long outer,
+                  long long ld, int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int BN, bool TA, bool TB, typename TO>
+static void launch_tile(const CUtensorMap& am, const CUtensorMap& bm, TO* out, float* part,
+                        const bf16* bias, int M, int N, int K, int splits, int act,
+                        cudaStream_t st) {
+  constexpr size_t smem = Tile<BN>::SMEM;
+  cudaFuncSetAttribute(mm<BN, TA, TB, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  const long long units = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN) * splits;
+  const int grid = (int)(units < sm_count() ? units : sm_count());
+  mm<BN, TA, TB, TO><<<grid, THREADS, smem, st>>>(am, bm, out, part, bias, M, N, K, splits, act);
+}
+
+// out [M, N] = act(A B + bias) on the wgmma path; bn (128 or 256) and splits come from the
+// wrapper's plan (kernels/matmul.py, wg_plan), ws holds splits * M * N floats when splits > 1.
+// A map cuTensorMapEncodeTiled refuses (an address or leading dim off 16 bytes) returns
+// cudaErrorInvalidValue: nothing falls back to another path.
+template <bool TA, bool TB, typename TO>
+static int launch(const bf16* a, const bf16* b, TO* out, float* ws, const bf16* bias, int M,
+                  int N, int K, long long lda, long long ldb, int act, int bn, int splits,
+                  cudaStream_t st) {
+  if ((bn != 128 && bn != 256) || splits < 1 || M < 1 || N < 1 || K < 1 ||
+      (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap am, bm;
+  if (!map2d(&am, a, TA ? M : K, TA ? K : M, lda, TA ? 64 : BM) ||
+      !map2d(&bm, b, TB ? K : N, TB ? N : K, ldb, TB ? bn : 64))
+    return (int)cudaErrorInvalidValue;
+  float* part = splits > 1 ? ws : nullptr;
+  if (bn == 256)
+    launch_tile<256, TA, TB, TO>(am, bm, out, part, bias, M, N, K, splits, act, st);
+  else
+    launch_tile<128, TA, TB, TO>(am, bm, out, part, bias, M, N, K, splits, act, st);
+  if (splits > 1) {
+    const size_t MN = (size_t)M * N;
+    const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
+    sum_splits<TO><<<blocks, 256, 0, st>>>(ws, bias, out, M, N, splits, act);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 // The tensor-core path for any layout and output type, by grid size.
 template <bool GATED, bool TA, bool TB, typename TO>
 static void launch_tc(const bf16* x, const bf16* w, const bf16* wb, const bf16* bias, TO* out,
@@ -474,16 +880,21 @@ static void launch_simt(const float* x, const float* w, const float* wb, const f
                                                    lda, ldb, act);
 }
 
+// One plain or gated product on the path `impl`: skinny for M <= 16, simt for fp32 operands,
+// wmma or (plain only) wgmma for bf16.  A path that does not take these operands returns
+// cudaErrorInvalidValue.
 template <typename T, bool GATED>
 static int launch_mm(const void* x, const void* w, const void* wb, const void* bias,
                      void* out, void* ws, float* a_out, float* b_out, int M, int N, int K,
-                     int act, int splits, cudaStream_t st) {
+                     int act, int splits, int impl, int bn, cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const T* wbp = static_cast<const T*>(wb);
   const T* bp = static_cast<const T*>(bias);
   T* op = static_cast<T*>(out);
-  if (M <= sk::MAXM) {
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  if (impl == IMPL_SKINNY) {
+    if (M > sk::MAXM || splits < 1) return (int)cudaErrorInvalidValue;
     const int kchunk = (K + splits - 1) / splits;
     dim3 grid((N + sk::BN - 1) / sk::BN, splits);
     mm_skinny<T, GATED><<<grid, sk::THREADS, 0, st>>>(xp, wp, wbp, static_cast<float*>(ws),
@@ -492,31 +903,70 @@ static int launch_mm(const void* x, const void* w, const void* wb, const void* b
     const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
     mm_splitk_epilogue<T, GATED><<<blocks, 256, 0, st>>>(static_cast<const float*>(ws), bp, op,
                                                          a_out, b_out, M, N, splits, act);
-  } else if constexpr (std::is_same<T, bf16>::value) {
-    launch_tc<GATED, false, false, bf16>(xp, wp, wbp, bp, op, a_out, b_out, M, N, K, K, N, act,
-                                         st);
+  } else if constexpr (BF) {
+    if (impl == IMPL_WMMA)
+      launch_tc<GATED, false, false, bf16>(xp, wp, wbp, bp, op, a_out, b_out, M, N, K, K, N,
+                                           act, st);
+    else if (impl == IMPL_WGMMA && !GATED)
+      return wg::launch<false, false, bf16>(xp, wp, op, static_cast<float*>(ws), bp, M, N, K, K,
+                                            N, act, bn, splits, st);
+    else
+      return (int)cudaErrorInvalidValue;
   } else {
+    if (impl != IMPL_SIMT) return (int)cudaErrorInvalidValue;
     launch_simt<GATED, false, false>(xp, wp, wbp, bp, op, a_out, b_out, M, N, K, K, N, act, st);
   }
   return (int)cudaGetLastError();
 }
 
+// The tile matmul's bf16 operands on the path `impl` (wgmma or wmma), output TO.
+template <bool TA, bool TB, typename TO>
+static int tile_layout(const bf16* a, const bf16* b, TO* out, float* ws, int M, int N, int K,
+                       long long lda, long long ldb, int impl, int bn, int splits,
+                       cudaStream_t st) {
+  if (impl == IMPL_WGMMA)
+    return wg::launch<TA, TB, TO>(a, b, out, ws, nullptr, M, N, K, lda, ldb, ACT_NONE, bn,
+                                  splits, st);
+  if (impl != IMPL_WMMA) return (int)cudaErrorInvalidValue;
+  launch_tc<false, TA, TB, TO>(a, b, nullptr, nullptr, out, nullptr, nullptr, M, N, K, lda, ldb,
+                               ACT_NONE, st);
+  return (int)cudaGetLastError();
+}
+
+template <typename TO>
+static int tile_bf16(const void* a, const void* b, void* out, void* ws, int M, int N, int K,
+                     long long lda, long long ldb, int ta, int tb, int impl, int bn, int splits,
+                     cudaStream_t st) {
+  const bf16* ap = static_cast<const bf16*>(a);
+  const bf16* bp = static_cast<const bf16*>(b);
+  TO* op = static_cast<TO*>(out);
+  float* wsp = static_cast<float*>(ws);
+  if (ta)
+    return tile_layout<true, false, TO>(ap, bp, op, wsp, M, N, K, lda, ldb, impl, bn, splits, st);
+  if (tb)
+    return tile_layout<false, true, TO>(ap, bp, op, wsp, M, N, K, lda, ldb, impl, bn, splits, st);
+  return tile_layout<false, false, TO>(ap, bp, op, wsp, M, N, K, lda, ldb, impl, bn, splits, st);
+}
+
 extern "C" {
 
-// y = act(x @ w + bias); bias may be null.  ws: fp32 workspace of
-// splits*M*N floats when M <= 16, else unused.  Returns a cudaError_t.
+// y = act(x @ w + bias) on the path `impl` (IMPL_*); bias may be null.  ws: the fp32
+// workspace, splits * M * N floats, for the skinny path's K splits or the wgmma path's
+// (bn and splits: kernels/matmul.py, wg_plan); unused otherwise.  Returns a cudaError_t.
 int hk_matmul(const void* x, const void* w, const void* bias, void* out, void* ws,
-              int M, int N, int K, int act, int dtype, int splits, void* stream) {
+              int M, int N, int K, int act, int dtype, int splits, int impl, int bn,
+              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return launch_mm<bf16, false>(x, w, nullptr, bias, out, ws, nullptr, nullptr, M, N, K, act,
-                                  splits, st);
+                                  splits, impl, bn, st);
   return launch_mm<float, false>(x, w, nullptr, bias, out, ws, nullptr, nullptr, M, N, K, act,
-                                 splits, st);
+                                 splits, impl, bn, st);
 }
 
 // y = act(x @ w1) * (x @ w1b).  ws: 2*splits*M*N floats when M <= 16.
 // a_out / b_out (fp32 [M, N], both or neither) receive x @ w1 and x @ w1b.
+// M <= 16 takes the skinny path, else bf16 the WMMA one and fp32 the SIMT one.
 int hk_gated_matmul(const void* x, const void* w1, const void* w1b, void* out, void* ws,
                     void* a_out, void* b_out, int M, int N, int K, int act, int dtype,
                     int splits, void* stream) {
@@ -524,22 +974,28 @@ int hk_gated_matmul(const void* x, const void* w1, const void* w1b, void* out, v
   float* ao = static_cast<float*>(a_out);
   float* bo = static_cast<float*>(b_out);
   if ((ao == nullptr) != (bo == nullptr)) return (int)cudaErrorInvalidValue;
+  const int impl = M <= sk::MAXM ? IMPL_SKINNY : dtype == DT_BF16 ? IMPL_WMMA : IMPL_SIMT;
   if (dtype == DT_BF16)
-    return launch_mm<bf16, true>(x, w1, w1b, nullptr, out, ws, ao, bo, M, N, K, act, splits, st);
-  return launch_mm<float, true>(x, w1, w1b, nullptr, out, ws, ao, bo, M, N, K, act, splits, st);
+    return launch_mm<bf16, true>(x, w1, w1b, nullptr, out, ws, ao, bo, M, N, K, act, splits,
+                                 impl, 0, st);
+  return launch_mm<float, true>(x, w1, w1b, nullptr, out, ws, ao, bo, M, N, K, act, splits, impl,
+                                0, st);
 }
 
 // The tile matmul: out [M, N] = A @ B with fp32 sums, no epilogue.
 // A is [M, K] row-major with leading dim lda, or (ta) stored [K, M]; B is
 // [K, N] row-major with leading dim ldb, or (tb) stored [N, K].  ta and tb
 // together are refused.  dtype is the operands' (fp32 or bf16), out_dtype
-// the output's (the operands' or fp32; fp32 operands give fp32 only).
-int hk_tile_matmul(const void* a, const void* b, void* out, int M, int N, int K, long long lda,
-                   long long ldb, int ta, int tb, int dtype, int out_dtype, void* stream) {
+// the output's (the operands' or fp32; fp32 operands give fp32 only).  fp32
+// operands take the SIMT path; bf16 ones `impl`, wgmma (bn, splits and the
+// workspace ws as hk_matmul's) or wmma.
+int hk_tile_matmul(const void* a, const void* b, void* out, void* ws, int M, int N, int K,
+                   long long lda, long long ldb, int ta, int tb, int dtype, int out_dtype,
+                   int impl, int bn, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (ta && tb) return (int)cudaErrorInvalidValue;
   if (dtype == DT_F32) {
-    if (out_dtype != DT_F32) return (int)cudaErrorInvalidValue;
+    if (out_dtype != DT_F32 || impl != IMPL_SIMT) return (int)cudaErrorInvalidValue;
     const float* ap = static_cast<const float*>(a);
     const float* bp = static_cast<const float*>(b);
     float* op = static_cast<float*>(out);
@@ -554,32 +1010,9 @@ int hk_tile_matmul(const void* a, const void* b, void* out, int M, int N, int K,
                                        lda, ldb, ACT_NONE, st);
     return (int)cudaGetLastError();
   }
-  const bf16* ap = static_cast<const bf16*>(a);
-  const bf16* bp = static_cast<const bf16*>(b);
-  if (out_dtype == DT_F32) {
-    float* op = static_cast<float*>(out);
-    if (ta)
-      launch_tc<false, true, false, float>(ap, bp, nullptr, nullptr, op, nullptr, nullptr, M, N,
-                                           K, lda, ldb, ACT_NONE, st);
-    else if (tb)
-      launch_tc<false, false, true, float>(ap, bp, nullptr, nullptr, op, nullptr, nullptr, M, N,
-                                           K, lda, ldb, ACT_NONE, st);
-    else
-      launch_tc<false, false, false, float>(ap, bp, nullptr, nullptr, op, nullptr, nullptr, M,
-                                            N, K, lda, ldb, ACT_NONE, st);
-  } else {
-    bf16* op = static_cast<bf16*>(out);
-    if (ta)
-      launch_tc<false, true, false, bf16>(ap, bp, nullptr, nullptr, op, nullptr, nullptr, M, N,
-                                          K, lda, ldb, ACT_NONE, st);
-    else if (tb)
-      launch_tc<false, false, true, bf16>(ap, bp, nullptr, nullptr, op, nullptr, nullptr, M, N,
-                                          K, lda, ldb, ACT_NONE, st);
-    else
-      launch_tc<false, false, false, bf16>(ap, bp, nullptr, nullptr, op, nullptr, nullptr, M, N,
-                                           K, lda, ldb, ACT_NONE, st);
-  }
-  return (int)cudaGetLastError();
+  if (out_dtype == DT_F32)
+    return tile_bf16<float>(a, b, out, ws, M, N, K, lda, ldb, ta, tb, impl, bn, splits, st);
+  return tile_bf16<bf16>(a, b, out, ws, M, N, K, lda, ldb, ta, tb, impl, bn, splits, st);
 }
 
 const char* hk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
