@@ -11,7 +11,7 @@ Phases, each fatal on failure:
    HGMMA (wgmma) and HMMA instructions each kernel function of the
    flash-attention and matmul libraries holds (``cuobjdump -sass``), and
    fail unless each tensor-core attention kernel and the wgmma matmul
-   (``wg::mm``) hold HGMMA;
+   (``wg::mm`` and its gated form ``wg::mm_gated``) hold HGMMA;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (qwen3-0.6b at full
    width), in fp32 and bf16, with the tolerance and its reason; time the
@@ -21,8 +21,12 @@ Phases, each fatal on failure:
    over the peak); where the attention forward or backward takes the
    tensor cores (bf16), the SIMT path is held and timed on the same inputs
    too, the two timed in turns, and each ``case`` line names its path;
-   likewise a bf16 matmul or tile matmul on the wgmma path is held and
-   timed on the wmma path too, in turns;
+   likewise a bf16 matmul, gated matmul or tile matmul on the wgmma path
+   is held and timed on the wmma path too, and a bf16 decode matmul or
+   gate on the gemv path against the skinny path, in turns; each gated
+   case also times ``torch.matmul(x, [w1 | w1b])``, the two products
+   alone (``products_only_ms``: a yardstick of the products, not of the
+   gate);
 3. check that one prompt's prefill logits through the kernels match the
    plain-op forward;
 4. check the loss and every parameter's gradient of one training
@@ -44,8 +48,9 @@ Phases, each fatal on failure:
    launches; the attention wrapper's per-path counts must show every
    training forward and backward on the tensor cores, and every served
    prefill of 256 or 512 tokens; the matmul wrapper's must show every
-   training tile matmul, and every served matmul with M > 16 (a prefill),
-   on wgmma;
+   training tile matmul and gate, and every served matmul and gate with
+   M > 16 (a prefill), on wgmma, and every served bf16 matmul and gate
+   with M <= 16 (decode) on gemv;
 8. ``ring_kernels``: two rank processes on the card, one ring of n = 2
    through the symmetric buffers: a ping-pong probe of the cross-process
    flags (200 round trips in one launch each way, under a watchdog;
@@ -84,8 +89,9 @@ Phases, each fatal on failure:
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
-its time per kernel, the step's also summed by kernel family
-(``profile_train_kernels``: wg::mm, mm_tc_bf16, the attention kernels).
+its time per kernel, also summed by kernel family (``profile_kernels``
+and ``profile_train_kernels``: wg::mm, wg::mm_gated, gv::gemv, the old
+paths, the attention kernels).
 """
 
 import argparse
@@ -223,11 +229,15 @@ TC_PREFILLS = (256, 512)
 # the tensor-core attention kernels tc::fwd, tc::bwd_dq, tc::bwd_dkdv, as the
 # prefixes of their mangled names in the library's SASS
 TC_FUNCTIONS = ("_ZN2tc3fwd", "_ZN2tc6bwd_dq", "_ZN2tc8bwd_dkdv")
-# the wgmma matmul wg::mm, likewise in the matmul library's SASS
-WG_FUNCTIONS = ("_ZN2wg2mm",)
-# kernel families of the training step's device time (--profile): name fragments
-PROFILE_FAMILIES = ("wg::mm<", "wg::sum_splits", "mm_tc_bf16", "tc::fwd", "tc::bwd_dq",
-                    "tc::bwd_dkdv", "swiglu")
+# the wgmma matmul wg::mm and its gated form wg::mm_gated, likewise in the
+# matmul library's SASS
+WG_FUNCTIONS = ("_ZN2wg2mm", "_ZN2wg8mm_gated")
+# kernel families of the device time (--profile): name fragments
+PROFILE_FAMILIES = ("wg::mm<", "wg::mm_gated", "wg::sum_splits", "gv::gemv", "mm_skinny",
+                    "mm_splitk_epilogue", "mm_tc_bf16", "tc::fwd", "tc::bwd_dq",
+                    "tc::bwd_dkdv", "flash_", "swiglu")
+# each bf16 matmul path timed, in turns, against the one it replaced
+OLD_PATH = {"wgmma": "wmma", "gemv": "skinny"}
 
 
 def log(*a):
@@ -295,13 +305,13 @@ def randn(gen, shape, dtype, scale=1.0):
 
 
 def record(results, kernel, case, dtype, main, out, want, kern_calls, plain_calls,
-           lib_calls, nbytes, nops, timer=bench_ms, kernel_ms=None, path=None):
+           lib_calls, nbytes, nops, timer=bench_ms, kernel_ms=None, path=None, extra=None):
     """``out``/``want`` may be tuples (a backward's gradients, the gated
     kernel's kept products): each pair is held to the tolerance of its
     output's dtype and the worst error is reported.  ``dtype`` is the
     inputs' dtype, which sets the peak rate of the bound.  ``kernel_ms``,
     when given, was timed by the caller (two paths in turns); ``path``
-    names the attention kernel's path in the case line."""
+    names the kernel's path in the case line; ``extra`` adds fields."""
     outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
     errs, ok, tols = [], True, {}
     for o, w in zip(outs, wants):
@@ -322,6 +332,7 @@ def record(results, kernel, case, dtype, main, out, want, kern_calls, plain_call
              bound_ms=b_ms, bound_by=b_by)
     if path is not None:
         r["path"] = path
+    r.update(extra or {})
     results.append(r)
     log("case " + json.dumps(r))
     return ok
@@ -342,15 +353,18 @@ def check_matmul(results, gen, M, K, N, dtype, *, gated=False, act="none",
         ws = [randn(gen, (K, N), dtype, K ** -0.5) for _ in range(nw)]
         b = randn(gen, (N,), dtype) if bias else None
         sets.append((x, ws, b))
-    x, ws, b = sets[0]
-    if gated and keep_ab:
-        kern = lambda s: kmm.gated_matmul(s[0], *s[1], act=act, keep_ab=True)
-        plain = lambda s: ref.gated_products_plain(s[0], *s[1], act=act)
+    extra = None
+    if gated:
+        kern = lambda s, p=None: kmm.gated_matmul(s[0], *s[1], act=act, keep_ab=keep_ab, impl=p)
+        plain = lambda s: (ref.gated_products_plain if keep_ab else ref.gated_matmul_plain)(
+            s[0], *s[1], act=act)
         lib = None
-    elif gated:
-        kern = lambda s: kmm.gated_matmul(s[0], *s[1], act=act)
-        plain = lambda s: ref.gated_matmul_plain(s[0], *s[1], act=act)
-        lib = None
+        # the two products alone, [w1 | w1b] built outside the timed calls: a
+        # yardstick of the products, not of the gate, so not a library time
+        cats = [(s[0], torch.cat(s[1], dim=1)) for s in sets]
+        extra = dict(products_only_ms=bench_ms([lambda c=c: torch.matmul(*c) for c in cats]),
+                     products_only="torch.matmul(x, [w1 | w1b]): the two products, not the gate")
+        del cats
     else:
         kern = lambda s, p=None: kmm.matmul(s[0], s[1][0], s[2], act=act, impl=p)
         plain = lambda s: ref.matmul_plain(s[0], s[1][0], s[2], act=act)
@@ -359,31 +373,35 @@ def check_matmul(results, gen, M, K, N, dtype, *, gated=False, act="none",
     name = "gated_matmul" if gated else "matmul"
     case = f"M={M} K={K} N={N} act={act}" + (" bias" if bias else "") + \
         (" keep_ab" if keep_ab else "")
-    # the gated kernel: skinny for M <= 16, else wmma (bf16) or simt (fp32)
-    impl = (("skinny" if M <= kmm.SKINNY_M else "wmma" if dtype == torch.bfloat16 else "simt")
-            if gated else kmm.mm_impl(dtype, M, N, K))
+    impl = (kmm.gated_impl if gated else kmm.mm_impl)(dtype, M, N, K)
     return _record_paths(results, name, case, dtype, main, impl, kern, plain, lib, sets,
-                         nbytes, nw * 2 * M * K * N, both=not gated)
+                         nbytes, nw * 2 * M * K * N, both=True, extra=extra)
 
 
 def _record_paths(results, name, case, dtype, main, impl, kern, plain, lib, sets, nbytes, nops,
-                  both):
+                  both, extra=None):
     """One case of a matmul kernel on its chosen path ``impl``; when that
-    is wgmma (and ``both``), the wmma path is held and timed on the same
-    inputs too, the two timed in turns, and only the chosen path's row is
-    a main one."""
+    is wgmma or gemv (and ``both``), the path it replaced (OLD_PATH: wmma,
+    skinny) is held and timed on the same inputs too, the two timed in
+    turns, and only the chosen path's row is a main one."""
     plains = [lambda s=s: plain(s) for s in sets]
     libs = [lambda s=s: lib(s) for s in sets] if lib else None
-    if not (both and impl == "wgmma"):
+    if not (both and impl in OLD_PATH):
         return record(results, name, case, dtype, main, kern(sets[0]), plain(sets[0]),
                       [lambda s=s: kern(s) for s in sets], plains, libs, nbytes, nops,
-                      path=impl)
-    calls = {p: [lambda s=s, p=p: kern(s, p) for s in sets] for p in ("wgmma", "wmma")}
+                      path=impl, extra=extra)
+    calls = {p: [lambda s=s, p=p: kern(s, p) for s in sets] for p in (impl, OLD_PATH[impl])}
     times = paired_ms(bench_ms, calls)
     ok, want = True, plain(sets[0])
     for p in times:                     # the chosen path first: its row is the main one
-        ok &= record(results, name, case, dtype, main and p == impl, kern(sets[0], p), want,
-                     calls[p], plains, libs, nbytes, nops, kernel_ms=times[p], path=p)
+        got = kern(sets[0], p)
+        ok &= record(results, name, case, dtype, main and p == impl, got, want, calls[p],
+                     plains, libs, nbytes, nops, kernel_ms=times[p], path=p, extra=extra)
+        if p == impl:                   # deterministic: two calls agree bit for bit
+            again = kern(sets[0], p)
+            ok &= all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                again if isinstance(again, tuple) else (again,)))
     return ok
 
 
@@ -432,9 +450,9 @@ def check_attention(results, gen, B, nh, nkv, dh, Sq, Sk, q_off, kv_len, dtype, 
 
 def paired_ms(timer, calls):
     """Each path's ms per call for the two paths of ``calls``, the first
-    key's (wgmma) first: the two are timed in turns (other, wgmma, wgmma,
-    other) and each path's two readings averaged, so a drift of the card's
-    clock over the case falls on both alike."""
+    key's (the chosen path) first: the two are timed in turns (other,
+    chosen, chosen, other) and each path's two readings averaged, so a
+    drift of the card's clock over the case falls on both alike."""
     a, b = calls
     got = {a: [], b: []}
     for p in (b, a, a, b):
@@ -473,6 +491,10 @@ def kernel_phase(cfg):
                            main=False)
     ok &= check_matmul(results, gen, 77, d, F_, torch.bfloat16, gated=True, act="gelu",
                        main=False)
+    # decode off the main path: 16 slots through the gate, 7 through a projection
+    ok &= check_matmul(results, gen, 16, d, F_, torch.bfloat16, gated=True, act="silu",
+                       main=False)
+    ok &= check_matmul(results, gen, 7, d, nh * dh, torch.bfloat16, main=False)
     ok &= check_attention(results, gen, 1, nh, nkv, dh, 64, Sk, [100], [164],
                           torch.bfloat16, main=False, label="continued-prefill")
     ok &= check_attention(results, gen, 2, 8, 2, 64, 128, 128, [0, 0], [128, 97],
@@ -913,6 +935,7 @@ def train_phase(profile):
     launches = dict(ops.LAUNCHES)
     paths = {k: dict(v) for k, v in kfa.IMPL_LAUNCHES.items()}
     mm_paths = dict(kmm.IMPL_LAUNCHES["tile_matmul"])
+    gate_paths = dict(kmm.IMPL_LAUNCHES["gated_matmul"])
     cfg, losses = r["cfg"], [loss for _, loss in r["history"]]
     timed = r["step_s"][1:]                           # after the warm-up step
     step_ms = 1e3 * float(np.median(timed))
@@ -950,15 +973,16 @@ def train_phase(profile):
     # through the tensor cores
     ok_paths = all(paths[k]["simt"] == 0 and paths[k]["wgmma"] == launches[k]
                    for k in ("flash_attention", "flash_attention_bwd"))
-    # every (bf16) tile matmul of the run went through wgmma
-    ok_mm = mm_paths["wgmma"] == launches["tile_matmul"] > 0 and \
-        mm_paths["wgmma"] == sum(mm_paths.values())
+    # every (bf16) tile matmul and gate of the run went through wgmma
+    ok_mm = all(counts["wgmma"] == launches[k] > 0 and counts["wgmma"] == sum(counts.values())
+                for k, counts in (("tile_matmul", mm_paths), ("gated_matmul", gate_paths)))
     ok = all(math.isfinite(x) for x in losses) and \
         all(launches[k] > 0 for k in TRAIN_KERNELS) and ok_paths and ok_mm
     log("train " + json.dumps(line))
     log("train_kernels " + json.dumps(launches))
     log("train_paths " + json.dumps(dict(paths, ok=ok_paths)))
-    log("train_mm_paths " + json.dumps(dict(tile_matmul=mm_paths, ok=ok_mm)))
+    log("train_mm_paths " + json.dumps(dict(tile_matmul=mm_paths, gated_matmul=gate_paths,
+                                            ok=ok_mm)))
     if profile:
         profile_train(cfg, params, opt, rc, batch)
     del state, params, opt, r
@@ -1001,6 +1025,7 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
     launches = dict(ops.LAUNCHES)
     by_sq = dict(kfa.SQ_LAUNCHES)
     mm_paths = dict(kmm.IMPL_LAUNCHES["matmul"])
+    gate_paths = dict(kmm.IMPL_LAUNCHES["gated_matmul"])
     fin = r["finished"]
     vocab = get_config(arch).padded_vocab
     ok = (len(fin) == REQUESTS
@@ -1012,12 +1037,18 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
             "dense_equiv_blocks", "paged_peak_bytes", "dense_cache_bytes", "warmup_s")
     log(f"serve{suffix} " + json.dumps(dict({k: r[k] for k in keys}, arch=arch)))
     log(f"kernels{suffix} " + json.dumps(launches))
-    # every served matmul with M > 16 (a prefill) went through wgmma, decode
-    # through the skinny path
-    ok_mm = mm_paths["wgmma"] > 0 and mm_paths["wmma"] == mm_paths["simt"] == 0 and \
-        mm_paths["wgmma"] + mm_paths["skinny"] == launches["matmul"]
+    # every served (bf16) matmul and gate with M > 16 (a prefill) went
+    # through wgmma, every one with M <= 16 (decode) through gemv: none on
+    # the old paths (wmma, skinny) or fp32's
+    ok_mm = mm_paths["wgmma"] > 0 and mm_paths["gemv"] > 0 and all(
+        counts["wgmma"] + counts["gemv"] == launches[k]
+        and counts["wmma"] == counts["skinny"] == counts["simt"] == 0
+        for k, counts in (("matmul", mm_paths), ("gated_matmul", gate_paths)))
+    if "gated_matmul" in kernels:
+        ok_mm &= gate_paths["wgmma"] > 0 and gate_paths["gemv"] > 0
     ok &= ok_mm
-    log(f"serve_mm_paths{suffix} " + json.dumps(dict(matmul=mm_paths, ok=ok_mm)))
+    log(f"serve_mm_paths{suffix} " + json.dumps(dict(matmul=mm_paths, gated_matmul=gate_paths,
+                                                     ok=ok_mm)))
     if "flash_attention" in kernels:
         ok_paths = all(by_sq.get(("simt", n), 0) == 0 and by_sq.get(("wgmma", n), 0) > 0
                        for n in TC_PREFILLS)
@@ -1072,6 +1103,7 @@ def profile_decode(eng):
     summary = dict(ticks=ticks, wall_ms_per_tick=1e3 * wall / ticks,
                    device_ms_per_tick=dev / ticks, device_busy_share=dev / 1e3 / wall)
     log("profile " + json.dumps(summary))
+    log("profile_kernels " + json.dumps(family_ms(events)))
     log(events.table(sort_by="self_device_time_total", row_limit=25))
     while eng.queue or eng.running:
         eng.step()

@@ -38,7 +38,7 @@ _U = ctypes.c_ulonglong
 ARGTYPES = {
     "matmul": {
         "hk_matmul": [_P] * 5 + [_I] * 8 + [_P],
-        "hk_gated_matmul": [_P] * 7 + [_I] * 6 + [_P],
+        "hk_gated_matmul": [_P] * 7 + [_I] * 8 + [_P],
         "hk_tile_matmul": [_P] * 4 + [_I] * 3 + [_L, _L] + [_I] * 7 + [_P],
     },
     "flash_attention": {

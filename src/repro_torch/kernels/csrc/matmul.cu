@@ -36,25 +36,33 @@
 //     training head 2048 x 1024 x 152064 is 0.64 TFLOP, 0.65 ms at peak,
 //     and writes 1.25 GB of fp32 logits, 0.37 ms at the memory rate).
 //
-// Four paths; the wrapper (kernels/matmul.py, mm_impl) picks one from the
+// Five paths; the wrapper (kernels/matmul.py, mm_impl) picks one from the
 // dtype, the shapes and the strides alone, never from whether a launch failed:
-//   * wgmma (namespace wg below): bf16 with M > 16 in matmul, every bf16 tile
-//     matmul whose operands TMA can address (stored rows, leading dims and
-//     bases on 16 bytes).  Persistent blocks, a producer warp feeding a ring
-//     of TMA stages, two consumer warpgroups on wgmma with fp32 accumulators
-//     in registers, the epilogue (bias, act, bf16 or fp32) stored straight
-//     from them; the tile width (128 or 256) and a split of K over an fp32
-//     workspace come from the wrapper's wg_plan so that small products still
-//     fill the 132 SMs.  Only this path reaches the tensor cores' full rate.
+//   * wgmma (namespace wg below): bf16 with M > 16 in matmul and gated_matmul,
+//     every bf16 tile matmul whose operands TMA can address (stored rows,
+//     leading dims and bases on 16 bytes).  Persistent blocks, a producer warp
+//     feeding a ring of TMA stages, two consumer warpgroups on wgmma with fp32
+//     accumulators in registers, the epilogue (bias, act, bf16 or fp32) stored
+//     straight from them; the tile width (128 or 256) and a split of K over an
+//     fp32 workspace come from the wrapper's wg_plan so that small products
+//     still fill the 132 SMs.  The gated form (mm_gated) stages one x tile and
+//     both weights' tiles a stage and keeps two accumulators.  Only this path
+//     reaches the tensor cores' full rate.
+//   * gemv (namespace gv): bf16 with M <= 16 (decode), plain and gated.  Bound
+//     by the weight bytes: TMA streams 128-column weight panels through a ring
+//     of stages, x is staged once a block, mma.sync m16n8k16 (x as A, rows past
+//     M zero) keeps the arithmetic off the CUDA cores, and a K split is summed
+//     in split order inside the same launch.
 //   * wmma (mm_tc_bf16): bf16 operands TMA cannot address (the ring
 //     backward's ragged dw products, stored rows off 8 elements, read element
-//     by element) and the gated matmul with M > 16: BK = 32 tiles staged
-//     through shared memory with register prefetch, WMMA m16n16k16
-//     (mma.sync), a fraction of the peak.
-//   * skinny (M <= 16, decode): streams w once with coalesced vector loads
-//     and splits K over blocks so that enough loads are in flight to cover
-//     the card; the split partials are fp32 and summed in a fixed order by
-//     the epilogue kernel, so results are deterministic.
+//     by element): BK = 32 tiles staged through shared memory with register
+//     prefetch, WMMA m16n16k16 (mma.sync), a fraction of the peak.  Kept for
+//     the gated matmul too, where the card's tests and chip_smoke.py time it
+//     against wgmma.
+//   * skinny (M <= 16, fp32 decode, and bf16 when asked, to time against gemv):
+//     streams w once with coalesced vector loads and splits K over blocks; the
+//     split partials are fp32 and summed in a fixed order by a second kernel,
+//     so results are deterministic.
 //   * simt: fp32 operands (64x64 tiles, 4x4 outputs per thread): fp32 is the
 //     checking dtype, held to 2e-4, which only fp32 sums of exact products
 //     meet.
@@ -74,7 +82,7 @@ typedef __nv_bfloat16 bf16;
 enum { ACT_NONE = 0, ACT_RELU2 = 1, ACT_GELU = 2, ACT_SILU = 3 };
 enum { DT_F32 = 0, DT_BF16 = 1 };
 // the paths, as kernels/matmul.py::IMPLS numbers them
-enum { IMPL_WGMMA = 0, IMPL_WMMA = 1, IMPL_SIMT = 2, IMPL_SKINNY = 3 };
+enum { IMPL_WGMMA = 0, IMPL_WMMA = 1, IMPL_SIMT = 2, IMPL_SKINNY = 3, IMPL_GEMV = 4 };
 
 __device__ __forceinline__ float apply_act(float y, int act) {
   switch (act) {
@@ -123,8 +131,8 @@ __device__ __forceinline__ void store_out(TO* out, size_t idx, float a, float b,
 }
 
 // ---------------------------------------------------------------------------
-// The wmma path (bf16 operands TMA cannot address, and the gated matmul with
-// M > 16): one BM x BN output tile per block, warps laid out WARPS_M x WARPS_N, each owning FM x FN WMMA fragments.  Two tile
+// The wmma path (bf16 operands TMA cannot address; the gated matmul when
+// asked): one BM x BN output tile per block, warps laid out WARPS_M x WARPS_N, each owning FM x FN WMMA fragments.  Two tile
 // shapes: 128x128 (8 warps) when that grid fills the card twice over, else
 // 64x64 (4 warps) so that mid-size products still spread over the SMs.  The
 // next K step's tiles are loaded into registers while the tensor cores work
@@ -349,7 +357,8 @@ mm_simt_f32(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Skinny path, M <= 16 (decode): a block owns 64 columns and one K chunk;
+// Skinny path, M <= 16 (fp32 decode; bf16 only when asked, to time it against
+// the gemv path): a block owns 64 columns and one K chunk;
 // thread (rg, cg) streams rows rg, rg+16, ... of its chunk, 4 columns each.
 // Partial sums go to an fp32 workspace [splits, M, N] (twice for gated).
 // ---------------------------------------------------------------------------
@@ -489,6 +498,14 @@ mm_splitk_epilogue(const float* __restrict__ part, const T* __restrict__ bias,
 // side; the epilogue masks the stores.  With splits > 1 each unit writes its
 // fp32 partial sum to `part` [splits, M, N] and sum_splits adds the splits in
 // a fixed order, so the result does not depend on timing (no atomics).
+//
+// The gated form (mm_gated, NN only, BN = 128): a stage holds the x tile and
+// the tiles of both weights (16 + 2 x 16 KB, four stages in 192 KB); each
+// consumer issues two m64n128k16 products a k16 step from the same A
+// descriptor into two accumulators of 64 fp32 (128 registers, as the plain
+// 256-wide tile holds), and the epilogue stores act(a) * b, and a and b in
+// fp32 when the training path keeps them, from the registers.  Split
+// partials are [2, splits, M, N]: a's splits, then b's.
 // ---------------------------------------------------------------------------
 namespace wg {
 using namespace hopper;
@@ -497,11 +514,11 @@ constexpr int BM = 128, BK = 64, GM = 16, THREADS = 384;
 constexpr int A_BYTES = BM * BK * 2;  // 16 KB
 constexpr int BOX = 64 * 128;         // one 64-row box of 128-byte rows, 8 KB
 
-template <int BN>
+template <int BN, bool GATED = false>
 struct Tile {
   static constexpr int B_BYTES = BN * BK * 2;
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int NST = BN == 256 ? 4 : 6;  // 192 KB of stages either way
+  static constexpr int STAGE = A_BYTES + (GATED ? 2 : 1) * B_BYTES;
+  static constexpr int NST = GATED || BN == 256 ? 4 : 6;  // 192 KB of stages each way
   static constexpr size_t SMEM = 1024 + (size_t)NST * STAGE + 2 * NST * 8;
 };
 
@@ -640,12 +657,15 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <int BN, bool TA, bool TB, typename TO>
-__global__ void __launch_bounds__(THREADS, 1)
-mm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
-   TO* __restrict__ out, float* __restrict__ part, const bf16* __restrict__ bias, int M, int N,
-   int K, int splits, int act) {
-  using T = Tile<BN>;
+// The body of mm and mm_gated.  GATED: B is w1 (bmap) and w1b (bmap2), NN only.
+template <int BN, bool TA, bool TB, typename TO, bool GATED>
+__device__ __forceinline__ void mm_body(const CUtensorMap* amap, const CUtensorMap* bmap,
+                                        const CUtensorMap* bmap2, TO* __restrict__ out,
+                                        float* __restrict__ part, const bf16* __restrict__ bias,
+                                        float* __restrict__ a_out, float* __restrict__ b_out,
+                                        int M, int N, int K, int splits, int act) {
+  using T = Tile<BN, GATED>;
+  static_assert(!GATED || (BN == 128 && !TA && !TB), "the gated tile is NN, 128 wide");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1k(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::NST * T::STAGE);
@@ -675,17 +695,20 @@ mm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap
           uint8_t* bs = as + A_BYTES;
           bar_expect(&full[s], T::STAGE);
           if (TA) {
-            tma_load(as, &amap, &full[s], w.m0, kb * BK);
-            tma_load(as + BOX, &amap, &full[s], w.m0 + 64, kb * BK);
+            tma_load(as, amap, &full[s], w.m0, kb * BK);
+            tma_load(as + BOX, amap, &full[s], w.m0 + 64, kb * BK);
           } else {
-            tma_load(as, &amap, &full[s], kb * BK, w.m0);
+            tma_load(as, amap, &full[s], kb * BK, w.m0);
           }
           if (TB) {
-            tma_load(bs, &bmap, &full[s], kb * BK, w.n0);
+            tma_load(bs, bmap, &full[s], kb * BK, w.n0);
           } else {
 #pragma unroll
-            for (int j = 0; j < BN / 64; ++j)
-              tma_load(bs + j * BOX, &bmap, &full[s], w.n0 + 64 * j, kb * BK);
+            for (int j = 0; j < BN / 64; ++j) {
+              tma_load(bs + j * BOX, bmap, &full[s], w.n0 + 64 * j, kb * BK);
+              if (GATED)
+                tma_load(bs + T::B_BYTES + j * BOX, bmap2, &full[s], w.n0 + 64 * j, kb * BK);
+            }
           }
         }
       }
@@ -695,11 +718,12 @@ mm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int c = threadIdx.x / 128 - 1, t = threadIdx.x % 128, lane = t % 32;
-  float acc[BN / 2];
+  float acc[BN / 2], accb[BN / 2];  // accb: the gated form's x w1b (unused, and dropped, otherwise)
   int it = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const Unit w = unit_at<BN>(u, mt, nt, splits, kper, kbt);
     zero(acc);
+    if (GATED) zero(accb);
     int prev = -1;
     for (int kb = w.kb0; kb < w.kb1; ++kb, ++it) {
       const int s = it % T::NST;
@@ -709,9 +733,11 @@ mm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap
       const uint32_t b = saddr(ring + s * T::STAGE + A_BYTES);
       wg_fence();
 #pragma unroll
-      for (int k = 0; k < BK / 16; ++k)
-        mma<BN, TA, TB>(acc, TA ? desc(a + k * 2048, BOX) : desc(a + k * 32, 16),
-                        TB ? desc(b + k * 32, 16) : desc(b + k * 2048, BOX), 1);
+      for (int k = 0; k < BK / 16; ++k) {
+        const uint64_t da = TA ? desc(a + k * 2048, BOX) : desc(a + k * 32, 16);
+        mma<BN, TA, TB>(acc, da, TB ? desc(b + k * 32, 16) : desc(b + k * 2048, BOX), 1);
+        if constexpr (GATED) mma<BN, TA, TB>(accb, da, desc(b + T::B_BYTES + k * 2048, BOX), 1);
+      }
       wg_commit();
       wg_wait<1>();  // the previous stage's products are done: release it
       if (prev >= 0 && t == 0) bar_arrive(&empty[prev]);
@@ -719,10 +745,11 @@ mm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap
     }
     wg_wait<0>();
     keep(acc);
+    if (GATED) keep(accb);
     if (prev >= 0 && t == 0) bar_arrive(&empty[prev]);
 
     // epilogue from the registers: thread t holds rows r, r + 8 and the column pairs
-    // 8i + 2 (lane % 4) + {0, 1} of its warpgroup's 64 x BN accumulator
+    // 8i + 2 (lane % 4) + {0, 1} of its warpgroup's 64 x BN accumulator(s)
     const int r0 = w.m0 + c * 64 + (t / 32) * 16 + lane / 4;
     const int c0 = w.n0 + 2 * (lane % 4);
     const bool pairs = (N & 1) == 0;  // an even row length keeps each pair 2-element aligned
@@ -736,45 +763,84 @@ mm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap
         const int n = c0 + 8 * i;
         if (n >= N) continue;
         float v0 = acc[4 * i + 2 * h], v1 = acc[4 * i + 2 * h + 1];
-        if (part != nullptr) {
-          float* p = part + (size_t)w.split * M * N + row + n;
-          if (pairs) {
+        if constexpr (GATED) {  // N is even: every pair is whole
+          const float b0 = accb[4 * i + 2 * h], b1 = accb[4 * i + 2 * h + 1];
+          if (part != nullptr) {
+            float* p = part + (size_t)w.split * M * N + row + n;
             store2(p, v0, v1);
-          } else {
-            p[0] = v0;
-            if (n + 1 < N) p[1] = v1;
+            store2(p + (size_t)splits * M * N, b0, b1);
+            continue;
           }
-          continue;
-        }
-        if (bias != nullptr) {
-          v0 += __bfloat162float(bias[n]);
-          if (n + 1 < N) v1 += __bfloat162float(bias[n + 1]);
-        }
-        v0 = apply_act(v0, act);
-        v1 = apply_act(v1, act);
-        if (pairs) {
-          store2(out + row + n, v0, v1);
+          if (a_out != nullptr) {
+            store2(a_out + row + n, v0, v1);
+            store2(b_out + row + n, b0, b1);
+          }
+          store2(out + row + n, apply_act(v0, act) * b0, apply_act(v1, act) * b1);
         } else {
-          out[row + n] = from_f<TO>(v0);
-          if (n + 1 < N) out[row + n + 1] = from_f<TO>(v1);
+          if (part != nullptr) {
+            float* p = part + (size_t)w.split * M * N + row + n;
+            if (pairs) {
+              store2(p, v0, v1);
+            } else {
+              p[0] = v0;
+              if (n + 1 < N) p[1] = v1;
+            }
+            continue;
+          }
+          if (bias != nullptr) {
+            v0 += __bfloat162float(bias[n]);
+            if (n + 1 < N) v1 += __bfloat162float(bias[n + 1]);
+          }
+          v0 = apply_act(v0, act);
+          v1 = apply_act(v1, act);
+          if (pairs) {
+            store2(out + row + n, v0, v1);
+          } else {
+            out[row + n] = from_f<TO>(v0);
+            if (n + 1 < N) out[row + n + 1] = from_f<TO>(v1);
+          }
         }
       }
     }
   }
 }
 
-// out = act(sum of the splits' fp32 partials in split order + bias)
-template <typename TO>
+template <int BN, bool TA, bool TB, typename TO>
+__global__ void __launch_bounds__(THREADS, 1)
+mm(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+   TO* __restrict__ out, float* __restrict__ part, const bf16* __restrict__ bias, int M, int N,
+   int K, int splits, int act) {
+  mm_body<BN, TA, TB, TO, false>(&amap, &bmap, &bmap, out, part, bias, nullptr, nullptr, M, N, K,
+                                 splits, act);
+}
+
+// y = act(x w1) * (x w1b), bf16 [M, N]; a_out / b_out (fp32, both or neither) keep x w1 and x w1b.
+// N is even (the wrapper keeps it on 8 elements), so every column pair is stored whole.
+__global__ void __launch_bounds__(THREADS, 1)
+mm_gated(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+         const __grid_constant__ CUtensorMap bmap2, bf16* __restrict__ out,
+         float* __restrict__ part, float* __restrict__ a_out, float* __restrict__ b_out, int M,
+         int N, int K, int splits, int act) {
+  mm_body<128, false, false, bf16, true>(&amap, &bmap, &bmap2, out, part, nullptr, a_out, b_out,
+                                         M, N, K, splits, act);
+}
+
+// The splits' fp32 partials added in split order, then the epilogue: act(sum + bias) (plain), or
+// act(a) * b with a's partials [0, splits) and b's [splits, 2 splits) (gated).
+template <typename TO, bool GATED>
 __global__ void __launch_bounds__(256)
 sum_splits(const float* __restrict__ part, const bf16* __restrict__ bias, TO* __restrict__ out,
-           int M, int N, int splits, int act) {
+           float* __restrict__ a_out, float* __restrict__ b_out, int M, int N, int splits,
+           int act) {
   const size_t MN = (size_t)M * N;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
        i += (size_t)gridDim.x * blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < splits; ++s) a += part[s * MN + i];
-    if (bias != nullptr) a += __bfloat162float(bias[i % N]);
-    out[i] = from_f<TO>(apply_act(a, act));
+    float a = 0.f, b = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      a += part[s * MN + i];
+      if (GATED) b += part[(splits + s) * MN + i];
+    }
+    store_out<TO, bf16, GATED>(out, i, a, b, bias, (int)(i % N), act, a_out, b_out);
   }
 }
 
@@ -810,6 +876,12 @@ static int sm_count() {
   return n;
 }
 
+static int sum_blocks(size_t MN) {
+  return (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
+}
+
+static int grid_for(long long units) { return (int)(units < sm_count() ? units : sm_count()); }
+
 template <int BN, bool TA, bool TB, typename TO>
 static void launch_tile(const CUtensorMap& am, const CUtensorMap& bm, TO* out, float* part,
                         const bf16* bias, int M, int N, int K, int splits, int act,
@@ -817,8 +889,7 @@ static void launch_tile(const CUtensorMap& am, const CUtensorMap& bm, TO* out, f
   constexpr size_t smem = Tile<BN>::SMEM;
   cudaFuncSetAttribute(mm<BN, TA, TB, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  const long long units = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN) * splits;
-  const int grid = (int)(units < sm_count() ? units : sm_count());
+  const int grid = grid_for((long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN) * splits);
   mm<BN, TA, TB, TO><<<grid, THREADS, smem, st>>>(am, bm, out, part, bias, M, N, K, splits, act);
 }
 
@@ -842,15 +913,317 @@ static int launch(const bf16* a, const bf16* b, TO* out, float* ws, const bf16* 
     launch_tile<256, TA, TB, TO>(am, bm, out, part, bias, M, N, K, splits, act, st);
   else
     launch_tile<128, TA, TB, TO>(am, bm, out, part, bias, M, N, K, splits, act, st);
-  if (splits > 1) {
-    const size_t MN = (size_t)M * N;
-    const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
-    sum_splits<TO><<<blocks, 256, 0, st>>>(ws, bias, out, M, N, splits, act);
-  }
+  if (splits > 1)
+    sum_splits<TO, false><<<sum_blocks((size_t)M * N), 256, 0, st>>>(ws, bias, out, nullptr,
+                                                                     nullptr, M, N, splits, act);
+  return (int)cudaGetLastError();
+}
+
+// y [M, N] = act(x w1) * (x w1b) on the wgmma path, x [M, K] and w1, w1b [K, N] row-major;
+// bn (128) and splits from the wrapper's plan (wg_plan with gated set), ws holds
+// 2 * splits * M * N floats when splits > 1.  a_out / b_out: the kept fp32 products, or null.
+static int launch_gated(const bf16* x, const bf16* w1, const bf16* w1b, bf16* out, float* ws,
+                        float* a_out, float* b_out, int M, int N, int K, int act, int bn,
+                        int splits, cudaStream_t st) {
+  if (bn != 128 || splits < 1 || M < 1 || N < 1 || K < 1 || N % 2 ||
+      (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap am, bm, bm2;
+  if (!map2d(&am, x, K, M, K, BM) || !map2d(&bm, w1, N, K, N, 64) ||
+      !map2d(&bm2, w1b, N, K, N, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = Tile<128, true>::SMEM;
+  cudaFuncSetAttribute(mm_gated, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int grid = grid_for((long long)((M + BM - 1) / BM) * ((N + 127) / 128) * splits);
+  mm_gated<<<grid, THREADS, smem, st>>>(am, bm, bm2, out, splits > 1 ? ws : nullptr, a_out,
+                                        b_out, M, N, K, splits, act);
+  if (splits > 1)
+    sum_splits<bf16, true><<<sum_blocks((size_t)M * N), 256, 0, st>>>(ws, nullptr, out, a_out,
+                                                                      b_out, M, N, splits, act);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------------
+// The decode path (gemv): bf16 x [M, K] with M <= 16 (the serving slots) times
+// w [K, N], plain (bias, act) or gated (act(x w1) * (x w1b), one staged x feeding
+// both weights).  Replaces the same pallas_calls as the paths above, at decode
+// shapes.
+//
+// Bound: the weight bytes.  Each is read once (the head's 311 MB is 93 us at
+// 3.35 TB/s); x and the output are a few KB.  So the design keeps many weight
+// bytes in flight and everything else off the critical path:
+//   * a block owns a panel of BN = 128 columns (two 64-column TMA boxes, the
+//     128-byte swizzle) and one range of K; one thread keeps NST stages of
+//     BK = 64 rows in flight by TMA (64 KB plain, 96 KB gated), refilled as the
+//     block releases each, so a few blocks an SM hold 100-200 KB in flight;
+//   * x's M rows of the block's K range are staged once, in bf16, rows 16 bytes
+//     longer than the range so that ldmatrix reads them without bank conflicts;
+//   * the products run on mma.sync m16n8k16, x as the A operand (lanes of rows
+//     past M point ldmatrix at 16 zero bytes), the weight panel as B
+//     (ldmatrix.trans out of the swizzled stage), fp32 accumulators: the CUDA
+//     cores only stage x and run the epilogue, so M = 16 keeps pace with the
+//     bytes as M = 4 does;
+//   * where the column panels alone cannot fill the 132 SMs, K is split over
+//     the blocks of a thread-block cluster (gridDim.y, up to 8): each leaves its
+//     fp32 partial in its own shared memory, and after a cluster barrier the
+//     cluster's threads add the panel's partials in split order over distributed
+//     shared memory and run the epilogue: one launch, no workspace in device
+//     memory, no atomics, and two calls agree bit for bit.
+// Four warps a block, each owning 32 columns of the panel: per k16 step one
+// ldmatrix of x, two ldmatrix.trans of each weight and four mma.sync each.
+// ---------------------------------------------------------------------------
+namespace gv {
+using namespace hopper;
+
+constexpr int BN = 128, BK = 64, THREADS = 128, MAXM = 16;
+constexpr int MAXSPLITS = 8;              // a portable cluster
+constexpr int BOX = 64 * BK * 2;          // one 64-column box of BK 128-byte rows, 8 KB
+constexpr int W_BYTES = BN * BK * 2;      // one weight's share of a stage, 16 KB
+
+template <bool GATED>
+struct Ring {
+  static constexpr int STAGE = (GATED ? 2 : 1) * W_BYTES;
+  static constexpr int NST = GATED ? 3 : 4;
+  // the ring (1 KB aligned), then x's rows, 16 zero bytes and the stages' mbarriers
+  static size_t smem(int M, int pitch) {
+    return 1024 + (size_t)NST * STAGE + (size_t)M * pitch * 2 + 16 + NST * 8;
+  }
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+}
+// two floats at this block's shared address `addr` in the shared memory of cluster block `rank`
+__device__ __forceinline__ float2 ld_cluster(uint32_t addr, int rank) {
+  uint32_t remote;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
+  return v;
+}
+// d [16 x 8] += a [16 x 16] b [16 x 8], bf16 in, fp32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four n8 tiles of one weight's 16 x 32 slice of a k16 step: `st` is the warp's 64-column box of
+// the stage, `row` the stored row this lane addresses, `chunk` its first 16-byte chunk.
+__device__ __forceinline__ void mma4(float (&acc)[4][4], const uint32_t (&a)[4], uint32_t st,
+                                     int row, int chunk) {
+  uint32_t b[2][4];
+  const uint32_t r = st + row * 128;
+  ldsm_x4_t(b[0], r + ((chunk ^ (row & 7)) << 4));
+  ldsm_x4_t(b[1], r + (((chunk + 2) ^ (row & 7)) << 4));
+  mma(acc[0], a, b[0][0], b[0][1]);
+  mma(acc[1], a, b[0][2], b[0][3]);
+  mma(acc[2], a, b[1][0], b[1][1]);
+  mma(acc[3], a, b[1][2], b[1][3]);
+}
+
+// The outputs at columns n, n + 1 of a row (at `idx`; N is even) from fp32 sums: act(v + bias)
+// (plain) or act(v) * vb (gated, with v and vb kept in fp32 when a_out is set).
+template <bool GATED>
+__device__ __forceinline__ void put_pair(bf16* out, size_t idx, int n, float v0, float v1,
+                                         float b0, float b1, const bf16* bias, int act,
+                                         float* a_out, float* b_out) {
+  if (GATED) {
+    if (a_out != nullptr) {
+      wg::store2(a_out + idx, v0, v1);
+      wg::store2(b_out + idx, b0, b1);
+    }
+    wg::store2(out + idx, apply_act(v0, act) * b0, apply_act(v1, act) * b1);
+  } else {
+    if (bias != nullptr) {
+      v0 += __bfloat162float(bias[n]);
+      v1 += __bfloat162float(bias[n + 1]);
+    }
+    wg::store2(out + idx, apply_act(v0, act), apply_act(v1, act));
+  }
+}
+
+template <bool GATED>
+__global__ void __launch_bounds__(THREADS)
+gemv(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap wbmap,
+     const bf16* __restrict__ x, const bf16* __restrict__ bias, bf16* __restrict__ out,
+     float* __restrict__ a_out, float* __restrict__ b_out, int M, int N, int K, int kper,
+     int act) {
+  using R = Ring<GATED>;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int splits = gridDim.y, split = blockIdx.y, n0 = blockIdx.x * BN;
+  const int kbt = (K + BK - 1) / BK, kb0 = split * kper, nk = min(kbt, kb0 + kper) - kb0;
+  const int pitch = kper * BK + 8;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1k(smem_raw);
+  bf16* xs = reinterpret_cast<bf16*>(ring + R::NST * R::STAGE);
+  uint4* zero = reinterpret_cast<uint4*>(xs + (size_t)M * pitch);
+  uint64_t* full = reinterpret_cast<uint64_t*>(zero + 1);
+
+  const CUtensorMap* wm = &wmap;
+  const CUtensorMap* wbm = &wbmap;
+  auto load_stage = [&](int i) {  // k-block kb0 + i into stage i % NST
+    const int s = i % R::NST, k = (kb0 + i) * BK;
+    uint8_t* st = ring + s * R::STAGE;
+    bar_expect(&full[s], R::STAGE);
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j) {
+      tma_load(st + j * BOX, wm, &full[s], n0 + 64 * j, k);
+      if (GATED) tma_load(st + W_BYTES + j * BOX, wbm, &full[s], n0 + 64 * j, k);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < R::NST; ++s) bar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < min(nk, R::NST); ++i) load_stage(i);
+    *zero = make_uint4(0, 0, 0, 0);
+  }
+  // x's rows of this K range, zeros past K (K % 8 == 0: a vector is all in or all out)
+  const int vrow = nk * BK / 8;
+  for (int i = tid; i < M * vrow; i += THREADS) {
+    const int m = i / vrow, c = (i % vrow) * 8, k = kb0 * BK + c;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (k < K) v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + k);
+    *reinterpret_cast<uint4*>(xs + m * pitch + c) = v;
+  }
+  __syncthreads();
+
+  // A: lane l addresses row 8 ((l >> 3) & 1) + (l & 7) at k offset 8 (l >> 4) of each k16 step
+  // (the zero chunk for rows past M); B: stored row (l & 7) + 8 ((l >> 3) & 1) of the step,
+  // 16-byte chunks 4 (warp & 1) + (l >> 4) and 2 further of box warp >> 1
+  const int am = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const uint32_t a_base = am < M ? saddr(xs + am * pitch + (lane >> 4) * 8) : saddr(zero);
+  const uint32_t a_step = am < M ? 32 : 0;  // bytes per k16 step
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8, chunk = (warp & 1) * 4 + (lane >> 4);
+  float acc[4][4] = {}, accb[4][4] = {};
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % R::NST;
+    bar_wait(&full[s], (i / R::NST) & 1);
+    const uint32_t st = saddr(ring + s * R::STAGE) + (warp >> 1) * BOX;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, a_base + (i * (BK / 16) + kk) * a_step);
+      mma4(acc, a, st, kk * 16 + brow, chunk);
+      if (GATED) mma4(accb, a, st + W_BYTES, kk * 16 + brow, chunk);
+    }
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (tid == 0 && i + R::NST < nk) load_stage(i + R::NST);
+  }
+
+  // thread (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 at columns 2t, 2t + 1 of each
+  // n8 tile j: acc[j][2h + e] is row g + 8h, column 32 warp + 8j + 2t + e of the panel
+  const int g = lane >> 2, cn = warp * 32 + 2 * (lane & 3);
+  if (splits == 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = g + 8 * h, n = n0 + cn + 8 * j;
+        if (m >= M || n >= N) continue;  // N % 8 == 0: column n + 1 is in too
+        put_pair<GATED>(out, (size_t)m * N + n, n, acc[j][2 * h], acc[j][2 * h + 1],
+                        accb[j][2 * h], accb[j][2 * h + 1], bias, act, a_out, b_out);
+      }
+    return;
+  }
+  // K split over the blocks of a cluster (rank = split): each leaves its fp32 partial
+  // [a; b] x [M, BN] in its (now idle) ring; then the cluster's threads share the panel's
+  // column pairs, each adding one pair's partials in rank order over distributed shared memory
+  float* ps = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = g + 8 * h;
+      if (m >= M) continue;
+      *reinterpret_cast<float2*>(ps + m * BN + cn + 8 * j) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      if (GATED)
+        *reinterpret_cast<float2*>(ps + (M + m) * BN + cn + 8 * j) =
+            make_float2(accb[j][2 * h], accb[j][2 * h + 1]);
+    }
+  cluster_sync();
+  for (int p = split * THREADS + tid; p < M * (BN / 2); p += splits * THREADS) {
+    const int m = p / (BN / 2), c = 2 * (p % (BN / 2)), n = n0 + c;
+    if (n >= N) continue;
+    const uint32_t la = saddr(ps + m * BN + c), lb = saddr(ps + (M + m) * BN + c);
+    float2 va[MAXSPLITS], vb[MAXSPLITS];
+#pragma unroll
+    for (int q = 0; q < MAXSPLITS; ++q) {  // every load in flight, then the sums in order
+      if (q >= splits) break;
+      va[q] = ld_cluster(la, q);
+      if (GATED) vb[q] = ld_cluster(lb, q);
+    }
+    float2 sa = make_float2(0.f, 0.f), sb = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < MAXSPLITS; ++q) {
+      if (q >= splits) break;
+      sa.x += va[q].x;
+      sa.y += va[q].y;
+      if (GATED) {
+        sb.x += vb[q].x;
+        sb.y += vb[q].y;
+      }
+    }
+    put_pair<GATED>(out, (size_t)m * N + n, n, sa.x, sa.y, sb.x, sb.y, bias, act, a_out, b_out);
+  }
+  cluster_sync();  // no block leaves while another still reads its partial
+}
+
+// y [M, N] on the gemv path (M <= 16, bf16, x [M, K] and w, wb [K, N] row-major, K and N
+// multiples of 8).  splits (1 to MAXSPLITS) from the wrapper's plan (kernels/matmul.py,
+// gemv_plan): the blocks of one panel's splits form a cluster.
+template <bool GATED>
+static int launch(const bf16* x, const bf16* w, const bf16* wb, const bf16* bias, bf16* out,
+                  float* a_out, float* b_out, int M, int N, int K, int act, int splits,
+                  cudaStream_t st) {
+  if (M < 1 || M > MAXM || N < 8 || K < 8 || N % 8 || K % 8 || splits < 1 ||
+      splits > MAXSPLITS)
+    return (int)cudaErrorInvalidValue;
+  const int kbt = (K + BK - 1) / BK, kper = (kbt + splits - 1) / splits;
+  if ((splits - 1) * kper >= kbt) return (int)cudaErrorInvalidValue;  // an empty split
+  const size_t smem = Ring<GATED>::smem(M, kper * BK + 8);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;  // the plan splits K further first
+  CUtensorMap wm, wbm;
+  if (!wg::map2d(&wm, w, N, K, N, BK) || (GATED && !wg::map2d(&wbm, wb, N, K, N, BK)))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(gemv<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // all of the SM's memory to shared, so that as many blocks as fit stream at once
+  cudaFuncSetAttribute(gemv<GATED>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = splits;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gemv<GATED>, wm, GATED ? wbm : wm, x, bias,
+                                             out, a_out, b_out, M, N, K, kper, act);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace gv
 
 // The tensor-core path for any layout and output type, by grid size.
 template <bool GATED, bool TA, bool TB, typename TO>
@@ -880,9 +1253,9 @@ static void launch_simt(const float* x, const float* w, const float* wb, const f
                                                    lda, ldb, act);
 }
 
-// One plain or gated product on the path `impl`: skinny for M <= 16, simt for fp32 operands,
-// wmma or (plain only) wgmma for bf16.  A path that does not take these operands returns
-// cudaErrorInvalidValue.
+// One plain or gated product on the path `impl`: gemv (bf16) or skinny for M <= 16, simt for
+// fp32 operands, wgmma or wmma for bf16.  A path that does not take these operands returns
+// cudaErrorInvalidValue.  ws: the fp32 workspace of a K split on the skinny or wgmma path.
 template <typename T, bool GATED>
 static int launch_mm(const void* x, const void* w, const void* wb, const void* bias,
                      void* out, void* ws, float* a_out, float* b_out, int M, int N, int K,
@@ -892,26 +1265,28 @@ static int launch_mm(const void* x, const void* w, const void* wb, const void* b
   const T* wbp = static_cast<const T*>(wb);
   const T* bp = static_cast<const T*>(bias);
   T* op = static_cast<T*>(out);
+  float* wsp = static_cast<float*>(ws);
   constexpr bool BF = std::is_same<T, bf16>::value;
   if (impl == IMPL_SKINNY) {
     if (M > sk::MAXM || splits < 1) return (int)cudaErrorInvalidValue;
     const int kchunk = (K + splits - 1) / splits;
     dim3 grid((N + sk::BN - 1) / sk::BN, splits);
-    mm_skinny<T, GATED><<<grid, sk::THREADS, 0, st>>>(xp, wp, wbp, static_cast<float*>(ws),
-                                                      M, N, K, kchunk);
+    mm_skinny<T, GATED><<<grid, sk::THREADS, 0, st>>>(xp, wp, wbp, wsp, M, N, K, kchunk);
     const size_t MN = (size_t)M * N;
     const int blocks = (int)((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
-    mm_splitk_epilogue<T, GATED><<<blocks, 256, 0, st>>>(static_cast<const float*>(ws), bp, op,
-                                                         a_out, b_out, M, N, splits, act);
+    mm_splitk_epilogue<T, GATED><<<blocks, 256, 0, st>>>(wsp, bp, op, a_out, b_out, M, N, splits,
+                                                         act);
   } else if constexpr (BF) {
-    if (impl == IMPL_WMMA)
-      launch_tc<GATED, false, false, bf16>(xp, wp, wbp, bp, op, a_out, b_out, M, N, K, K, N,
-                                           act, st);
-    else if (impl == IMPL_WGMMA && !GATED)
-      return wg::launch<false, false, bf16>(xp, wp, op, static_cast<float*>(ws), bp, M, N, K, K,
-                                            N, act, bn, splits, st);
-    else
-      return (int)cudaErrorInvalidValue;
+    if (impl == IMPL_GEMV)
+      return gv::launch<GATED>(xp, wp, wbp, bp, op, a_out, b_out, M, N, K, act, splits, st);
+    if (impl == IMPL_WGMMA)
+      return GATED ? wg::launch_gated(xp, wp, wbp, op, wsp, a_out, b_out, M, N, K, act, bn,
+                                      splits, st)
+                   : wg::launch<false, false, bf16>(xp, wp, op, wsp, bp, M, N, K, K, N, act, bn,
+                                                    splits, st);
+    if (impl != IMPL_WMMA) return (int)cudaErrorInvalidValue;
+    launch_tc<GATED, false, false, bf16>(xp, wp, wbp, bp, op, a_out, b_out, M, N, K, K, N, act,
+                                         st);
   } else {
     if (impl != IMPL_SIMT) return (int)cudaErrorInvalidValue;
     launch_simt<GATED, false, false>(xp, wp, wbp, bp, op, a_out, b_out, M, N, K, K, N, act, st);
@@ -951,11 +1326,11 @@ static int tile_bf16(const void* a, const void* b, void* out, void* ws, int M, i
 extern "C" {
 
 // y = act(x @ w + bias) on the path `impl` (IMPL_*); bias may be null.  ws: the fp32
-// workspace, splits * M * N floats, for the skinny path's K splits or the wgmma path's
-// (bn and splits: kernels/matmul.py, wg_plan); unused otherwise.  Returns a cudaError_t.
-int hk_matmul(const void* x, const void* w, const void* bias, void* out, void* ws,
-              int M, int N, int K, int act, int dtype, int splits, int impl, int bn,
-              void* stream) {
+// workspace, splits * M * N floats, for a K split on the skinny or wgmma path (bn and splits:
+// kernels/matmul.py, plan; the gemv path splits K within a cluster and needs none).  Returns a
+// cudaError_t.
+int hk_matmul(const void* x, const void* w, const void* bias, void* out, void* ws, int M, int N,
+              int K, int act, int dtype, int splits, int impl, int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DT_BF16)
     return launch_mm<bf16, false>(x, w, nullptr, bias, out, ws, nullptr, nullptr, M, N, K, act,
@@ -964,22 +1339,21 @@ int hk_matmul(const void* x, const void* w, const void* bias, void* out, void* w
                                  splits, impl, bn, st);
 }
 
-// y = act(x @ w1) * (x @ w1b).  ws: 2*splits*M*N floats when M <= 16.
-// a_out / b_out (fp32 [M, N], both or neither) receive x @ w1 and x @ w1b.
-// M <= 16 takes the skinny path, else bf16 the WMMA one and fp32 the SIMT one.
+// y = act(x @ w1) * (x @ w1b) on the path `impl`, as hk_matmul's; ws holds 2 * splits * M * N
+// floats when the path splits K.  a_out / b_out (fp32 [M, N], both or neither) receive x @ w1
+// and x @ w1b.
 int hk_gated_matmul(const void* x, const void* w1, const void* w1b, void* out, void* ws,
                     void* a_out, void* b_out, int M, int N, int K, int act, int dtype,
-                    int splits, void* stream) {
+                    int splits, int impl, int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* ao = static_cast<float*>(a_out);
   float* bo = static_cast<float*>(b_out);
   if ((ao == nullptr) != (bo == nullptr)) return (int)cudaErrorInvalidValue;
-  const int impl = M <= sk::MAXM ? IMPL_SKINNY : dtype == DT_BF16 ? IMPL_WMMA : IMPL_SIMT;
   if (dtype == DT_BF16)
     return launch_mm<bf16, true>(x, w1, w1b, nullptr, out, ws, ao, bo, M, N, K, act, splits,
-                                 impl, 0, st);
-  return launch_mm<float, true>(x, w1, w1b, nullptr, out, ws, ao, bo, M, N, K, act, splits, impl,
-                                0, st);
+                                 impl, bn, st);
+  return launch_mm<float, true>(x, w1, w1b, nullptr, out, ws, ao, bo, M, N, K, act, splits,
+                                impl, bn, st);
 }
 
 // The tile matmul: out [M, N] = A @ B with fp32 sums, no epilogue.

@@ -9,24 +9,30 @@ fp32 sums, output in x's dtype.  ``tile_matmul`` is the counterpart of
 and raise on anything the kernel does not take; the CPU path lives in
 ``kernels/ops.py``.
 
-Each call takes one of four paths (``IMPLS``), which :func:`mm_impl`
+Each call takes one of five paths (``IMPLS``), which :func:`mm_impl`
 chooses from the dtype, the shapes and the strides alone:
 
 * ``"wgmma"``: bf16 on Hopper's tensor cores through wgmma, operands
-  staged by TMA, persistent blocks; every bf16 ``matmul`` with M > 16 and
-  every bf16 ``tile_matmul`` whose operands TMA can address (leading dims
-  and addresses on 16 bytes).  :func:`wg_plan` picks its tile width and
-  how far K is split so that the product fills the SMs;
+  staged by TMA, persistent blocks; every bf16 ``matmul`` and
+  ``gated_matmul`` with M > 16 and every bf16 ``tile_matmul`` whose
+  operands TMA can address (leading dims and addresses on 16 bytes).
+  :func:`wg_plan` picks its tile width and how far K is split so that the
+  product fills the SMs;
+* ``"gemv"``: bf16 with M <= 16 (decode) in ``matmul`` and
+  ``gated_matmul``: the weights streamed by TMA at the memory rate, the
+  products on ``mma.sync``, K split over the blocks of a cluster
+  (:func:`gemv_plan`) and summed in the same launch;
 * ``"wmma"``: the bf16 kernel on ``mma.sync``, for operands TMA cannot
-  address (the ring backward's ragged dw products) and the gated matmul;
-* ``"skinny"``: M <= 16 (decode) in ``matmul`` and ``gated_matmul``,
-  streaming the weights with K split over blocks;
+  address (the ring backward's ragged dw products);
+* ``"skinny"``: fp32 with M <= 16, streaming the weights with K split over
+  blocks and a second kernel adding the splits;
 * ``"simt"``: fp32 operands, held to 2e-4.
 
 ``impl=`` overrides the choice (the card's tests and ``chip_smoke.py`` run
-both tensor-core paths on the same inputs); a path that cannot take the
-operands raises, and a kernel that fails raises: nothing falls back to
-another path.  ``IMPL_LAUNCHES`` counts the launches of each path.
+the old and the new bf16 path on the same inputs: wgmma against wmma,
+gemv against skinny); a path that cannot take the operands raises, and a
+kernel that fails raises: nothing falls back to another path.
+``IMPL_LAUNCHES`` counts the launches of each path.
 """
 
 from __future__ import annotations
@@ -40,17 +46,23 @@ from repro_torch.kernels import build
 
 ACTS = {"none": 0, "relu2": 1, "gelu": 2, "silu": 3}
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-IMPLS = ("wgmma", "wmma", "simt", "skinny")   # numbered as csrc/matmul.cu's IMPL_*
-SKINNY_M = 16          # M at or below this takes the split-K streaming path
+IMPLS = ("wgmma", "wmma", "simt", "skinny", "gemv")  # numbered as csrc/matmul.cu's IMPL_*
+SKINNY_M = 16          # M at or below this takes a decode path (gemv, or skinny for fp32)
 SMS = 132              # H100 SXM streaming multiprocessors
 WG_BM, WG_BK = 128, 64  # rows of a wgmma tile (two warpgroups of 64), K of a stage
 WG_BNS = (128, 256)     # tile widths of the wgmma path
 WG_MIN_KPER = 10        # k-blocks of 64 a split of K keeps at least
+WG_MIN_KPER_GATED = 8   # the same for the gate, whose units do two products
 WG_MAX_SPLITS = 16
+GV_BN, GV_BK = 128, 64  # columns of a gemv block's weight panel, rows of a stage
+GV_MAX_SPLITS = 8       # K splits of a gemv panel: the blocks of one (portable) cluster
+GV_SMEM = 232448        # shared memory a block may use
+GV_RING = {False: 4 * GV_BN * GV_BK * 2, True: 3 * 2 * GV_BN * GV_BK * 2}  # stages' bytes
 
 # launches per path, counted where each wrapper launches its kernel
 IMPL_LAUNCHES: Dict[str, Dict[str, int]] = {
-    "matmul": {p: 0 for p in IMPLS}, "tile_matmul": {p: 0 for p in IMPLS}}
+    "matmul": {p: 0 for p in IMPLS}, "gated_matmul": {p: 0 for p in IMPLS},
+    "tile_matmul": {p: 0 for p in IMPLS if p != "gemv"}}
 
 
 def reset_impl_launches() -> None:
@@ -76,11 +88,12 @@ def mm_impl(dtype: torch.dtype, M: int, N: int, K: int, ta: bool = False, tb: bo
     operand is a transposed view, ``lda``/``ldb`` its leading dim (by
     default the stored row length), ``ptr_align`` the byte alignment both
     operands' addresses share; ``tile`` for ``tile_matmul``, which has no
-    skinny path.  ``"skinny"`` for M <= 16 in ``matmul``; else ``"simt"``
-    for fp32; else ``"wgmma"`` when TMA can address both operands (leading
-    dims on 8 elements, addresses on 16 bytes); else ``"wmma"``."""
+    decode path.  For M <= 16 in ``matmul`` (and ``gated_matmul``):
+    ``"gemv"`` for bf16, ``"skinny"`` for fp32; else ``"simt"`` for fp32;
+    else ``"wgmma"`` when TMA can address both operands (leading dims on 8
+    elements, addresses on 16 bytes); else ``"wmma"``."""
     if not tile and M <= SKINNY_M:
-        return "skinny"
+        return "gemv" if dtype == torch.bfloat16 else "skinny"
     if dtype != torch.bfloat16:
         return "simt"
     lda = (M if ta else K) if lda is None else lda
@@ -90,7 +103,15 @@ def mm_impl(dtype: torch.dtype, M: int, N: int, K: int, ta: bool = False, tb: bo
     return "wmma"
 
 
-def wg_plan(M: int, N: int, K: int) -> Tuple[int, int]:
+def gated_impl(dtype: torch.dtype, M: int, N: int, K: int) -> str:
+    """The path of one gated product x [M,K] @ (w1, w1b) [K,N]: the plain
+    product's (:func:`mm_impl`), since ``gated_matmul`` takes contiguous
+    operands on 16 bytes only: gemv (bf16) or skinny (fp32) for M <= 16,
+    else wgmma (bf16) or simt (fp32)."""
+    return mm_impl(dtype, M, N, K)
+
+
+def wg_plan(M: int, N: int, K: int, gated: bool = False) -> Tuple[int, int]:
     """(tile width, K splits) of a wgmma product.  The rules follow the
     sweep of every main-path product over the candidate plans on the H100
     (``tools/wg_plans.py``; its table is in PERF.md):
@@ -104,15 +125,39 @@ def wg_plan(M: int, N: int, K: int) -> Tuple[int, int]:
     * K split only while the tiles cover at most half the SMs: into at
       most SMS // tiles parts of at least WG_MIN_KPER k-blocks each (a
       shorter loop loses more to the fp32 partials' round trip than the
-      extra SMs win), none of them empty (:func:`split_ranges`)."""
+      extra SMs win), none of them empty (:func:`split_ranges`).
+
+    ``gated``: the gated tile is 128 wide (two accumulators of 64 x 128
+    fill a consumer's registers as one 64 x 256 does), and a split keeps 8
+    k-blocks or more, since a unit does two products: the gate's sweep
+    (PERF.md) has M = 77 (24 tiles) 23% faster split in two, M = 512 (96
+    tiles) unsplit."""
     mt, kb = -(-M // WG_BM), -(-K // WG_BK)
     wide = mt * -(-N // 256)
-    bn = 256 if (wide >= 4 * SMS or (kb >= 32 and wide >= 0.7 * SMS) or kb >= 256) else 128
+    bn = 256 if (not gated and (wide >= 4 * SMS or (kb >= 32 and wide >= 0.7 * SMS)
+                                or kb >= 256)) else 128
     tiles = mt * -(-N // bn)
-    splits = max(1, min(SMS // tiles, kb // WG_MIN_KPER, WG_MAX_SPLITS))
+    min_kper = WG_MIN_KPER_GATED if gated else WG_MIN_KPER
+    splits = max(1, min(SMS // tiles, kb // min_kper, WG_MAX_SPLITS))
     if splits > 1:
         splits = -(-kb // -(-kb // splits))       # no split left empty
     return bn, splits
+
+
+def gemv_plan(M: int, N: int, K: int, gated: bool = False) -> int:
+    """K splits of a gemv product: the 128-column panels split until they
+    make at least one block per SM (ranges of kblocks // ceil(SMS / panels)
+    64-deep k-blocks, at least one), or further where x's rows of a range
+    would not fit in a block's shared memory beside the ring of stages, up
+    to GV_MAX_SPLITS, the blocks of one cluster; none left empty.  Raises
+    where even that many ranges do not fit."""
+    kb, panels = -(-K // GV_BK), -(-N // GV_BN)
+    room = (GV_SMEM - GV_RING[gated] - 2048) // (2 * M) - 8      # x's elements a row
+    kper = max(1, min(kb // -(-SMS // panels), room // GV_BK), -(-kb // GV_MAX_SPLITS))
+    if kper * GV_BK > room:
+        raise ValueError(f"K={K} is too long for the gemv path at M={M}: at most "
+                         f"{GV_MAX_SPLITS * (room // GV_BK) * GV_BK}")
+    return -(-kb // kper)
 
 
 def split_ranges(K: int, splits: int) -> List[Tuple[int, int]]:
@@ -135,12 +180,12 @@ def _choose(impl: Optional[str], chosen: str, dtype: torch.dtype, M: int, tile: 
     impl = impl or chosen
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if impl in ("wgmma", "wmma") and dtype != torch.bfloat16:
+    if impl in ("wgmma", "wmma", "gemv") and dtype != torch.bfloat16:
         raise TypeError(f"the {impl} path takes bf16, got {dtype}")
     if impl == "simt" and dtype != torch.float32:
         raise TypeError(f"the simt path takes fp32, got {dtype}")
-    if impl == "skinny" and (tile or M > SKINNY_M):
-        raise ValueError(f"the skinny path takes matmul with M <= {SKINNY_M}")
+    if impl in ("skinny", "gemv") and (tile or M > SKINNY_M):
+        raise ValueError(f"the {impl} path takes matmul or gated_matmul with M <= {SKINNY_M}")
     if impl == "wgmma" and not tma:
         raise ValueError("TMA cannot address these operands (a leading dim or an address "
                          "off 16 bytes): the wgmma path does not take them")
@@ -168,47 +213,52 @@ def _check(x: torch.Tensor, *ws: torch.Tensor) -> None:
         raise ValueError(f"K={K} and N={N} must be multiples of 8")
 
 
-def _launch(fn: str, x, ws, bias, act: str, n_ws: int, keep_ab: bool = False,
+def plan(impl: str, M: int, N: int, K: int, gated: bool = False) -> Tuple[int, int]:
+    """(tile width, K splits) of a ``matmul`` or ``gated_matmul`` call on
+    ``impl``: wgmma's from :func:`wg_plan`, gemv's from :func:`gemv_plan`,
+    skinny's from :func:`split_k`; the other paths do not split."""
+    if impl == "wgmma":
+        return wg_plan(M, N, K, gated)
+    if impl == "gemv":
+        return GV_BN, gemv_plan(M, N, K, gated)
+    return 0, split_k(M, N, K) if impl == "skinny" else 1
+
+
+def _launch(fn: str, x, ws, bias, act: str, keep_ab: bool = False,
             impl: Optional[str] = None):
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     _check(x, *ws)
     M, K = x.shape
     N = ws[0].shape[1]
+    gated = len(ws) == 2
     if bias is not None:
         if bias.shape != (N,) or bias.dtype != x.dtype or bias.device != x.device \
                 or not bias.is_contiguous():
             raise ValueError("bias must be a contiguous [N] tensor like x")
+    # _check keeps K, N and the addresses on 16 bytes: TMA addresses every bf16 operand
+    impl = _choose(impl, mm_impl(x.dtype, M, N, K), x.dtype, M, tile=False,
+                   tma=x.dtype == torch.bfloat16)
+    bn, splits = plan(impl, M, N, K, gated)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    lib = build.library("matmul")
-    ptrs = [t.data_ptr() for t in ws] + ([] if n_ws == 2 else
-                                         [bias.data_ptr() if bias is not None else None])
-    if n_ws == 2:           # the gated kernel: skinny for M <= 16, else wmma or simt
-        splits = split_k(M, N, K)
-        work = (torch.empty(n_ws * splits * M * N, dtype=torch.float32, device=x.device)
-                if M <= SKINNY_M else None)
-        ab = [torch.empty((M, N), dtype=torch.float32, device=x.device)
-              for _ in range(2 if keep_ab else 0)]
+    work = (torch.empty(len(ws) * splits * M * N, dtype=torch.float32, device=x.device)
+            if impl == "skinny" or (impl == "wgmma" and splits > 1) else None)
+    ab = [torch.empty((M, N), dtype=torch.float32, device=x.device)
+          for _ in range(2 if keep_ab else 0)]
+    ptrs = [t.data_ptr() for t in ws]
+    if gated:
         extra = [t.data_ptr() for t in ab] or [None, None]
-        tail = [splits]
     else:
-        ab = []
-        # _check keeps K, N and the addresses on 16 bytes: TMA addresses every bf16 operand
-        impl = _choose(impl, mm_impl(x.dtype, M, N, K), x.dtype, M, tile=False,
-                       tma=x.dtype == torch.bfloat16)
-        bn, splits = wg_plan(M, N, K) if impl == "wgmma" else (0, split_k(M, N, K))
-        work = (torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
-                if impl == "skinny" or splits > 1 else None)
+        ptrs.append(bias.data_ptr() if bias is not None else None)
         extra = []
-        tail = [splits, IMPLS.index(impl), bn]
+    lib = build.library("matmul")
     code = getattr(lib, fn)(
         x.data_ptr(), *ptrs, out.data_ptr(),
         work.data_ptr() if work is not None else None, *extra,
-        M, N, K, ACTS[act], DTYPES[x.dtype], *tail,
+        M, N, K, ACTS[act], DTYPES[x.dtype], splits, IMPLS.index(impl), bn,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, code, fn)
-    if n_ws == 1:
-        IMPL_LAUNCHES["matmul"][impl] += 1
+    IMPL_LAUNCHES["gated_matmul" if gated else "matmul"][impl] += 1
     return (out, *ab) if keep_ab else out
 
 
@@ -216,16 +266,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None
            *, act: str = "none", impl: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ w + bias) on the card.  x [M,K], w [K,N].  ``impl``: the
     path, by default :func:`mm_impl`'s choice."""
-    return _launch("hk_matmul", x, (w,), bias, act, 1, impl=impl)
+    return _launch("hk_matmul", x, (w,), bias, act, impl=impl)
 
 
 def gated_matmul(x: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *,
-                 act: str = "silu", keep_ab: bool = False):
+                 act: str = "silu", keep_ab: bool = False, impl: Optional[str] = None):
     """y = act(x @ w1) * (x @ w1b) on the card; one x tile feeds both.
 
     ``keep_ab`` also returns the fp32 products ``a = x @ w1`` and
-    ``b = x @ w1b`` as ``(y, a, b)``: the SwiGLU backward reads them."""
-    return _launch("hk_gated_matmul", x, (w1, w1b), None, act, 2, keep_ab)
+    ``b = x @ w1b`` as ``(y, a, b)``: the SwiGLU backward reads them.
+    ``impl``: the path, by default :func:`gated_impl`'s choice."""
+    return _launch("hk_gated_matmul", x, (w1, w1b), None, act, keep_ab, impl)
 
 
 def layout(t: torch.Tensor):

@@ -6,9 +6,9 @@ On the CPU:
 
 * ``mm_impl`` picks the path of every product of the main path from the
   dtype, shapes and strides alone: the training step's 17 bf16 tile
-  products and the serving matmuls with M > 16 on ``wgmma``, decode on
-  ``skinny``, fp32 on ``simt``, operands TMA cannot address (a stored row
-  off 8 elements) on ``wmma``;
+  products and the serving matmuls with M > 16 on ``wgmma``, bf16 decode
+  on ``gemv`` (fp32 on ``skinny``), fp32 on ``simt``, operands TMA cannot
+  address (a stored row off 8 elements) on ``wmma``;
 * ``wg_plan`` gives each training product about one work unit per SM or
   more (K split where the tiles alone are too few), and ``split_ranges``
   covers K exactly once with no split empty;
@@ -99,9 +99,9 @@ SERVE = [(k, n) for k, n in ((D, Q), (D, KV), (Q, D), (F, D), (D, V))] + \
 @pytest.mark.parametrize("M,want", [(4, "skinny"), (16, "skinny"), (17, "wgmma"),
                                     (200, "wgmma"), (512, "wgmma")])
 def test_serving_matmuls_path(K, N, M, want):
-    """Decode (M = 4 slots) streams on the skinny path; prefills (M > 16)
-    take wgmma in bf16 and SIMT in fp32."""
-    assert kmm.mm_impl(BF, M, N, K) == want
+    """Decode (M = 4 slots) streams on a decode path, gemv in bf16 and
+    skinny in fp32; prefills (M > 16) take wgmma in bf16 and SIMT in fp32."""
+    assert kmm.mm_impl(BF, M, N, K) == ("gemv" if want == "skinny" else want)
     assert kmm.mm_impl(torch.float32, M, N, K) == ("skinny" if M <= 16 else "simt")
 
 
@@ -186,7 +186,7 @@ def test_reset_launches_zeroes_the_matmul_path_counts():
     kmm.IMPL_LAUNCHES["tile_matmul"]["wmma"] = 2
     ops.reset_launches()
     assert all(n == 0 for c in kmm.IMPL_LAUNCHES.values() for n in c.values())
-    assert set(kmm.IMPL_LAUNCHES) == {"matmul", "tile_matmul"}
+    assert set(kmm.IMPL_LAUNCHES) == {"matmul", "gated_matmul", "tile_matmul"}
 
 
 # ---------------------------------------------------------------------------

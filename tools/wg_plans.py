@@ -12,6 +12,13 @@ two waves) is forced in place of ``kernels/matmul.wg_plan`` and timed as
 that exceed the L2 cache), beside ``torch.matmul``.  Each line gives the
 times in ms, the fastest candidate and what ``wg_plan`` picks; the rules
 of ``wg_plan`` were read off this table.
+
+Then the gate's products (``gated_matmul`` on wgmma, whose tile is 128
+wide): the training gate 2048 x 1024 x 3072 keeping its fp32 products,
+the prefill gate 512 x 1024 x 3072 and the off-path 77 x 1024 x 3072,
+each K split of 1 to 4 ways (``gated`` lines), beside
+``torch.matmul(x, [w1 | w1b])``, the two products alone; the gated rule
+of ``wg_plan`` was read off these lines.
 """
 
 import json
@@ -39,6 +46,34 @@ def products():
             ("NN", t, v, d, BF), ("TN", d, t, v, BF)]
     out += [("NN", 512, k, n, BF) for k, n in ((d, q), (d, kv), (q, d), (f, d), (d, v))]
     return out
+
+
+def gated_products():
+    """(M, K, N, keep_ab): the gate at training, prefill and off-path M."""
+    return [(cs.TRAIN_M, 1024, 3072, True), (512, 1024, 3072, False), (77, 1024, 3072, False)]
+
+
+def sweep_gated(gen):
+    chosen = kmm.wg_plan
+    for M, K, N, keep in gated_products():
+        nbytes = (M * K + 2 * K * N + M * N) * 2 + (8 * M * N if keep else 0)
+        sets = [(cs.randn(gen, (M, K), BF), cs.randn(gen, (K, N), BF, K ** -0.5),
+                 cs.randn(gen, (K, N), BF, K ** -0.5)) for _ in range(cs.n_copies(nbytes))]
+        kb, tiles, times = -(-K // kmm.WG_BK), -(-M // kmm.WG_BM) * -(-N // 128), {}
+        for splits in (1, 2, 3, 4):
+            if splits > 1 and (kb // splits < 4 or tiles * splits > 2 * kmm.SMS + 8):
+                continue
+            kmm.wg_plan = lambda *_, p=(128, splits), **__: p
+            times[f"128x{splits}"] = cs.bench_ms(
+                [lambda s=s: kmm.gated_matmul(*s, keep_ab=keep, impl="wgmma") for s in sets])
+        kmm.wg_plan = chosen
+        cats = [(s[0], torch.cat(s[1:], dim=1)) for s in sets]
+        prod = cs.bench_ms([lambda c=c: torch.matmul(*c) for c in cats])
+        bn, splits = chosen(M, N, K, gated=True)
+        print("gated " + json.dumps(dict(
+            case=f"M={M} K={K} N={N}" + (" keep_ab" if keep else ""), ms=times,
+            fastest=min(times, key=times.get), wg_plan=f"{bn}x{splits}",
+            products_only_ms=prod)), flush=True)
 
 
 def main():
@@ -71,6 +106,7 @@ def main():
             case=f"{layout} M={M} K={K} N={N} out={str(od).replace('torch.', '')}",
             ms=times, fastest=min(times, key=times.get), wg_plan=f"{bn}x{splits}",
             library_ms=lib)), flush=True)
+    sweep_gated(gen)
     return 0
 
 
