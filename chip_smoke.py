@@ -9,9 +9,10 @@ Phases, each fatal on failure:
    (one process per source, in parallel) and print the seconds; print the
    card's name and power limit as nvidia-smi reports them; print how many
    HGMMA (wgmma) and HMMA instructions each kernel function of the
-   flash-attention and matmul libraries holds (``cuobjdump -sass``), and
-   fail unless each tensor-core attention kernel and the wgmma matmul
-   (``wg::mm`` and its gated form ``wg::mm_gated``) hold HGMMA;
+   flash-attention, matmul and ssd libraries holds (``cuobjdump -sass``),
+   and fail unless each tensor-core attention kernel, the wgmma matmul
+   (``wg::mm`` and its gated form ``wg::mm_gated``) and the tensor-core
+   scan (``tc::ssd``) hold HGMMA;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (qwen3-0.6b at full
    width), in fp32 and bf16, with the tolerance and its reason; time the
@@ -38,7 +39,10 @@ Phases, each fatal on failure:
 6. serve full-width qwen3-0.6b in bf16 through the serving entry point;
 7. the SSM slice (mamba2-130m at full width): hold the SSD scan kernel
    against its plain version at the prefill shapes (bf16 and fp32, zero
-   and random initial states, plus a small grouped case), check a
+   and random initial states, plus 17 chunks, a chunk short of its tile,
+   groups at batch 2, S = 2, and a small grouped SIMT case); a bf16 case
+   on the tensor-core route (``tc::ssd``) is held and timed on the SIMT
+   route too, the two in turns, and must repeat bit for bit; check a
    300-token prefill and 8 decode steps through the kernels against the
    plain path (bf16 at 24 layers, fp32 at 2), and serve it in bf16
    through the serving entry point;
@@ -50,7 +54,8 @@ Phases, each fatal on failure:
    prefill of 256 or 512 tokens; the matmul wrapper's must show every
    training tile matmul and gate, and every served matmul and gate with
    M > 16 (a prefill), on wgmma, and every served bf16 matmul and gate
-   with M <= 16 (decode) on gemv;
+   with M <= 16 (decode) on gemv; the scan's per-route counts
+   (``ssm_ssd_paths``) every SSM prefill scan on wgmma;
 8. ``ring_kernels``: two rank processes on the card, one ring of n = 2
    through the symmetric buffers: a ping-pong probe of the cross-process
    flags (200 round trips in one launch each way, under a watchdog;
@@ -91,7 +96,8 @@ Phases, each fatal on failure:
 training step with torch.profiler and prints the device's busy share and
 its time per kernel, also summed by kernel family (``profile_kernels``
 and ``profile_train_kernels``: wg::mm, wg::mm_gated, gv::gemv, the old
-paths, the attention kernels).
+paths, the attention kernels), and one 512-token prefill of the SSM
+model: its device time and the scan's share (``profile_prefill``).
 """
 
 import argparse
@@ -232,6 +238,8 @@ TC_FUNCTIONS = ("_ZN2tc3fwd", "_ZN2tc6bwd_dq", "_ZN2tc8bwd_dkdv")
 # the wgmma matmul wg::mm and its gated form wg::mm_gated, likewise in the
 # matmul library's SASS
 WG_FUNCTIONS = ("_ZN2wg2mm", "_ZN2wg8mm_gated")
+# the tensor-core SSD scan tc::ssd, likewise in the ssd library's SASS
+SSD_TC_FUNCTIONS = ("_ZN2tc3ssd",)
 # kernel families of the device time (--profile): name fragments
 PROFILE_FAMILIES = ("wg::mm<", "wg::mm_gated", "wg::sum_splits", "gv::gemv", "mm_skinny",
                     "mm_splitk_epilogue", "mm_tc_bf16", "tc::fwd", "tc::bwd_dq",
@@ -553,11 +561,13 @@ def _sass(libname):
 
 def sass_counts():
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel function
-    of the flash-attention and matmul libraries, from ``cuobjdump -sass``;
-    ok when every tensor-core attention kernel (TC_FUNCTIONS) and the wgmma
-    matmul (WG_FUNCTIONS) hold HGMMA."""
+    of the flash-attention, matmul and ssd libraries, from ``cuobjdump
+    -sass``; ok when every tensor-core attention kernel (TC_FUNCTIONS), the
+    wgmma matmul (WG_FUNCTIONS) and the tensor-core scan (SSD_TC_FUNCTIONS)
+    hold HGMMA."""
     shown, ok = {}, True
-    for libname, prefixes in (("flash_attention", TC_FUNCTIONS), ("matmul", WG_FUNCTIONS)):
+    for libname, prefixes in (("flash_attention", TC_FUNCTIONS), ("matmul", WG_FUNCTIONS),
+                              ("ssd", SSD_TC_FUNCTIONS)):
         lib, counts, short = _sass(libname)
         shown[lib] = short
         ok &= all(any(m.startswith(pre) and c["HGMMA"] > 0 for m, c in counts.items())
@@ -692,16 +702,19 @@ def train_kernel_phase(cfg):
     return results, ok
 
 
-def check_ssd(results, gen, b, S, nh, dh, g, ds, dtype, *, init, main=True):
+def check_ssd(results, gen, b, S, nh, dh, g, ds, dtype, *, init, main=True, chunk=None):
     """The SSD scan (y and the fp32 final state) against ``ref.ssd_plain``.
     x, B and C are slices of one conv output, as the model hands them over;
     A = -(1..nh) and dt near 0.1 are mamba2-130m's, so cum falls to about
     -300 in a chunk of 128 (an exp(-cum) would overflow fp32).  The
     operations counted are the ones these inputs need: per (batch, head)
     and chunk of q real positions, the lower triangles of C B^T (ds) and of
-    the scores times x (dh), C h^T and the state update (2 q dh ds each)."""
+    the scores times x (dh), C h^T and the state update (2 q dh ds each).
+    A case the tensor-core route takes is held and timed on the SIMT route
+    too, the two timed in turns (only the wgmma row is a main one), and the
+    wgmma route must give the same bits on a second call."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    chunk, di, gs = min(128, S), nh * dh, g * ds
+    chunk, di, gs = chunk or min(128, S), nh * dh, g * ds
     nbytes = (2 * b * S * di + 2 * b * S * gs) * elt + 4 * (b * S * nh + nh + 2 * b * nh * dh * ds)
     nops = 0
     for t0 in range(0, S, chunk):
@@ -720,19 +733,38 @@ def check_ssd(results, gen, b, S, nh, dh, g, ds, dtype, *, init, main=True):
         h0 = (randn(gen, (b, nh, dh, ds), torch.float32) if init == "random"
               else torch.zeros((b, nh, dh, ds), device=DEV))
         sets.append((x, dt, A, B, C, h0))
-    kern = lambda s: kssd.ssd(*s[:5], chunk=chunk, init_state=s[5])
+    kern = lambda s, p=None: kssd.ssd(*s[:5], chunk=chunk, init_state=s[5], impl=p)
     plain = lambda s: ref.ssd_plain(*s[:5], chunk=chunk, init_state=s[5])
-    case = (f"{init}-state b={b} S={S} nh={nh} dh={dh} g={g} ds={ds} chunk={chunk} "
-            f"blocks={b * nh * dh // kssd.SLICE}")
-    return record(results, "ssd", case, dtype, main, kern(sets[0]), plain(sets[0]),
-                  [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(s) for s in sets],
-                  None, nbytes, nops)
+    plains = [lambda s=s: plain(s) for s in sets]
+    case = f"{init}-state b={b} S={S} nh={nh} dh={dh} g={g} ds={ds} chunk={chunk}"
+    # blocks of each route: one a chunk (clusters of up to 8 chunks, in rounds past that),
+    # or one a 16-row slice of each head's state
+    blocks = {"wgmma": b * nh * min(-(-S // chunk), kssd.TC_CLUSTER),
+              "simt": b * nh * dh // kssd.SLICE}
+    impl = kssd.ssd_impl(dtype, dh, ds, chunk)
+    if impl != "wgmma":
+        return record(results, "ssd", case, dtype, main, kern(sets[0]), plain(sets[0]),
+                      [lambda s=s: kern(s) for s in sets], plains, None, nbytes, nops,
+                      path=impl, extra=dict(blocks=blocks[impl]))
+    calls = {p: [lambda s=s, p=p: kern(s, p) for s in sets] for p in ("wgmma", "simt")}
+    times = paired_ms(bench_ms, calls)
+    ok, want = True, plain(sets[0])
+    for p in times:                     # the chosen route first: its row is the main one
+        got = kern(sets[0], p)
+        extra = dict(blocks=blocks[p])
+        if p == "wgmma":                # deterministic: two calls agree bit for bit
+            again = kern(sets[0], p)
+            extra["deterministic"] = all(torch.equal(u, v) for u, v in zip(got, again))
+            ok &= extra["deterministic"]
+        ok &= record(results, "ssd", case, dtype, main and p == "wgmma", got, want, calls[p],
+                     plains, None, nbytes, nops, kernel_ms=times[p], path=p, extra=extra)
+    return ok
 
 
 def ssd_kernel_phase(cfg):
     """The SSD scan at mamba2-130m's prefill shapes (batch 1, one
     exact-length prompt per launch); the path's cases are bf16 from the
-    zero state a prefill starts from."""
+    zero state a prefill starts from, on the wgmma route."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     s, nh = cfg.ssm, SSM.n_heads(cfg)
     results, ok = [], True
@@ -742,9 +774,17 @@ def ssd_kernel_phase(cfg):
                 ok &= check_ssd(results, gen, 1, S, nh, s.head_dim, s.n_groups, s.state_dim,
                                 dtype, init=init,
                                 main=dtype == torch.bfloat16 and init == "zero")
-    # off the path: groups shared by two heads each, dh 32, batch 2, ragged
-    ok &= check_ssd(results, gen, 2, 200, 8, 32, 2, 64, torch.bfloat16, init="random",
-                    main=False)
+    # off the path, on the wgmma route: 17 chunks (rounds over a cluster of 8), a chunk
+    # that does not fill its tile (rows of the next chunk in it), groups shared by two
+    # heads at batch 2, the shortest prefill
+    bf = torch.bfloat16
+    ok &= check_ssd(results, gen, 1, 2100, nh, 64, 1, 128, bf, init="random", main=False)
+    ok &= check_ssd(results, gen, 1, 300, nh, 64, 1, 128, bf, init="random", main=False,
+                    chunk=100)
+    ok &= check_ssd(results, gen, 2, 200, 4, 64, 2, 128, bf, init="random", main=False)
+    ok &= check_ssd(results, gen, 1, 2, nh, 64, 1, 128, bf, init="random", main=False)
+    # off the path, on the SIMT route: groups shared by two heads each, dh 32, batch 2, ragged
+    ok &= check_ssd(results, gen, 2, 200, 8, 32, 2, 64, bf, init="random", main=False)
     return results, ok
 
 
@@ -1026,6 +1066,7 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
     by_sq = dict(kfa.SQ_LAUNCHES)
     mm_paths = dict(kmm.IMPL_LAUNCHES["matmul"])
     gate_paths = dict(kmm.IMPL_LAUNCHES["gated_matmul"])
+    ssd_paths = dict(kssd.IMPL_LAUNCHES)
     fin = r["finished"]
     vocab = get_config(arch).padded_vocab
     ok = (len(fin) == REQUESTS
@@ -1049,6 +1090,11 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
     ok &= ok_mm
     log(f"serve_mm_paths{suffix} " + json.dumps(dict(matmul=mm_paths, gated_matmul=gate_paths,
                                                      ok=ok_mm)))
+    if "ssd" in kernels:
+        # every served scan (a bf16 prefill of mamba2) on the tensor cores, none on SIMT
+        ok_ssd = ssd_paths["wgmma"] == launches["ssd"] > 0 and ssd_paths["simt"] == 0
+        ok &= ok_ssd
+        log("ssm_ssd_paths " + json.dumps(dict(ssd_paths, ok=ok_ssd)))
     if "flash_attention" in kernels:
         ok_paths = all(by_sq.get(("simt", n), 0) == 0 and by_sq.get(("wgmma", n), 0) > 0
                        for n in TC_PREFILLS)
@@ -1057,6 +1103,8 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
             {f"{p} Sq={n}": c for (p, n), c in sorted(by_sq.items())}, ok=ok_paths)))
     if profile:
         profile_decode(r["engine"])
+        if "ssd" in kernels:
+            profile_prefill(r["engine"], max(prompt_lens))
     return ok, launches
 
 
@@ -1107,6 +1155,41 @@ def profile_decode(eng):
     log(events.table(sort_by="self_device_time_total", row_limit=25))
     while eng.queue or eng.running:
         eng.step()
+
+
+def profile_prefill(eng, plen):
+    """Device time of one ``plen``-token prefill of the served SSM model
+    through the kernels (a fresh pool's zero state rows, as a served
+    prompt starts from), and the scan's share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    cfg = eng.cfg
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(1, plen))).to(DEV)
+
+    def prefill():
+        pool = CachePool(cfg, PoolConfig(1, BLOCK, -(-plen // BLOCK) + 1, plen), device=DEV,
+                         dtype=torch.bfloat16)
+        tree = pool.prefill_tree(pool.admit(plen))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lm.forward(PCtx(), cfg, eng.params, {"tokens": toks, "_dtype": torch.bfloat16},
+                       caches=tree)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prefill()                                     # warm-up
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = prefill()
+    events = prof.key_averages()
+    dev = device_ms(events)
+    scan = [e for e in events if e.device_type == DeviceType.CUDA and "ssd" in e.key]
+    scan_ms = sum(e.self_device_time_total for e in scan) / 1e3
+    log("profile_prefill " + json.dumps(dict(
+        prompt=plen, wall_ms=1e3 * wall, device_ms=dev, scan_ms=scan_ms,
+        scan_calls=sum(e.count for e in scan), scan_share=scan_ms / dev if dev else None,
+        scan_kernels=sorted({e.key for e in scan}))))
 
 
 def _int8_check(out, want, tol):

@@ -53,6 +53,7 @@ ARGTYPES = {
     },
     "ssd": {
         "hk_ssd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P],
+        "hk_ssd_tc": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_P],
     },
     "ring_matmul": {
         "hk_set_device": [_I],

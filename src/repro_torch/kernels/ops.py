@@ -50,12 +50,14 @@ LAUNCHES: Dict[str, int] = {"matmul": 0, "gated_matmul": 0, "flash_attention": 0
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and the attention and matmul wrappers' per-path
-    counts (``flash_attention.IMPL_LAUNCHES``, ``matmul.IMPL_LAUNCHES``)."""
+    """Zero ``LAUNCHES`` and the attention, matmul and SSD wrappers' per-path
+    counts (``flash_attention.IMPL_LAUNCHES``, ``matmul.IMPL_LAUNCHES``,
+    ``ssd.IMPL_LAUNCHES``)."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     _fa.reset_impl_launches()
     _mm.reset_impl_launches()
+    _ssd.reset_impl_launches()
 
 
 def _on_cpu(x: torch.Tensor) -> bool:

@@ -200,6 +200,65 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tenso
     return y.to(x.dtype), h
 
 
+def _split_bf16(t: torch.Tensor):
+    """fp32 t as bf16 hi + lo (each returned as fp32): hi = bf16(t), lo =
+    bf16(t - hi); hi + lo is t to about 2^-16 relative."""
+    hi = t.to(torch.bfloat16).float()
+    return hi, (t - hi).to(torch.bfloat16).float()
+
+
+def ssd_tc_emulated(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, *, chunk: int, init_state: Optional[torch.Tensor] = None,
+                    split_scores: bool = True, split_state: bool = True,
+                    split_h: bool = True):
+    """The arithmetic of the SSD kernel's tensor-core route (``tc::ssd`` in
+    ``csrc/ssd.cu``), in plain PyTorch, for the tests: ``ssd_plain``'s
+    contract with the kernel's roundings.  x, B and C are read as bf16
+    (the route's input dtype); every product sums in fp32.  Per chunk:
+
+    * the scores (C_i . B_j) exp(cum_i - cum_j) dt_j on j <= i, split into
+      bf16 hi + lo (the register A operands of y_diag = S x);
+    * the chunk's state contribution (x o w)^T B with w = exp(cum_last -
+      cum) dt, x o w split into bf16 hi + lo;
+    * y_off = exp(cum_i) C_i . h_prev^T with the fp32 carried state split
+      into bf16 hi + lo;
+    * the carry h_c = exp(cum_last) h_{c-1} + states_c in fp32.
+
+    ``split_scores``, ``split_state`` and ``split_h`` False round that
+    operand to bf16 once instead: the cheaper plans the kernel does not
+    take (tests/test_torch_ssd_tc.py shows what they would cost)."""
+    b, S, nh, dh = x.shape
+    g, ds = B.shape[2], B.shape[3]
+    pad = -S % chunk
+    if pad:
+        x, B, C = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc, hpg = (S + pad) // chunk, nh // g
+    bf = lambda t: t.to(torch.bfloat16).float()
+    xc = bf(x.reshape(b, nc, chunk, nh, dh))
+    dtc = dt.reshape(b, nc, chunk, nh).float()
+    Bh = bf(B.reshape(b, nc, chunk, g, ds)).repeat_interleave(hpg, dim=3)
+    Ch = bf(C.reshape(b, nc, chunk, g, ds)).repeat_interleave(hpg, dim=3)
+
+    cum = torch.cumsum(dtc * A.float(), dim=2)                 # [b,nc,Q,nh]
+    Lmat = torch.exp(_segsum((dtc * A.float()).permute(0, 1, 3, 2)))   # [b,nc,nh,Q,Q]
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh) * Lmat * \
+        dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    parts = _split_bf16(scores) if split_scores else (bf(scores),)
+    y = sum(torch.einsum("bchqk,bckhd->bcqhd", p, xc) for p in parts)
+    xw = xc * (torch.exp(cum[:, :, -1:, :] - cum) * dtc)[..., None]   # [b,nc,Q,nh,dh]
+    parts = _split_bf16(xw) if split_state else (bf(xw),)
+    states = sum(torch.einsum("bcqhd,bcqhn->bchdn", p, Bh) for p in parts)
+    h = (torch.zeros((b, nh, dh, ds), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    for c in range(nc):
+        hs = _split_bf16(h) if split_h else (bf(h),)
+        off = sum(torch.einsum("bqhn,bhdn->bqhd", Ch[:, c], p) for p in hs)
+        y[:, c] += off * torch.exp(cum[:, c])[..., None]
+        h = h * torch.exp(cum[:, c, -1])[..., None, None] + states[:, c]
+    return y.reshape(b, S + pad, nh, dh)[:, :S].to(x.dtype), h
+
+
 def ssd_seq_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                 C: torch.Tensor) -> torch.Tensor:
     """The sequential (non-chunked) SSD recurrence, the strongest oracle

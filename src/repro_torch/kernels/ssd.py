@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA SSD chunked-scan kernel (``csrc/ssd.cu``).
+"""Wrapper of the CUDA SSD chunked-scan kernels (``csrc/ssd.cu``).
 
 Counterpart of ``repro/kernels/ssd.py::ssd``, widened to what the model's
 ``ssd_chunked`` does: a ragged length (S need not be a multiple of the
@@ -8,27 +8,64 @@ output: they are read in place through their (batch, position) strides,
 with the head (group) dimension and the last one packed, when every row
 starts on 16 bytes; an operand that does not is copied once.  CUDA
 tensors only; the CPU path lives in ``kernels/ops.py``.
+
+Each call takes one of two routes (``IMPLS``), which :func:`ssd_impl`
+chooses from the dtype and the shapes alone:
+
+* ``"wgmma"`` (``tc::ssd``): bf16 on Hopper's tensor cores, one block per
+  chunk, the chunks of a head a thread-block cluster that carries the
+  state through distributed shared memory; mamba2's dh 64 and ds 128, any
+  chunk up to 128: every bf16 prefill of the mamba2 models;
+* ``"simt"`` (``ssd_scan``): fp32 FMAs, for fp32 inputs (held to 2e-4)
+  and every shape the tensor-core kernel does not take.
+
+``impl=`` overrides the choice (the card's tests and ``chip_smoke.py``
+run both routes on the same inputs); a route that cannot take the
+operands raises, and a kernel that fails raises: nothing falls back to
+the other route.  ``IMPL_LAUNCHES`` counts the launches of each route.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SLICE = 16             # rows of the state one block owns (csrc/ssd.cu P)
-HEAD_DIMS = (16, 32, 64, 128)   # a head's dh / 16 blocks form one cluster of <= 8
+SLICE = 16             # rows of the state one SIMT block owns (csrc/ssd.cu P)
+HEAD_DIMS = (16, 32, 64, 128)   # SIMT: a head's dh / 16 blocks form one cluster of <= 8
 MAX_CHUNK = 128
 MAX_STATE = 128
+TC_HEAD_DIM, TC_STATE = 64, 128  # the one (dh, ds) of the tensor-core kernel (tc::DH, tc::DS)
+TC_CLUSTER = 8                  # chunks of a head in flight at once (tc::MAX_CLUSTER)
+IMPLS = ("wgmma", "simt")
+
+# launches per route, counted where each route's kernel launches
+IMPL_LAUNCHES: Dict[str, int] = {p: 0 for p in IMPLS}
+
+
+def reset_impl_launches() -> None:
+    """Zero ``IMPL_LAUNCHES``."""
+    for path in IMPL_LAUNCHES:
+        IMPL_LAUNCHES[path] = 0
+
+
+def ssd_impl(dtype: torch.dtype, dh: int, ds: int, chunk: int) -> str:
+    """The route of one scan: ``"wgmma"`` for bf16 at dh 64 and ds 128
+    (mamba2's heads) with a chunk of 1 to 128; else ``"simt"``."""
+    if dtype == torch.bfloat16 and dh == TC_HEAD_DIM and ds == TC_STATE \
+            and 1 <= chunk <= MAX_CHUNK:
+        return "wgmma"
+    return "simt"
 
 
 def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
     """[b, S, heads, d] with its last two dims packed (the stride of a dim
     of size 1 is never read) and every (batch, position) row on 16 bytes,
-    as the kernel's vector loads need: ``t`` itself, or a packed copy."""
+    as the kernel's vector loads and TMA maps need: ``t`` itself, or a
+    packed copy."""
     packed = (t.stride(3) == 1 or t.shape[3] == 1) and \
         (t.stride(2) == t.shape[3] or t.shape[2] == 1)
     elt = t.element_size()
@@ -39,11 +76,13 @@ def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
-        C: torch.Tensor, *, chunk: int, init_state: Optional[torch.Tensor] = None):
+        C: torch.Tensor, *, chunk: int, init_state: Optional[torch.Tensor] = None,
+        impl: Optional[str] = None):
     """(y [b,S,nh,dh] in x's dtype, final state [b,nh,dh,ds] fp32).
 
     x [b,S,nh,dh]; dt [b,S,nh] fp32 (post-softplus); A [nh] fp32; B, C
-    [b,S,g,ds] in x's dtype; ``init_state`` [b,nh,dh,ds] fp32 or None."""
+    [b,S,g,ds] in x's dtype; ``init_state`` [b,nh,dh,ds] fp32 or None.
+    ``impl`` forces a route (default :func:`ssd_impl`'s choice)."""
     if x.device.type != "cuda":
         raise ValueError(f"CUDA SSD kernel got a {x.device} tensor")
     if x.dtype not in DTYPES:
@@ -75,15 +114,27 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
                                    or init_state.dtype != torch.float32
                                    or not init_state.is_contiguous()):
         raise ValueError(f"init_state must be a contiguous fp32 [{b},{nh},{dh},{ds}]")
+    chosen = ssd_impl(x.dtype, dh, ds, chunk)
+    impl = chosen if impl is None else impl
+    if impl not in IMPLS:
+        raise ValueError(f"unknown SSD route {impl!r}; one of {IMPLS}")
+    if impl == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the wgmma SSD route takes bf16 with dh={TC_HEAD_DIM} and "
+                         f"ds={TC_STATE}; got {x.dtype}, dh={dh}, ds={ds}")
     x, B, C = (_rows_aligned(t) for t in (x, B, C))
     y = torch.empty((b, S, nh, dh), dtype=x.dtype, device=x.device)
     final = torch.empty((b, nh, dh, ds), dtype=torch.float32, device=x.device)
     lib = build.library("ssd")
-    code = lib.hk_ssd(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                      C.data_ptr(), init_state.data_ptr() if init_state is not None else None,
-                      y.data_ptr(), final.data_ptr(), b, S, nh, dh, g, ds, chunk,
-                      x.stride(0), x.stride(1), B.stride(0), B.stride(1), C.stride(0),
-                      C.stride(1), DTYPES[x.dtype],
-                      torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, code, "hk_ssd")
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            init_state.data_ptr() if init_state is not None else None,
+            y.data_ptr(), final.data_ptr(), b, S, nh, dh, g, ds, chunk,
+            x.stride(0), x.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if impl == "wgmma":
+        code = lib.hk_ssd_tc(*args, stream)
+        build.check(lib, code, "hk_ssd_tc")
+    else:
+        code = lib.hk_ssd(*args, DTYPES[x.dtype], stream)
+        build.check(lib, code, "hk_ssd")
+    IMPL_LAUNCHES[impl] += 1
     return y, final

@@ -8,7 +8,8 @@ card (the CPU-only tier-1 run).  On the card:
 Tolerances are the repo's (tests/test_kernels.py::_tol), keyed on the
 kernel output's dtype: fp32 2e-4 (fp32 sums in another order), bf16 2e-2
 (one bf16 rounding of the output).  The SSD scan holds y to its dtype's
-bound and its fp32 final state to 2e-4.  The training kernels (tile matmul
+bound and its fp32 final state to 2e-4, on both routes (SIMT, and the
+tensor cores for bf16 at mamba2's dh 64 and ds 128).  The training kernels (tile matmul
 layouts, the SwiGLU and flash-attention backwards) are held to the same
 bounds: each rounds its fp32 sums once, and an fp32 output of bf16 inputs
 (the head's logits, the gated kernel's kept products) not at all.  The
@@ -298,24 +299,62 @@ def _ssd_inputs(dev, dtype, b, S, nh, dh, g, ds, seed, state):
     return x, dt, A, B, C, h0
 
 
-@pytest.mark.parametrize("b,S,nh,dh,g,ds,chunk", [
+SSD_SHAPES = [
     (1, 64, 24, 64, 1, 128, 64), (1, 200, 24, 64, 1, 128, 128), (1, 512, 24, 64, 1, 128, 128),
     (2, 100, 8, 32, 2, 64, 32), (1, 7, 4, 16, 1, 16, 7), (1, 2, 4, 16, 1, 16, 2),
-    (3, 45, 6, 128, 3, 24, 16)])
-@pytest.mark.parametrize("dtype", DTYPES)
+    (3, 45, 6, 128, 3, 24, 16),
+    # mamba2's heads off the served shapes: groups at batch 2 over chunks of 32, S under
+    # the tile, S = 2, a chunk that does not fill its tile
+    (2, 100, 4, 64, 2, 128, 32), (1, 7, 4, 64, 1, 128, 7), (1, 2, 24, 64, 1, 128, 2),
+    (1, 300, 24, 64, 1, 128, 100)]
+# every case on SIMT, and in bf16 on the tensor cores too where that route takes it
+SSD_ROUTES = [(shape, dtype, impl) for shape in SSD_SHAPES for dtype in DTYPES
+              for impl in kssd.IMPLS
+              if impl == "simt" or kssd.ssd_impl(dtype, shape[3], shape[5], shape[6]) == impl]
+
+
+@pytest.mark.parametrize("shape,dtype,impl", SSD_ROUTES)
 @pytest.mark.parametrize("state", [False, True])
-def test_ssd_kernel(dev, b, S, nh, dh, g, ds, chunk, dtype, state):
-    """Ragged S, groups, an initial state; y and the final state."""
+def test_ssd_kernel(dev, shape, dtype, impl, state):
+    """Ragged S, groups, an initial state; y and the final state; the
+    tensor-core route gives the same bits on a second call."""
+    b, S, nh, dh, g, ds, chunk = shape
     x, dt, A, B, C, h0 = _ssd_inputs(dev, dtype, b, S, nh, dh, g, ds, S + b, state)
-    y, fin = kssd.ssd(x, dt, A, B, C, chunk=chunk, init_state=h0)
+    y, fin = kssd.ssd(x, dt, A, B, C, chunk=chunk, init_state=h0, impl=impl)
     y_p, fin_p = ref.ssd_plain(x, dt, A, B, C, chunk=chunk, init_state=h0)
     assert y.dtype == dtype and fin.dtype == torch.float32
     _close(y, y_p)
     _close(fin, fin_p)
-    y2, fin2 = kssd.ssd(x, dt, A, B, C, chunk=chunk)          # no state: zeros
+    y2, fin2 = kssd.ssd(x, dt, A, B, C, chunk=chunk, impl=impl)   # no state: zeros
     _close(y2, ref.ssd_plain(x, dt, A, B, C, chunk=chunk)[0])
     if not state:
         assert torch.equal(y2, y) and torch.equal(fin2, fin)
+    if impl == "wgmma":
+        y3, fin3 = kssd.ssd(x, dt, A, B, C, chunk=chunk, init_state=h0, impl=impl)
+        assert torch.equal(y3, y) and torch.equal(fin3, fin)
+
+
+def test_ssd_tensor_cores_long_sequence(dev):
+    """17 chunks of 128 (more than one cluster of 8: the blocks loop in
+    rounds) on the tensor cores against the sequential recurrence, and the
+    final state against the chunked plain version."""
+    x, dt, A, B, C, _ = _ssd_inputs(dev, torch.bfloat16, 1, 2100, 24, 64, 1, 128, 21, False)
+    y, fin = kssd.ssd(x, dt, A, B, C, chunk=128, impl="wgmma")
+    _close(y, ref.ssd_seq_ref(x, dt, A, B, C))
+    _close(fin, ref.ssd_plain(x, dt, A, B, C, chunk=128)[1])
+
+
+def test_ssd_routes_refuse_what_they_do_not_take(dev):
+    """The tensor-core route takes bf16 at dh 64 and ds 128 only: forcing it
+    elsewhere raises rather than running another route."""
+    x, dt, A, B, C, _ = _ssd_inputs(dev, torch.bfloat16, 1, 16, 4, 32, 1, 64, 0, False)
+    with pytest.raises(ValueError, match="wgmma"):
+        kssd.ssd(x, dt, A, B, C, chunk=16, impl="wgmma")
+    x, dt, A, B, C, _ = _ssd_inputs(dev, torch.float32, 1, 16, 4, 64, 1, 128, 0, False)
+    with pytest.raises(ValueError, match="wgmma"):
+        kssd.ssd(x, dt, A, B, C, chunk=16, impl="wgmma")
+    with pytest.raises(ValueError, match="route"):
+        kssd.ssd(x, dt, A, B, C, chunk=16, impl="tc")
 
 
 def test_ssd_kernel_matches_sequential_oracle(dev):
@@ -326,14 +365,17 @@ def test_ssd_kernel_matches_sequential_oracle(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_ssd_kernel_copies_unaligned_operands(dev, dtype):
+@pytest.mark.parametrize("nh,dh,ds", [(4, 32, 24), (4, 64, 128)])
+def test_ssd_kernel_copies_unaligned_operands(dev, dtype, nh, dh, ds):
     """x read through a transposed layout and B, C off their 16-byte rows
-    (an odd channel count) are copied once, and give the same result."""
-    x, dt, A, B, C, h0 = _ssd_inputs(dev, dtype, 2, 37, 4, 32, 1, 24, 5, True)
+    (an odd channel count) are copied once, and give the same result (on
+    the tensor cores too for bf16 at dh 64, ds 128)."""
+    x, dt, A, B, C, h0 = _ssd_inputs(dev, dtype, 2, 37, nh, dh, 1, ds, 5, True)
     xt = x.transpose(2, 3).contiguous().transpose(2, 3)
-    conv = torch.zeros((2, 37, 2 * 24 + 1), dtype=dtype, device=dev)
-    conv[..., 1:25], conv[..., 25:] = B[:, :, 0], C[:, :, 0]
-    Bo, Co = conv[..., 1:25].reshape(2, 37, 1, 24), conv[..., 25:].reshape(2, 37, 1, 24)
+    conv = torch.zeros((2, 37, 2 * ds + 1), dtype=dtype, device=dev)
+    conv[..., 1:ds + 1], conv[..., ds + 1:] = B[:, :, 0], C[:, :, 0]
+    Bo = conv[..., 1:ds + 1].reshape(2, 37, 1, ds)
+    Co = conv[..., ds + 1:].reshape(2, 37, 1, ds)
     y, fin = kssd.ssd(xt, dt, A, Bo, Co, chunk=16, init_state=h0)
     y_p, fin_p = ref.ssd_plain(x, dt, A, B, C, chunk=16, init_state=h0)
     _close(y, y_p)
@@ -374,6 +416,33 @@ def test_ssm_forward_kernels_match_plain(dev):
     _close(out[False].logits, out[True].logits)
     for a, b in zip(out[False].caches["mamba"], out[True].caches["mamba"]):
         _close(a, b)
+
+
+SSM_TC_CFG = ModelConfig(name="cuda-ssm-tc", family="ssm", num_layers=2, d_model=256,
+                         num_heads=0, num_kv_heads=0, d_ff=0, vocab_size=500,
+                         tie_embeddings=True,
+                         ssm=SSMConfig(state_dim=128, head_dim=64, expand=2, n_groups=1,
+                                       conv_kernel=4, chunk_size=128))
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])
+def test_ssm_prefill_scan_routes_are_counted(dev, dtype, route):
+    """mamba2's heads (dh 64, ds 128): every bf16 prefill scan of the model
+    launches on the tensor cores and every fp32 one on SIMT, at a prompt
+    under the chunk and one over it; the logits match the plain path's."""
+    params = lm.init_params(SSM_TC_CFG, seed=0, device=dev, dtype=dtype)
+    for S in (40, 300):
+        toks = torch.from_numpy(np.random.default_rng(S).integers(0, 500, (1, S))).to(dev)
+        batch = {"tokens": toks, "_dtype": dtype}
+        ops.reset_launches()
+        got = lm.forward(PCtx(), SSM_TC_CFG, params, batch).logits
+        assert ops.LAUNCHES["ssd"] == SSM_TC_CFG.num_layers
+        assert kssd.IMPL_LAUNCHES == {p: SSM_TC_CFG.num_layers * (p == route)
+                                      for p in kssd.IMPLS}
+        want = lm.forward(PCtx(plain=True), SSM_TC_CFG, params, batch).logits.float()
+        # chip_smoke's model bounds: 5e-2 relative in bf16, 1e-4 in fp32
+        rel = ((got.float() - want).norm() / want.norm()).item()
+        assert rel <= (5e-2 if dtype == torch.bfloat16 else 1e-4)
 
 
 def test_ssm_engine_greedy_tokens_card_vs_cpu(dev):
