@@ -90,7 +90,24 @@ Phases, each fatal on failure:
 11. ``grid_bidir``: ``--overlap bidir --comm-dtype int8`` at 4 layers for
    one step (the -1 hops through the symmetric buffers; no kernel of its
    own), against the plain grid;
-12. print one JSON line of per-kernel numbers, then the result line.
+12. ``ckpt``: checkpoints of the training cell on one card through the
+   launcher's ``--ckpt-*`` flags, in a temporary directory (the depth cut
+   only if two checkpoints do not fit on its disk): two uninterrupted
+   6-step references (bit-equal, or their spread sets the gate), a run
+   saving async every 2 steps (keep 2, 2 writers) to step 4, a fresh run
+   that must restore step 4 and meet the gate on steps 4 and 5; one
+   blocking save and one restore timed (the restore bit-equal), and the
+   staging arena's snapshot (a slot's first use and its reuse) beside a
+   pageable copy; the
+   line gives checkpoint bytes, each async save's stall, each background
+   write's seconds and GB/s, and the median step with and without a write
+   in flight;
+13. ``grid_ckpt``: the 1x2x2 grid (fused, bf16 wire, 4 layers at full
+   width) saving after each step; a fresh grid restores step 1 and runs
+   step 2 against the uninterrupted run's (1e-3 relative), and one card
+   restores the grid's checkpoint and runs step 2 against the grid's
+   (1e-3); stalls, writes and restore times as above;
+14. print one JSON line of per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
@@ -115,6 +132,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint import manager as ckpt_manager  # noqa: E402
 from repro_torch.config import ParallelConfig, RunConfig, get_config  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -246,6 +264,13 @@ PROFILE_FAMILIES = ("wg::mm<", "wg::mm_gated", "wg::sum_splits", "gv::gemv", "mm
                     "tc::bwd_dkdv", "flash_", "swiglu")
 # each bf16 matmul path timed, in turns, against the one it replaced
 OLD_PATH = {"wgmma": "wmma", "gemv": "skinny"}
+# checkpoints on one card: the reference runs CKPT_RESUME_AT + 2 steps; the
+# run that saves stops at CKPT_RESUME_AT, saving async every CKPT_EVERY
+# steps (keep CKPT_KEEP, CKPT_WRITERS writers); the resume runs the last two
+CKPT_RESUME_AT, CKPT_EVERY, CKPT_KEEP, CKPT_WRITERS = 4, 2, 2, 2
+# on the grid: full width at BIDIR_LAYERS layers, saving after every step
+GRID_CKPT_STEPS = 2
+NO_SAVE = "1000000"                       # --ckpt-every of a run that only restores
 
 
 def log(*a):
@@ -1393,6 +1418,219 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
     return ok, totals, losses[0]
 
 
+def _leaf_bytes(state):
+    return sum(t.numel() * t.element_size() for t in ckpt_manager._leaf_paths(state).values())
+
+
+def _overlaps(r, writes):
+    """Per timed step of a run: did a background write overlap it?"""
+    out = []
+    for t0, dt in zip(r["ckpt"]["step_t0"], r["step_s"]):
+        out.append(any(w["start"] < t0 + dt and w["end"] > t0 for w in writes))
+    return out
+
+
+def _median_ms(xs):
+    return 1e3 * float(np.median(xs)) if xs else None
+
+
+def _write_rows(writes):
+    return [dict(step=w["step"], bytes=w["bytes"], write_s=w["end"] - w["start"],
+                 gb_per_s=w["bytes"] / 1e9 / (w["end"] - w["start"])) for w in writes]
+
+
+def ckpt_phase():
+    """Checkpoints of full-width qwen3-0.6b training on one card through
+    the launcher (bf16 over fp32 masters, batch 8 x 512, 2 microbatches):
+    two uninterrupted references from one seed (their agreement sets the
+    resume's gate: bit-equality if they are bit-equal, else their spread),
+    a run that saves async every CKPT_EVERY steps and stops at
+    CKPT_RESUME_AT, and a fresh run on its directory that must restore that
+    step and meet the gate on the last two steps.  Then, on the resumed
+    state: one blocking save and one restore, timed (the restore bit-equal
+    to the state), and the async path's snapshot into a staging-arena slot
+    on its first use and reused, beside a pageable ``.cpu()`` copy of the
+    same leaves."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        cfg = get_config(ARCH)
+        steps = CKPT_RESUME_AT + 2
+
+        def run(n, layers, *extra):
+            lines = []
+            args = launch_train.parser().parse_args([
+                "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV,
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--microbatches", str(TRAIN_MICRO), "--layers", str(layers),
+                "--steps", str(n), *extra])
+            r = launch_train.run(args, log_fn=lines.append)
+            torch.cuda.synchronize()
+            r["log"] = lines
+            return r
+
+        # the state's bytes at full depth decide whether two checkpoints fit
+        params, opt = train_step.init_train_state(cfg, device=DEV)
+        nbytes = _leaf_bytes({"params": params, "opt_state": opt})
+        del params, opt
+        torch.cuda.empty_cache()
+        free = shutil.disk_usage(root).free
+        layers, cut = 0, None
+        if free < 2.2 * nbytes:
+            layers = max(2, int(cfg.num_layers * free / (2.2 * nbytes)))
+            cut = f"{free / 1e9:.1f} GB free for two {nbytes / 1e9:.2f} GB checkpoints: " \
+                  f"{layers} layers"
+        refs = []
+        for _ in range(2):
+            r = run(steps, layers)
+            refs.append(([loss for _, loss in r["history"]], r["step_s"][1:]))
+            del r
+            torch.cuda.empty_cache()
+        (la, sa), (lb, sb) = refs
+        bit_equal = la == lb
+        spread = max(abs(a - b) for a, b in zip(la, lb))
+        d = os.path.join(root, "run")
+        saver = run(CKPT_RESUME_AT, layers, "--ckpt-dir", d, "--ckpt-every", str(CKPT_EVERY),
+                    "--ckpt-keep", str(CKPT_KEEP), "--ckpt-writers", str(CKPT_WRITERS))
+        del saver["state"]
+        torch.cuda.empty_cache()
+        writes = saver["ckpt"]["writes"]
+        busy = _overlaps(saver, writes)
+        resume = run(steps, layers, "--ckpt-dir", d, "--ckpt-every", NO_SAVE)
+        resumed = [loss for _, loss in resume["history"]]
+        want = la[CKPT_RESUME_AT:]
+        if bit_equal:
+            ok_resume = resumed == want
+        else:
+            ok_resume = len(resumed) == len(want) and all(
+                min(a, b) - spread <= x <= max(a, b) + spread
+                for x, a, b in zip(resumed, want, lb[CKPT_RESUME_AT:]))
+        restored_line = f"restored checkpoint at step {CKPT_RESUME_AT}"
+        shutil.rmtree(d)
+
+        state = resume.pop("state")
+        state = {"params": state["params"], "opt_state": state["opt_state"]}
+        sbytes = _leaf_bytes(state)
+        d2 = os.path.join(root, "sync")
+        mgr = ckpt_manager.CheckpointManager(d2, writers=CKPT_WRITERS)
+        t0 = time.perf_counter()
+        mgr.save(steps, state)
+        sync_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = mgr.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ok_back = all(torch.equal(a, b.detach()) for a, b in
+                      zip(ckpt_manager._leaf_paths(back).values(),
+                          ckpt_manager._leaf_paths(state).values()))
+        del back
+        shutil.rmtree(d2)
+        torch.cuda.empty_cache()
+        # the async path's snapshot into an arena slot: first use, then reuse
+        slot, snap_s = {}, []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            mgr._snapshot_host(state, slot)
+            snap_s.append(time.perf_counter() - t0)
+        del slot
+        t0 = time.perf_counter()
+        mgr._snapshot_host(state)                 # pageable: a .cpu() of each leaf
+        pageable_s = time.perf_counter() - t0
+        ok = (ok_resume and ok_back and restored_line in resume["log"]
+              and len(writes) == CKPT_RESUME_AT // CKPT_EVERY
+              and all(math.isfinite(x) for x in la + lb + resumed))
+        line = dict(
+            arch=ARCH, layers=layers or cfg.num_layers, cut=cut, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, microbatches=TRAIN_MICRO, dtype="bfloat16",
+            checkpoint_bytes=writes[-1]["bytes"] if writes else None, state_bytes=sbytes,
+            writers=CKPT_WRITERS, keep=CKPT_KEEP,
+            gate="bit-equal" if bit_equal else f"spread {spread}",
+            ref_losses=[la, lb], resumed_losses=resumed, want_losses=want,
+            restored=resume["ckpt"]["start"], restored_line=restored_line in resume["log"],
+            async_stall_ms=[1e3 * x for _, x in saver["ckpt"]["save_s"]],
+            writes=_write_rows(writes),
+            step_ms_saving_run=[1e3 * x for x in saver["step_s"]], write_in_flight=busy,
+            median_step_ms_write_in_flight=_median_ms(
+                [x for x, b in zip(saver["step_s"][1:], busy[1:]) if b]),
+            median_step_ms_no_write=_median_ms(sa + sb),
+            launcher_restore_s=resume["ckpt"]["restore_s"],
+            sync_save_s=sync_s, sync_gb_per_s=sbytes / 1e9 / sync_s, restore_s=restore_s,
+            restore_bit_equal=ok_back, arena_snapshot_ms=dict(first=1e3 * snap_s[0],
+                                                              reused=1e3 * snap_s[1]),
+            pageable_copy_ms=1e3 * pageable_s, ok=ok)
+        log("ckpt " + json.dumps(line))
+        return ok
+    except Exception as e:                        # the phase fails; the script goes on
+        log(f"ckpt FAILED: {type(e).__name__}: {e}")
+        return False
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def grid_ckpt_phase():
+    """Checkpoints of the 1x2x2 grid (qwen3-0.6b at full width, BIDIR_LAYERS
+    layers, ``overlap="fused"``, the bf16 wire): an uninterrupted run saving
+    after every step (rank 0 writes global leaves); its steps after the
+    first retired (the run as if stopped after step 1's save); a fresh grid
+    that restores step 1 and runs step 2, held against the uninterrupted
+    run's step 2; then one card restoring the grid's checkpoint and running
+    step 2, held against the grid's (GRID_LOSS_TOL relative, as
+    ``grid_train`` holds the single-device loss)."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_grid_ckpt_")
+    try:
+        torch.cuda.empty_cache()
+        d, mx, my = GRID
+        base = ["--arch", ARCH, "--dtype", "bfloat16", "--device", DEV,
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--microbatches", str(TRAIN_MICRO), "--layers", str(BIDIR_LAYERS),
+                "--steps", str(GRID_CKPT_STEPS), "--ckpt-dir", root]
+        grid = ["--strategy", "hecaton", "--data", str(d), "--mx", str(mx), "--my", str(my),
+                "--overlap", "fused", "--comm-dtype", "bf16", "--timeout", str(GRID_TIMEOUT_S)]
+        parse = launch_train.parser().parse_args
+        whole = launch_train.run_grid(parse(base + grid + ["--ckpt-every", "1"]), log_fn=log)
+        retired = ckpt_manager.CheckpointManager(root).retire_steps_after(1)
+        lines = []
+        fresh = launch_train.run_grid(parse(base + grid + ["--ckpt-every", NO_SAVE]),
+                                      log_fn=lines.append)
+        one_lines = []
+        one = launch_train.run(parse(base + ["--ckpt-every", NO_SAVE]), log_fn=one_lines.append)
+        del one["state"]
+        torch.cuda.empty_cache()
+        rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+        want = whole["history"][1][1]
+        grid_rel = rel(fresh["history"][0][1], want)
+        one_rel = rel(one["history"][0][1], fresh["history"][0][1])
+        restored = "restored checkpoint at step 1"
+        writes = whole["ckpt"]["writes"]
+        busy = _overlaps(whole, writes)
+        ok = (retired == [GRID_CKPT_STEPS] and fresh["ckpt"]["start"] == 1
+              and one["ckpt"]["start"] == 1 and restored in lines and restored in one_lines
+              and [s for s, _ in fresh["history"]] == [1] and grid_rel <= GRID_LOSS_TOL
+              and one_rel <= GRID_LOSS_TOL and len(writes) == GRID_CKPT_STEPS)
+        log("grid_ckpt " + json.dumps(dict(
+            arch=ARCH, layers=BIDIR_LAYERS, grid="x".join(map(str, GRID)), overlap="fused",
+            comm_dtype="bf16", batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO,
+            dtype="bfloat16", checkpoint_bytes=writes[-1]["bytes"] if writes else None,
+            uninterrupted_losses=[x for _, x in whole["history"]],
+            resumed_grid_loss=fresh["history"][0][1], resumed_grid_rel=grid_rel,
+            one_card_loss=one["history"][0][1], one_card_rel=one_rel, tol_rel=GRID_LOSS_TOL,
+            save_stall_ms=[1e3 * x for _, x in whole["ckpt"]["save_s"]],
+            writes=_write_rows(writes), step_ms=[1e3 * x for x in whole["step_s"]],
+            write_in_flight=busy, grid_restore_s=fresh["ckpt"]["restore_s"],
+            one_card_restore_s=one["ckpt"]["restore_s"], step_ms_note=GRID_LABEL, ok=ok)))
+        return ok
+    except Exception as e:                        # the phase fails; the script goes on
+        log(f"grid_ckpt FAILED: {type(e).__name__}: {e}")
+        return False
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1436,6 +1674,8 @@ def main(argv=None):
                                             kernels=INT8_KERNELS, bf16_step0=bf16_step0)
     ok_gb, _, _ = grid_train_phase("grid_bidir", overlap="bidir", wire="int8",
                                    steps=BIDIR_STEPS, layers=BIDIR_LAYERS, kernels=())
+    ok_c = ckpt_phase()
+    ok_gc = grid_ckpt_phase()
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
     # serving run, the ring kernels' from the bf16 grid run and their int8
@@ -1471,6 +1711,7 @@ def main(argv=None):
                               ("ssm_model_check", ok_sm), ("serve_ssm", ok_ss),
                               ("ring_kernels", ok_rk), ("grid_train", ok_gt),
                               ("grid_train_int8", ok_gq), ("grid_bidir", ok_gb),
+                              ("ckpt", ok_c), ("grid_ckpt", ok_gc),
                               ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]

@@ -5,8 +5,9 @@ frozen :class:`ModelConfig` with ``padded_vocab``/``resolved_head_dim``/
 ``scaled``, :class:`SSMConfig` (the Mamba2 mixer), the arch registry, and
 the fields of :class:`ParallelConfig`, :class:`GuardConfig` and
 :class:`RunConfig` that the training steps read (one device and the
-hecaton grid), with the JAX package's defaults.  MoE/MLA/hybrid/enc-dec
-fields and the checkpoint config arrive with the slices that use them.
+hecaton grid), with the JAX package's defaults, and
+:class:`CheckpointConfig` whole.  MoE/MLA/hybrid/enc-dec fields arrive
+with the slices that use them.
 """
 
 from __future__ import annotations
@@ -112,6 +113,51 @@ class GuardConfig:
         assert 0.0 < self.loss_ewma_alpha <= 1.0, self.loss_ewma_alpha
         assert self.patience >= 1 and self.skip_cap >= 1
         assert self.hang_timeout >= 0.0
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    """``repro.config.CheckpointConfig``: the persistence policy of the
+    training loop (``checkpoint/manager.py``), every field and check.
+
+    ``async_`` selects the AsyncCheckpointManager: the step boundary only
+    snapshots the state into a reusable host staging arena and a
+    background thread writes and publishes it; ``staging="sync"`` makes
+    that manager block instead.  ``max_inflight`` bounds the arena's
+    slots (acquiring one blocks while that many snapshots are unwritten).
+    ``writers`` logical writers persist disjoint shard sets with a crc32
+    per shard, and a step publishes only once ``quorum`` partial
+    manifests verified (None: all) and every shard is covered.
+    ``verify`` re-checks every shard's length and crc32 on restore.
+    ``writer_procs`` (a writer per OS process, with ``writer_timeout``
+    and ``reassign``) belongs to the training runtime, which the port
+    has not ported: a manager asked for it raises."""
+    every: int = 50                  # save cadence in steps
+    keep: int = 3                    # published checkpoints retained by GC
+    async_: bool = True              # background writer vs blocking save
+    staging: str = "host"            # "host" (staged async) | "sync"
+    max_inflight: int = 2            # double-buffered staging arena slots
+    durable: bool = False            # fsync data + dirs around the publish
+    writers: int = 1                 # logical writer-group size
+    quorum: Optional[int] = None     # partial manifests required (None: all)
+    verify: bool = True              # checksum-verify shards on restore
+    writer_procs: bool = False       # writers as OS processes (fleet)
+    writer_timeout: float = 5.0      # heartbeat-lease deadline, seconds
+    reassign: int = 1                # orphan-range reassignments per save
+
+    def __post_init__(self):
+        assert self.every >= 1, f"ckpt every={self.every} must be >= 1"
+        assert self.keep >= 1, f"ckpt keep={self.keep} must be >= 1"
+        assert self.max_inflight >= 1, self.max_inflight
+        assert self.staging in ("host", "sync"), (
+            f"staging={self.staging!r} not in ('host', 'sync')")
+        assert self.writers >= 1, f"writers={self.writers} must be >= 1"
+        if self.quorum is not None:
+            assert 1 <= self.quorum <= self.writers, (
+                f"quorum={self.quorum} must be in [1, writers={self.writers}]")
+        assert self.writer_timeout > 0, (
+            f"writer_timeout={self.writer_timeout} must be > 0")
+        assert self.reassign >= 0, f"reassign={self.reassign} must be >= 0"
 
 
 @dataclass(frozen=True)

@@ -27,6 +27,19 @@ the ranks start.
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``--device cpu``
 runs the plain PyTorch versions (gloo carries the grid's data).
 
+``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps in the JAX
+package's format (``checkpoint/manager.py``): async saves unless
+``--ckpt-sync``, ``--ckpt-keep`` kept, ``--ckpt-writers`` logical writers
+and ``--ckpt-quorum`` of them to publish, ``--ckpt-no-verify`` to skip the
+crc check on restore.  A run whose directory holds a complete step
+restores the newest one (printing ``restored checkpoint at step N``),
+feeds the batches from that step on and trains to ``--steps``; on the
+grid rank 0 writes global leaves and every rank restores its blocks
+(``checkpoint/grid.py``), so a checkpoint of either path restores on the
+other.  The JAX launcher's ``--ckpt-procs`` / ``--ckpt-writer-timeout``
+(writer processes) and its data blocklist belong to the training
+runtime, which is not ported: they raise.
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --dtype bfloat16 --steps 20 --batch 8 --seq 512 --microbatches 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
@@ -37,11 +50,14 @@ runs the plain PyTorch versions (gloo carries the grid's data).
 from __future__ import annotations
 
 import argparse
+import itertools
+import os
 import time
 
 from repro_torch.config import COMM_DTYPES, OVERLAP_MODES
 
 DTYPES = ("float32", "bfloat16")
+BLOCKLIST = "blocklist.json"       # the JAX guard's sidecar in a checkpoint directory
 
 
 def parser() -> argparse.ArgumentParser:
@@ -70,17 +86,61 @@ def parser() -> argparse.ArgumentParser:
                     help="ring wire dtype: the operands' own, or int8 with fp32 row scales")
     ap.add_argument("--timeout", type=float, default=0.0,
                     help="seconds before a grid run is stopped as hung (0: none)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-keep", type=int, default=3)
+    ap.add_argument("--ckpt-sync", action="store_true",
+                    help="blocking saves (default: the async staged writer)")
+    ap.add_argument("--ckpt-writers", type=int, default=0,
+                    help="logical checkpoint writers (0: 1)")
+    ap.add_argument("--ckpt-quorum", type=int, default=0,
+                    help="partial manifests required before a step publishes (0: all)")
+    ap.add_argument("--ckpt-no-verify", action="store_true",
+                    help="skip per-shard checksum verification on restore")
+    ap.add_argument("--ckpt-procs", action="store_true",
+                    help="writer processes: not ported (raises)")
+    ap.add_argument("--ckpt-writer-timeout", type=float, default=None,
+                    help="writer processes' lease deadline: not ported (raises)")
     return ap
+
+
+def _check_ckpt_args(args) -> None:
+    from repro_torch.checkpoint.manager import PROCS_NOT_PORTED
+    if args.ckpt_procs or args.ckpt_writer_timeout is not None:
+        raise NotImplementedError(PROCS_NOT_PORTED)
+    if args.ckpt_dir and os.path.exists(os.path.join(args.ckpt_dir, BLOCKLIST)):
+        raise NotImplementedError(
+            f"{args.ckpt_dir} holds a data blocklist ({BLOCKLIST}); the training runtime "
+            f"that honours it is not ported: ROADMAP queue 1 item 2")
+
+
+def _ckpt_config(args):
+    from repro_torch.config import CheckpointConfig
+    return CheckpointConfig(every=args.ckpt_every, keep=args.ckpt_keep,
+                            async_=not args.ckpt_sync, writers=args.ckpt_writers or 1,
+                            quorum=args.ckpt_quorum or None, verify=not args.ckpt_no_verify)
+
+
+def _ckpt_report(state, mgr, start, restore_s) -> dict:
+    """What the run's checkpoints cost: the restored step and its seconds,
+    each boundary save's stall, each published write (step, host-clock
+    start and end, bytes), each step's start on the host clock."""
+    return {"start": start, "restore_s": restore_s, "save_s": state.get("save_s", []),
+            "writes": list(mgr.writes) if mgr is not None else [],
+            "step_t0": state.get("step_t0", [])}
 
 
 def run(args, log_fn=print) -> dict:
     """Train as ``args`` describe; returns the run's history and times."""
+    _check_ckpt_args(args)
     if args.data * args.mx * args.my > 1:
         return run_grid(args, log_fn=log_fn)
     import torch
     from repro_torch import resolve_device
+    from repro_torch.checkpoint.manager import make_manager
     from repro_torch.config import ParallelConfig, RunConfig
     from repro_torch.data.synthetic import Prefetcher, SyntheticLM
+    from repro_torch.models import lm
     from repro_torch.train import loop as train_loop
     from repro_torch.train import step as TS
 
@@ -90,19 +150,35 @@ def run(args, log_fn=print) -> dict:
     pcfg = ParallelConfig(microbatches=args.microbatches)
     t0 = time.perf_counter()
     params, opt_state = TS.init_train_state(cfg, device=dev)
-    step = TS.build_train_step(cfg, pcfg, rc, total_steps=args.steps,
-                               compute_dtype=getattr(torch, args.dtype))
-    it = Prefetcher(iter(SyntheticLM(cfg.vocab_size, args.seq, args.batch)), device=dev)
+    ccfg = _ckpt_config(args)
+    ckpt = make_manager(args.ckpt_dir, ccfg) if args.ckpt_dir else None
+    start, restore_s = 0, None
+    if ckpt is not None and ckpt.latest_step() is not None:
+        t1 = time.perf_counter()
+        restored, start = ckpt.restore({"params": params, "opt_state": opt_state})
+        params, opt_state = restored["params"], restored["opt_state"]
+        for _, t in lm.flatten(params):
+            t.requires_grad_(True)
+        restore_s = time.perf_counter() - t1
+        log_fn(f"restored checkpoint at step {start}")
+    step = TS.build_train_step(cfg, pcfg, rc, compute_dtype=getattr(torch, args.dtype))
+    ds = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
+    it = Prefetcher((ds.batch_at(s) for s in itertools.count(start)), device=dev)
     setup_s = time.perf_counter() - t0
     state = {"params": params, "opt_state": opt_state}
     try:
-        state = train_loop.train(step, state, it, num_steps=args.steps, log_fn=log_fn)
+        state = train_loop.train(step, state, it, start_step=start, num_steps=args.steps,
+                                 ckpt=ckpt, ckpt_every=ccfg.every, log_fn=log_fn)
     finally:
         it.close()
+        if ckpt is not None:
+            ckpt.close()                 # train() already drained the saves in flight
     h = state["history"]
-    log_fn(f"final loss {h[-1][1]:.4f} (first {h[0][1]:.4f})")
+    if h:
+        log_fn(f"final loss {h[-1][1]:.4f} (first {h[0][1]:.4f})")
     return {"cfg": cfg, "history": h, "step_s": state["step_s"], "setup_s": setup_s,
-            "tokens_per_step": args.batch * args.seq, "state": state}
+            "tokens_per_step": args.batch * args.seq, "state": state,
+            "ckpt": _ckpt_report(state, ckpt, start, restore_s)}
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +212,9 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     from repro_torch.parallel import comm
 
     _check_grid_args(args)
+    _check_ckpt_args(args)
+    if check_plain and args.ckpt_dir:
+        raise ValueError("check_plain trains from the initial parameters: no --ckpt-dir")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         from repro_torch.kernels import build
@@ -149,13 +228,14 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     r0 = results[0]
     cfg = _config(args)
     h = r0["history"]
-    log_fn(f"grid[{args.data}x{args.mx}x{args.my}] final loss {h[-1][1]:.4f} "
-           f"(first {h[0][1]:.4f})")
+    if h:
+        log_fn(f"grid[{args.data}x{args.mx}x{args.my}] final loss {h[-1][1]:.4f} "
+               f"(first {h[0][1]:.4f})")
     return {"cfg": cfg, "history": h, "grad_norms": r0["grad_norms"],
             "step_s": r0["step_s"], "setup_s": r0["setup_s"],
             "tokens_per_step": args.batch * args.seq, "routes": r0["routes"],
             "launches": {r: results[r]["launches"] for r in sorted(results)},
-            "checks": r0["checks"], "world": world,
+            "checks": r0["checks"], "world": world, "ckpt": r0["ckpt"],
             "wall_s": time.perf_counter() - t0}
 
 
@@ -163,6 +243,8 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     import numpy as np
     import torch
     from repro_torch import resolve_device
+    from repro_torch.checkpoint import grid as CG
+    from repro_torch.checkpoint.manager import make_manager
     from repro_torch.config import ParallelConfig, RunConfig
     from repro_torch.core import overlap as OV
     from repro_torch.data.synthetic import SyntheticLM
@@ -207,8 +289,8 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
             init = [t.detach().clone() for _, t in lm.flatten(params)]
             plain_params = lm.unflatten([p for p, _ in lm.flatten(params)],
                                         [t.clone().requires_grad_(True) for t in init])
-            pstep = TS.build_train_step(cfg, pcfg, rc, total_steps=a.steps,
-                                        compute_dtype=dtype, mesh=grid, plain=True)
+            pstep = TS.build_train_step(cfg, pcfg, rc, compute_dtype=dtype, mesh=grid,
+                                        plain=True)
             popt = TS.init_grid_opt_state(plain_params, grid, pcfg)
             checks["plain_losses"], checks["plain_grad_norms"] = [], []
             for s in range(a.steps):
@@ -221,8 +303,20 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         opt_state = TS.init_grid_opt_state(params, grid, pcfg)
-        kstep = TS.build_train_step(cfg, pcfg, rc, total_steps=a.steps, compute_dtype=dtype,
-                                    mesh=grid)
+        state = {"params": params, "opt_state": opt_state}
+        del params, opt_state
+        ccfg = _ckpt_config(a)
+        ckpt, mgr, start, restore_s, lines = None, None, 0, None, []
+        if a.ckpt_dir:
+            # rank 0 writes (and names the step to restore); every rank reads
+            mgr = make_manager(a.ckpt_dir, ccfg) if rank == 0 else None
+            t1 = time.perf_counter()
+            state, start = CG.restore(a.ckpt_dir, state, grid, pcfg, mgr, ccfg.verify)
+            if start:
+                restore_s = time.perf_counter() - t1
+                lines.append(f"restored checkpoint at step {start}")
+            ckpt = CG.GridCheckpointer(mgr, grid, pcfg)
+        kstep = TS.build_train_step(cfg, pcfg, rc, compute_dtype=dtype, mesh=grid)
         grad_norms = []
 
         def step(p, o, b):
@@ -230,17 +324,16 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
             grad_norms.append(float(m["grad_norm"]))
             return p, o, m
 
-        def stream():
-            s = 0
-            while True:
-                yield local(s)
-                s += 1
         setup_s = time.perf_counter() - t0
-        lines = []
         ops.reset_launches()
         OV.clear_routes()
-        state = train_loop.train(step, {"params": params, "opt_state": opt_state}, stream(),
-                                 num_steps=a.steps, log_fn=lines.append)
+        try:
+            state = train_loop.train(step, state, (local(s) for s in itertools.count(start)),
+                                     start_step=start, num_steps=a.steps, ckpt=ckpt,
+                                     ckpt_every=ccfg.every, log_fn=lines.append)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         launches = dict(ops.LAUNCHES)
@@ -255,7 +348,7 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
         return {"history": state["history"], "grad_norms": grad_norms,
                 "step_s": state["step_s"], "setup_s": setup_s,
                 "launches": launches, "routes": OV.route_table(), "checks": checks,
-                "log": lines}
+                "ckpt": _ckpt_report(state, mgr, start, restore_s), "log": lines}
     finally:
         comm.shutdown()
 

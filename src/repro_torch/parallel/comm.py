@@ -328,6 +328,16 @@ def barrier(ax: Optional[str] = None) -> None:
         dist.barrier(group=w.groups[ax])
 
 
+def broadcast_object(obj, src: int = 0):
+    """Rank ``src``'s ``obj`` on every rank (gloo carries it on both
+    transports; a picklable value)."""
+    if world().grid.world == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
 def _sync():
     w = world()
     if w.cuda:

@@ -9,6 +9,8 @@ starts):
         python tests/_jax_grid_ref.py grid OUT.npz
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
         python tests/_jax_grid_ref.py qhop OUT.npz
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
+        python tests/_jax_grid_ref.py ckpt OUT.npz CKPT_DIR
 
 ``ring``: the four ring ops of ``repro.kernels.ring_matmul`` under
 ``shard_map`` on a (1, 2, 2) mesh, fp32, forward and the gradients of
@@ -24,6 +26,12 @@ under each variant.
 ``comm_dtype="int8"``) on a ring of two, shift +1 and -1, fp32 and bf16
 shards (wide rows, a zero row, a narrow shard that stays full width),
 forward and the gradient of ``sum(out * ct)``.
+``ckpt``: one fp32 step of the untied paper-llama2-7b smoke config with
+``mesh=None``, saved at step 1 into CKPT_DIR by
+``repro.checkpoint.manager.CheckpointManager``; then that checkpoint
+restored onto the (1, 2, 2) mesh (``shardings`` from the param and ZeRO-1
+specs) and two more steps of ``build_train_step`` there (``overlap``
+fused): their losses and the final parameters.
 Inputs come from numpy with fixed seeds; every array lands in the npz.
 """
 
@@ -299,10 +307,57 @@ def run_qhop(out_path):
     np.savez(out_path, **res)
 
 
+CKPT = dict(arch="paper-llama2-7b", B=4, S=16, lr=1e-3, microbatches=2, steps=2)
+
+
+def run_ckpt(out_path, ckpt_dir):
+    from repro.checkpoint.manager import CheckpointManager
+    from repro.config import ParallelConfig, RunConfig, get_smoke_config
+    from repro.data.synthetic import SyntheticLM
+    from repro.launch.mesh import make_small_mesh
+    from repro.models import lm
+    from repro.optim import adamw
+    from repro.parallel import specs as SP
+    from repro.train import step as TS
+
+    cfg = get_smoke_config(CKPT["arch"])
+    params0 = lm.init_params(cfg, jax.random.PRNGKey(0))
+    rc = RunConfig("t", "train", CKPT["S"], CKPT["B"], lr=CKPT["lr"], warmup_steps=1)
+    ds = SyntheticLM(cfg.vocab_size, CKPT["S"], CKPT["B"])
+    kw = dict(strategy="hecaton", microbatches=CKPT["microbatches"], grad_reduce_dtype="fp32")
+    one = jax.jit(TS.build_train_step(cfg, ParallelConfig(data=1, model=1, mx=1, my=1, **kw),
+                                      rc, None, compute_dtype=jnp.float32))
+    batch = {k: jnp.asarray(v) for k, v in ds.batch_at(0).items()}
+    params, opt, _ = one(params0, adamw.init(params0), batch)
+    CheckpointManager(ckpt_dir).save(1, {"params": params, "opt_state": opt})
+
+    mesh = make_small_mesh("hecaton", 1, 2, 2)
+    pcfg = ParallelConfig(data=1, model=4, mx=2, my=2, overlap="fused", **kw)
+    pspecs = SP.param_specs(params0, mesh, pcfg)
+    shardings = {"params": SP.sharding_tree(pspecs, mesh),
+                 "opt_state": SP.sharding_tree(SP.opt_state_specs(pspecs, params0, mesh, pcfg),
+                                               mesh)}
+    state, start = CheckpointManager(ckpt_dir).restore(
+        {"params": params0, "opt_state": adamw.init(params0)}, shardings=shardings)
+    bspec = SP.sharding_tree(SP.batch_specs(mesh, pcfg, microbatched=False), mesh)
+    step = jax.jit(TS.build_train_step(cfg, pcfg, rc, mesh, compute_dtype=jnp.float32))
+    params, opt, losses = state["params"], state["opt_state"], []
+    for s in range(start, start + CKPT["steps"]):
+        batch = jax.device_put({k: jnp.asarray(v) for k, v in ds.batch_at(s).items()}, bspec)
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    res = {"ckpt/losses": np.asarray(losses), "ckpt/start": np.asarray(start)}
+    for kp, v in jax.tree_util.tree_flatten_with_path(params)[0]:
+        res["ckpt/params/" + "/".join(str(getattr(k, "key", k)) for k in kp)] = np.asarray(v)
+    np.savez(out_path, **res)
+
+
 def main():
     what, out = sys.argv[1], sys.argv[2]
     if what == "ring":
         run_ring(out)
+    elif what == "ckpt":
+        run_ckpt(out, sys.argv[3])
     elif what == "qhop":
         run_qhop(out)
     else:

@@ -420,3 +420,103 @@ def bidir_job(grid):
                 routes = None if name.startswith("ring_") else res[0][0]
                 out[(name, c, wire)] = (routes, res[0][1], res[1][1], bulk().numpy())
     return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on the grid (tests/test_torch_checkpoint.py)
+# ---------------------------------------------------------------------------
+
+def _ckpt_setup(grid):
+    """The paper-llama2-7b smoke config (untied head) as the JAX ``ckpt``
+    reference trains it, and this rank's initial state."""
+    from repro_torch.config import ParallelConfig, RunConfig, get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.parallel import specs
+    from repro_torch.train import step as TS
+    cfg = get_smoke_config("paper-llama2-7b")
+    pcfg = ParallelConfig(data=grid.data, mx=grid.mx, my=grid.my, overlap="fused",
+                          microbatches=2, grad_reduce_dtype="fp32")
+    rc = RunConfig("t", "train", 16, 4, lr=1e-3, warmup_steps=1)
+    full = lm.init_master_params(cfg, seed=0, device="cpu")
+    params = specs.shard_tree(full, specs.param_specs(full, grid), grid)
+    for _, t in lm.flatten(params):
+        t.requires_grad_(True)
+    return cfg, pcfg, rc, {"params": params, "opt_state": TS.init_grid_opt_state(params, grid,
+                                                                                 pcfg)}
+
+
+def _gathered(state, grid, pcfg):
+    """The global state from every rank's blocks and ZeRO-1 parts, each
+    moment gathered in one go by its ZeRO-1 spec (not the two stages of
+    ``checkpoint/grid.global_leaves``): {name: numpy} named as the
+    checkpoint names them."""
+    from repro_torch import bridge
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import specs, zero
+    params, opt = state["params"], state["opt_state"]
+    out = {"params/" + "/".join(p): t.numpy()
+           for p, t in lm.flatten(bridge.gather_master_params(params, grid))}
+    ax = shd.axis_info(grid)
+    for (path, t), (_, m), (_, v) in zip(lm.flatten(params), lm.flatten(opt.mu),
+                                         lm.flatten(opt.nu)):
+        spec = specs.leaf_spec(path, t.dim(), ax, pcfg.fused_loss)
+        full = [d * grid.size(tuple(specs._entry_axes(e))) if e is not None else d
+                for d, e in zip(t.shape, tuple(spec) + (None,) * (t.dim() - len(spec)))]
+        mspec = zero.state_spec(spec, full, ("data",), grid.sizes)
+        for name, part in (("mu", m), ("nu", v)):
+            out[f"opt_state/.{name}/" + "/".join(path)] = specs.gather_full(part, mspec).numpy()
+    out["opt_state/.step"] = opt.step.numpy()
+    out["opt_state/.gnorm_ewma"] = opt.gnorm_ewma.numpy()
+    return out
+
+
+def ckpt_grid_job(grid, jax_dir, port_dir):
+    """Restore the JAX ``mesh=None`` checkpoint into this rank's blocks and
+    ZeRO-1 parts, train two grid steps, then save through the loop's
+    checkpointer (rank 0: an async manager on ``port_dir``).  Returns the
+    restored step, the losses and (rank 0) the gathered final state."""
+    from repro_torch.checkpoint import grid as CG
+    from repro_torch.checkpoint.manager import AsyncCheckpointManager, CheckpointManager
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.parallel import specs
+    from repro_torch.train import step as TS
+    cfg, pcfg, rc, state = _ckpt_setup(grid)
+    reader = CheckpointManager(jax_dir) if grid.rank == 0 else None
+    state, start = CG.restore(jax_dir, state, grid, pcfg, reader)
+    step = TS.build_train_step(cfg, pcfg, rc, compute_dtype=torch.float32, mesh=grid)
+    ds = SyntheticLM(cfg.vocab_size, 16, 4)
+    params, opt, losses = state["params"], state["opt_state"], []
+    for s in range(start, start + 2):
+        lb = {k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in specs.local_batch(ds.batch_at(s), grid, 2).items()}
+        params, opt, m = step(params, opt, lb)
+        losses.append(float(m["loss"]))
+    state = {"params": params, "opt_state": opt}
+    ck = CG.GridCheckpointer(AsyncCheckpointManager(port_dir) if grid.rank == 0 else None,
+                             grid, pcfg)
+    ck.save_async(start + 2, state)
+    ck.wait_until_finished()
+    ck.close()
+    gathered = _gathered(state, grid, pcfg)
+    return dict(start=start, losses=losses, state=gathered if grid.rank == 0 else None)
+
+
+def ckpt_resave_job(grid, jax_dir, port_dir):
+    """Restore the JAX checkpoint into this rank's blocks and ZeRO-1 parts
+    and save it again at the same step (rank 0: a blocking manager):
+    returns the restored step and each moment's (block shape, part shape)."""
+    from repro_torch.checkpoint import grid as CG
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models import lm
+    _, pcfg, _, state = _ckpt_setup(grid)
+    reader = CheckpointManager(jax_dir) if grid.rank == 0 else None
+    state, start = CG.restore(jax_dir, state, grid, pcfg, reader)
+    ck = CG.GridCheckpointer(CheckpointManager(port_dir) if grid.rank == 0 else None, grid,
+                             pcfg)
+    ck.save_async(start, state)
+    ck.wait_until_finished()
+    shapes = {"/".join(p): (tuple(t.shape), tuple(m.shape))
+              for (p, t), (_, m) in zip(lm.flatten(state["params"]),
+                                        lm.flatten(state["opt_state"].mu))}
+    return dict(start=start, shapes=shapes)

@@ -1,6 +1,6 @@
 """The port stands alone: every ``repro_torch`` module imports with JAX
-blocked, and no file of the port (or ``chip_smoke.py``) imports ``jax`` or
-anything of the ``repro`` package."""
+(and ml_dtypes) blocked, and no file of the port (or ``chip_smoke.py``)
+imports ``jax``, ``ml_dtypes`` or anything of the ``repro`` package."""
 
 import ast
 import os
@@ -30,10 +30,12 @@ def test_every_module_imports_without_jax():
             "repro_torch.launch.mesh", "repro_torch.parallel.comm",
             "repro_torch.parallel.sharding", "repro_torch.parallel.specs",
             "repro_torch.core.overlap", "repro_torch.kernels.ring_matmul",
-            "repro_torch.core.quant"} <= set(mods)
+            "repro_torch.core.quant", "repro_torch.checkpoint.wire",
+            "repro_torch.checkpoint.manager", "repro_torch.checkpoint.grid"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
+            "sys.modules['ml_dtypes'] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -61,4 +63,9 @@ def _imported_roots(path: Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_import(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, (path, roots)
+
+
+def test_checkpoint_modules_are_scanned():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"checkpoint/wire.py", "checkpoint/manager.py", "checkpoint/grid.py"} <= scanned
