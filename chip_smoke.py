@@ -107,7 +107,37 @@ Phases, each fatal on failure:
    step 2 against the uninterrupted run's (1e-3 relative), and one card
    restores the grid's checkpoint and runs step 2 against the grid's
    (1e-3); stalls, writes and restore times as above;
-14. print one JSON line of per-kernel numbers, then the result line.
+14. ``runtime``: the training runtime (``runtime/``) on the training cell
+   (bf16 over fp32 masters, batch 8 x 512, 2 microbatches, remat fusion,
+   the kernels on): ``guard_skip`` (28 layers) runs 5 guarded steps with
+   batch 2's ``loss_mask`` all NaN: ``update_skipped`` only at step 2,
+   every parameter and moment ``torch.equal`` across it, the other
+   losses against two runs over the stream without batch 2 (the ``ckpt``
+   gate); ``rollback`` (4 layers) runs ``run_supervised`` over an
+   ``AsyncCheckpointManager`` (2 writers, every 2 steps) with NaN at data
+   3 and 4 and ``skip_cap`` 2: the ``DivergenceError`` names step 3 and
+   data (3, 4), the save of step 4 (published before the rollback) is
+   retired, ``blocklist.json`` holds [3, 4], and after a later step held
+   by a host sleep past
+   ``hang_timeout`` (``HangError``) the restart resumes from the last
+   published step; each incarnation's losses and the final state against
+   two clean runs over the filtered stream (the ``ckpt`` gate);
+   ``ckpt_procs`` runs the ``ckpt`` phase's saving run again through
+   the launcher with ``--ckpt-procs`` (2 writer processes), reported
+   beside the ``ckpt`` phase's run with writer threads (median step with
+   a write in flight and with none, boundary stall, write s and GB/s,
+   the fleet's pack s, spawn-to-first-heartbeat s, the handover: shm or
+   spill), resumes from the fleet's step 4 against the ``ckpt`` phase's
+   references, and at 4 layers saves once with
+   writer 1 SIGKILLed in its torn window: published with
+   ``reassigned["1"]``, restored bit-equal, the thread writers' files
+   apart from that record;
+15. ``grid_runtime``: the 1x2x2 grid at 4 layers through the launcher
+   with ``--guard --ckpt-procs`` and a ``blocklist.json`` in its
+   directory: the four ranks' loss histories identical, the first data
+   index ``data_index(0, blocklist)``, the writers children of rank 0, and
+   one card restoring the fleet-written step within 1e-3 of the grid;
+16. print one JSON line of per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
@@ -121,6 +151,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -133,8 +164,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint import manager as ckpt_manager  # noqa: E402
-from repro_torch.config import ParallelConfig, RunConfig, get_config  # noqa: E402
-from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
+from repro_torch.config import GuardConfig, ParallelConfig, RunConfig, get_config  # noqa: E402
+from repro_torch.data.synthetic import Prefetcher, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import ring_matmul as krm  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
@@ -148,7 +179,10 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.context import PCtx  # noqa: E402
+from repro_torch.runtime import fault as rt_fault  # noqa: E402
+from repro_torch.runtime import guard as rt_guard  # noqa: E402
 from repro_torch.serve.cache import CachePool, PoolConfig  # noqa: E402
+from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
@@ -271,6 +305,16 @@ CKPT_RESUME_AT, CKPT_EVERY, CKPT_KEEP, CKPT_WRITERS = 4, 2, 2, 2
 # on the grid: full width at BIDIR_LAYERS layers, saving after every step
 GRID_CKPT_STEPS = 2
 NO_SAVE = "1000000"                       # --ckpt-every of a run that only restores
+# the runtime phase: guard_skip poisons batch GUARD_NAN_AT of GUARD_STEPS;
+# rollback (RUNTIME_LAYERS layers) poisons data RB_POISON of RB_STEPS,
+# saving every RB_EVERY steps with skip_cap RB_SKIP_CAP, and after the
+# rollback holds loop step HANG_STEP past HANG_TIMEOUT_S by a host sleep
+GUARD_STEPS, GUARD_NAN_AT = 5, 2
+RUNTIME_LAYERS = BIDIR_LAYERS
+RB_STEPS, RB_POISON, RB_EVERY, RB_SKIP_CAP = 8, (3, 4), 2, 2
+HANG_STEP, HANG_TIMEOUT_S, HANG_SLEEP_S = 5, 3.0, 4.0
+# grid_runtime: the blocklist in the grid's checkpoint directory
+GRID_BLOCKLIST, GRID_RUNTIME_STEPS = (0, 2), 2
 
 
 def log(*a):
@@ -1439,6 +1483,43 @@ def _write_rows(writes):
                  gb_per_s=w["bytes"] / 1e9 / (w["end"] - w["start"])) for w in writes]
 
 
+def _saving_row(kind, r, no_write_steps):
+    """What a saving run through the launcher cost its steps: ``kind``
+    names the writers (threads or processes); the steps with no write in
+    flight are the references' (``no_write_steps``, seconds)."""
+    c = r["ckpt"]
+    busy = _overlaps(r, c["writes"])
+    return dict(writers=kind, losses=[x for _, x in r["history"]],
+                step_ms=[1e3 * x for x in r["step_s"]], write_in_flight=busy,
+                median_step_ms_write_in_flight=_median_ms(
+                    [x for x, b in zip(r["step_s"][1:], busy[1:]) if b]),
+                median_step_ms_no_write=_median_ms(no_write_steps),
+                boundary_stall_ms=[1e3 * x for _, x in c["save_s"]],
+                writes=_write_rows(c["writes"]),
+                spawn_to_first_heartbeat_s=[x for _, x in c["spawn_s"]], handover=c["handover"],
+                fleet_saves=c["fleet_saves"], fleet_events=c["fleet_events"])
+
+
+def _gate(got, a, b):
+    """The ``ckpt`` phase's resume gate: ``got`` bit-equal to reference
+    ``a`` when the two references ``a`` and ``b`` are bit-equal, else each
+    value within their spread of both."""
+    if a == b:
+        return got == a
+    spread = max(abs(x - y) for x, y in zip(a, b))
+    return len(got) == len(a) and all(min(x, y) - spread <= v <= max(x, y) + spread
+                                      for v, x, y in zip(got, a, b))
+
+
+def _state_gate(got, a, b):
+    """The same gate over flattened states (lists of tensors): bit-equal
+    to ``a`` when ``a`` and ``b`` are, else each leaf within their spread."""
+    if all(torch.equal(x, y) for x, y in zip(a, b)):
+        return all(torch.equal(v, x) for v, x in zip(got, a))
+    return all(float((v.float() - x.float()).abs().max())
+               <= float((x.float() - y.float()).abs().max()) for v, x, y in zip(got, a, b))
+
+
 def ckpt_phase():
     """Checkpoints of full-width qwen3-0.6b training on one card through
     the launcher (bf16 over fp32 masters, batch 8 x 512, 2 microbatches):
@@ -1450,7 +1531,8 @@ def ckpt_phase():
     state: one blocking save and one restore, timed (the restore bit-equal
     to the state), and the async path's snapshot into a staging-arena slot
     on its first use and reused, beside a pageable ``.cpu()`` copy of the
-    same leaves."""
+    same leaves.  Returns (ok, for the runtime phase: the references'
+    losses and steps, the depth, the saving run's row)."""
     import shutil
     import tempfile
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
@@ -1500,12 +1582,7 @@ def ckpt_phase():
         resume = run(steps, layers, "--ckpt-dir", d, "--ckpt-every", NO_SAVE)
         resumed = [loss for _, loss in resume["history"]]
         want = la[CKPT_RESUME_AT:]
-        if bit_equal:
-            ok_resume = resumed == want
-        else:
-            ok_resume = len(resumed) == len(want) and all(
-                min(a, b) - spread <= x <= max(a, b) + spread
-                for x, a, b in zip(resumed, want, lb[CKPT_RESUME_AT:]))
+        ok_resume = _gate(resumed, want, lb[CKPT_RESUME_AT:])
         restored_line = f"restored checkpoint at step {CKPT_RESUME_AT}"
         shutil.rmtree(d)
 
@@ -1560,10 +1637,11 @@ def ckpt_phase():
                                                               reused=1e3 * snap_s[1]),
             pageable_copy_ms=1e3 * pageable_s, ok=ok)
         log("ckpt " + json.dumps(line))
-        return ok
+        return ok, dict(refs=(la, lb), layers=layers, no_write_steps=sa + sb,
+                        threads=_saving_row("threads", saver, sa + sb))
     except Exception as e:                        # the phase fails; the script goes on
         log(f"ckpt FAILED: {type(e).__name__}: {e}")
-        return False
+        return False, None
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -1631,6 +1709,387 @@ def grid_ckpt_phase():
         torch.cuda.empty_cache()
 
 
+def _flat_state(params, opt):
+    return [t.detach().clone() for t in ckpt_manager._leaf_paths(
+        {"params": params, "opt_state": opt}).values()]
+
+
+def _runtime_batch(data, i, nan):
+    b = data.batch_at(i)
+    b["loss_mask"] = np.full((TRAIN_BATCH, TRAIN_SEQ), np.nan if nan else 1.0, np.float32)
+    return b
+
+
+def _guarded_run(cfg, step, gc, data, indices, nan_at=None, on_step=None):
+    """Train a fresh seeded state over ``batch_at(i) for i in indices``
+    through the loop with a TrainingGuard of ``gc`` (the loss mask NaN at
+    loop step ``nan_at``); ``on_step(when, i, params, opt, metrics)`` sees
+    each step before and after it.  Returns (losses, update_skipped per
+    step, the final state flattened)."""
+    params, opt = train_step.init_train_state(cfg, seed=SEED, device=DEV)
+    skipped, n = [], [0]
+
+    def wrapped(p, o, b):
+        if on_step is not None:
+            on_step("before", n[0], p, o, None)
+        p, o, m = step(p, o, b)
+        skipped.append(float(m["update_skipped"]))
+        if on_step is not None:
+            on_step("after", n[0], p, o, m)
+        n[0] += 1
+        return p, o, m
+
+    it = Prefetcher((_runtime_batch(data, i, k == nan_at) for k, i in enumerate(indices)),
+                    device=DEV)
+    try:
+        state = train_loop.train(wrapped, {"params": params, "opt_state": opt}, it,
+                                 num_steps=len(indices),
+                                 guard=rt_guard.TrainingGuard(gc),
+                                 log_every=1000, log_fn=lambda *a: None)
+    finally:
+        it.close()
+    final = _flat_state(state["params"], state["opt_state"])
+    losses = [loss for _, loss in state["history"]]
+    del state, params, opt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return losses, skipped, final
+
+
+def _guarded_step(cfg, gc):
+    rc = RunConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH)
+    return train_step.build_train_step(cfg, ParallelConfig(microbatches=TRAIN_MICRO), rc,
+                                       compute_dtype=torch.bfloat16, guard=gc)
+
+
+def guard_skip_part(cfg):
+    """Five guarded full-width steps with batch GUARD_NAN_AT's loss mask
+    NaN: the skip, the state across it, the other losses against two runs
+    over the stream without that batch."""
+    gc = GuardConfig(grad_spike_factor=1e9)
+    step = _guarded_step(cfg, gc)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    held = {}
+
+    def watch(when, i, p, o, m):
+        if i != GUARD_NAN_AT:
+            return
+        if when == "before":
+            held["before"] = _flat_state(p, o)
+        else:
+            held["unchanged"] = all(torch.equal(a, b) for a, b in
+                                    zip(_flat_state(p, o), held.pop("before")))
+
+    losses, skipped, _ = _guarded_run(cfg, step, gc, data, range(GUARD_STEPS), GUARD_NAN_AT,
+                                      watch)
+    keep = [i for i in range(GUARD_STEPS) if i != GUARD_NAN_AT]
+    refs = [_guarded_run(cfg, step, gc, data, keep)[0] for _ in range(2)]
+    got = [losses[i] for i in keep]
+    ok = (skipped == [float(i == GUARD_NAN_AT) for i in range(GUARD_STEPS)]
+          and held.get("unchanged") is True and _gate(got, *refs)
+          and all(math.isfinite(x) for x in got + refs[0] + refs[1]))
+    return ok, dict(layers=cfg.num_layers, update_skipped=skipped, losses=losses,
+                    state_unchanged_across_skip=held.get("unchanged"),
+                    ref_losses=refs, gate="bit-equal" if refs[0] == refs[1] else "spread",
+                    ok=ok)
+
+
+def rollback_part(cfg, root):
+    """run_supervised over an async 2-writer manager: a skip-cap rollback
+    at data RB_POISON, then a hang, each restart against two clean runs
+    over the filtered stream.  Returns (ok, line)."""
+    gc = GuardConfig(grad_spike_factor=1e9, skip_cap=RB_SKIP_CAP, patience=99)
+    step = _guarded_step(cfg, gc)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    bl = list(RB_POISON)
+    filtered = [rt_guard.data_index(s, bl) for s in range(RB_STEPS)]
+    refs = [_guarded_run(cfg, step, gc, data, filtered) for _ in range(2)]
+    d = os.path.join(root, "rollback")
+    mgr = ckpt_manager.AsyncCheckpointManager(d, keep=RB_STEPS, writers=2)
+    retire, retired = mgr.retire_steps_after, []
+    mgr.retire_steps_after = lambda s: retired.append((s, retire(s)))
+    wd = rt_guard.Watchdog(HANG_TIMEOUT_S)
+    incs, errors, hang = [], [], {"armed": False}
+
+    def make_state(resume_step):
+        params, opt = train_step.init_train_state(cfg, seed=SEED, device=DEV)
+        state, start = {"params": params, "opt_state": opt}, 0
+        incs.append(dict(resume=resume_step, published=mgr.all_steps()))
+        if resume_step is not None:
+            t0 = time.perf_counter()
+            state, start = mgr.restore(state, step=resume_step)
+            for _, t in lm.flatten(state["params"]):
+                t.requires_grad_(True)
+            incs[-1]["restore_s"] = time.perf_counter() - t0
+        hang["armed"] = len(incs) == 2            # the incarnation after the rollback
+        return state, start
+
+    def run_steps(state, start, inc):
+        blist = rt_guard.load_blocklist(d)
+        n = [start]
+
+        def held(p, o, b):
+            p, o, m = step(p, o, b)
+            if hang["armed"] and n[0] == HANG_STEP:
+                hang["armed"] = False
+                float(m["loss"])
+                time.sleep(HANG_SLEEP_S)          # the host holds the step
+            n[0] += 1
+            return p, o, m
+
+        it = Prefetcher(rt_guard.blocklisted_stream(
+            lambda i: _runtime_batch(data, i, i in RB_POISON), start, blist), device=DEV)
+        try:
+            return train_loop.train(
+                held, state, it, start_step=start, num_steps=RB_STEPS, ckpt=mgr,
+                ckpt_every=RB_EVERY, log_every=1000, guard=rt_guard.TrainingGuard(gc),
+                watchdog=wd, data_index_fn=lambda s: rt_guard.data_index(s, blist),
+                log_fn=lambda *a: None)
+        except Exception as e:
+            if isinstance(e, rt_guard.DivergenceError):
+                # let the poisoned boundary's save publish, so the rollback
+                # has a published step to retire (else the abort drops it)
+                mgr.wait_until_finished()
+            errors.append(dict(type=type(e).__name__,
+                               **{k: getattr(e, k) for k in ("kind", "first_step",
+                                                             "data_indices", "step", "elapsed")
+                                  if hasattr(e, k)}))
+            incs[-1]["history"] = list(state.get("history", []))
+            raise
+        finally:
+            it.close()
+
+    try:
+        state, n_inc = rt_fault.run_supervised(make_state, run_steps, ckpt=mgr,
+                                               sleep_fn=lambda _: None)
+    finally:
+        wd.close()
+        mgr.close()
+    incs[-1]["history"] = list(state["history"])
+    final = _flat_state(state["params"], state["opt_state"])
+    (la, _, fa), (lb, _, fb) = refs
+    # every incarnation's losses against the clean runs, the first one's
+    # before its poisoned steps
+    clean = [[(s, x) for s, x in inc.get("history", []) if k or s < RB_POISON[0]]
+             for k, inc in enumerate(incs)]
+    ok_hist = all(_gate([x for _, x in h], [la[s] for s, _ in h], [lb[s] for s, _ in h])
+                  for h in clean)
+    first = errors[0] if errors else {}
+    ok = (n_inc == 3 and len(errors) == 2 and first.get("type") == "DivergenceError"
+          and first.get("kind") == "skip_cap" and first.get("first_step") == RB_POISON[0]
+          and tuple(first.get("data_indices", ())) == RB_POISON
+          and retired == [(RB_POISON[0], [RB_POISON[0] + 1])]
+          and incs[1]["resume"] is not None and incs[1]["resume"] <= RB_POISON[0]
+          and all(s <= RB_POISON[0] for s in incs[1]["published"])
+          and rt_guard.load_blocklist(d) == bl
+          and errors[1].get("type") == "HangError" and errors[1].get("step") == HANG_STEP
+          and incs[2]["resume"] == (max(incs[2]["published"]) if incs[2]["published"]
+                                    else None)
+          and ok_hist and _state_gate(final, fa, fb)
+          and [s for s, _ in incs[2]["history"]] == list(range(incs[2]["resume"] or 0,
+                                                               RB_STEPS)))
+    line = dict(layers=cfg.num_layers, poison=RB_POISON, skip_cap=RB_SKIP_CAP, errors=errors,
+                retired=retired, blocklist=rt_guard.load_blocklist(d),
+                incarnations=[dict(resume=i["resume"], published=i["published"],
+                                   restore_s=i.get("restore_s"),
+                                   losses=[x for _, x in i.get("history", [])]) for i in incs],
+                ref_losses=[la, lb], gate="bit-equal" if la == lb else "spread",
+                hang_timeout_s=HANG_TIMEOUT_S, hang_sleep_s=HANG_SLEEP_S, ok=ok)
+    del refs, fa, fb, state, final
+    torch.cuda.empty_cache()
+    return ok, line
+
+
+def _files(d):
+    out = {}
+    for r, _, names in os.walk(d):
+        for n in names:
+            with open(os.path.join(r, n), "rb") as f:
+                out[os.path.relpath(os.path.join(r, n), d)] = f.read()
+    return out
+
+
+def kill9_part(cfg, root):
+    """One save of a RUNTIME_LAYERS-layer state with writer process 1
+    SIGKILLed in its torn window: published with reassigned["1"],
+    restored bit-equal, and the thread writers' files apart from that
+    record."""
+    params, opt = train_step.init_train_state(cfg, seed=SEED, device=DEV)
+    state = {"params": params, "opt_state": opt}
+    inj = rt_fault.FailureInjector(proc_fail_at={1: (1, "kill9")})
+    d = os.path.join(root, "kill9")
+    mgr = ckpt_manager.CheckpointManager(d, writers=2, writer_procs=True,
+                                         proc_fault=inj.proc_fault)
+    t0 = time.perf_counter()
+    mgr.save(1, state)
+    save_s = time.perf_counter() - t0
+    back, _ = mgr.restore(state)
+    ok_back = all(torch.equal(a, b.detach()) for a, b in
+                  zip(ckpt_manager._leaf_paths(back).values(),
+                      ckpt_manager._leaf_paths(state).values()))
+    events, kind = list(mgr.fleet().events), mgr.fleet().arena_kind
+    mgr.close()
+    del back
+    t = os.path.join(root, "kill9_threads")
+    ckpt_manager.CheckpointManager(t, writers=2).save(1, state)
+    fleet_files = _files(os.path.join(d, "step_00000001"))
+    thread_files = _files(os.path.join(t, "step_00000001"))
+    meta = json.loads(fleet_files[ckpt_manager.MANIFEST])
+    why = meta.pop("reassigned", {})
+    same = (sorted(fleet_files) == sorted(thread_files)
+            and all(fleet_files[f] == thread_files[f] for f in thread_files
+                    if f != ckpt_manager.MANIFEST)
+            and meta == json.loads(thread_files[ckpt_manager.MANIFEST]))
+    nbytes = sum(len(v) for v in fleet_files.values())
+    del fleet_files, thread_files, state, params, opt
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(t, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ok = (ok_back and same and list(why) == ["1"] and "exited (-9)" in why["1"]
+          and inj.log == ["step 1: injected proc fault kill9 into writer 1"])
+    return ok, dict(layers=cfg.num_layers, checkpoint_bytes=nbytes, reassigned=why,
+                    restore_bit_equal=ok_back, thread_files_equal_apart_from_record=same,
+                    handover=kind, fleet_events=events, save_s=save_s, ok=ok)
+
+
+def procs_part(refs, root):
+    """The ckpt phase's saving run through the launcher again, with
+    ``--ckpt-procs`` (its turn after the ckpt phase's writer threads);
+    then a resume from the fleet's step CKPT_RESUME_AT against the ckpt
+    phase's references."""
+    la, lb = refs["refs"]
+    layers = refs["layers"]
+    d = os.path.join(root, "procs")
+    base = ["--arch", ARCH, "--dtype", "bfloat16", "--device", DEV, "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--layers", str(layers),
+            "--ckpt-dir", d]
+    r = launch_train.run(launch_train.parser().parse_args(base + [
+        "--steps", str(CKPT_RESUME_AT), "--ckpt-every", str(CKPT_EVERY), "--ckpt-keep",
+        str(CKPT_KEEP), "--ckpt-writers", str(CKPT_WRITERS), "--ckpt-procs"]),
+        log_fn=lambda *a: None)
+    torch.cuda.synchronize()
+    del r["state"]
+    torch.cuda.empty_cache()
+    procs = _saving_row("procs", r, refs["no_write_steps"])
+    lines = []
+    resume = launch_train.run(launch_train.parser().parse_args(base + [
+        "--steps", str(CKPT_RESUME_AT + 2), "--ckpt-every", NO_SAVE]), log_fn=lines.append)
+    del resume["state"]
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    resumed = [x for _, x in resume["history"]]
+    ok = (resume["ckpt"]["start"] == CKPT_RESUME_AT
+          and f"restored checkpoint at step {CKPT_RESUME_AT}" in lines
+          and _gate(resumed, la[CKPT_RESUME_AT:], lb[CKPT_RESUME_AT:])
+          and _gate(procs["losses"], la[:CKPT_RESUME_AT], lb[:CKPT_RESUME_AT])
+          and len(procs["writes"]) == CKPT_RESUME_AT // CKPT_EVERY
+          and procs["handover"] in ("shm", "spill")
+          and len(procs["spawn_to_first_heartbeat_s"]) == CKPT_WRITERS)
+    return ok, dict(layers=layers or get_config(ARCH).num_layers, writers=CKPT_WRITERS,
+                    threads=refs["threads"], procs=procs, resumed_losses=resumed,
+                    want_losses=la[CKPT_RESUME_AT:], restore_s=resume["ckpt"]["restore_s"],
+                    shm_free_bytes=_shm_free(), ok=ok)
+
+
+def _shm_free():
+    try:
+        return shutil.disk_usage("/dev/shm").free
+    except OSError:
+        return None
+
+
+def runtime_phase(ckpt_refs):
+    """The training runtime on the training cell: guard_skip, rollback
+    (with the hang) and ckpt_procs (module docstring, phase 14)."""
+    import tempfile
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    parts = {}
+    try:
+        cfg = get_config(ARCH)
+        cfg4 = cfg.scaled(num_layers=RUNTIME_LAYERS)
+        for name, fn in (("guard_skip", lambda: guard_skip_part(cfg)),
+                         ("rollback", lambda: rollback_part(cfg4, root)),
+                         ("kill9", lambda: kill9_part(cfg4, root)),
+                         ("ckpt_procs", lambda: procs_part(ckpt_refs, root)
+                          if ckpt_refs is not None else (False, "no ckpt references"))):
+            t1 = time.perf_counter()
+            try:
+                ok, line = fn()
+            except Exception as e:                # the part fails; the phase goes on
+                ok, line = False, f"{type(e).__name__}: {e}"
+            parts[name] = ok
+            log(f"runtime_{name} " + json.dumps(dict(line, part_s=time.perf_counter() - t1)
+                                               if isinstance(line, dict) else
+                                               dict(error=line, ok=False)))
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = all(parts.values())
+    log("runtime " + json.dumps(dict(parts=parts, phase_s=time.perf_counter() - t0, ok=ok)))
+    return ok
+
+
+def grid_runtime_phase():
+    """The 1x2x2 grid at RUNTIME_LAYERS layers with --guard --ckpt-procs and
+    a blocklist (module docstring, phase 15)."""
+    import tempfile
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_grid_runtime_")
+    try:
+        torch.cuda.empty_cache()
+        bl = list(GRID_BLOCKLIST)
+        rt_guard.publish_blocklist(root, bl)
+        d, mx, my = GRID
+        base = ["--arch", ARCH, "--dtype", "bfloat16", "--device", DEV,
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--microbatches", str(TRAIN_MICRO), "--layers", str(RUNTIME_LAYERS),
+                "--steps", str(GRID_RUNTIME_STEPS), "--ckpt-dir", root, "--guard"]
+        grid = ["--strategy", "hecaton", "--data", str(d), "--mx", str(mx), "--my", str(my),
+                "--overlap", "fused", "--comm-dtype", "bf16", "--timeout", str(GRID_TIMEOUT_S)]
+        parse = launch_train.parser().parse_args
+        g = launch_train.run_grid(parse(base + grid + ["--ckpt-every", "1", "--ckpt-procs",
+                                                        "--ckpt-writers", "2"]), log_fn=log)
+        retired = ckpt_manager.CheckpointManager(root).retire_steps_after(1)
+        lines = []
+        one = launch_train.run(parse(base + ["--ckpt-every", NO_SAVE]), log_fn=lines.append)
+        del one["state"]
+        torch.cuda.empty_cache()
+        hists = g["histories"]
+        same = all(h == hists[0] for h in hists.values())
+        want = g["history"][1][1]
+        one_rel = abs(one["history"][0][1] - want) / abs(want)
+        parents = g["pids"]["writer_parents"]
+        ok = (len(hists) == 4 and same and g["first_data_index"] == rt_guard.data_index(0, bl)
+              and one["first_data_index"] == rt_guard.data_index(1, bl)
+              and all(s == [0.0] * GRID_RUNTIME_STEPS for s in g["skipped"].values())
+              and retired == [GRID_RUNTIME_STEPS] and one["ckpt"]["start"] == 1
+              and "restored checkpoint at step 1" in lines and one_rel <= GRID_LOSS_TOL
+              and len(parents) == 2 and set(parents.values()) == {g["pids"]["rank"]}
+              and len(g["ckpt"]["writes"]) == GRID_RUNTIME_STEPS
+              and all(math.isfinite(x) for _, x in g["history"]))
+        log("grid_runtime " + json.dumps(dict(
+            arch=ARCH, layers=RUNTIME_LAYERS, grid="x".join(map(str, GRID)), overlap="fused",
+            blocklist=bl, first_data_index=g["first_data_index"], ranks_equal=same,
+            losses={r: [x for _, x in h] for r, h in hists.items()}, skipped=g["skipped"],
+            one_card_loss=one["history"][0][1], one_card_rel=one_rel, tol_rel=GRID_LOSS_TOL,
+            writer_parents=parents, rank0_pid=g["pids"]["rank"],
+            spawn_to_first_heartbeat_s=[s for _, s in g["ckpt"]["spawn_s"]],
+            handover=g["ckpt"]["handover"], fleet_saves=g["ckpt"]["fleet_saves"],
+            fleet_events=g["ckpt"]["fleet_events"],
+            save_stall_ms=[1e3 * x for _, x in g["ckpt"]["save_s"]],
+            writes=_write_rows(g["ckpt"]["writes"]), step_ms=[1e3 * x for x in g["step_s"]],
+            step_ms_note=GRID_LABEL, one_card_restore_s=one["ckpt"]["restore_s"],
+            phase_s=time.perf_counter() - t0, ok=ok)))
+        return ok
+    except Exception as e:                        # the phase fails; the script goes on
+        log(f"grid_runtime FAILED: {type(e).__name__}: {e}")
+        return False
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1674,8 +2133,10 @@ def main(argv=None):
                                             kernels=INT8_KERNELS, bf16_step0=bf16_step0)
     ok_gb, _, _ = grid_train_phase("grid_bidir", overlap="bidir", wire="int8",
                                    steps=BIDIR_STEPS, layers=BIDIR_LAYERS, kernels=())
-    ok_c = ckpt_phase()
+    ok_c, ckpt_refs = ckpt_phase()
     ok_gc = grid_ckpt_phase()
+    ok_rt = runtime_phase(ckpt_refs)
+    ok_grt = grid_runtime_phase()
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
     # serving run, the ring kernels' from the bf16 grid run and their int8
@@ -1711,7 +2172,8 @@ def main(argv=None):
                               ("ssm_model_check", ok_sm), ("serve_ssm", ok_ss),
                               ("ring_kernels", ok_rk), ("grid_train", ok_gt),
                               ("grid_train_int8", ok_gq), ("grid_bidir", ok_gb),
-                              ("ckpt", ok_c), ("grid_ckpt", ok_gc),
+                              ("ckpt", ok_c), ("grid_ckpt", ok_gc), ("runtime", ok_rt),
+                              ("grid_runtime", ok_grt),
                               ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]

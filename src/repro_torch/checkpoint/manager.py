@@ -51,8 +51,19 @@ snapshot (backpressure).  Writer failures are sticky and surface on the
 next ``save_async`` / ``check_error`` / ``wait_until_finished``;
 ``abort`` fences the writer group (queued snapshots dropped, in-flight
 writers interrupted between shards, ``.tmp`` swept, the error cleared).
-Writer processes (``writer_procs``, the JAX package's
-``runtime/procs.py``) are not ported: a manager asked for them raises.
+
+Writer processes (``writer_procs``; ``runtime/procs.py``,
+docs/DESIGN.md §9): each logical writer runs in its own OS process of a
+:class:`~repro_torch.runtime.procs.WriterFleet`, fed the snapshot's wire
+bytes through a shared handover arena, watched by heartbeat leases
+(``writer_timeout``); a dead, hung or corrupting writer's range is
+reassigned to a survivor (``reassign`` per save) and the commit
+criterion is the quorum gate's own disk verification.  A fleet save
+publishes the thread writers' step directory byte for byte; after a
+reassignment the global manifest also records ``reassigned``
+({writer: why}).  ``proc_fault(step, writer)`` is the process-level
+injection hook.  ``abort`` fences the fleet (SIGKILL, reap, scratch
+swept) before it sweeps the debris; the next save respawns it.
 """
 
 from __future__ import annotations
@@ -79,9 +90,7 @@ _POOL_LOCK = threading.Lock()
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 MANIFEST = wire.MANIFEST
 PARTIAL_MANIFEST = wire.PARTIAL_MANIFEST
-_FLEET_DIR = ".fleet"               # the JAX writer fleet's scratch: debris here
-PROCS_NOT_PORTED = ("checkpoint writer processes (--ckpt-procs, runtime/procs.py) are not "
-                    "ported: ROADMAP queue 1 item 2")
+_FLEET_DIR = ".fleet"               # the writer fleet's scratch (runtime/procs.py)
 
 
 def _write_pool() -> ThreadPoolExecutor:
@@ -272,18 +281,22 @@ class CheckpointManager:
     ``writer_fault(step, writer)`` is a fault-injection hook called
     between a writer's shard writes and its partial-manifest publish.
     ``durable`` fsyncs every shard, both manifest tiers and the
-    directories around the atomic publish.  ``writes`` logs each
-    published save: step, seconds on the host clock (start, end) and the
-    bytes on disk."""
+    directories around the atomic publish.  ``writer_procs`` runs the
+    writers as processes (module docstring) with a ``writer_timeout``
+    lease, ``reassign`` reassignments per save and the ``proc_fault``
+    hook.  ``writes`` logs each published save: step, seconds on the host
+    clock (start, end) and the bytes on disk."""
 
     def __init__(self, directory: str, keep: int = 3, *, durable: bool = False,
                  writers: int = 1, quorum: Optional[int] = None, verify: bool = True,
                  writer_map: Optional[Callable[[str], Optional[int]]] = None,
                  writer_fault: Optional[Callable[[int, int], None]] = None,
-                 writer_procs: bool = False):
-        if writer_procs:
-            raise NotImplementedError(PROCS_NOT_PORTED)
+                 writer_procs: bool = False, writer_timeout: float = 5.0,
+                 reassign: int = 1,
+                 proc_fault: Optional[Callable[[int, int], Optional[Dict]]] = None):
         assert writers >= 1, f"writers={writers} must be >= 1"
+        assert writer_timeout > 0, f"writer_timeout={writer_timeout} must be > 0"
+        assert reassign >= 0, f"reassign={reassign} must be >= 0"
         self.dir = directory
         self.keep = keep
         self.durable = durable
@@ -294,6 +307,11 @@ class CheckpointManager:
         self.verify = verify
         self.writer_map = writer_map
         self.writer_fault = writer_fault
+        self.writer_procs = writer_procs
+        self.writer_timeout = writer_timeout
+        self.reassign = reassign
+        self.proc_fault = proc_fault
+        self._fleet = None
         self.writes: List[Dict] = []
         os.makedirs(directory, exist_ok=True)
         self._clean_stale_tmp()
@@ -301,8 +319,10 @@ class CheckpointManager:
     def _clean_stale_tmp(self):
         """Sweep torn debris of a dead incarnation: ``step_K.tmp/``,
         published-namespace steps without a complete global manifest, and
-        the JAX writer fleet's scratch.  Safe only while no writer is
-        active against this directory (at construction, after an abort)."""
+        the writer fleet's scratch (heartbeats and spill files of a killed
+        coordinator, whose orphaned children exit by themselves).  Safe
+        only while no writer is active against this directory (at
+        construction, after an abort, which fences the fleet first)."""
         for d in os.listdir(self.dir):
             p = os.path.join(self.dir, d)
             if (d.startswith("step_") and d.endswith(".tmp")) or d == _FLEET_DIR:
@@ -427,6 +447,29 @@ class CheckpointManager:
                 failures[w] = e
         return failures
 
+    def fleet(self):
+        """The writer fleet of a ``writer_procs`` manager (made on first use)."""
+        from repro_torch.runtime.procs import WriterFleet
+        if self._fleet is None:
+            self._fleet = WriterFleet(self.dir, self.writers, timeout=self.writer_timeout,
+                                      reassign=self.reassign)
+        return self._fleet
+
+    def _fan_out_procs(self, tmp: str, step: int, groups: List[List[str]], snap,
+                       abort_check) -> Tuple[Dict[int, BaseException], Dict[int, str]]:
+        """Phase 1 on the writer processes: the fleet supervises the save
+        and reassigns orphaned ranges; its commit criterion is the quorum
+        gate's disk verification (``verify``), so a writer that corrupted a
+        shard after checksumming it is reassigned like a dead one."""
+        from repro_torch.runtime.procs import FleetAborted
+        try:
+            failed, reassigned = self.fleet().run_save(
+                tmp, step, groups, snap, durable=self.durable, fault_for=self.proc_fault,
+                verify=lambda w: self._verify_partial(tmp, step, w), abort_check=abort_check)
+        except FleetAborted:
+            raise _Aborted(step) from None
+        return {w: RuntimeError(why) for w, why in failed.items()}, reassigned
+
     def quorum_gate(self, tmp: str, step: int, names: List[str],
                     failures: Dict[int, BaseException]) -> Dict[int, Dict[str, Dict]]:
         """Phase 2 gate: re-verify every surviving writer's partial manifest
@@ -449,15 +492,19 @@ class CheckpointManager:
         return verified
 
     def _publish(self, tmp: str, final: str, step: int, verified: Dict[int, Dict[str, Dict]],
-                 failures: Dict[int, BaseException], extra_meta: Optional[Dict] = None) -> str:
+                 failures: Dict[int, BaseException], reassigned: Dict[int, str],
+                 extra_meta: Optional[Dict] = None) -> str:
         """Phase 2 publish: the global manifest (tmp + ``os.replace``), then
-        the step directory's atomic rename."""
+        the step directory's atomic rename.  ``reassigned`` is recorded only
+        when not empty, so a clean fleet save is a thread save's bytes."""
         manifest: Dict[str, Dict] = {}
         for w in sorted(verified):
             manifest.update(verified[w])
         meta = {"step": step, "writers": self.writers, "quorum": self.quorum,
                 "committed": sorted(verified), "failed_writers": sorted(failures),
                 "complete": True, "manifest": manifest, **(extra_meta or {})}
+        if reassigned:
+            meta["reassigned"] = {str(w): why for w, why in sorted(reassigned.items())}
         gtmp = os.path.join(tmp, MANIFEST + ".tmp")
         with open(gtmp, "w") as f:
             json.dump(meta, f, sort_keys=True)
@@ -485,11 +532,16 @@ class CheckpointManager:
             owner = partition_shards({n: snap[n][0].nbytes for n in names}, self.writers,
                                      self.writer_map)
             groups = [[n for n in names if owner[n] == w] for w in range(self.writers)]
-            failures = self._fan_out_threads(tmp, step, groups, snap, abort_check)
+            reassigned: Dict[int, str] = {}
+            if self.writer_procs:
+                failures, reassigned = self._fan_out_procs(tmp, step, groups, snap,
+                                                           abort_check)
+            else:
+                failures = self._fan_out_threads(tmp, step, groups, snap, abort_check)
             if any(isinstance(e, _Aborted) for e in failures.values()):
                 raise _Aborted(step)
             verified = self.quorum_gate(tmp, step, names, failures)
-            self._publish(tmp, final, step, verified, failures, extra_meta)
+            self._publish(tmp, final, step, verified, failures, reassigned, extra_meta)
         except BaseException:
             # writer death, quorum miss, abort: the torn step is never observable
             shutil.rmtree(tmp, ignore_errors=True)
@@ -556,11 +608,17 @@ class CheckpointManager:
         pass
 
     def abort(self):
-        """Sweep torn-step debris."""
+        """Fence the writer fleet (when one runs), then sweep torn-step
+        debris; the next save respawns the fleet."""
+        if self._fleet is not None:
+            self._fleet.fence()
         self._clean_stale_tmp()
 
     def close(self):
-        pass
+        """Shut the writer fleet down (when one runs)."""
+        if self._fleet is not None:
+            self._fleet.close()
+            self._fleet = None
 
     # ------------------------------------------------------------------
     def restore(self, template, step: Optional[int] = None,
@@ -660,37 +718,46 @@ class AsyncCheckpointManager(CheckpointManager):
 
     def abort(self):
         """Fence the writer group: drop queued snapshots, interrupt in-flight
-        writers between shards, sweep ``.tmp`` debris and clear the sticky
-        error.  Published checkpoints are untouched."""
+        writers between shards (writer processes are SIGKILLed and reaped),
+        sweep ``.tmp`` debris and clear the sticky error.  Published
+        checkpoints are untouched."""
         self._abort.set()
+        if self._fleet is not None:
+            self._fleet.fence()
         self._drain()
         self._abort.clear()
         self._error = None
         self._clean_stale_tmp()
 
     def close(self):
-        """Drain (without raising) and stop the coordinator thread."""
+        """Drain (without raising), stop the coordinator thread and shut the
+        writer fleet down."""
         if self._closed:
             return
         self._drain()
         self._closed = True
         self._work.put(None)
         self._thread.join(timeout=60)
+        super().close()
 
 
 def make_manager(directory: str, ccfg=None, *,
                  writer_map: Optional[Callable[[str], Optional[int]]] = None,
-                 writer_fault: Optional[Callable[[int, int], None]] = None
+                 writer_fault: Optional[Callable[[int, int], None]] = None,
+                 proc_fault: Optional[Callable[[int, int], Optional[Dict]]] = None
                  ) -> CheckpointManager:
     """The manager a :class:`repro_torch.config.CheckpointConfig` describes
-    (None: the blocking single-writer default).  ``writer_procs`` raises
-    ``NotImplementedError``; its ``writer_timeout`` and ``reassign`` apply
-    to writer processes only."""
+    (None: the blocking single-writer default).  ``writer_fault`` is the
+    thread writers' injection hook, ``proc_fault`` the writer processes'
+    (``runtime/fault.FailureInjector``; ``train/loop.py`` wires both from
+    an injector)."""
     if ccfg is None:
-        return CheckpointManager(directory, writer_map=writer_map, writer_fault=writer_fault)
+        return CheckpointManager(directory, writer_map=writer_map, writer_fault=writer_fault,
+                                 proc_fault=proc_fault)
     kw = dict(keep=ccfg.keep, durable=ccfg.durable, writers=ccfg.writers, quorum=ccfg.quorum,
               verify=ccfg.verify, writer_map=writer_map, writer_fault=writer_fault,
-              writer_procs=ccfg.writer_procs)
+              writer_procs=ccfg.writer_procs, writer_timeout=ccfg.writer_timeout,
+              reassign=ccfg.reassign, proc_fault=proc_fault)
     if ccfg.async_:
         return AsyncCheckpointManager(directory, max_inflight=ccfg.max_inflight,
                                       staging=ccfg.staging, **kw)

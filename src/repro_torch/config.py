@@ -95,8 +95,10 @@ class ParallelConfig:
 @dataclass(frozen=True)
 class GuardConfig:
     """``repro.config.GuardConfig``: the in-graph skip-update guard reads
-    ``grad_spike_factor``/``grad_ewma_alpha``; the loop-side fields are
-    kept for the guard runtime that a later slice ports."""
+    ``grad_spike_factor``/``grad_ewma_alpha``; the loop-side
+    ``runtime/guard.TrainingGuard`` the loss fields, ``patience`` and
+    ``skip_cap``; ``hang_timeout`` arms the ``Watchdog`` (0: off);
+    ``rollback`` is the supervisor's retire-and-blocklist policy."""
     grad_spike_factor: float = 10.0   # skip when gnorm > f * EWMA
     grad_ewma_alpha: float = 0.1      # EWMA decay for accepted grad norms
     loss_spike_factor: float = 2.0
@@ -129,9 +131,9 @@ class CheckpointConfig:
     per shard, and a step publishes only once ``quorum`` partial
     manifests verified (None: all) and every shard is covered.
     ``verify`` re-checks every shard's length and crc32 on restore.
-    ``writer_procs`` (a writer per OS process, with ``writer_timeout``
-    and ``reassign``) belongs to the training runtime, which the port
-    has not ported: a manager asked for it raises."""
+    ``writer_procs`` runs each writer as an OS process
+    (``runtime/procs.py``) with a ``writer_timeout`` heartbeat lease and
+    ``reassign`` orphan-range reassignments per save."""
     every: int = 50                  # save cadence in steps
     keep: int = 3                    # published checkpoints retained by GC
     async_: bool = True              # background writer vs blocking save

@@ -36,9 +36,23 @@ restores the newest one (printing ``restored checkpoint at step N``),
 feeds the batches from that step on and trains to ``--steps``; on the
 grid rank 0 writes global leaves and every rank restores its blocks
 (``checkpoint/grid.py``), so a checkpoint of either path restores on the
-other.  The JAX launcher's ``--ckpt-procs`` / ``--ckpt-writer-timeout``
-(writer processes) and its data blocklist belong to the training
-runtime, which is not ported: they raise.
+other.  ``--ckpt-procs`` runs each writer as an OS process
+(``runtime/procs.py``; on the grid, rank 0's children) with a
+``--ckpt-writer-timeout`` heartbeat lease; the fleet is spawned while
+the run sets up.
+
+The training runtime (``runtime/``, as the JAX launcher wires it):
+``--guard`` arms the in-graph skip guard (``--guard-spike-factor``) and
+a ``TrainingGuard`` on every rank (``--guard-loss-spike``,
+``--guard-patience``, ``--guard-skip-cap``), which raises
+``DivergenceError`` on a sustained loss spike or skip streak;
+``--hang-timeout`` arms the ``Watchdog``; ``--no-rollback`` clears the
+policy bit the supervisor reads.  A ``blocklist.json`` in the checkpoint
+directory makes step ``s`` consume data index ``data_index(s,
+blocklist)`` on every rank.  Like the JAX launcher this one does not
+supervise restarts: ``runtime/fault.run_supervised`` is a library
+function.  The learning-rate schedule's horizon is ``LR_HORIZON``
+(10,000 steps, the JAX launcher's), whatever ``--steps`` is.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --dtype bfloat16 --steps 20 --batch 8 --seq 512 --microbatches 2
@@ -50,14 +64,14 @@ runtime, which is not ported: they raise.
 from __future__ import annotations
 
 import argparse
-import itertools
 import os
 import time
 
 from repro_torch.config import COMM_DTYPES, OVERLAP_MODES
+from repro_torch.runtime.guard import BLOCKLIST  # noqa: F401  (the sidecar's name)
 
 DTYPES = ("float32", "bfloat16")
-BLOCKLIST = "blocklist.json"       # the JAX guard's sidecar in a checkpoint directory
+LR_HORIZON = 10_000                # total_steps of the schedule, as in the JAX launcher
 
 
 def parser() -> argparse.ArgumentParser:
@@ -98,49 +112,121 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-no-verify", action="store_true",
                     help="skip per-shard checksum verification on restore")
     ap.add_argument("--ckpt-procs", action="store_true",
-                    help="writer processes: not ported (raises)")
-    ap.add_argument("--ckpt-writer-timeout", type=float, default=None,
-                    help="writer processes' lease deadline: not ported (raises)")
+                    help="run each logical checkpoint writer as its own OS process "
+                         "(heartbeat leases, orphan-range reassignment; runtime/procs.py)")
+    ap.add_argument("--ckpt-writer-timeout", type=float, default=5.0,
+                    help="heartbeat-lease deadline in seconds: a writer process whose "
+                         "heartbeat stalls longer is SIGKILL-fenced and its range reassigned")
+    ap.add_argument("--guard", action="store_true",
+                    help="arm the self-healing guard: in-graph NaN/spike skip-update and "
+                         "loss-spike divergence detection")
+    ap.add_argument("--guard-spike-factor", type=float, default=10.0,
+                    help="skip the update when the grad norm exceeds this multiple of its EWMA")
+    ap.add_argument("--guard-loss-spike", type=float, default=2.0,
+                    help="a loss above this multiple of the loss EWMA counts toward patience")
+    ap.add_argument("--guard-patience", type=int, default=3,
+                    help="consecutive spiking losses before DivergenceError")
+    ap.add_argument("--guard-skip-cap", type=int, default=3,
+                    help="consecutive skipped updates before DivergenceError")
+    ap.add_argument("--hang-timeout", type=float, default=0.0,
+                    help="seconds before an armed step counts as hung (0: watchdog off)")
+    ap.add_argument("--no-rollback", action="store_true",
+                    help="on divergence, restart without retiring poisoned checkpoints or "
+                         "blocklisting the poison window")
     return ap
-
-
-def _check_ckpt_args(args) -> None:
-    from repro_torch.checkpoint.manager import PROCS_NOT_PORTED
-    if args.ckpt_procs or args.ckpt_writer_timeout is not None:
-        raise NotImplementedError(PROCS_NOT_PORTED)
-    if args.ckpt_dir and os.path.exists(os.path.join(args.ckpt_dir, BLOCKLIST)):
-        raise NotImplementedError(
-            f"{args.ckpt_dir} holds a data blocklist ({BLOCKLIST}); the training runtime "
-            f"that honours it is not ported: ROADMAP queue 1 item 2")
 
 
 def _ckpt_config(args):
     from repro_torch.config import CheckpointConfig
     return CheckpointConfig(every=args.ckpt_every, keep=args.ckpt_keep,
                             async_=not args.ckpt_sync, writers=args.ckpt_writers or 1,
-                            quorum=args.ckpt_quorum or None, verify=not args.ckpt_no_verify)
+                            quorum=args.ckpt_quorum or None, verify=not args.ckpt_no_verify,
+                            writer_procs=args.ckpt_procs,
+                            writer_timeout=args.ckpt_writer_timeout)
 
 
-def _ckpt_report(state, mgr, start, restore_s) -> dict:
+def _make_manager(args, ccfg):
+    """(the run's checkpoint manager, its writer fleet or None).  The fleet
+    is spawned here, while the run sets up, not in the background of the
+    first timed steps."""
+    from repro_torch.checkpoint.manager import make_manager
+    mgr = make_manager(args.ckpt_dir, ccfg)
+    fleet = None
+    if ccfg.writer_procs:
+        fleet = mgr.fleet()
+        fleet.ensure_spawned()
+    return mgr, fleet
+
+
+def _parent_pid(pid: int) -> int:
+    with open(f"/proc/{pid}/status") as f:
+        return next(int(line.split()[1]) for line in f if line.startswith("PPid:"))
+
+
+def _guard_cfg(args):
+    """The GuardConfig the flags describe, or None without ``--guard``: it
+    arms the step's skip guard and the loop's TrainingGuard."""
+    if not args.guard:
+        return None
+    from repro_torch.config import GuardConfig
+    return GuardConfig(grad_spike_factor=args.guard_spike_factor,
+                       loss_spike_factor=args.guard_loss_spike, patience=args.guard_patience,
+                       skip_cap=args.guard_skip_cap, hang_timeout=args.hang_timeout,
+                       rollback=not args.no_rollback)
+
+
+def _guard_runtime(args, gcfg, ckpt_dir, start, batch_at, log_fn=print):
+    """The loop's side of the runtime: (TrainingGuard, Watchdog,
+    data_index_fn, stream).  The stream yields ``batch_at(data_index(s,
+    blocklist))`` from ``start`` on, the batches an uninterrupted run over
+    the filtered data would take."""
+    from repro_torch.runtime import guard as G
+    tguard = G.TrainingGuard(gcfg) if gcfg is not None else None
+    wd = G.Watchdog(args.hang_timeout) if args.hang_timeout > 0 else None
+    bl = G.load_blocklist(ckpt_dir)
+    if bl:
+        log_fn(f"blocklist: skipping poisoned data indices {bl}")
+    stream = G.blocklisted_stream(batch_at, start, bl)
+    return tguard, wd, (lambda s: G.data_index(s, bl)), stream
+
+
+def _ckpt_report(state, mgr, start, restore_s, fleet=None) -> dict:
     """What the run's checkpoints cost: the restored step and its seconds,
     each boundary save's stall, each published write (step, host-clock
-    start and end, bytes), each step's start on the host clock."""
+    start and end, bytes), each step's start on the host clock; with
+    writer processes, each slot's seconds from spawn to its first
+    heartbeat, the handover arena that ran (shm or spill), each save's
+    seconds in the fleet (the pack into the arena, each writer) and the
+    fleet's events."""
     return {"start": start, "restore_s": restore_s, "save_s": state.get("save_s", []),
             "writes": list(mgr.writes) if mgr is not None else [],
-            "step_t0": state.get("step_t0", [])}
+            "step_t0": state.get("step_t0", []),
+            "spawn_s": list(fleet.spawn_s) if fleet is not None else [],
+            "handover": fleet.arena_kind if fleet is not None else None,
+            "fleet_saves": list(fleet.saves) if fleet is not None else [],
+            "fleet_events": list(fleet.events) if fleet is not None else []}
+
+
+def _recording(step, grad_norms, lrs):
+    """``step`` that also keeps each step's grad norm and learning rate."""
+    def wrapped(p, o, b):
+        p, o, m = step(p, o, b)
+        grad_norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+        return p, o, m
+    return wrapped
 
 
 def run(args, log_fn=print) -> dict:
     """Train as ``args`` describe; returns the run's history and times."""
-    _check_ckpt_args(args)
     if args.data * args.mx * args.my > 1:
         return run_grid(args, log_fn=log_fn)
     import torch
     from repro_torch import resolve_device
-    from repro_torch.checkpoint.manager import make_manager
     from repro_torch.config import ParallelConfig, RunConfig
     from repro_torch.data.synthetic import Prefetcher, SyntheticLM
     from repro_torch.models import lm
+    from repro_torch.runtime.fault import StepTimer
     from repro_torch.train import loop as train_loop
     from repro_torch.train import step as TS
 
@@ -151,7 +237,7 @@ def run(args, log_fn=print) -> dict:
     t0 = time.perf_counter()
     params, opt_state = TS.init_train_state(cfg, device=dev)
     ccfg = _ckpt_config(args)
-    ckpt = make_manager(args.ckpt_dir, ccfg) if args.ckpt_dir else None
+    ckpt, fleet = _make_manager(args, ccfg) if args.ckpt_dir else (None, None)
     start, restore_s = 0, None
     if ckpt is not None and ckpt.latest_step() is not None:
         t1 = time.perf_counter()
@@ -161,15 +247,24 @@ def run(args, log_fn=print) -> dict:
             t.requires_grad_(True)
         restore_s = time.perf_counter() - t1
         log_fn(f"restored checkpoint at step {start}")
-    step = TS.build_train_step(cfg, pcfg, rc, compute_dtype=getattr(torch, args.dtype))
+    gcfg = _guard_cfg(args)
+    grad_norms, lrs = [], []
+    step = _recording(TS.build_train_step(cfg, pcfg, rc, total_steps=LR_HORIZON,
+                                          compute_dtype=getattr(torch, args.dtype), guard=gcfg),
+                      grad_norms, lrs)
     ds = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
-    it = Prefetcher((ds.batch_at(s) for s in itertools.count(start)), device=dev)
+    tguard, wd, dix, stream = _guard_runtime(args, gcfg, args.ckpt_dir, start, ds.batch_at,
+                                             log_fn)
+    it = Prefetcher(stream, device=dev)
     setup_s = time.perf_counter() - t0
     state = {"params": params, "opt_state": opt_state}
     try:
         state = train_loop.train(step, state, it, start_step=start, num_steps=args.steps,
-                                 ckpt=ckpt, ckpt_every=ccfg.every, log_fn=log_fn)
+                                 ckpt=ckpt, ckpt_every=ccfg.every, timer=StepTimer(),
+                                 guard=tguard, watchdog=wd, data_index_fn=dix, log_fn=log_fn)
     finally:
+        if wd is not None:
+            wd.close()
         it.close()
         if ckpt is not None:
             ckpt.close()                 # train() already drained the saves in flight
@@ -178,7 +273,8 @@ def run(args, log_fn=print) -> dict:
         log_fn(f"final loss {h[-1][1]:.4f} (first {h[0][1]:.4f})")
     return {"cfg": cfg, "history": h, "step_s": state["step_s"], "setup_s": setup_s,
             "tokens_per_step": args.batch * args.seq, "state": state,
-            "ckpt": _ckpt_report(state, ckpt, start, restore_s)}
+            "grad_norms": grad_norms, "lrs": lrs, "first_data_index": dix(start),
+            "ckpt": _ckpt_report(state, ckpt, start, restore_s, fleet)}
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +308,6 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     from repro_torch.parallel import comm
 
     _check_grid_args(args)
-    _check_ckpt_args(args)
     if check_plain and args.ckpt_dir:
         raise ValueError("check_plain trains from the initial parameters: no --ckpt-dir")
     dev = resolve_device(args.device)
@@ -231,7 +326,10 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     if h:
         log_fn(f"grid[{args.data}x{args.mx}x{args.my}] final loss {h[-1][1]:.4f} "
                f"(first {h[0][1]:.4f})")
-    return {"cfg": cfg, "history": h, "grad_norms": r0["grad_norms"],
+    return {"cfg": cfg, "history": h, "grad_norms": r0["grad_norms"], "lrs": r0["lrs"],
+            "histories": {r: results[r]["history"] for r in sorted(results)},
+            "skipped": {r: results[r]["skipped"] for r in sorted(results)},
+            "first_data_index": r0["first_data_index"], "pids": r0["pids"],
             "step_s": r0["step_s"], "setup_s": r0["setup_s"],
             "tokens_per_step": args.batch * args.seq, "routes": r0["routes"],
             "launches": {r: results[r]["launches"] for r in sorted(results)},
@@ -244,7 +342,6 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     import torch
     from repro_torch import resolve_device
     from repro_torch.checkpoint import grid as CG
-    from repro_torch.checkpoint.manager import make_manager
     from repro_torch.config import ParallelConfig, RunConfig
     from repro_torch.core import overlap as OV
     from repro_torch.data.synthetic import SyntheticLM
@@ -252,6 +349,7 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     from repro_torch.launch.mesh import Grid
     from repro_torch.models import lm
     from repro_torch.parallel import comm, specs
+    from repro_torch.runtime import guard as G
     from repro_torch.train import loop as train_loop
     from repro_torch.train import step as TS
 
@@ -306,32 +404,45 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
         state = {"params": params, "opt_state": opt_state}
         del params, opt_state
         ccfg = _ckpt_config(a)
-        ckpt, mgr, start, restore_s, lines = None, None, 0, None, []
+        ckpt, mgr, fleet, start, restore_s, lines = None, None, None, 0, None, []
+        writer_ppids = {}
         if a.ckpt_dir:
-            # rank 0 writes (and names the step to restore); every rank reads
-            mgr = make_manager(a.ckpt_dir, ccfg) if rank == 0 else None
+            # rank 0 writes (and names the step to restore, and runs the
+            # writer processes, whose parent it is); every rank reads
+            if rank == 0:
+                mgr, fleet = _make_manager(a, ccfg)
+            if fleet is not None:
+                writer_ppids = {s: _parent_pid(pid) for s, pid in fleet.pids().items()}
             t1 = time.perf_counter()
             state, start = CG.restore(a.ckpt_dir, state, grid, pcfg, mgr, ccfg.verify)
             if start:
                 restore_s = time.perf_counter() - t1
                 lines.append(f"restored checkpoint at step {start}")
             ckpt = CG.GridCheckpointer(mgr, grid, pcfg)
-        kstep = TS.build_train_step(cfg, pcfg, rc, compute_dtype=dtype, mesh=grid)
-        grad_norms = []
-
-        def step(p, o, b):
-            p, o, m = kstep(p, o, b)
-            grad_norms.append(float(m["grad_norm"]))
-            return p, o, m
-
+        # every rank runs the same guard on the same values (the loss and
+        # the grad norm are global), so all of them skip or raise together
+        gcfg = _guard_cfg(a)
+        kstep = TS.build_train_step(cfg, pcfg, rc, total_steps=LR_HORIZON, compute_dtype=dtype,
+                                    mesh=grid, guard=gcfg)
+        grad_norms, lrs, skipped = [], [], []
+        step = _recording(kstep, grad_norms, lrs)
+        if gcfg is not None:
+            def step(p, o, b, _inner=step):
+                p, o, m = _inner(p, o, b)
+                skipped.append(float(m["update_skipped"]))
+                return p, o, m
+        tguard, wd, dix, stream = _guard_runtime(a, gcfg, a.ckpt_dir, start, local,
+                                                 lines.append)
         setup_s = time.perf_counter() - t0
         ops.reset_launches()
         OV.clear_routes()
         try:
-            state = train_loop.train(step, state, (local(s) for s in itertools.count(start)),
-                                     start_step=start, num_steps=a.steps, ckpt=ckpt,
-                                     ckpt_every=ccfg.every, log_fn=lines.append)
+            state = train_loop.train(step, state, stream, start_step=start, num_steps=a.steps,
+                                     ckpt=ckpt, ckpt_every=ccfg.every, guard=tguard,
+                                     watchdog=wd, data_index_fn=dix, log_fn=lines.append)
         finally:
+            if wd is not None:
+                wd.close()
             if ckpt is not None:
                 ckpt.close()
         if dev.type == "cuda":
@@ -345,10 +456,12 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
                 for (path, k), (_, q), t0 in zip(lm.flatten(state["params"]),
                                                  lm.flatten(plain_params), init)}
         comm.barrier()
-        return {"history": state["history"], "grad_norms": grad_norms,
+        return {"history": state["history"], "grad_norms": grad_norms, "lrs": lrs,
+                "skipped": skipped, "first_data_index": dix(start),
+                "pids": {"rank": os.getpid(), "writer_parents": writer_ppids},
                 "step_s": state["step_s"], "setup_s": setup_s,
                 "launches": launches, "routes": OV.route_table(), "checks": checks,
-                "ckpt": _ckpt_report(state, mgr, start, restore_s), "log": lines}
+                "ckpt": _ckpt_report(state, mgr, start, restore_s, fleet), "log": lines}
     finally:
         comm.shutdown()
 

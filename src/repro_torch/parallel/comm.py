@@ -186,7 +186,9 @@ def run_ranks(fn, world: int, args=(), timeout: float = 0.0) -> Dict[int, object
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_rank_entry, args=(fn, r, args, q), daemon=True)
+    # not daemonic: a rank may start processes of its own (rank 0's
+    # checkpoint writer fleet); the finally below stops every rank
+    procs = [ctx.Process(target=_rank_entry, args=(fn, r, args, q), daemon=False)
              for r in range(world)]
     for p in procs:
         p.start()

@@ -22,12 +22,12 @@
   to the grid's gathered state.  On 2x1x2 (ZeRO-1 splits the moments
   over data) the restored blocks saved again give the JAX checkpoint's
   step directory file for file.
-* **The JAX package's checkpoint cases**, ported (all but the writer
-  processes, which raise): async == sync, the snapshot's independence
+* **The JAX package's checkpoint cases**, ported (the writer processes'
+  in ``tests/test_torch_fleet.py``): async == sync, the snapshot's independence
   from later in-place updates, backpressure, GC, abort and the sticky
   error, quorum, torn windows, corruption named by file, tolerant
   listing; and the launcher's resume, bit-exact against an
-  uninterrupted run, and its refusals.
+  uninterrupted run, with writer processes and a blocklist too.
 """
 
 import json
@@ -557,9 +557,12 @@ def test_checkpoint_config_validation_and_make_manager(tmp_path):
                                                             verify=False))
     assert (m4.writers, m4.quorum, m4.verify) == (4, 3, False)
     m2.close()
-    for async_ in (False, True):          # writer processes never fall back to threads
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            make_manager(str(tmp_path / "e"), CheckpointConfig(async_=async_, writer_procs=True))
+    for async_ in (False, True):          # writer processes, with their lease and budget
+        m5 = make_manager(str(tmp_path / "e"), CheckpointConfig(
+            async_=async_, writer_procs=True, writer_timeout=2.5, reassign=0))
+        assert isinstance(m5, AsyncCheckpointManager) == async_
+        assert (m5.writer_procs, m5.writer_timeout, m5.reassign) == (True, 2.5, 0)
+        m5.close()
 
 
 def test_staging_sync_degrades_to_blocking_save(tmp_path):
@@ -764,11 +767,14 @@ def test_launcher_resumes_bit_exact(tmp_path):
 
 @pytest.mark.parametrize("refused", ["--ckpt-procs", "--ckpt-writer-timeout", "blocklist"])
 def test_launcher_refuses_the_runtime_it_lacks(tmp_path, refused):
-    argv = ["--steps", "1", "--ckpt-dir", str(tmp_path)]
+    """These three once raised, before the training runtime was ported:
+    each now runs and publishes its step; a blocklist moves the data."""
+    argv = ["--steps", "1", "--ckpt-dir", str(tmp_path), "--ckpt-every", "1"]
     if refused == "blocklist":
-        (tmp_path / launch_train.BLOCKLIST).write_text('{"data_indices": [3]}')
+        (tmp_path / launch_train.BLOCKLIST).write_text('{"data_indices": [0]}')
     else:
         argv += [refused] + (["5"] if refused == "--ckpt-writer-timeout" else [])
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        _run(argv)
-    assert not [d for d in os.listdir(str(tmp_path)) if d.startswith("step_")]
+    r, lines = _run(argv)
+    assert [d for d in os.listdir(str(tmp_path)) if d.startswith("step_")] == ["step_00000001"]
+    assert r["first_data_index"] == (1 if refused == "blocklist" else 0)
+    assert r["ckpt"]["handover"] == ("shm" if refused == "--ckpt-procs" else None)

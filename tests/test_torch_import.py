@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.parallel.sharding", "repro_torch.parallel.specs",
             "repro_torch.core.overlap", "repro_torch.kernels.ring_matmul",
             "repro_torch.core.quant", "repro_torch.checkpoint.wire",
-            "repro_torch.checkpoint.manager", "repro_torch.checkpoint.grid"} <= set(mods)
+            "repro_torch.checkpoint.manager", "repro_torch.checkpoint.grid",
+            "repro_torch.runtime.guard", "repro_torch.runtime.fault",
+            "repro_torch.runtime.procs"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -68,4 +70,5 @@ def test_no_jax_or_repro_import(path):
 
 def test_checkpoint_modules_are_scanned():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
-    assert {"checkpoint/wire.py", "checkpoint/manager.py", "checkpoint/grid.py"} <= scanned
+    assert {"checkpoint/wire.py", "checkpoint/manager.py", "checkpoint/grid.py",
+            "runtime/guard.py", "runtime/fault.py", "runtime/procs.py"} <= scanned

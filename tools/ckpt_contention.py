@@ -1,6 +1,6 @@
 """What a background checkpoint write costs the training step, on the card.
 
-    python3 tools/ckpt_contention.py        # one H100, ~4 min
+    python3 tools/ckpt_contention.py        # one H100, ~5 min
 
 Trains full-width qwen3-0.6b as ``chip_smoke.py``'s training cell does
 (bf16 over fp32 masters, batch 8 x 512, 2 microbatches, remat fusion)
@@ -12,13 +12,20 @@ writes the state (7.15 GB) in the background:
   crc32, as the format's reference does);
 * ``writers2_crc_inline``: 2 writers computing each shard's crc32 over the
   bytes as they are written, with no read-back (a what-if: the same bytes
-  and the same crc, checked at the end on one leaf).
+  and the same crc, checked at the end on one leaf);
+* ``procs2``: 2 writer processes (``writer_procs``, ``runtime/procs.py``):
+  the training process only packs the snapshot into the handover arena,
+  and the children write and read back, holding no lock of the training
+  process.  One manager serves every ``procs2`` run, so its fleet is
+  spawned and its arena touched by a first save that is not timed.
 
 Each save goes through a warm staging arena (a first save, not timed,
 has allocated the pinned buffers), so its stall is the device-to-host
 copy.  The variants run twice in turns.  Prints one ``contention`` JSON
 line per variant and run (stall, write seconds and GB/s, the steps taken
-while the write was in flight, their median) and the card's name and
+while the write was in flight, their median; for ``procs2`` the pack's
+seconds, the handover kind and the fleet's events), the fleet's first
+save (``procs2_first_save``: its arena fresh) and the card's name and
 power limit.
 """
 
@@ -44,7 +51,7 @@ from repro_torch.data.synthetic import SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
 
-VARIANTS = ("none", "writers2", "writers1", "writers2_crc_inline")
+VARIANTS = ("none", "writers2", "writers1", "writers2_crc_inline", "procs2")
 NO_WRITE_STEPS = 6
 
 
@@ -101,6 +108,14 @@ def main():
         warm.save_async(0, state)                 # allocates the pinned buffers
         warm.close()
         shutil.rmtree(warm.dir)
+        fleet = M.AsyncCheckpointManager(os.path.join(root, "procs2"), keep=1, max_inflight=1,
+                                         writers=2, writer_procs=True)
+        fleet.save_async(0, state)                # spawns the fleet, touches its arena
+        fleet.wait_until_finished()
+        w, f = fleet.writes[-1], fleet.fleet()
+        print("procs2_first_save " + json.dumps(dict(
+            write_s=w["end"] - w["start"], pack_s=f.saves[-1]["pack_s"], handover=f.arena_kind,
+            spawn_s=[s for _, s in f.spawn_s])), flush=True)
         for run in range(2):
             for variant in VARIANTS:
                 if variant == "none":
@@ -109,22 +124,28 @@ def main():
                 else:
                     wire.write_leaf = (write_leaf_crc_inline if "inline" in variant
                                        else read_back)
-                    mgr = M.AsyncCheckpointManager(
+                    procs = variant == "procs2"
+                    mgr = fleet if procs else M.AsyncCheckpointManager(
                         os.path.join(root, variant), max_inflight=1,
                         writers=1 if variant == "writers1" else 2)
                     t0 = time.perf_counter()
-                    mgr.save_async(1, state)
+                    mgr.save_async(run + 1, state)
                     stall = time.perf_counter() - t0
                     steps = []
                     while mgr.inflight:
                         steps.append(one_step())
                     mgr.wait_until_finished()
-                    mgr.close()
                     w = mgr.writes[-1]
                     row = dict(stall_ms=1e3 * stall, write_s=w["end"] - w["start"],
                                bytes=w["bytes"],
                                gb_per_s=w["bytes"] / 1e9 / (w["end"] - w["start"]))
-                    shutil.rmtree(mgr.dir)
+                    if procs:
+                        f = fleet.fleet()
+                        row.update(pack_s=f.saves[-1]["pack_s"], handover=f.arena_kind,
+                                   spawn_s=[s for _, s in f.spawn_s], events=f.events[-4:])
+                    else:
+                        mgr.close()
+                        shutil.rmtree(mgr.dir)
                     wire.write_leaf = read_back
                 row.update(variant=variant, run=run, step_ms=[1e3 * x for x in steps],
                            median_step_ms=1e3 * float(np.median(steps)) if steps else None)
@@ -135,6 +156,7 @@ def main():
         with open(a, "rb") as fa, open(b, "rb") as fb:
             same &= fa.read() == fb.read()
         print("crc_inline_same_bytes_and_crc " + json.dumps(same))
+        fleet.close()
     finally:
         wire.write_leaf = read_back
         shutil.rmtree(root, ignore_errors=True)
