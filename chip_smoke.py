@@ -65,7 +65,13 @@ Phases, each fatal on failure:
    two further blocks its backward passes (matmul-RS over tokens of the
    K/V and FFN-down input gradients) and ragged shapes (one off 8
    elements), in bf16 and fp32, timed beside its bound and the
-   compute-only ``torch.matmul`` on the gathered operand;
+   compute-only ``torch.matmul`` on the gathered operand; then four rank
+   processes, one ``model`` ring of n = 4 (megatron's axis of the 1x2x2
+   ranks): matmul-RS over tokens at the megatron step's two full-width
+   exit blocks, the AG-matmul of their backward, and the replicated
+   layout's matmul-RS over columns with its backward's contracted
+   AG-matmul, on both wires, against their plain versions (``case`` lines
+   with ``"n": 4``; off the ``kernels`` line's sums);
 9. ``grid_train``: the hecaton grid training step of full-width
    qwen3-0.6b on a 1x2x2 grid of four rank processes sharing the card
    (``overlap="fused"``, bf16 over fp32 masters, batch 8 x 512, 2
@@ -90,6 +96,17 @@ Phases, each fatal on failure:
 11. ``grid_bidir``: ``--overlap bidir --comm-dtype int8`` at 4 layers for
    one step (the -1 hops through the symmetric buffers; no kernel of its
    own), against the plain grid;
+11b. ``grid_megatron``: the paper's baseline, ``--strategy megatron`` on
+   the same four ranks (one ``model`` ring of four, the seq residual,
+   ``overlap="fused"``), full width and depth, bf16, batch 8 x 512, 2
+   microbatches, 2 steps, through the launcher's grid entry: every step's
+   loss and grad norm against the plain megatron grid (1e-3, 1e-2), the
+   first loss against the single-device port (1e-3), every rank launching
+   the matmul-RS and AG-matmul ring kernels (and the training kernels);
+   its routes, launches and step ms, and each rank's NoP bytes per step
+   (the logged forward collectives, recompute included:
+   ``overlap.route_bytes``) beside the ``grid_train`` hecaton run's, in
+   ``grid_nop_bytes``;
 12. ``ckpt``: checkpoints of the training cell on one card through the
    launcher's ``--ckpt-*`` flags, in a temporary directory (the depth cut
    only if two checkpoints do not fit on its disk): two uninterrupted
@@ -254,6 +271,24 @@ RING_CASES = (
     ("matmul_rs", "ragged tokens", (2, 100, 200), (200, 264), 1, False),
     ("ag_matmul_contract", "ragged", (2, 100, 200), (400, 264), None, False),
 )
+# megatron's ring of four (the model axis of GRID's ranks) at the blocks
+# its full-width step passes the ring kernels: the seq layout's exit
+# matmul-RS over tokens and its backward's AG-matmul (the FFN down's
+# contracted dim, 768, is off the 512-deep tile, so JAX's gate sends it to
+# the ring; timed here all the same), the replicated layout's matmul-RS
+# over columns and its backward's contracted AG-matmul; off the kernels
+# line's sums (main False)
+MEG_RING_CASES = (
+    ("matmul_rs", "megatron O-projection, tokens", (4, 512, 512), (512, 1024), 1, False),
+    ("matmul_rs", "megatron FFN down, tokens", (4, 512, 768), (768, 1024), 1, False),
+    ("ag_matmul", "megatron O-projection input gradient", (4, 128, 1024), (1024, 512), None,
+     False),
+    ("ag_matmul", "megatron FFN-down input gradient", (4, 128, 1024), (1024, 768), None, False),
+    ("matmul_rs", "megatron replicated O-projection, columns", (4, 512, 512), (512, 1024), 2,
+     False),
+    ("ag_matmul_contract", "megatron replicated O-projection input gradient", (4, 512, 256),
+     (1024, 512), None, False),
+)
 PROBE_ROUNDS = 200
 GRID = (1, 2, 2)
 GRID_STEPS = 3
@@ -268,6 +303,11 @@ GRID_LABEL = "4 ranks time-sliced on one card; not a grid speed"
 INT8_STEPS, QUANT_RTOL = 2, 0.05
 # bidir: a short run at cut depth (it runs no kernel of its own)
 BIDIR_LAYERS, BIDIR_STEPS = 4, 1
+# megatron (the paper's baseline) on GRID's ranks: full depth, 2 steps; every
+# rank must launch these kernels
+MEG_STEPS = 2
+MEG_KERNELS = ("matmul_rs", "ag_matmul", "tile_matmul", "gated_matmul", "flash_attention",
+               "flash_attention_bwd", "swiglu_bwd")
 # the int8 ring cases in fp32: the kernel and its plain version quantize
 # the same values up to fp32 sums in another order, so all but a share of
 # INT8_SHARE elements agree to INT8_TOL; those may sit one int8 level of
@@ -1275,9 +1315,10 @@ def _int8_check(out, want, tol):
     return ok, float(err.max()), share
 
 
-def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, wire="bf16", n=2, ax="my"):
+def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, wire="bf16", n=2, ax="my",
+               timer=event_ms):
     """One ring kernel (on the bf16 or the int8 wire) against its plain
-    version on this rank's inputs."""
+    version on this rank's inputs, each timed by ``timer``."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1000 * idx + rank)
     x = randn(gen, xs, dtype)
     elt = x.element_size()
@@ -1332,7 +1373,7 @@ def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, wire="bf16", n
              case=f"{label} x={list(xs)} w={list(ws)}" + (f" scatter_dim={sd}" if sd else "")
              + (" pair" if pair else ""), wire=wire,
              dtype=str(dtype).replace("torch.", ""), main=main and dtype == torch.bfloat16,
-             rank=rank)
+             rank=rank, n=n, axis=ax)
     if int8:
         tol = INT8_TOL if dtype == torch.float32 else TOL[torch.bfloat16][0]
         checks = [_int8_check(a, c, tol) for a, c in zip(outs, wants)]
@@ -1348,6 +1389,25 @@ def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, wire="bf16", n
                      bf16_wire_share_off=max(c[2] for c in fchecks),
                      bf16_wire_fails=not all(c[0] for c in fchecks))
             ok &= r["bf16_wire_fails"]
+    elif kernel == "matmul_rs" and dtype == torch.bfloat16 and n > 2:
+        # each contribution is stored in bf16 and the accumulator crosses
+        # each hop in bf16, as the TPU kernel's does: n roundings of
+        # contributions and n - 1 of partial sums (the plain version rounds
+        # once), each at most 2^-8 (bf16's unit roundoff) of the value
+        # rounded, so within (n + 1) 2^-8 of the sum of the ranks' partials'
+        # magnitudes
+        wc = torch.cat([w, w1b], dim=1) if pair else w
+        absum = comm.raw_psum_scatter((x.float() @ wc.float()).abs(), ax, sd)
+        abss = absum.split(o, dim=-1) if pair else (absum,)
+        tol = (n + 1) * 2.0 ** -8
+        err = max((a.float() - c.float()).abs().max().item() for a, c in zip(outs, wants))
+        ok = all(a.shape == c.shape and a.dtype == c.dtype
+                 and bool(torch.isfinite(a.float()).all())
+                 and bool(((a.float() - c.float()).abs() <= tol * m + 1e-6).all())
+                 for a, c, m in zip(outs, wants, abss))
+        r.update(tol=tol, tol_of="the sum of the ranks' partials' magnitudes",
+                 err_over_partials=max(float(((a.float() - c.float()).abs() / (m + 1e-6)).max())
+                                       for a, c, m in zip(outs, wants, abss)))
     else:
         tol = TOL[outs[0].dtype][0]
         err = max((a.float() - c.float()).abs().max().item() for a, c in zip(outs, wants))
@@ -1357,8 +1417,8 @@ def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, wire="bf16", n
                  for a, c in zip(outs, wants))
         r.update(tol=tol)
     b_ms, b_by = bound(nbytes, nops, dtype)
-    r.update(max_err=err, ok=ok, kernel_ms=event_ms(kern), plain_ms=event_ms(plain),
-             library_ms=event_ms(lib), bound_ms=b_ms, bound_by=b_by)
+    r.update(max_err=err, ok=ok, kernel_ms=timer(kern), plain_ms=timer(plain),
+             library_ms=timer(lib), bound_ms=b_ms, bound_by=b_by)
     return r
 
 
@@ -1380,9 +1440,31 @@ def ring_kernel_rank(rank, init_file):
     return dict(probe_s=secs, cases=results)
 
 
+def ring4_kernel_rank(rank, init_file):
+    """One of the four ranks of the ring_kernels phase's ``model`` ring:
+    this rank's megatron cases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.init_world(Grid(*GRID, rank), device=DEV, init_file=init_file)
+    try:
+        ops.reset_launches()
+        # fewer timed calls than the ring of two: four time-sliced ranks
+        # make every call several slices long
+        results = [_ring_case(100 + idx, *case, dtype, rank, wire, n=4, ax="model",
+                              timer=lambda f: event_ms(f, reps=2, windows=3))
+                   for wire in ("bf16", "int8")
+                   for dtype in (torch.bfloat16, torch.float32)
+                   for idx, case in enumerate(MEG_RING_CASES)]
+        torch.cuda.synchronize()
+        comm.barrier()
+    finally:
+        comm.shutdown()
+    return dict(cases=results, launches={k: ops.LAUNCHES[k] for k in RING_KERNELS + INT8_KERNELS})
+
+
 def ring_kernels_phase():
     """The three ring kernels and their int8 variants on a ring of two rank
-    processes sharing the card, after the flag ping-pong probe."""
+    processes sharing the card, after the flag ping-pong probe; then on
+    the ``model`` ring of four processes at megatron's blocks."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     try:
@@ -1401,32 +1483,49 @@ def ring_kernels_phase():
             if r == 0:
                 results.append(c)
                 log("case " + json.dumps(c))
+    t1 = time.perf_counter()
+    try:
+        res4 = comm.run_ranks(ring4_kernel_rank, 4, (comm.temp_init_file(),), RING_TIMEOUT_S)
+    except Exception as e:
+        log(f"ring_kernels (ring of four) FAILED: {e}")
+        return results, False
+    for r in sorted(res4):
+        for c in res4[r]["cases"]:
+            ok &= c["ok"]
+            if r == 0:
+                results.append(c)
+                log("case " + json.dumps(c))
+    log("ring4 " + json.dumps(dict(cases=len(res4[0]["cases"]), ranks=len(res4),
+                                   ok=all(c["ok"] for r in res4 for c in res4[r]["cases"]),
+                                   launches={r: res4[r]["launches"] for r in sorted(res4)},
+                                   phase_s=time.perf_counter() - t1)))
     return results, ok
 
 
 def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID_STEPS,
-                     layers=0, kernels=RING_KERNELS, bf16_step0=None):
+                     layers=0, kernels=RING_KERNELS, bf16_step0=None, strategy="hecaton"):
     """Train qwen3-0.6b (full width; ``layers`` cuts the depth) on a 1x2x2
     grid of four rank processes through the training launcher's grid entry
-    under ``overlap`` on the ``wire``, beside the plain grid from the same
-    parameters.  Every rank must launch each of ``kernels``.  On the bf16
-    wire the first loss is held against the single-device port's (1e-3);
-    on the int8 wire against it and ``bf16_step0`` (the bf16 wire's first
-    loss) to QUANT_RTOL.  Returns (ok, launches summed over the ranks,
-    the first loss)."""
+    under ``strategy`` and ``overlap`` on the ``wire``, beside the plain
+    grid from the same parameters.  Every rank must launch each of
+    ``kernels``.  On the bf16 wire the first loss is held against the
+    single-device port's (1e-3); on the int8 wire against it and
+    ``bf16_step0`` (the bf16 wire's first loss) to QUANT_RTOL.  Returns
+    (ok, launches summed over the ranks, the first loss, each rank's NoP
+    bytes per step by route)."""
     torch.cuda.empty_cache()
     d, mx, my = GRID
     args = launch_train.parser().parse_args([
         "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV, "--batch", str(TRAIN_BATCH),
         "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--layers", str(layers),
-        "--steps", str(steps), "--strategy", "hecaton", "--data", str(d), "--mx", str(mx),
+        "--steps", str(steps), "--strategy", strategy, "--data", str(d), "--mx", str(mx),
         "--my", str(my), "--overlap", overlap, "--comm-dtype", wire,
         "--timeout", str(GRID_TIMEOUT_S)])
     try:
         r = launch_train.run_grid(args, log_fn=log, check_plain=True)   # the main path
     except Exception as e:
         log(f"{name} FAILED: {e}")
-        return False, {}, None
+        return False, {}, None, {}
     losses = [loss for _, loss in r["history"]]
     gnorms = r["grad_norms"]
     checks = r["checks"]
@@ -1443,11 +1542,13 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
           and len(gnorm_rel) == steps and max(gnorm_rel) <= GRID_GNORM_TOL
           and (wire_rel is None or wire_rel <= QUANT_RTOL)
           and all(launches[k][n] > 0 for k in launches for n in kernels))
+    nop = {rank: {k: v / steps for k, v in b.items()} for rank, b in r["nop_bytes"].items()}
     log(f"{name}_routes " + json.dumps(r["routes"]))
     log(f"{name}_kernels " + json.dumps(launches))
     log(f"{name} " + json.dumps(dict(
-        arch=ARCH, layers=r["cfg"].num_layers, grid="x".join(map(str, GRID)), overlap=overlap,
-        comm_dtype=wire, batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MICRO,
+        arch=ARCH, layers=r["cfg"].num_layers, grid="x".join(map(str, GRID)),
+        strategy=strategy, overlap=overlap, comm_dtype=wire, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=TRAIN_MICRO,
         remat="fusion", dtype="bfloat16",
         losses=losses, plain_losses=checks["plain_losses"], loss_rel=loss_rel,
         grad_norms=gnorms, plain_grad_norms=checks["plain_grad_norms"], gnorm_rel=gnorm_rel,
@@ -1457,9 +1558,9 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
         param_rel_worst=dict(leaf=worst_leaf, rel=checks["param_rel"][worst_leaf]),
         param_rel_median=sorted(checks["param_rel"].values())[len(checks["param_rel"]) // 2],
         step_ms=[1e3 * x for x in r["step_s"]], step_ms_note=GRID_LABEL,
-        setup_s=r["setup_s"], wall_s=r["wall_s"], ok=ok)))
+        nop_bytes_per_step=nop, setup_s=r["setup_s"], wall_s=r["wall_s"], ok=ok)))
     totals = {n: sum(launches[k][n] for k in launches) for n in launches[0]}
-    return ok, totals, losses[0]
+    return ok, totals, losses[0], nop
 
 
 def _leaf_bytes(state):
@@ -2128,11 +2229,20 @@ def main(argv=None):
                                      SSM_SERVE_KERNELS, "_ssm")
     r_results, ok_rk = ring_kernels_phase()
     results += r_results
-    ok_gt, g_launches, bf16_step0 = grid_train_phase()
-    ok_gq, q_launches, _ = grid_train_phase("grid_train_int8", wire="int8", steps=INT8_STEPS,
-                                            kernels=INT8_KERNELS, bf16_step0=bf16_step0)
-    ok_gb, _, _ = grid_train_phase("grid_bidir", overlap="bidir", wire="int8",
-                                   steps=BIDIR_STEPS, layers=BIDIR_LAYERS, kernels=())
+    ok_gt, g_launches, bf16_step0, hec_nop = grid_train_phase()
+    ok_gq, q_launches, _, _ = grid_train_phase("grid_train_int8", wire="int8",
+                                               steps=INT8_STEPS, kernels=INT8_KERNELS,
+                                               bf16_step0=bf16_step0)
+    ok_gb, _, _, _ = grid_train_phase("grid_bidir", overlap="bidir", wire="int8",
+                                      steps=BIDIR_STEPS, layers=BIDIR_LAYERS, kernels=())
+    ok_gm, _, _, meg_nop = grid_train_phase("grid_megatron", steps=MEG_STEPS,
+                                            kernels=MEG_KERNELS, strategy="megatron")
+    log("grid_nop_bytes " + json.dumps(dict(
+        note="per rank and step: the logged forward collectives (recompute included), "
+             "bytes received; the backward's transposes are not logged",
+        hecaton=hec_nop, megatron=meg_nop,
+        megatron_over_hecaton={r: meg_nop[r]["total"] / hec_nop[r]["total"]
+                               for r in meg_nop if r in hec_nop and hec_nop[r]["total"]})))
     ok_c, ckpt_refs = ckpt_phase()
     ok_gc = grid_ckpt_phase()
     ok_rt = runtime_phase(ckpt_refs)
@@ -2172,6 +2282,7 @@ def main(argv=None):
                               ("ssm_model_check", ok_sm), ("serve_ssm", ok_ss),
                               ("ring_kernels", ok_rk), ("grid_train", ok_gt),
                               ("grid_train_int8", ok_gq), ("grid_bidir", ok_gb),
+                              ("grid_megatron", ok_gm),
                               ("ckpt", ok_c), ("grid_ckpt", ok_gc), ("runtime", ok_rt),
                               ("grid_runtime", ok_grt),
                               ("kernel_rows", len(line) == len(KERNELS)),

@@ -52,24 +52,25 @@ def master_params_from_jax(tree: Dict[str, Any], *, device="cuda") -> Dict[str, 
 
 
 def shard_master_params_from_jax(tree: Dict[str, Any], grid, *, device="cuda",
-                                 fused_loss: bool = True) -> Dict[str, Any]:
+                                 fused_loss: bool = True,
+                                 strategy: str = "hecaton") -> Dict[str, Any]:
     """Rank ``grid.rank``'s blocks of the training parameters (the slices
-    that ``parallel/specs.param_specs`` gives it), as leaves that require
-    grad."""
+    that ``parallel/specs.param_specs`` gives it under ``strategy``), as
+    leaves that require grad."""
     from repro_torch.parallel import specs
     full = _convert(tree, resolve_device(device))
-    out = specs.shard_tree(full, specs.param_specs(full, grid, fused_loss), grid)
+    out = specs.shard_tree(full, specs.param_specs(full, grid, fused_loss, strategy), grid)
     for _, t in lm.flatten(out):
         t.requires_grad_(True)
     return out
 
 
-def gather_master_params(params: Dict[str, Any], grid, *,
-                         fused_loss: bool = True) -> Dict[str, Any]:
+def gather_master_params(params: Dict[str, Any], grid, *, fused_loss: bool = True,
+                         strategy: str = "hecaton") -> Dict[str, Any]:
     """The full parameters from every rank's blocks (collectives over the
     grid; every rank gets the whole tree, detached)."""
     from repro_torch.parallel import specs
-    sp = specs.param_specs(params, grid, fused_loss)
+    sp = specs.param_specs(params, grid, fused_loss, strategy)
     items = lm.flatten(params)
     return lm.unflatten([p for p, _ in items],
                         [specs.gather_full(t.detach(), specs.spec_of(sp, p)) for p, t in items])

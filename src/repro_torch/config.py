@@ -62,18 +62,23 @@ class ModelConfig:
 
 OVERLAP_MODES = ("none", "ring", "bidir", "fused")
 COMM_DTYPES = ("bf16", "int8")
+STRATEGIES = ("hecaton", "megatron")
+RESIDUAL_LAYOUTS = ("seq", "replicated")
 
 
 @dataclass(frozen=True)
 class ParallelConfig:
     """The fields of ``repro.config.ParallelConfig`` that the ported steps
-    read: the hecaton grid (data x mx x my; one device when all are 1),
-    its overlap mode and wire dtype, and the step's microbatching,
-    gradient rounding, remat and fused loss.  The grid step always keeps
-    its AdamW moments ZeRO-1 sharded over data and solves the attention
-    layout as the JAX package's "auto".  ``overlap`` and ``comm_dtype``
-    are validated as the JAX package validates them: a typo raises."""
-    strategy: str = "hecaton"               # hecaton (megatron: not ported)
+    read: the strategy over the grid (data x mx x my; one device when all
+    are 1): hecaton's 2D tiling, or the megatron baseline's 1D ``model``
+    axis of mx * my ranks with its residual layout; the overlap mode and
+    wire dtype, and the step's microbatching, gradient rounding, remat and
+    fused loss.  The grid step always keeps its AdamW moments ZeRO-1
+    sharded over data and solves the attention layout as the JAX
+    package's "auto".  ``strategy``, ``overlap``, ``comm_dtype`` and
+    ``residual`` are validated as the JAX package validates them: a typo
+    raises."""
+    strategy: str = "hecaton"               # hecaton | megatron
     data: int = 1
     mx: int = 1
     my: int = 1
@@ -84,8 +89,17 @@ class ParallelConfig:
     grad_reduce_dtype: str = "bf16"
     remat: str = "fusion"                   # none | fusion | full
     fused_loss: bool = True                 # fp32 head logits -> lse - gold
+    # megatron's residual stream between blocks: "seq" (tokens sharded over
+    # the model axis, Korthikanti sequence parallel) or "replicated" (the
+    # classic 1D layout); hecaton's tiling is token-sharded either way, and a
+    # sequence the model ring cannot divide runs "replicated"
+    residual: str = "seq"
 
     def __post_init__(self):
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"strategy={self.strategy!r} not in {STRATEGIES}")
+        if self.residual not in RESIDUAL_LAYOUTS:
+            raise ValueError(f"residual={self.residual!r} not in {RESIDUAL_LAYOUTS}")
         if self.overlap not in OVERLAP_MODES:
             raise ValueError(f"overlap={self.overlap!r} not in {OVERLAP_MODES}")
         if self.comm_dtype not in COMM_DTYPES:

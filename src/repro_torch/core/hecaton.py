@@ -147,14 +147,21 @@ def ffn_block(x, w1, w2, *, act_fn: Callable, t_ax: str = "mx", h_ax: str = "my"
 # ---------------------------------------------------------------------------
 
 def embed_2d(ids, table, *, t_ax: str = "mx", compute_dtype=torch.bfloat16,
-             overlap: str = "none", comm_dtype: str = "bf16", plain: bool = False):
+             seq_sharded: bool = True, overlap: str = "none", comm_dtype: str = "bf16",
+             plain: bool = False):
     """ids [B, S/t] (tokens over t_ax), table [V/t, H/h] -> [B, S/t, H/h]:
     each rank looks up its vocab slice for all tokens of its column, and a
-    reduce-scatter over t_ax sums the vocab partials and tiles the tokens."""
+    reduce-scatter over t_ax sums the vocab partials and tiles the tokens
+    (megatron's ``t_ax="model"`` with the whole hidden dim: the seq
+    residual).  ``seq_sharded=False``: ids [B, S] whole on every rank of
+    t_ax, the partials summed by a psum over t_ax, out [B, S, H/h] (the
+    replicated residual, and a sequence the ring cannot divide)."""
     OV.check_mode(overlap)
     n_t = comm.axis_size(t_ax)
     bidir = overlap == "bidir"
-    if overlap != "none":
+    if not seq_sharded:
+        idg = ids
+    elif overlap != "none":
         # integer ids: quant_ok keeps these hops full width
         OV.log_ring("embed_2d", "all_gather", overlap, ids.shape[1], t_ax, n_t, ids,
                     comm_dtype=comm_dtype)
@@ -164,7 +171,8 @@ def embed_2d(ids, table, *, t_ax: str = "mx", compute_dtype=torch.bfloat16,
     v_loc = table.shape[0]
     lid = idg.long() - comm.axis_index(t_ax) * v_loc
     ok = (lid >= 0) & (lid < v_loc)
-    if overlap == "fused" and v_loc <= EMBED_FUSED_VMAX and OV.rs_ok(idg.shape[1], n_t):
+    if (seq_sharded and overlap == "fused" and v_loc <= EMBED_FUSED_VMAX
+            and OV.rs_ok(idg.shape[1], n_t)):
         # one-hot form: the vocab partial is onehot @ table slice, a matmul
         # the fused dispatcher can run as one matmul-RS kernel
         onehot = (torch.where(ok, lid, v_loc)[..., None]
@@ -173,6 +181,9 @@ def embed_2d(ids, table, *, t_ax: str = "mx", compute_dtype=torch.bfloat16,
                             overlap=overlap, comm_dtype=comm_dtype, plain=plain)
     emb = table[lid.clamp(0, v_loc - 1)]
     emb = (emb * ok[..., None]).to(compute_dtype)
+    if not seq_sharded:
+        OV.log_route("embed_2d", "all_reduce", "bulk", t_ax, n_t, emb)
+        return comm.psum(emb, t_ax)
     if overlap != "none" and OV.rs_ok(emb.shape[1], n_t):
         OV.log_ring("embed_2d", "reduce_scatter", overlap, emb.shape[1] // n_t, t_ax, n_t, emb,
                     comm_dtype=comm_dtype)

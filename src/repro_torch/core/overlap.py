@@ -38,6 +38,7 @@ from typing import List
 import torch
 
 from repro_torch.config import OVERLAP_MODES as MODES
+from repro_torch.core import quant as Q
 from repro_torch.kernels import ops
 from repro_torch.kernels import ring_matmul as RM
 from repro_torch.parallel import comm
@@ -61,7 +62,8 @@ def log_route(op: str, collective: str, route: str, ax: str, n: int, x, w=None,
               comm_dtype: str = "bf16", chunk=None) -> None:
     ROUTES.append(dict(op=op, collective=collective, route=route, axis=ax, n=n,
                        x=tuple(x.shape), w=None if w is None else tuple(w.shape),
-                       itemsize=x.element_size(), comm_dtype=comm_dtype, chunk=chunk))
+                       itemsize=x.element_size(), float=x.is_floating_point(),
+                       comm_dtype=comm_dtype, chunk=chunk))
 
 
 def log_ring(op: str, collective: str, overlap: str, chunk: int, ax: str, n: int, x, w=None,
@@ -83,6 +85,53 @@ def route_table():
         key = tuple(sorted((k, v) for k, v in r.items()))
         seen[key] = seen.get(key, 0) + 1
     return [dict(dict(k), count=c) for k, c in seen.items()]
+
+
+def _numel(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+def nop_bytes(r) -> float:
+    """Bytes one rank receives for one logged collective (a ``ROUTES``
+    record): an all-gather (x its shard) n - 1 shards, a reduce-scatter
+    (x the whole partial sum; a matmul-RS's is x's rows by w's columns,
+    twice for the pair) (n - 1) / n of it, an all-reduce twice that, a
+    ``ppermute`` ring n - 1 hops of x (the loss's: w).  A ring on the int8
+    wire moves one byte an element and an fp32 scale a row where the
+    whole tensor's last dim admits it (``quant.quant_ok``; a hop of a
+    column chunk may not, so this is an estimate there); the bulk path
+    and integer shards their own width."""
+    n, coll = r["n"], r["collective"]
+    shape = tuple(r["x"])
+    if r["op"] in ("matmul_rs", "matmul_rs_pair"):
+        shape = shape[:-1] + (r["w"][-1] * (2 if r["op"] == "matmul_rs_pair" else 1),)
+    elif r["op"] == "fused_lm_loss_seq":
+        shape = tuple(r["w"]) if r["w"] else shape
+    elts = _numel(shape)
+    rows = elts // max(shape[-1], 1)
+    wire = (elts + 4 * rows if r["route"] != "bulk" and r["comm_dtype"] == "int8"
+            and r["float"] and shape[-1] >= Q.MIN_QUANT_DIM else elts * r["itemsize"])
+    if coll in ("all_gather", "ppermute"):
+        return float((n - 1) * wire)
+    if coll == "reduce_scatter":
+        return (n - 1) / n * wire
+    if coll == "all_reduce":
+        return 2 * (n - 1) / n * wire
+    raise KeyError(coll)
+
+
+def route_bytes(table) -> dict:
+    """Bytes a rank receives over the collectives of a ``route_table()``
+    (each record times its count), by route and in all."""
+    out = {}
+    for r in table:
+        b = nop_bytes(r) * r["count"]
+        out[r["route"]] = out.get(r["route"], 0.0) + b
+    out["total"] = sum(out.values())
+    return out
 
 
 # ---------------------------------------------------------------------------

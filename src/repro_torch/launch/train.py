@@ -16,11 +16,15 @@ one-card machine every rank shares card 0, which shows that the grid
 computes the right function, not how fast a grid runs.  Every rank
 builds the same seeded parameters and keeps its blocks
 (``parallel/specs.py``), and reads its block of each global batch.
-``--overlap`` picks the collectives: ``none`` (bulk), ``ring`` (ppermute
-rings), ``bidir`` (half shards circulating both ways) or ``fused`` (the
-ring kernels where the JAX gates allow them); ``--comm-dtype int8``
-sends the ring hops as int8 payloads with fp32 row scales (the fused
-route: the int8 variants of the ring kernels).  ``--layers`` cuts the
+``--strategy megatron`` (the paper's baseline) runs the same D*X*Y ranks,
+with the same device-to-rank map, as a (data, model) grid of
+``model = X*Y`` (``parallel/megatron.py``), its residual between blocks
+token-sharded over ``model`` (``ParallelConfig.residual``'s default).
+``--overlap`` picks the collectives: ``none`` (bulk),
+``ring`` (ppermute rings), ``bidir`` (half shards circulating both ways)
+or ``fused`` (the ring kernels where the JAX gates allow them);
+``--comm-dtype int8`` sends the ring hops as int8 payloads with fp32 row
+scales (the fused route: the int8 variants of the ring kernels).  ``--layers`` cuts the
 depth of the chosen arch.  The kernels are built in the launcher before
 the ranks start.
 
@@ -59,6 +63,8 @@ function.  The learning-rate schedule's horizon is ``LR_HORIZON``
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --dtype bfloat16 --strategy hecaton --data 1 --mx 2 --my 2 --overlap fused \\
         --comm-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
+        --dtype bfloat16 --strategy megatron --data 1 --mx 2 --my 2 --overlap fused
 """
 
 from __future__ import annotations
@@ -67,7 +73,7 @@ import argparse
 import os
 import time
 
-from repro_torch.config import COMM_DTYPES, OVERLAP_MODES
+from repro_torch.config import COMM_DTYPES, OVERLAP_MODES, STRATEGIES
 from repro_torch.runtime.guard import BLOCKLIST  # noqa: F401  (the sidecar's name)
 
 DTYPES = ("float32", "bfloat16")
@@ -88,8 +94,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", help="cuda (kernels) or cpu")
     ap.add_argument("--dtype", default="float32", choices=DTYPES,
                     help="compute dtype (masters stay fp32)")
-    ap.add_argument("--strategy", default="hecaton",
-                    help="hecaton (the megatron baseline is not ported)")
+    ap.add_argument("--strategy", default="hecaton", choices=STRATEGIES,
+                    help="hecaton's 2D tiling over mx x my, or the megatron baseline's 1D "
+                         "model axis of mx * my ranks")
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--mx", type=int, default=1)
     ap.add_argument("--my", type=int, default=1)
@@ -290,21 +297,23 @@ def _config(args):
 def _check_grid_args(args) -> None:
     from repro_torch.core import overlap as OV
     from repro_torch.core import quant as Q
-    if args.strategy != "hecaton":
-        raise NotImplementedError(f"strategy {args.strategy!r} is not ported (ROADMAP queue 1)")
+    if args.strategy not in STRATEGIES:
+        raise ValueError(f"strategy={args.strategy!r} not in {STRATEGIES}")
     OV.check_mode(args.overlap)
     Q.check_comm_dtype(args.comm_dtype)
 
 
 def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     """Spawn the grid's ranks and train; returns rank 0's history, grad
-    norms and times with every rank's kernel launches and rank 0's route
-    table.  ``check_plain`` first has every rank train the same steps from
+    norms and times with every rank's kernel launches and the bytes its
+    logged collectives received (``overlap.route_bytes``), and rank 0's
+    route table.  ``check_plain`` first has every rank train the same steps from
     the same parameters through the plain versions on the grid (their
     losses and grad norms, and how far the kernels' final parameters lie
     from the plain run's), and rank 0 compute the first batch's loss
     through the single-device path on the full parameters."""
     from repro_torch import resolve_device
+    from repro_torch.core import overlap as OV
     from repro_torch.parallel import comm
 
     _check_grid_args(args)
@@ -334,6 +343,7 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
             "tokens_per_step": args.batch * args.seq, "routes": r0["routes"],
             "launches": {r: results[r]["launches"] for r in sorted(results)},
             "checks": r0["checks"], "world": world, "ckpt": r0["ckpt"],
+            "nop_bytes": {r: OV.route_bytes(results[r]["routes"]) for r in sorted(results)},
             "wall_s": time.perf_counter() - t0}
 
 
@@ -365,16 +375,19 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
         cfg = _config(a)
         dtype = getattr(torch, a.dtype)
         rc = RunConfig("custom", "train", a.seq, a.batch, lr=a.lr)
-        pcfg = ParallelConfig(data=a.data, mx=a.mx, my=a.my, overlap=a.overlap,
-                              comm_dtype=a.comm_dtype, microbatches=a.microbatches)
+        pcfg = ParallelConfig(strategy=a.strategy, data=a.data, mx=a.mx, my=a.my,
+                              overlap=a.overlap, comm_dtype=a.comm_dtype,
+                              microbatches=a.microbatches)
         full = lm.init_master_params(cfg, seed=0, device=dev)
-        params = specs.shard_tree(full, specs.param_specs(full, grid), grid)
+        params = specs.shard_tree(full, specs.param_specs(full, grid, strategy=a.strategy),
+                                  grid)
         for _, t in lm.flatten(params):
             t.requires_grad_(True)
         ds = SyntheticLM(cfg.vocab_size, a.seq, a.batch)
 
         def local(step):
-            lb = specs.local_batch(ds.batch_at(step), grid, a.microbatches)
+            lb = specs.local_batch(ds.batch_at(step), grid, a.microbatches, a.strategy,
+                                   pcfg.residual)
             return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in lb.items()}
 
         checks, plain_params = {}, None

@@ -8,10 +8,11 @@ are the JAX package's nested dict with stacked ``[L, ...]`` leaves; a
 Python loop over layers takes the place of ``lax.scan`` and unbinds each
 leaf once into per-layer views.
 
-On the hecaton grid (``pctx.mesh``, training of the dense family) the
-same forward runs on this rank's blocks: ``tokens`` is its [B, S/mx]
-block, the positions cover the full sequence, and the embedding, norms,
-projections and the fused loss are ``PCtx``'s grid methods.
+On the grid (``pctx.mesh``, training of the dense family) the same
+forward runs on this rank's blocks: ``tokens`` is its block (hecaton
+[B, S/mx]; megatron [B, S/n] under the seq residual, else [B, S]), the
+positions cover the full sequence, and the embedding, norms,
+projections and the loss are ``PCtx``'s grid methods.
 
 Two parameter forms.  Training keeps the JAX form: fp32 masters, each
 cast to the compute dtype at its use, and the tied head reads
@@ -33,10 +34,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.config import ModelConfig
 from repro_torch.core import hecaton as HEC
+from repro_torch.core import overlap as OV
 from repro_torch.core import schedule
 from repro_torch.models import blocks as BLK
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
+from repro_torch.parallel import comm
+from repro_torch.parallel import megatron as MEG
 
 # leaves that stay fp32 whatever the compute dtype: norm scales and biases,
 # and the mamba mixer's small leaves (its dt bias, decay, skip, gated-norm
@@ -167,11 +171,11 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     post-final-norm ``hidden`` instead of logits (``train_loss``)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    if pctx.use_hecaton and cfg.family != "dense":
+    if pctx.mesh is not None and cfg.family != "dense":
         raise NotImplementedError(f"the grid step takes the dense family, not {cfg.family!r}")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    S *= pctx.seq_shards                      # the grid holds S / mx tokens per rank
+    S *= pctx.seq_shards                      # a grid rank may hold a token shard
     compute_dtype = batch.get("_dtype", torch.bfloat16)
     positions = batch.get("positions")
     if positions is None:
@@ -217,20 +221,48 @@ def head_loss(pctx, cfg: ModelConfig, params, hidden: torch.Tensor,
     """Post-final-norm hidden states -> mean masked NLL: the fused loss
     (fp32 logits out of the tile kernel, ``core/hecaton.fused_lm_loss``)
     under ``pcfg.fused_loss``, else logits in the compute dtype and
-    :func:`xent_loss`."""
+    :func:`xent_loss`.  On the grid: hecaton's fused loss; megatron's
+    ``fused_lm_loss_seq`` where ``seq_loss_ok``; otherwise the head's
+    vocab-sharded logits and a sharded cross-entropy
+    (``megatron.xent_loss_sharded``), with the labels brought to the
+    logits' token layout."""
     head_w = head_weight(cfg, params, compute_dtype, pctx)
     hidden = hidden.to(compute_dtype)
-    if pctx.use_hecaton:
-        if not pctx.pcfg.fused_loss:
-            raise NotImplementedError("the grid step takes the fused loss only")
-        nll, cnt = HEC.fused_lm_loss(hidden, head_w, labels, mask, mesh=pctx.mesh,
-                                     **pctx.grid_kwargs())
-        return nll / torch.clamp(cnt, min=1.0)
-    if pctx.pcfg.fused_loss:
+    fused = pctx.pcfg.fused_loss
+    if pctx.mesh is not None:
+        if pctx.use_hecaton and fused:
+            nll, cnt = HEC.fused_lm_loss(hidden, head_w, labels, mask, mesh=pctx.mesh,
+                                         **pctx.grid_kwargs())
+            return nll / torch.clamp(cnt, min=1.0)
+        if (pctx.use_megatron and fused
+                and MEG.seq_loss_ok(pctx, pctx.global_seq_len(), cfg.padded_vocab)):
+            nll, cnt = MEG.fused_lm_loss_seq(pctx, hidden, head_w, labels, mask)
+            return nll / torch.clamp(cnt, min=1.0)
+        return _grid_xent(pctx, pctx.lm_head(hidden, head_w), labels, mask)
+    if fused:
         nll, cnt = HEC.fused_lm_loss(hidden, head_w, labels, mask,
                                      tile_matmul=pctx.ops.tile_matmul)
         return nll / torch.clamp(cnt, min=1.0)
     return xent_loss(pctx.lm_head(hidden, head_w), labels, mask)
+
+
+def _grid_xent(pctx, logits, labels, mask):
+    """The sharded cross-entropy of the grid's logits.  Hecaton's come out
+    tokens over ``my`` and vocab over ``mx``: the labels (tokens over
+    ``mx``) are gathered and this rank's ``my`` chunk kept.  Megatron's
+    hold every token, vocab over ``model``: token-sharded labels are
+    gathered over ``model`` (bulk, as GSPMD gathers them)."""
+    def regather(t, ax):
+        OV.log_route("xent_loss", "all_gather", "bulk", ax, comm.axis_size(ax), t)
+        return comm.raw_all_gather(t, ax, 1)
+    if pctx.use_hecaton:
+        n, j = comm.axis_size("my"), comm.axis_index("my")
+        relay = lambda t: None if t is None else regather(t, "mx").chunk(n, dim=1)[j]
+        return MEG.xent_loss_sharded(pctx, logits, relay(labels), relay(mask), "mx", ("my",))
+    if pctx.seq_sharded:
+        labels = regather(labels, "model")
+        mask = None if mask is None else regather(mask, "model")
+    return MEG.xent_loss_sharded(pctx, logits, labels, mask, "model", ())
 
 
 def train_loss(pctx, cfg: ModelConfig, params, batch, *, remat: str = "fusion"):

@@ -40,6 +40,12 @@ Two transports, picked by the device the world runs on:
   (``kernels/ring_matmul.py``) use the same buffers: per axis, two
   receive slots and two counters (``landed``, ``credit``) that the
   kernels set and spin on from inside one launch.
+
+The axes are the grid's ``data``, ``mx`` and ``my`` and megatron's
+derived ``model`` (``launch/mesh.RING_AXES``): each of size > 1 gets its
+gloo groups, and on CUDA its ring counters at ``64 c`` in the flag
+region and its two receive slots (c its index in ``RING_AXES``), so a
+ring of any size on any of them has its own hop count and memory.
 """
 
 from __future__ import annotations
@@ -55,10 +61,10 @@ import torch.distributed as dist
 
 from repro_torch.core import quant as Q
 from repro_torch.kernels import build
-from repro_torch.launch.mesh import AXES, Grid
+from repro_torch.launch.mesh import RING_AXES, Grid
 
 # symmetric buffer layout (bytes), the same on every rank
-FLAGS_BYTES = 4096                 # per axis c: landed at 64c, credit at 64c + 8
+FLAGS_BYTES = 4096                 # per ring axis c: landed at 64c, credit at 64c + 8
 PROBE_OFFSET = 2048                # the ping-pong probe's two counters
 # a receive slot holds the largest shard a ring kernel circulates (the
 # full-width gated pair's fp32 accumulator, [4, 256, 3072], is 12.6 MB)
@@ -70,7 +76,7 @@ def _slots_offset(c: int) -> int:
     return FLAGS_BYTES + c * 2 * SLOT_BYTES
 
 
-BULK_OFFSET = _slots_offset(len(AXES))
+BULK_OFFSET = _slots_offset(len(RING_AXES))
 SYM_BYTES = BULK_OFFSET + BULK_BYTES
 
 
@@ -94,7 +100,7 @@ class World:
     views: Dict[int, torch.Tensor] = field(default_factory=dict)
     # fused-kernel hops issued so far on each axis (the same on every rank
     # of a ring: SPMD order)
-    hops: Dict[str, int] = field(default_factory=lambda: {a: 0 for a in AXES})
+    hops: Dict[str, int] = field(default_factory=lambda: {a: 0 for a in RING_AXES})
     probes: int = 0                    # ping-pong probes run (their counters grow)
 
     @property
@@ -115,8 +121,8 @@ def init_world(grid: Grid, *, device="cpu", init_file: Optional[str] = None,
                timeout_s: float = 600.0) -> World:
     """Join the world of ``grid`` as ``grid.rank``: the gloo process group
     (rendezvous through a ``FileStore`` at ``init_file``, which every rank
-    of the world names), one gloo group per row and column of each axis,
-    and on CUDA the symmetric buffers."""
+    of the world names), one gloo group per line of each axis (megatron's
+    ``model`` included), and on CUDA the symmetric buffers."""
     global _WORLD
     import datetime
     dev = torch.device(device)
@@ -130,7 +136,7 @@ def init_world(grid: Grid, *, device="cpu", init_file: Optional[str] = None,
                                 world_size=grid.world,
                                 timeout=datetime.timedelta(seconds=timeout_s))
     w = World(grid, dev)
-    for ax in AXES:
+    for ax in RING_AXES:
         if grid.size(ax) == 1:
             continue
         seen = set()
@@ -277,7 +283,7 @@ def ring(ax: str, n: int, nbytes: int) -> Tuple[int, ...]:
         raise ValueError(f"a {nbytes}-byte shard exceeds the {SLOT_BYTES}-byte slot "
                          "(comm.SLOT_BYTES)")
     me = w.grid.axis_index(ax)
-    c = AXES.index(ax)
+    c = RING_AXES.index(ax)
     base, right = w.bases[w.grid.rank], w.bases[ranks[(me + 1) % n]]
     left = w.bases[ranks[(me - 1) % n]]
     f, sl = 64 * c, _slots_offset(c)

@@ -14,17 +14,27 @@ attention through their differentiable ops; otherwise (prefill and
 decode, under ``inference_mode``) the forward-only kernels with fused
 epilogues run.
 
-The hecaton grid (``mesh`` a ``launch/mesh.Grid``, training): every
-method takes and returns this rank's blocks.  The residual stream stays
-in the canonical tiling (tokens over ``mx``, hidden over ``my``); the
-projections are the hecaton ops of ``core/hecaton.py`` on the overlap
-lattice (``pcfg.overlap``, its ring hops in ``pcfg.comm_dtype``); the
-norms sum their statistics over ``my`` (``comm.psum``), the embedding
-and the head use vocab chunks.  Where the
+The grid (``mesh`` a ``launch/mesh.Grid``, training): every method
+takes and returns this rank's blocks.  Under ``pcfg.strategy ==
+"hecaton"`` the residual stream stays in the canonical tiling (tokens
+over ``mx``, hidden over ``my``); the projections are the hecaton ops of
+``core/hecaton.py`` on the overlap lattice (``pcfg.overlap``, its ring
+hops in ``pcfg.comm_dtype``); the norms sum their statistics over
+``my`` (``comm.psum``), the embedding and the head use vocab chunks.
+Where the
 JAX package leaves a collective to GSPMD (a ``with_sharding_constraint``
 between the ``shard_map`` ops), the port writes it out here: the norm's
 ``psum``, the K/V gather when the kv heads do not split over the grid,
 the table's gather into the head's ``[H, V/my]`` layout.
+
+Under ``"megatron"`` (the paper's baseline) the projections, the FFN,
+the loss and the embedding are ``parallel/megatron.py``'s ops over the
+one ``model`` axis (t_ax ``model``, no hidden axis): the norms are local
+(the hidden dim is whole), the tied head is this rank's table block
+transposed, and the residual layout (``pcfg.residual``) applies to the
+step's global sequence length ``seq_len`` (a rank sees its block only):
+``"seq"`` cuts it over ``model`` when the ring divides it, else every
+rank of the axis holds it whole.
 
 ``mode="train"`` only enables :meth:`dropout`, as in the JAX package.
 ``plain=True`` routes everything to the plain versions on any device,
@@ -42,11 +52,13 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ParallelConfig
+from repro_torch.core import overlap as OV
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
-from repro_torch.launch.mesh import Grid
+from repro_torch.launch.mesh import MODEL, Grid
 from repro_torch.models import layers as L
 from repro_torch.parallel import comm
+from repro_torch.parallel import megatron as MEG
 from repro_torch.parallel import sharding as shd
 
 _PLAIN = SimpleNamespace(matmul=ref.matmul_plain,
@@ -68,25 +80,43 @@ class PCtx:
     plain: bool = False                    # plain versions even on CUDA
     mode: str = "serve"                    # serve | train (enables dropout)
     pcfg: ParallelConfig = field(default_factory=ParallelConfig)
-    mesh: Optional[Grid] = None            # the hecaton grid, or one device
+    mesh: Optional[Grid] = None            # the grid, or one device
+    seq_len: Optional[int] = None          # the step's global sequence (megatron)
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
-        if self.mesh is not None:
-            if self.pcfg.strategy != "hecaton":
-                raise NotImplementedError(
-                    f"strategy {self.pcfg.strategy!r} is not ported (ROADMAP queue 1)")
-            if self.mode != "train":
-                raise NotImplementedError("grid serving is not ported (ROADMAP queue 1)")
+        if self.mesh is not None and self.mode != "train":
+            raise NotImplementedError("grid serving is not ported (ROADMAP queue 1)")
 
     @property
     def use_hecaton(self) -> bool:
-        return self.mesh is not None
+        return self.mesh is not None and self.pcfg.strategy == "hecaton"
+
+    @property
+    def use_megatron(self) -> bool:
+        return self.mesh is not None and self.pcfg.strategy == "megatron"
 
     @property
     def ax(self) -> Optional[shd.AxisInfo]:
-        return shd.axis_info(self.mesh)
+        return shd.axis_info(self.mesh, self.pcfg.strategy)
+
+    @property
+    def residual(self) -> str:
+        """The residual layout (``config.RESIDUAL_LAYOUTS``); hecaton's
+        tiling is token-sharded whatever it says."""
+        return self.pcfg.residual
+
+    def global_seq_len(self) -> int:
+        if self.seq_len is None:
+            raise ValueError("a megatron PCtx needs the step's global seq_len")
+        return self.seq_len
+
+    @property
+    def seq_sharded(self) -> bool:
+        """Megatron: does the seq residual cut this step's sequence?"""
+        return (self.use_megatron and self.residual == "seq"
+                and shd.seq_shardable(self.ax, self.global_seq_len()))
 
     @property
     def data_shards(self) -> int:
@@ -95,8 +125,11 @@ class PCtx:
 
     @property
     def seq_shards(self) -> int:
-        """How many ranks split a sequence (the token axis)."""
-        return 1 if self.mesh is None else self.mesh.size("mx")
+        """How many ranks split a sequence: hecaton's token axis, megatron's
+        model axis under the seq residual, else 1."""
+        if self.use_hecaton:
+            return self.mesh.size("mx")
+        return self.mesh.size(MODEL) if self.seq_sharded else 1
 
     @property
     def comm_dtype(self) -> str:
@@ -139,6 +172,9 @@ class PCtx:
             return HEC.ffn_block(x, w1.to(x.dtype), w2.to(x.dtype),
                                  act_fn=ref.EPILOGUE_ACTS[act],
                                  w1b=None if w1b is None else w1b.to(x.dtype), **self.grid_kwargs())
+        if self.use_megatron:
+            return MEG.ffn(self, x, w1.to(x.dtype), w2.to(x.dtype), act,
+                           None if w1b is None else w1b.to(x.dtype))
         x2 = _rows(x)
         if w1b is not None:
             h = self.ops.gated_matmul(x2, w1.to(x.dtype), w1b.to(x.dtype), act=act)
@@ -146,20 +182,32 @@ class PCtx:
             h = _rows(self._proj(x2, w1, act))
         return self._proj(h, w2).reshape(*x.shape[:-1], w2.shape[1])
 
-    def mixer_in_many(self, x: torch.Tensor, *ws: torch.Tensor):
-        """Several mixer-in projections of the same residual entry (Q/K/V);
-        on the grid each is ``hecaton.mixer_in`` (full sequence, hidden over
-        the grid)."""
+    def mixer_in(self, x: torch.Tensor, w: torch.Tensor):
+        """Projection into a token mixer: the full sequence, hidden over the
+        grid."""
         if self.use_hecaton:
             from repro_torch.core import hecaton as HEC
-            return tuple(HEC.mixer_in(x, w.to(x.dtype), **self.grid_kwargs()) for w in ws)
-        return tuple(self._proj(x, w) for w in ws)
+            return HEC.mixer_in(x, w.to(x.dtype), **self.grid_kwargs())
+        if self.use_megatron:
+            return MEG.col_parallel(self, x, w.to(x.dtype))
+        return self._proj(x, w)
+
+    def mixer_in_many(self, x: torch.Tensor, *ws: torch.Tensor):
+        """Several mixer-in projections of the same residual entry (Q/K/V):
+        on the hecaton grid each is ``hecaton.mixer_in``; megatron's seq
+        layout gathers the sequence once for all of them
+        (``megatron.col_parallel_shared``)."""
+        if self.use_megatron:
+            return MEG.col_parallel_shared(self, x, tuple(w.to(x.dtype) for w in ws))
+        return tuple(self.mixer_in(x, w) for w in ws)
 
     def mixer_out(self, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """Projection out of a token mixer (back to the canonical tiling)."""
+        """Projection out of a token mixer (back to the canonical layout)."""
         if self.use_hecaton:
             from repro_torch.core import hecaton as HEC
             return HEC.mixer_out(y, w.to(y.dtype), **self.grid_kwargs())
+        if self.use_megatron:
+            return MEG.row_parallel(self, y, w.to(y.dtype))
         return self._proj(y, w)
 
     def small_proj(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -172,11 +220,14 @@ class PCtx:
         """Final projection to vocab logits; ``w`` is [d, V]: a contiguous
         matrix in serving, in training the untied head or the transposed
         view of the tied table, which the tile kernel reads in place.  On
-        the grid one seq-scatter linear (tokens over ``my``, vocab over
-        ``mx``)."""
+        the hecaton grid one seq-scatter linear (tokens over ``my``, vocab
+        over ``mx``); under megatron a column-parallel linear (the full
+        sequence, vocab over ``model``)."""
         if self.use_hecaton:
             from repro_torch.core import hecaton as HEC
             return HEC.linear_seq_scatter(x, w.to(x.dtype), **self.grid_kwargs())
+        if self.use_megatron:
+            return MEG.col_parallel(self, x, w.to(x.dtype))
         return self._proj(x, w)
 
     # ------------------------------------------------------------------
@@ -184,21 +235,33 @@ class PCtx:
     # ------------------------------------------------------------------
     def embed(self, table: torch.Tensor, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
         """Embedding lookup; on the grid the vocab-parallel ``embed_2d``
-        (ids [B, S/mx], table [V/mx, H/my] -> canonical [B, S/mx, H/my])."""
-        if self.use_hecaton:
+        (hecaton: ids [B, S/mx], table [V/mx, H/my] -> canonical [B, S/mx,
+        H/my]; megatron: table [V/n, H] over ``model``, ids and output
+        token-sharded under the seq layout, else whole)."""
+        if self.mesh is not None:
             from repro_torch.core import hecaton as HEC
-            return HEC.embed_2d(ids, table, compute_dtype=compute_dtype, **self.grid_kwargs())
+            if self.use_hecaton:
+                return HEC.embed_2d(ids, table, compute_dtype=compute_dtype,
+                                    **self.grid_kwargs())
+            return HEC.embed_2d(ids, table, t_ax=MODEL, compute_dtype=compute_dtype,
+                                seq_sharded=self.seq_sharded, **self.grid_kwargs())
         return L.apply_embed({"table": table}, ids, compute_dtype)
 
     def head_weight(self, table: torch.Tensor, dtype) -> torch.Tensor:
-        """The tied head [H, V/my] in ``dtype`` from this rank's table block
-        [V/mx, H/my]: the table gathered over ``my`` and ``mx`` and cut to
-        this rank's vocab chunk of the fused loss's ``(None, my)`` layout
-        (the reshard GSPMD does for ``table.T``).  One device: the
-        transposed view of the table."""
-        if not self.use_hecaton:
+        """The tied head in ``dtype`` from this rank's table block.  Hecaton
+        with the fused loss: [H, V/my] from the block [V/mx, H/my], the
+        table gathered over ``my`` and ``mx`` and cut to this rank's vocab
+        chunk of the loss's ``(None, my)`` layout (the reshard GSPMD does
+        for ``table.T``).  Otherwise the block's transposed view: on one
+        device the table's, under megatron [H, V/n] (``(model, None)``
+        transposed is the head's ``(None, model)``), for hecaton's
+        seq-scatter head [H/my, V/mx]."""
+        if not self.use_hecaton or not self.pcfg.fused_loss:
             return table.to(dtype).t()
-        full = comm.all_gather(comm.all_gather(table.to(dtype), "my", 1), "mx", 0)
+        full = table.to(dtype)
+        for ax, dim in (("my", 1), ("mx", 0)):
+            OV.log_route("head_weight", "all_gather", "bulk", ax, comm.axis_size(ax), full)
+            full = comm.all_gather(full, ax, dim)
         n, j = self.mesh.size("my"), self.mesh.axis_index("my")
         v = full.shape[0] // n
         return full[j * v:(j + 1) * v].t()
@@ -238,23 +301,25 @@ class PCtx:
         """q, k, v [B, S, heads*dh] out of the mixer-in projections -> this
         rank's [B, S, heads, dh] with the kv heads its q heads read.
 
-        On the grid the projections come out hidden over (mx, my), so rank
-        r = (i, j) holds q heads r*nh/N .. (r+1)*nh/N - 1 ("heads fully
-        sharded", the only attention layout ported).  When the kv heads
-        split over the grid too, GQA stays local; otherwise K and V are
-        gathered over the grid and the kv heads of this rank's group kept
-        (what GSPMD does for the ``repeat_kv`` constraint)."""
+        On the grid the projections come out hidden over the model axes
+        ((mx, my), or megatron's ``model``: the same index), so rank r of
+        them holds q heads r*nh/N .. (r+1)*nh/N - 1 ("heads fully sharded",
+        the only attention layout ported).  When the kv heads split over
+        the grid too, GQA stays local; otherwise K and V are gathered over
+        the model axes and the kv heads of this rank's group kept (what
+        GSPMD does for the ``repeat_kv`` constraint)."""
         dh, nh, nkv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
         B, S = q.shape[:2]
-        if not self.use_hecaton:
+        if self.mesh is None:
             return (q.reshape(B, S, nh, dh), k.reshape(B, S, nkv, dh),
                     v.reshape(B, S, nkv, dh))
         lay = self.attn_layout(nh, global_batch)
         if lay.note != "heads fully sharded":
             raise NotImplementedError(f"attention layout {lay.note!r} is not ported; the "
-                                      "grid step takes heads that split over mx x my")
-        N = self.mesh.size(("mx", "my"))
-        r = self.mesh.axis_index(("mx", "my"))
+                                      "grid step takes heads that split over the model axes")
+        maxes = self.ax.model_axes
+        N = self.mesh.size(maxes)
+        r = self.mesh.axis_index(maxes)
         nq, g = nh // N, nh // nkv
         q = q.reshape(B, S, nq, dh)
         if nkv % N == 0:
@@ -264,8 +329,9 @@ class PCtx:
         kv0 = r * nq // g
 
         def pick(t):
-            full = comm.all_gather(comm.all_gather(t, "my", 2), "mx", 2)
-            return full.reshape(B, S, nkv, dh)[:, :, kv0:kv0 + 1]
+            for a in reversed(maxes):                # the inner axis first
+                t = comm.all_gather(t, a, 2)
+            return t.reshape(B, S, nkv, dh)[:, :, kv0:kv0 + 1]
         return q, pick(k), pick(v)
 
     # ------------------------------------------------------------------

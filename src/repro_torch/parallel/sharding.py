@@ -1,13 +1,17 @@
-"""Layout rules of the hecaton grid and the attention layout solver.
+"""Layout rules of the grid's two strategies and the attention layout solver.
 
-A copy of what the grid step reads from ``repro/parallel/sharding.py``:
-``AxisInfo``/``axis_info``, ``AttnLayout``/``solve_attn_layout`` and
-``vocab_spec``.  A spec here is a tuple with one entry per array dim:
-``None``, an axis name, or a tuple of axis names (the JAX package's
-``PartitionSpec`` entries); ``parallel/specs.py`` turns one into the
-slice a rank holds.  The activation specs (``act_canonical``,
-``act_mixer``) have no counterpart: each grid op takes and returns its
-blocks in those layouts by construction (``core/hecaton.py``).
+A copy of what the grid steps read from ``repro/parallel/sharding.py``:
+``AxisInfo``/``axis_info`` (hecaton: tokens over ``mx``, hidden over
+``my``; megatron: the 1D ``model`` axis), ``AttnLayout``/
+``solve_attn_layout``, ``vocab_spec`` and ``seq_shardable`` (may the
+megatron residual cut a sequence).  A spec here is a tuple with one entry
+per array dim: ``None``, an axis name, or a tuple of axis names (the JAX
+package's ``PartitionSpec`` entries); ``parallel/specs.py`` turns one
+into the slice a rank holds.  The activation specs (``act_canonical``,
+``act_mixer``) have no counterpart, as the port writes no sharding
+constraint: each grid op takes and returns its blocks in those layouts
+by construction (``core/hecaton.py``, ``parallel/megatron.py``), and
+``config.ParallelConfig`` validates the residual layout.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-from repro_torch.launch.mesh import Grid
+from repro_torch.launch.mesh import MODEL, Grid
 
 Spec = Tuple                           # entries: None | axis | tuple of axes
 
@@ -57,11 +61,15 @@ class AxisInfo:
 
 
 def axis_info(grid: Optional[Grid], strategy: str = "hecaton") -> Optional[AxisInfo]:
+    """The axes of ``strategy`` over ``grid``: hecaton's (mx, my), or
+    megatron's one ``model`` axis (no token or hidden axis)."""
     if grid is None:
         return None
-    if strategy != "hecaton":
-        raise NotImplementedError(f"strategy {strategy!r} is not ported (ROADMAP queue 1)")
-    return AxisInfo(("data",), "mx", "my", ("mx", "my"), grid.sizes)
+    if strategy == "hecaton":
+        return AxisInfo(("data",), "mx", "my", ("mx", "my"), grid.sizes)
+    if strategy == "megatron":
+        return AxisInfo(("data",), None, None, (MODEL,), grid.sizes)
+    raise ValueError(f"strategy={strategy!r} not in ('hecaton', 'megatron')")
 
 
 @dataclass(frozen=True)
@@ -103,10 +111,23 @@ def solve_attn_layout(ax: AxisInfo, n_heads: int, batch_per_data: int) -> AttnLa
     return AttnLayout(ax.data_axes, (), "WARNING: attention replicated over model axes")
 
 
+def seq_shardable(ax: Optional[AxisInfo], seq_len: int) -> bool:
+    """Can a megatron residual of this (global) sequence extent shard over
+    the model axis?  One model axis of size > 1 that divides the sequence;
+    anything else (hecaton, decode's S = 1) is not, and the caller keeps
+    the replicated residual."""
+    if ax is None or ax.t_ax is not None:
+        return False
+    if len(ax.model_axes) != 1:
+        return False
+    n = ax.size(ax.model_axes[0])
+    return n > 1 and seq_len > 1 and seq_len % n == 0
+
+
 def vocab_spec(ax: Optional[AxisInfo]) -> Optional[Spec]:
     """Embedding table [V, H]."""
     if ax is None:
         return None
     if ax.t_ax is not None:
         return (ax.t_ax, ax.h_ax)
-    return ("model", None)
+    return (MODEL, None)

@@ -8,16 +8,17 @@ takes the place of ``lax.scan``.  Each microbatch's gradients come from
 summed in fp32; the graph, and with it the head's fp32 logits, is freed
 before the next microbatch runs.
 
-On the hecaton grid (``mesh`` a ``Grid``) every rank runs the step on its
-blocks: its parameter blocks (``parallel/specs.py``), its block of every
-microbatch (``specs.local_batch``).  The loss is global on every rank
-(the fused loss sums over all of them), so each rank differentiates
-``loss / world`` and holds its own contribution to each gradient; a
-leaf's gradient is then summed over the axes that replicate it (norm
-scales over every axis, every leaf over ``data``), which is the
-gradient reduction over ``data`` and GSPMD's implicit sums in one.  The
-global gradient norm for clipping and the guard is a ``psum`` over every
-rank, each replicated leaf counted once.  ZeRO-1: each data rank updates
+On the grid (``mesh`` a ``Grid``, either strategy) every rank runs the
+step on its blocks: its parameter blocks (``parallel/specs.py``), its
+block of every microbatch (``specs.local_batch``).  The loss is global
+on every rank (the loss sums over all of them), so each rank
+differentiates ``loss / world`` and holds its own contribution to each
+gradient; a leaf's gradient is then summed over the axes that replicate
+it (norm scales over every model axis, every leaf over ``data``), which
+is the gradient reduction over ``data`` and GSPMD's implicit sums in
+one.  The global gradient norm for clipping and the guard is a ``psum``
+over the strategy's axes (``data`` then ``mx``, ``my`` or ``model``: each
+rank once), each replicated leaf counted once.  ZeRO-1: each data rank updates
 its part of every leaf (``zero.state_spec``) and the parts are gathered
 over ``data``.
 """
@@ -69,7 +70,7 @@ def build_train_step(cfg: ModelConfig, pcfg: ParallelConfig, rc: RunConfig, *,
     grid step: params are this rank's blocks, ``opt_state`` comes from
     :func:`init_grid_opt_state` and ``batch`` is this rank's block
     (``specs.local_batch``)."""
-    pctx = PCtx(mode="train", pcfg=pcfg, mesh=mesh, plain=plain)
+    pctx = PCtx(mode="train", pcfg=pcfg, mesh=mesh, plain=plain, seq_len=rc.seq_len)
     n_micro = pcfg.microbatches
     if mesh is not None:
         return _grid_step(cfg, pcfg, rc, pctx, total_steps, compute_dtype, guard)
@@ -114,7 +115,7 @@ def init_train_state(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 def _leaf_info(params, mesh: Grid, pcfg: ParallelConfig):
     """Per leaf (flatten order): its spec, the axes that replicate it, and
     the dim along which ZeRO-1 splits it over ``data`` (or None)."""
-    ax = specs.shd.axis_info(mesh)
+    ax = specs.shd.axis_info(mesh, pcfg.strategy)
     out = []
     for path, t in lm.flatten(params):
         spec = specs.leaf_spec(path, t.dim(), ax, pcfg.fused_loss)
@@ -122,7 +123,7 @@ def _leaf_info(params, mesh: Grid, pcfg: ParallelConfig):
                 for d, e in zip(t.shape, tuple(spec) + (None,) * (t.dim() - len(spec)))]
         mspec = zero.state_spec(spec, full, ("data",), mesh.sizes)
         ddim = zero.data_dim(spec, mspec) if mesh.size("data") > 1 else None
-        out.append((spec, specs.replicated_axes(spec, mesh), ddim))
+        out.append((spec, specs.replicated_axes(spec, mesh, pcfg.strategy), ddim))
     return out
 
 
@@ -142,17 +143,18 @@ def init_grid_opt_state(params, mesh: Grid, pcfg: ParallelConfig) -> adamw.AdamS
     return adamw.init(parts)
 
 
-def grid_global_norm(grads, info) -> torch.Tensor:
+def grid_global_norm(grads, info, axes) -> torch.Tensor:
     """sqrt of the sum of squares over every element of the global
     gradient: each rank's blocks, a replicated leaf divided by the ranks
-    that hold it, then a psum over every axis."""
+    that hold it, then a psum over ``axes``, the strategy's
+    (``specs.grid_axes``), which hold every rank once."""
     sq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
     for g, (_, repl, _) in zip(grads, info):
         n = 1
         for a in repl:
             n *= comm.axis_size(a)
         sq = sq + torch.sum(torch.square(g.float())) / n
-    return torch.sqrt(_raw_psum_axes(sq, ("data", "mx", "my")))
+    return torch.sqrt(_raw_psum_axes(sq, axes))
 
 
 def _raw_psum_axes(x, axes):
@@ -165,7 +167,12 @@ def _grid_step(cfg, pcfg, rc, pctx, total_steps, compute_dtype, guard):
     mesh = pctx.mesh
     n_micro = pcfg.microbatches
 
+    s_loc = rc.seq_len // pctx.seq_shards
+
     def train_step(params, opt_state, batch):
+        if batch["tokens"].shape[1] != s_loc:
+            raise ValueError(f"tokens {tuple(batch['tokens'].shape)}: this rank's block of a "
+                             f"{rc.seq_len}-token sequence holds {s_loc}")
         items = lm.flatten(params)
         paths, leaves = [p for p, _ in items], [t for _, t in items]
         info = _leaf_info(params, mesh, pcfg)
@@ -185,7 +192,7 @@ def _grid_step(cfg, pcfg, rc, pctx, total_steps, compute_dtype, guard):
             asum += metrics["aux"].detach()
         grads = [g / n_micro for g in gsum]
         del gsum
-        gnorm = grid_global_norm(grads, info)
+        gnorm = grid_global_norm(grads, info, specs.grid_axes(pcfg.strategy))
         p_parts = [_part(t.detach(), d, mesh) for t, (_, _, d) in zip(leaves, info)]
         g_parts = [_part(g, d, mesh) for g, (_, _, d) in zip(grads, info)]
         _, opt_state, om = adamw.update(lm.unflatten(paths, p_parts),

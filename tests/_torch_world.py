@@ -242,16 +242,16 @@ CUDA_RING_CASES = (
 )
 
 
-def cuda_ring_job(grid):
-    """Each ring kernel over the ``my`` ring (forward, and its backward
+def cuda_ring_job(grid, ax="my"):
+    """Each ring kernel over the ``ax`` ring (forward, and its backward
     through the transposed rings) against the plain route on the same
     inputs, on the bf16 wire (keyed by the case and dtype) and on the int8
     wire (the key and "int8"); on a ring of two, also the probe's time."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ring_matmul as RM
     dev = torch.device("cuda", torch.cuda.current_device())
-    n = grid.my
-    secs = RM.pingpong("my", 50) if n == 2 else None
+    n = grid.size(ax)
+    secs = RM.pingpong(ax, 50) if n == 2 else None
     res = {}
     for i, (kernel, xs, o, sd) in enumerate(CUDA_RING_CASES):
         ws = (n * xs[2] if kernel == "ag_matmul_contract" else xs[2], o)
@@ -265,13 +265,13 @@ def cuda_ring_job(grid):
                 ins = [t.detach().clone().requires_grad_(True) for t in (x, w, w1b)]
                 kw = dict(n=n, comm_dtype=wire, plain=plain)
                 if kernel == "ag_matmul":
-                    outs = (RM.ag_matmul(ins[0], ins[1], "my", **kw),)
+                    outs = (RM.ag_matmul(ins[0], ins[1], ax, **kw),)
                 elif kernel == "matmul_rs":
-                    outs = (RM.matmul_rs(ins[0], ins[1], "my", scatter_dim=sd, **kw),)
+                    outs = (RM.matmul_rs(ins[0], ins[1], ax, scatter_dim=sd, **kw),)
                 elif kernel == "matmul_rs_pair":
-                    outs = RM.matmul_rs_pair(*ins, "my", scatter_dim=sd, **kw)
+                    outs = RM.matmul_rs_pair(*ins, ax, scatter_dim=sd, **kw)
                 else:
-                    outs = (RM.ag_matmul_contract(ins[0], ins[1], "my", **kw),)
+                    outs = (RM.ag_matmul_contract(ins[0], ins[1], ax, **kw),)
                 used = ins if kernel == "matmul_rs_pair" else ins[:2]
                 gct = torch.Generator(device=dev).manual_seed(7 + grid.rank)
                 cts = [torch.randn(o_.shape, generator=gct, device=dev).to(dtype)
@@ -520,3 +520,188 @@ def ckpt_resave_job(grid, jax_dir, port_dir):
               for (p, t), (_, m) in zip(lm.flatten(state["params"]),
                                         lm.flatten(state["opt_state"].mu))}
     return dict(start=start, shapes=shapes)
+
+
+# ---------------------------------------------------------------------------
+# the megatron baseline (tests/test_torch_megatron.py)
+# ---------------------------------------------------------------------------
+
+# _jax_megatron_ref.OP_VARIANTS: (residual layout, overlap, wire)
+MEG_OP_VARIANTS = tuple((lay, ov, "bf16") for lay in ("seq", "replicated")
+                        for ov in ("none", "ring", "bidir", "fused")) + tuple(
+    (lay, ov, "int8") for lay in ("seq", "replicated") for ov in ("ring", "fused")) + (
+    ("seq-ragged", "fused", "bf16"),)
+MEG_OPS = ("col_parallel", "col_parallel_shared", "row_parallel", "ffn", "embed_2d",
+           "fused_lm_loss_seq")
+# _jax_megatron_ref.TRAIN_CASES: (mesh (data, model), residual, overlap, wire, fused_loss[,
+# strategy]): the hecaton case is its non-fused head loss on the (1, 4) world's 1x2x2 grid
+MEG_TRAIN_CASES = (((1, 4), "seq", "fused", "int8", True),
+                   ((1, 4), "seq", "fused", "bf16", False, "hecaton"),
+                   ((1, 4), "seq", "fused", "bf16", True),
+                   ((1, 4), "replicated", "fused", "bf16", True),
+                   ((1, 4), "seq", "ring", "bf16", False), ((2, 2), "seq", "fused", "bf16", True),
+                   ((2, 2), "seq", "none", "bf16", True), ((1, 4), "seq", "none", "bf16", True))
+MEG_WORLDS = {(1, 4): (1, 2, 2), (2, 2): (2, 1, 2)}
+
+
+def meg_variant_key(v):
+    return "-".join(v)
+
+
+def meg_strategy(c):
+    return c[5] if len(c) > 5 else "megatron"
+
+
+def meg_case_key(c):
+    (d, m), lay, ov, wire, fused = c[:5]
+    loss = "fused" if fused else "xent"
+    if meg_strategy(c) == "hecaton":
+        return "hecaton/{}x{}x{}/{}/{}/{}".format(*MEG_WORLDS[(d, m)], ov, wire, loss)
+    return f"{d}x{m}/{lay}/{ov}/{wire}/{loss}"
+
+
+def meg_op_names(v):
+    return tuple(o for o in MEG_OPS if o != "fused_lm_loss_seq" or v[0] == "seq")
+
+
+def meg_op_specs(name, seq):
+    """(input names and specs, output specs) of an op in a layout: the
+    residual token-sharded over ``model`` (seq) or whole (replicated)."""
+    res = ("data", "model", None) if seq else ("data", None, None)
+    tok = ("data", "model") if seq else ("data", None)
+    col, row, mix = (None, "model"), ("model", None), ("data", None, "model")
+    return {"col_parallel": ({"x": res, "w1": col}, (mix,)),
+            "col_parallel_shared": ({"x": res, "wq": col, "wk": col, "wv": col}, (mix,) * 3),
+            "row_parallel": ({"y": mix, "w2": row}, (res,)),
+            "ffn": ({"x": res, "w1": col, "w2": row, "w1b": col}, (res,)),
+            "embed_2d": ({"table": row}, (res,)),
+            "fused_lm_loss_seq": ({"x": res, "head": col}, ((),))}[name], tok
+
+
+def meg_copies(spec, grid):
+    """How many ranks hold each element of an array of this spec."""
+    from repro_torch.parallel import specs
+    n = 1
+    for a in specs.replicated_axes(spec, grid, "megatron"):
+        n *= grid.size(a)
+    return n
+
+
+def megatron_job(grid, in_path, with_ops):
+    """The megatron ops under each variant (``with_ops``: on the (1, 4)
+    world) and the step cases of this world's mesh: each op's output
+    blocks and the gradients of sum(out * ct) (a gradient summed over the
+    ranks that hold its input whole, a cotangent split over the ranks
+    that hold the output whole), the routes; each step case's losses,
+    routes and (rank 0) gathered parameters."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.core import hecaton as HEC
+    from repro_torch.core import overlap as OV
+    from repro_torch.parallel import megatron as MEG
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.context import PCtx
+    z = np.load(in_path)
+    res = {}
+    if with_ops:
+        inp = {k[len("op/in/"):]: z[k] for k in z.files if k.startswith("op/in/")}
+        for v in MEG_OP_VARIANTS:
+            lay, ov, wire = v
+            ragged = lay == "seq-ragged"
+            sfx = "_r" if ragged else ""
+            T = inp["ids" + sfx].shape[1]
+            pcfg = ParallelConfig(strategy="megatron", data=grid.data, mx=grid.mx, my=grid.my,
+                                  overlap=ov, comm_dtype=wire, residual=lay.split("-")[0])
+            pctx = PCtx(mode="train", pcfg=pcfg, mesh=grid, seq_len=T)
+            seq = pctx.seq_sharded
+            tok = None                        # this op's token spec, set below
+            fns = {
+                "col_parallel": lambda x, w: (MEG.col_parallel(pctx, x, w),),
+                "col_parallel_shared": lambda x, *ws: MEG.col_parallel_shared(pctx, x, ws),
+                "row_parallel": lambda y, w: (MEG.row_parallel(pctx, y, w),),
+                "ffn": lambda x, w1, w2, w1b: (MEG.ffn(pctx, x, w1, w2, "silu", w1b),),
+                "embed_2d": lambda table: (HEC.embed_2d(
+                    _local(inp["ids" + sfx], tok, grid), table, t_ax="model",
+                    compute_dtype=torch.float32, seq_sharded=seq, overlap=ov,
+                    comm_dtype=wire),),
+                "fused_lm_loss_seq": lambda x, head: (torch.stack(MEG.fused_lm_loss_seq(
+                    pctx, x, head, _local(inp["labels" + sfx], tok, grid),
+                    _local(inp["mask" + sfx], tok, grid))),),
+            }
+            OV.clear_routes()
+            for name in meg_op_names(v):
+                (ins_spec, outs_spec), tok = meg_op_specs(name, seq)
+                ins = [_local(inp[k + (sfx if k in ("x", "y") else "")], s, grid)
+                       .requires_grad_(True) for k, s in ins_spec.items()]
+                outs = fns[name](*ins)
+                ct = z[f"op/ct/{'ragged/' if ragged else ''}{name}"]
+                cts = np.split(ct, np.cumsum([inp[k].shape[1] for k in ("wq", "wk")]), -1) \
+                    if name == "col_parallel_shared" else [ct]
+                loss = sum(torch.sum(o * _local(c, s, grid) / meg_copies(s, grid))
+                           for o, c, s in zip(outs, cts, outs_spec))
+                grads = torch.autograd.grad(loss, ins)
+                grads = [_sum_replicated_meg(g, s, grid).numpy()
+                         for g, s in zip(grads, ins_spec.values())]
+                res[f"op/{meg_variant_key(v)}/{name}"] = (
+                    [o.detach().numpy() for o in outs], grads)
+            res[f"routes/{meg_variant_key(v)}"] = OV.route_table()
+            res[f"gate/{meg_variant_key(v)}/seq_loss_ok"] = MEG.seq_loss_ok(
+                pctx, T, inp["head"].shape[1])
+            res[f"gate/{meg_variant_key(v)}/seq_shardable"] = shd.seq_shardable(pctx.ax, T)
+    res["train"] = megatron_train_job(grid, z)
+    return res
+
+
+def _sum_replicated_meg(g, spec, grid):
+    from repro_torch.parallel import comm, specs
+    for ax in specs.replicated_axes(spec, grid, "megatron"):
+        g = comm.raw_psum(g, ax)
+    return g
+
+
+def megatron_train_job(grid, z):
+    from repro_torch import bridge
+    from repro_torch.config import ParallelConfig, RunConfig, get_smoke_config
+    from repro_torch.core import overlap as OV
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel import specs
+    from repro_torch.train import step as TS
+    tree = {}
+    for k in z.files:
+        if k.startswith("init/"):
+            d = tree
+            parts = k[len("init/"):].split("/")
+            for p in parts[:-1]:
+                d = d.setdefault(p, {})
+            d[parts[-1]] = z[k]
+    cfg = get_smoke_config("qwen3-0.6b")
+    B, S, steps, lr, nm = 4, 16, 2, 1e-3, 2
+    rc = RunConfig("t", "train", S, B, lr=lr, warmup_steps=1)
+    ds = SyntheticLM(cfg.vocab_size, S, B)
+    out = {}
+    for c in MEG_TRAIN_CASES:
+        (d, m), lay, ov, wire, fused = c[:5]
+        strat = meg_strategy(c)
+        if (d, m) != (grid.data, grid.mx * grid.my):
+            continue
+        pcfg = ParallelConfig(strategy=strat, data=grid.data, mx=grid.mx, my=grid.my,
+                              overlap=ov, comm_dtype=wire, residual=lay, microbatches=nm,
+                              grad_reduce_dtype="fp32", fused_loss=fused, remat="none")
+        params = bridge.shard_master_params_from_jax(tree, grid, device="cpu",
+                                                     fused_loss=fused, strategy=strat)
+        opt = TS.init_grid_opt_state(params, grid, pcfg)
+        step = TS.build_train_step(cfg, pcfg, rc, compute_dtype=torch.float32, mesh=grid)
+        OV.clear_routes()
+        losses = []
+        for s in range(steps):
+            lb = {k: torch.from_numpy(np.ascontiguousarray(v))
+                  for k, v in specs.local_batch(ds.batch_at(s), grid, nm, strat,
+                                                lay).items()}
+            params, opt, met = step(params, opt, lb)
+            losses.append(float(met["loss"]))
+        full = bridge.gather_master_params(params, grid, fused_loss=fused, strategy=strat)
+        out[meg_case_key(c)] = dict(
+            losses=losses, routes=OV.route_table(),
+            params={"/".join(p): t.numpy() for p, t in lm.flatten(full)}
+            if grid.rank == 0 else None)
+    return out

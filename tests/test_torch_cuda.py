@@ -472,14 +472,18 @@ def _world():
     return _torch_world
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["ring2", "ring4"])
+@pytest.fixture(scope="module", params=[((1, 1, 2), "my"), ((1, 1, 4), "my"),
+                                        ((1, 2, 2), "model")],
+                ids=["ring2", "ring4", "model4"])
 def ring_cuda(request):
     """Rings of two ranks, and of four, where each slot is reused within
-    one call (the credit protocol)."""
+    one call (the credit protocol); the last is megatron's ``model`` ring
+    of the 1x2x2 ranks (its own counters and slots)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; this host has none")
     TW = _world()
-    return TW.run_world((1, 1, request.param), TW.cuda_ring_job, timeout=600, device="cuda")
+    shape, ax = request.param
+    return TW.run_world(shape, TW.cuda_ring_job, (ax,), timeout=600, device="cuda")
 
 
 @pytest.fixture(scope="module")

@@ -33,7 +33,7 @@ def test_every_module_imports_without_jax():
             "repro_torch.core.quant", "repro_torch.checkpoint.wire",
             "repro_torch.checkpoint.manager", "repro_torch.checkpoint.grid",
             "repro_torch.runtime.guard", "repro_torch.runtime.fault",
-            "repro_torch.runtime.procs"} <= set(mods)
+            "repro_torch.runtime.procs", "repro_torch.parallel.megatron"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -71,4 +71,5 @@ def test_no_jax_or_repro_import(path):
 def test_checkpoint_modules_are_scanned():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"checkpoint/wire.py", "checkpoint/manager.py", "checkpoint/grid.py",
-            "runtime/guard.py", "runtime/fault.py", "runtime/procs.py"} <= scanned
+            "runtime/guard.py", "runtime/fault.py", "runtime/procs.py",
+            "parallel/megatron.py"} <= scanned

@@ -1197,6 +1197,39 @@ def test_guard_flags_build_jax_guard_config(flags):
     assert (args.ckpt_writer_timeout, args.ckpt_procs) == (5.0, False)
 
 
+def test_megatron_grid_checkpoint_and_guard_resume_as_jax(tmp_path):
+    """``--strategy megatron`` with ``--guard`` and the checkpoint flags: a
+    1x2x2 megatron grid saves step 2 through a writer fleet
+    (``--ckpt-procs``, two writers); JAX's ``CheckpointManager`` restores
+    it on one device and takes steps 2 and 3 with its guarded step; the
+    megatron grid resumed from the same directory (writer threads)
+    reports the same losses (1e-5) and skips nothing."""
+    d = str(tmp_path / "meg")
+    grid = ["--mx", "2", "--my", "2", "--strategy", "megatron", "--overlap", "fused", "--guard"]
+    _run(["--steps", "2", "--ckpt-dir", d, "--ckpt-every", "2", "--ckpt-procs",
+          "--ckpt-writers", "2"] + grid)
+    shutil.copytree(d, d + "_jax")                  # JAX reads an untouched copy
+    resumed, lines = _run(["--steps", "4", "--ckpt-dir", d, "--ckpt-every", "100"] + grid)
+    assert "restored checkpoint at step 2" in lines
+    cfg = jax_smoke("qwen3-0.6b")
+    p0 = jlm.init_params(cfg, jax.random.PRNGKey(0))
+    state, start = JM.CheckpointManager(d + "_jax").restore({"params": p0,
+                                                             "opt_state": JA.init(p0)})
+    assert start == 2
+    fn = jax.jit(jstep.build_train_step(
+        cfg, JParallel(strategy="hecaton", data=1, model=1, mx=1, my=1, microbatches=2),
+        JRun("custom", "train", 16, 4, lr=3e-4), None, total_steps=launch_train.LR_HORIZON,
+        compute_dtype=jnp.float32, guard=JGuard()))
+    ds = JSynthetic(cfg.vocab_size, 16, 4)
+    p, s, want = state["params"], state["opt_state"], []
+    for i in (2, 3):
+        p, s, m = fn(p, s, {k: jnp.asarray(v) for k, v in ds.batch_at(i).items()})
+        want.append(float(m["loss"]))
+    assert [st for st, _ in resumed["history"]] == [2, 3]
+    assert _close([x for _, x in resumed["history"]], want), (resumed["history"], want)
+    assert all(v == [0.0, 0.0] for v in resumed["skipped"].values())
+
+
 def test_launcher_blocklist_moves_the_data(tmp_path):
     bl = [2, 3]
     d = str(tmp_path / "ck")

@@ -230,6 +230,31 @@ def test_top_p_replay_is_deterministic_under_eviction(models):
     assert [gfin[i].tokens for i in range(2)] != runs["roomy"][0]   # really sampled
 
 
+def test_engine_eos_early_exit(models):
+    """EOS ends a sequence at the step that first samples it.  The EOS is a
+    token that first appears at a known step k >= 1 of a greedy run, so
+    the run with it must stop there with ``reason == "eos"`` and the
+    tokens up to and including it; the unchanged run ends on its budget.
+    (The JAX test takes its third token as EOS whether or not it appeared
+    earlier.)"""
+    _, _, cfg_t, params_t = models
+    prompt = _prompts(cfg_t.vocab_size)[0]
+    pool = TC.PoolConfig(2, 4, 13, MAXSEQ)
+
+    def run(eos):
+        eng = TE.DecodeEngine(cfg_t, params_t, pool, device="cpu",
+                              compute_dtype=torch.float32, eos_id=eos)
+        return eng.run([TE.Request(0, prompt, GEN)])[0]
+    base = run(None)
+    assert base.reason == "max_new" and len(base.tokens) == GEN
+    k = next(i for i in range(1, GEN) if base.tokens[i] not in base.tokens[:i])
+    fin = run(base.tokens[k])
+    assert fin.reason == "eos"
+    assert fin.tokens == base.tokens[:k + 1]
+    missing = next(t for t in range(cfg_t.vocab_size) if t not in base.tokens)
+    assert run(missing).tokens == base.tokens
+
+
 def test_sampling_entry_point():
     lg = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 64)).astype(np.float32))
     assert torch.equal(TS.sample(lg), torch.argmax(lg, -1).int())
