@@ -154,7 +154,27 @@ Phases, each fatal on failure:
    directory: the four ranks' loss histories identical, the first data
    index ``data_index(0, blocklist)``, the writers children of rank 0, and
    one card restoring the fleet-written step within 1e-3 of the grid;
-16. print one JSON line of per-kernel numbers, then the result line.
+16. ``grid_pipeline``: the inter-pod 1F1B pipeline through the launcher's
+   ``--pods 2 --pod-role pipeline``: full-width paper-tinyllama-1.1b (22
+   layers, d 2048, 32/4 heads of dh 64, d_ff 5632, vocab 32,000, untied
+   head; 11 layers a stage) on two one-rank stages sharing the card, bf16
+   over fp32 masters, batch 8 x 512 in 4 microbatches, remat fusion, 2
+   steps, beside the plain pipeline from the same parameters: every
+   step's loss and grad norm against it (1e-3, 1e-2), the first loss
+   against the single-device port (1e-3), each stage's executed order
+   against ``stage_order`` and its stash peak against min(p - s, m), the
+   tile matmul, the gate, the SwiGLU backward and attention forward and
+   backward launched on every rank, no rank launching the forward-only
+   product (the F ticks run the recompute's differentiable ops), every
+   attention launch on the tensor cores and every product and gate on
+   wgmma; the boundary bytes each
+   rank receives per step, and step ms (time-sliced: not a pipeline
+   speed); the kernels held at this model's shapes first (``case`` lines
+   off the ``kernels`` line's sums); then ``grid_pipeline_hecaton``, the
+   same pipeline over 1x1x2 hecaton stages (four ranks, ``overlap=
+   "fused"``, 4 layers, 1 step), each of the three ring kernels launched
+   on every rank, against its plain pipeline;
+17. print one JSON line of per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
@@ -355,6 +375,19 @@ RB_STEPS, RB_POISON, RB_EVERY, RB_SKIP_CAP = 8, (3, 4), 2, 2
 HANG_STEP, HANG_TIMEOUT_S, HANG_SLEEP_S = 5, 3.0, 4.0
 # grid_runtime: the blocklist in the grid's checkpoint directory
 GRID_BLOCKLIST, GRID_RUNTIME_STEPS = (0, 2), 2
+# the 1F1B pipeline (--pods 2 --pod-role pipeline): full-width
+# paper-tinyllama-1.1b (untied head; 22 layers, 11 a stage) on two one-rank
+# stages, batch 8 x 512 in 4 microbatches; then the composed run, hecaton
+# stages of 1x1x2 (four ranks) under the fused overlap at PIPE_HEC_LAYERS
+# layers.  Every stage rank must launch PIPE_KERNELS (the composed run's
+# every rank the ring kernels); PIPE_MICRO_BATCH x TRAIN_SEQ is a
+# microbatch, the shape the kernel cases hold
+PIPE_ARCH, PIPE_PODS, PIPE_MICRO, PIPE_STEPS = "paper-tinyllama-1.1b", 2, 4, 2
+PIPE_MICRO_BATCH = TRAIN_BATCH // PIPE_MICRO
+PIPE_HEC_GRID, PIPE_HEC_LAYERS, PIPE_HEC_STEPS = (1, 1, 2), 4, 1
+PIPE_KERNELS = ("tile_matmul", "gated_matmul", "swiglu_bwd", "flash_attention",
+                "flash_attention_bwd")
+PIPE_LABEL = "stage processes time-sliced on one card; not a pipeline speed"
 
 
 def log(*a):
@@ -808,6 +841,33 @@ def train_kernel_phase(cfg):
                               main=False)
     ok &= check_attention_bwd(results, gen, 2, 8, 2, 64, 256, bf, main=False)
     ok &= check_attention_bwd(results, gen, 2, 8, 2, 64, 256, bf, causal=False, main=False)
+    return results, ok
+
+
+def pipe_kernel_phase(cfg):
+    """The pipeline's kernels at the shapes full-width paper-tinyllama-1.1b
+    gives them (a microbatch of PIPE_MICRO_BATCH x TRAIN_SEQ tokens, 32/4
+    heads of dh 64, d_ff 5632, the untied head over vocab 32,000), off the
+    kernels line's sums (main False), so that its sums stay those of the
+    earlier shapes."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    nh, nkv, F_, V = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff, cfg.padded_vocab
+    M, bf, B = PIPE_MICRO_BATCH * TRAIN_SEQ, torch.bfloat16, PIPE_MICRO_BATCH
+    results, ok = [], True
+    for K, N in ((d, nh * dh), (d, nkv * dh), (F_, d)):
+        ok &= check_tile(results, gen, "NN", M, K, N, bf, main=False)
+    ok &= check_tile(results, gen, "NT", M, F_, d, bf, main=False)      # FFN-down dx
+    ok &= check_tile(results, gen, "TN", F_, M, d, bf, main=False)      # FFN-down dw
+    ok &= check_tile(results, gen, "NN", M, d, V, bf, torch.float32, main=False)   # head
+    ok &= check_tile(results, gen, "NT", M, V, d, bf, main=False)       # head dx
+    ok &= check_tile(results, gen, "TN", d, M, V, bf, main=False)       # head dw
+    ok &= check_matmul(results, gen, M, d, F_, bf, gated=True, act="silu", keep_ab=True,
+                       main=False)
+    ok &= check_swiglu_bwd(results, gen, M, F_, bf, main=False)
+    ok &= check_attention(results, gen, B, nh, nkv, dh, TRAIN_SEQ, TRAIN_SEQ, [0] * B,
+                          [TRAIN_SEQ] * B, bf, main=False, label="pipeline")
+    ok &= check_attention_bwd(results, gen, B, nh, nkv, dh, TRAIN_SEQ, bf, main=False)
     return results, ok
 
 
@@ -1563,6 +1623,83 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
     return ok, totals, losses[0], nop
 
 
+def grid_pipeline_phase(name="grid_pipeline", grid=(1, 1, 1), layers=0, steps=PIPE_STEPS,
+                        overlap="none", kernels=PIPE_KERNELS, wgmma=True):
+    """Train paper-tinyllama-1.1b (full width; ``layers`` cuts the depth)
+    as a 1F1B pipeline of PIPE_PODS stages on ``grid``-shaped pods through
+    the launcher's entry (``--pods --pod-role pipeline``), beside the plain
+    pipeline from the same parameters.  Gates: every step's loss and grad
+    norm against the plain run's, the first loss against the single-device
+    port's, each stage's executed order against ``stage_order`` and its
+    stash peak against ``min(p - s, m)``, each of ``kernels`` launched on
+    every rank, no rank launching the forward-only product and, with
+    ``wgmma``, every attention launch on the tensor cores and every product
+    and gate on wgmma."""
+    from repro_torch.parallel import pipeline as PP
+    torch.cuda.empty_cache()
+    d, mx, my = grid
+    args = launch_train.parser().parse_args([
+        "--arch", PIPE_ARCH, "--dtype", "bfloat16", "--device", DEV,
+        "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches", str(PIPE_MICRO),
+        "--layers", str(layers), "--steps", str(steps), "--pods", str(PIPE_PODS),
+        "--pod-role", "pipeline", "--data", str(d), "--mx", str(mx), "--my", str(my),
+        "--overlap", overlap, "--timeout", str(GRID_TIMEOUT_S)])
+    try:
+        r = launch_train.run_grid(args, log_fn=log, check_plain=True)   # the main path
+    except Exception as e:
+        log(f"{name} FAILED: {e}")
+        return False, {}
+    losses = [loss for _, loss in r["history"]]
+    gnorms, checks, pipe = r["grad_norms"], r["checks"], r["pipeline"]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    loss_rel = [rel(k, p) for k, p in zip(losses, checks["plain_losses"])]
+    gnorm_rel = [rel(k, p) for k, p in zip(gnorms, checks["plain_grad_norms"])]
+    single_rel = rel(losses[0], checks["single_step0_loss"])
+    launches = r["launches"]
+    order_ok = {rk: [tuple(t) for t in pipe["executed"][rk]] ==
+                [(t.kind, t.mb) for t in PP.stage_order(s, PIPE_PODS, PIPE_MICRO)]
+                for rk, s in pipe["stage"].items()}
+    stash_ok = {rk: pipe["max_stash"][rk] <= min(PIPE_PODS - s, PIPE_MICRO)
+                for rk, s in pipe["stage"].items()}
+    # the F ticks run the recompute's differentiable ops: no rank launches
+    # the forward-only product (row 1), which pipe_kernel_phase does not hold
+    fwd_only_ok = all(launches[k]["matmul"] == 0 for k in launches)
+    paths_ok = True
+    if wgmma:
+        for rk, pth in pipe["paths"].items():
+            for k in ("flash_attention", "flash_attention_bwd"):
+                c = pth["attention"][k]
+                paths_ok &= c["simt"] == 0 and c["wgmma"] == launches[rk][k] > 0
+            for k in ("matmul", "tile_matmul", "gated_matmul"):
+                c = pth["matmul"][k]
+                paths_ok &= c["wgmma"] == sum(c.values()) == launches[rk][k]
+    ok = (all(math.isfinite(x) for x in losses + gnorms) and len(loss_rel) == steps
+          and max(loss_rel) <= GRID_LOSS_TOL and single_rel <= GRID_LOSS_TOL
+          and len(gnorm_rel) == steps and max(gnorm_rel) <= GRID_GNORM_TOL
+          and all(order_ok.values()) and all(stash_ok.values()) and paths_ok and fwd_only_ok
+          and all(launches[k][n] > 0 for k in launches for n in kernels))
+    worst_leaf = max(checks["param_rel"], key=checks["param_rel"].get)
+    log(f"{name}_kernels " + json.dumps(launches))
+    log(f"{name}_paths " + json.dumps(dict(pipe["paths"], ok=paths_ok)))
+    log(f"{name} " + json.dumps(dict(
+        arch=PIPE_ARCH, layers=r["cfg"].num_layers, pods=PIPE_PODS,
+        stage_grid="x".join(map(str, grid)), ranks=r["world"], overlap=overlap,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=PIPE_MICRO, remat="fusion",
+        dtype="bfloat16", losses=losses, plain_losses=checks["plain_losses"],
+        loss_rel=loss_rel, grad_norms=gnorms, plain_grad_norms=checks["plain_grad_norms"],
+        gnorm_rel=gnorm_rel, single_step0_loss=checks["single_step0_loss"],
+        single_step0_rel=single_rel, tol_loss_rel=GRID_LOSS_TOL,
+        tol_gnorm_rel=GRID_GNORM_TOL,
+        param_rel_worst=dict(leaf=worst_leaf, rel=checks["param_rel"][worst_leaf]),
+        stage=pipe["stage"], executed=pipe["executed"], executed_ok=order_ok,
+        max_stash=pipe["max_stash"], stash_ok=stash_ok, launches=launches,
+        fwd_only_ok=fwd_only_ok,
+        boundary_bytes_per_step=pipe["boundary_bytes"],
+        step_ms=[1e3 * x for x in r["step_s"]], step_ms_note=PIPE_LABEL,
+        setup_s=r["setup_s"], wall_s=r["wall_s"], ok=ok)))
+    return ok, launches
+
+
 def _leaf_bytes(state):
     return sum(t.numel() * t.element_size() for t in ckpt_manager._leaf_paths(state).values())
 
@@ -2247,6 +2384,12 @@ def main(argv=None):
     ok_gc = grid_ckpt_phase()
     ok_rt = runtime_phase(ckpt_refs)
     ok_grt = grid_runtime_phase()
+    p_results, ok_pk = pipe_kernel_phase(get_config(PIPE_ARCH))
+    results += p_results
+    ok_gp, _ = grid_pipeline_phase()
+    ok_gph, _ = grid_pipeline_phase("grid_pipeline_hecaton", grid=PIPE_HEC_GRID,
+                                    layers=PIPE_HEC_LAYERS, steps=PIPE_HEC_STEPS,
+                                    overlap="fused", kernels=RING_KERNELS, wgmma=False)
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
     # serving run, the ring kernels' from the bf16 grid run and their int8
@@ -2284,7 +2427,8 @@ def main(argv=None):
                               ("grid_train_int8", ok_gq), ("grid_bidir", ok_gb),
                               ("grid_megatron", ok_gm),
                               ("ckpt", ok_c), ("grid_ckpt", ok_gc), ("runtime", ok_rt),
-                              ("grid_runtime", ok_grt),
+                              ("grid_runtime", ok_grt), ("pipe_kernels", ok_pk),
+                              ("grid_pipeline", ok_gp), ("grid_pipeline_hecaton", ok_gph),
                               ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]

@@ -64,6 +64,7 @@ OVERLAP_MODES = ("none", "ring", "bidir", "fused")
 COMM_DTYPES = ("bf16", "int8")
 STRATEGIES = ("hecaton", "megatron")
 RESIDUAL_LAYOUTS = ("seq", "replicated")
+POD_ROLES = ("data", "pipeline")
 
 
 @dataclass(frozen=True)
@@ -73,11 +74,12 @@ class ParallelConfig:
     are 1): hecaton's 2D tiling, or the megatron baseline's 1D ``model``
     axis of mx * my ranks with its residual layout; the overlap mode and
     wire dtype, and the step's microbatching, gradient rounding, remat and
-    fused loss.  The grid step always keeps its AdamW moments ZeRO-1
+    fused loss, and the pod axis (``pods``, ``pod_axis_role``: the 1F1B
+    pipeline).  The grid step always keeps its AdamW moments ZeRO-1
     sharded over data and solves the attention layout as the JAX
-    package's "auto".  ``strategy``, ``overlap``, ``comm_dtype`` and
-    ``residual`` are validated as the JAX package validates them: a typo
-    raises."""
+    package's "auto".  ``strategy``, ``overlap``, ``comm_dtype``,
+    ``residual``, ``pods``, ``pod_axis_role`` and ``microbatches`` are
+    validated as the JAX package validates them: a typo raises."""
     strategy: str = "hecaton"               # hecaton | megatron
     data: int = 1
     mx: int = 1
@@ -94,6 +96,12 @@ class ParallelConfig:
     # classic 1D layout); hecaton's tiling is token-sharded either way, and a
     # sequence the model ring cannot divide runs "replicated"
     residual: str = "seq"
+    # the pod axis in front of the grid (pods > 1): "pipeline" runs one
+    # contiguous stage of the block stack per pod under a 1F1B schedule
+    # (parallel/pipeline.py); "data", the JAX package's extra data
+    # parallelism over pods, is not ported (ROADMAP queue 1)
+    pods: int = 1
+    pod_axis_role: str = "data"             # data | pipeline
 
     def __post_init__(self):
         if self.strategy not in STRATEGIES:
@@ -104,6 +112,28 @@ class ParallelConfig:
             raise ValueError(f"overlap={self.overlap!r} not in {OVERLAP_MODES}")
         if self.comm_dtype not in COMM_DTYPES:
             raise ValueError(f"comm_dtype={self.comm_dtype!r} not in {COMM_DTYPES}")
+        if self.pod_axis_role not in POD_ROLES:
+            raise ValueError(f"pod_axis_role={self.pod_axis_role!r} not in {POD_ROLES}")
+        if self.pods < 1:
+            raise ValueError(f"pods={self.pods} must be >= 1")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches={self.microbatches} must be >= 1")
+        if self.pod_axis_role == "pipeline" and self.pods < 2:
+            raise ValueError("pod_axis_role='pipeline' requires pods > 1 "
+                             f"(got pods={self.pods}); use pod_axis_role='data' for "
+                             "single-pod meshes")
+
+    @property
+    def pipeline_enabled(self) -> bool:
+        """True when the pod axis runs 1F1B stages (``parallel/pipeline.py``)."""
+        return self.pod_axis_role == "pipeline" and self.pods > 1
+
+    @property
+    def pipeline_stages(self) -> int:
+        return self.pods if self.pipeline_enabled else 1
+
+    def with_(self, **overrides) -> "ParallelConfig":
+        return dataclasses.replace(self, **overrides)
 
 
 @dataclass(frozen=True)

@@ -1,4 +1,4 @@
-"""The data x mx x my grid of ranks.
+"""The (pod x) data x mx x my grid of ranks.
 
 Counterpart of ``repro/launch/mesh.py::make_small_mesh``: where the JAX
 package reshapes devices into a ``Mesh`` with axes ``("data", "mx",
@@ -18,6 +18,17 @@ place a rank; :data:`RING_AXES` adds ``model``, and the collectives
 (``parallel/comm.py``) give each of the four its group, counters and
 slots.  A hecaton step never names ``model``, a megatron step never
 names ``mx`` or ``my``.
+
+``pods`` (default 1) prepends the inter-package axis ``pod``, as
+``make_small_mesh(..., pods=p)`` prepends it to the JAX mesh: rank r is
+laid out row-major over (pod, data, mx, my), so a pod is a contiguous
+block of ``pod_world`` ranks.  The other axes' groups stay inside one
+pod, and the ``pod`` group links the ranks that share (data, mx, my)
+across pods (the pipeline's stage boundary, ``parallel/pipeline.py``).
+:meth:`Grid.pod_grid` is this rank's pod seen as a single-pod grid, the
+counterpart of ``pod_submeshes``: inside a stage the world looks exactly
+like a one-pod run.  ``pod`` is no ring axis: :data:`GROUP_AXES` adds it
+to :data:`RING_AXES` for the groups only.
 """
 
 from __future__ import annotations
@@ -28,6 +39,8 @@ from typing import Dict, Tuple
 AXES = ("data", "mx", "my")
 MODEL = "model"                        # megatron's 1D axis: (mx, my) row-major
 RING_AXES = AXES + (MODEL,)
+POD = "pod"                            # the inter-package axis (pipeline stages)
+GROUP_AXES = RING_AXES + (POD,)
 
 
 @dataclass(frozen=True)
@@ -36,21 +49,28 @@ class Grid:
     mx: int
     my: int
     rank: int = 0
+    pods: int = 1
 
     def __post_init__(self):
-        for a in AXES:
+        for a in AXES + ("pods",):
             if getattr(self, a) < 1:
                 raise ValueError(f"grid axis {a} must be >= 1, got {getattr(self, a)}")
         if not 0 <= self.rank < self.world:
             raise ValueError(f"rank {self.rank} outside a world of {self.world}")
 
     @property
-    def world(self) -> int:
+    def pod_world(self) -> int:
+        """Ranks in one pod."""
         return self.data * self.mx * self.my
 
     @property
+    def world(self) -> int:
+        return self.pods * self.pod_world
+
+    @property
     def sizes(self) -> Dict[str, int]:
-        return {"data": self.data, "mx": self.mx, "my": self.my, MODEL: self.mx * self.my}
+        return {"data": self.data, "mx": self.mx, "my": self.my, MODEL: self.mx * self.my,
+                POD: self.pods}
 
     def size(self, ax) -> int:
         """Size of one axis, or the product over a tuple of axes."""
@@ -64,12 +84,19 @@ class Grid:
         return self.sizes[ax]
 
     def coords_of(self, rank: int) -> Tuple[int, int, int]:
+        """(data, mx, my) of ``rank`` inside its pod."""
+        rank %= self.pod_world
         return rank // (self.mx * self.my), (rank // self.my) % self.mx, rank % self.my
 
     def _coords(self, rank: int) -> Dict[str, int]:
         c = dict(zip(AXES, self.coords_of(rank)))
         c[MODEL] = c["mx"] * self.my + c["my"]
+        c[POD] = rank // self.pod_world
         return c
+
+    def pod_grid(self) -> "Grid":
+        """This rank's pod as a one-pod grid (the same coordinates)."""
+        return Grid(self.data, self.mx, self.my, self.rank % self.pod_world)
 
     @property
     def coords(self) -> Dict[str, int]:
@@ -88,12 +115,14 @@ class Grid:
     def rank_at(self, **coords) -> int:
         """The rank at these coordinates (the others this rank's); a
         ``model`` index stands for its (mx, my) pair."""
-        c = dict(zip(AXES, self.coords_of(self.rank)), **coords)
+        mine = self._coords(self.rank)
+        c = dict({a: mine[a] for a in AXES + (POD,)}, **coords)
         if MODEL in coords:
             c["mx"], c["my"] = divmod(coords[MODEL], self.my)
-        return (c["data"] * self.mx + c["mx"]) * self.my + c["my"]
+        return c[POD] * self.pod_world + (c["data"] * self.mx + c["mx"]) * self.my + c["my"]
 
     def axis_ranks(self, ax: str, rank: int = None):
         """The ranks of ``rank``'s group along ``ax``, in axis-index order."""
-        base = dict(zip(AXES, self.coords_of(self.rank if rank is None else rank)))
+        c = self._coords(self.rank if rank is None else rank)
+        base = {a: c[a] for a in AXES + (POD,)}
         return [self.rank_at(**dict(base, **{ax: k})) for k in range(self.sizes[ax])]

@@ -28,6 +28,21 @@ scales (the fused route: the int8 variants of the ring kernels).  ``--layers`` c
 depth of the chosen arch.  The kernels are built in the launcher before
 the ranks start.
 
+``--pods N --pod-role pipeline`` (N > 1) runs the 1F1B pipeline
+(``parallel/pipeline.py``) as the JAX launcher's ``_train_pipeline``
+does: N x D*X*Y rank processes, rank (s, d, x, y) running stage s of the
+block stack on its pod's D x X x Y grid (either strategy), the
+stage-boundary activations and cotangents crossing over the ``pod``
+groups.  Its learning-rate horizon is ``--steps`` (the JAX pipeline's
+``total_steps=args.steps``); ``--ckpt-writers`` defaults to one writer
+per stage, pinned by ``stage_writer_map``, and the checkpoint holds the
+JAX pipeline layout (``checkpoint/grid.py``); the guard, watchdog and
+blocklist are wired as on the grid.  It ends with ``pipeline[N stages x
+(XxY)] final loss ...``.  On one card the stage processes take turns
+(time-slicing), so a run shows the function, not a pipeline speed.
+``--pod-role data`` with ``--pods > 1`` (the pod axis as more data
+parallelism) is not ported and raises.
+
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``--device cpu``
 runs the plain PyTorch versions (gloo carries the grid's data).
 
@@ -65,6 +80,8 @@ function.  The learning-rate schedule's horizon is ``LR_HORIZON``
         --comm-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
         --dtype bfloat16 --strategy megatron --data 1 --mx 2 --my 2 --overlap fused
+    PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinyllama-1.1b \\
+        --dtype bfloat16 --pods 2 --pod-role pipeline --batch 8 --seq 512 --microbatches 4
 """
 
 from __future__ import annotations
@@ -73,7 +90,7 @@ import argparse
 import os
 import time
 
-from repro_torch.config import COMM_DTYPES, OVERLAP_MODES, STRATEGIES
+from repro_torch.config import COMM_DTYPES, OVERLAP_MODES, POD_ROLES, STRATEGIES
 from repro_torch.runtime.guard import BLOCKLIST  # noqa: F401  (the sidecar's name)
 
 DTYPES = ("float32", "bfloat16")
@@ -100,6 +117,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--mx", type=int, default=1)
     ap.add_argument("--my", type=int, default=1)
+    ap.add_argument("--pods", type=int, default=1,
+                    help="packages; with --pod-role pipeline each pod runs one 1F1B stage of "
+                         "the block stack")
+    ap.add_argument("--pod-role", default="data", choices=POD_ROLES,
+                    help="what the pod axis does when --pods > 1 (only pipeline is ported)")
     ap.add_argument("--overlap", default="none", choices=OVERLAP_MODES,
                     help="grid collectives: bulk, ppermute rings (one way or both), or the "
                          "ring kernels")
@@ -113,7 +135,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-sync", action="store_true",
                     help="blocking saves (default: the async staged writer)")
     ap.add_argument("--ckpt-writers", type=int, default=0,
-                    help="logical checkpoint writers (0: 1)")
+                    help="logical checkpoint writers (0: one per pipeline stage, else 1)")
     ap.add_argument("--ckpt-quorum", type=int, default=0,
                     help="partial manifests required before a step publishes (0: all)")
     ap.add_argument("--ckpt-no-verify", action="store_true",
@@ -143,21 +165,30 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _stages(args) -> int:
+    return args.pods if args.pod_role == "pipeline" else 1
+
+
 def _ckpt_config(args):
     from repro_torch.config import CheckpointConfig
     return CheckpointConfig(every=args.ckpt_every, keep=args.ckpt_keep,
-                            async_=not args.ckpt_sync, writers=args.ckpt_writers or 1,
+                            async_=not args.ckpt_sync, writers=args.ckpt_writers or _stages(args),
                             quorum=args.ckpt_quorum or None, verify=not args.ckpt_no_verify,
                             writer_procs=args.ckpt_procs,
                             writer_timeout=args.ckpt_writer_timeout)
 
 
 def _make_manager(args, ccfg):
-    """(the run's checkpoint manager, its writer fleet or None).  The fleet
-    is spawned here, while the run sets up, not in the background of the
-    first timed steps."""
+    """(the run's checkpoint manager, its writer fleet or None).  A
+    pipeline's shards are pinned to writers by stage
+    (``pipeline.stage_writer_map``).  The fleet is spawned here, while the
+    run sets up, not in the background of the first timed steps."""
     from repro_torch.checkpoint.manager import make_manager
-    mgr = make_manager(args.ckpt_dir, ccfg)
+    writer_map = None
+    if _stages(args) > 1:
+        from repro_torch.parallel.pipeline import stage_writer_map
+        writer_map = stage_writer_map(ccfg.writers)
+    mgr = make_manager(args.ckpt_dir, ccfg, writer_map=writer_map)
     fleet = None
     if ccfg.writer_procs:
         fleet = mgr.fleet()
@@ -226,7 +257,7 @@ def _recording(step, grad_norms, lrs):
 
 def run(args, log_fn=print) -> dict:
     """Train as ``args`` describe; returns the run's history and times."""
-    if args.data * args.mx * args.my > 1:
+    if args.pods > 1 or args.data * args.mx * args.my > 1:
         return run_grid(args, log_fn=log_fn)
     import torch
     from repro_torch import resolve_device
@@ -240,7 +271,8 @@ def run(args, log_fn=print) -> dict:
     dev = resolve_device(args.device)
     cfg = _config(args)
     rc = RunConfig("custom", "train", args.seq, args.batch, lr=args.lr)
-    pcfg = ParallelConfig(microbatches=args.microbatches)
+    pcfg = ParallelConfig(microbatches=args.microbatches, pods=args.pods,
+                          pod_axis_role=args.pod_role)
     t0 = time.perf_counter()
     params, opt_state = TS.init_train_state(cfg, device=dev)
     ccfg = _ckpt_config(args)
@@ -301,13 +333,20 @@ def _check_grid_args(args) -> None:
         raise ValueError(f"strategy={args.strategy!r} not in {STRATEGIES}")
     OV.check_mode(args.overlap)
     Q.check_comm_dtype(args.comm_dtype)
+    if args.pods > 1 and args.pod_role != "pipeline":
+        raise NotImplementedError(
+            "--pod-role data with --pods > 1 (the pod axis joining the data axes) is not "
+            "ported yet; --pod-role pipeline runs the pods as 1F1B stages")
 
 
 def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
-    """Spawn the grid's ranks and train; returns rank 0's history, grad
-    norms and times with every rank's kernel launches and the bytes its
-    logged collectives received (``overlap.route_bytes``), and rank 0's
-    route table.  ``check_plain`` first has every rank train the same steps from
+    """Spawn the grid's ranks (a pipeline's: every stage's) and train;
+    returns rank 0's history, grad norms and times with every rank's
+    kernel launches and the bytes its logged collectives received
+    (``overlap.route_bytes``), and rank 0's route table; a pipeline adds
+    each rank's stage, executed order, stash peak, boundary bytes of the
+    last step, and attention and matmul launches per path.
+    ``check_plain`` first has every rank train the same steps from
     the same parameters through the plain versions on the grid (their
     losses and grad norms, and how far the kernels' final parameters lie
     from the plain run's), and rank 0 compute the first batch's loss
@@ -323,7 +362,7 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     if dev.type == "cuda":
         from repro_torch.kernels import build
         build.build_all()                       # once, before the ranks start
-    world = args.data * args.mx * args.my
+    world = args.pods * args.data * args.mx * args.my
     opts = dict(vars(args), check_plain=check_plain)
     t0 = time.perf_counter()
     results = comm.run_ranks(_grid_rank, world, (opts, comm.temp_init_file()), args.timeout)
@@ -332,9 +371,14 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     r0 = results[0]
     cfg = _config(args)
     h = r0["history"]
-    if h:
+    if h and args.pods > 1:
+        log_fn(f"pipeline[{args.pods} stages x ({args.mx}x{args.my})] final loss "
+               f"{h[-1][1]:.4f} (first {h[0][1]:.4f})")
+    elif h:
         log_fn(f"grid[{args.data}x{args.mx}x{args.my}] final loss {h[-1][1]:.4f} "
                f"(first {h[0][1]:.4f})")
+    pipe = {k: {r: results[r][k] for r in sorted(results)}
+            for k in ("stage", "executed", "max_stash", "boundary_bytes", "paths")}
     return {"cfg": cfg, "history": h, "grad_norms": r0["grad_norms"], "lrs": r0["lrs"],
             "histories": {r: results[r]["history"] for r in sorted(results)},
             "skipped": {r: results[r]["skipped"] for r in sorted(results)},
@@ -344,7 +388,7 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
             "launches": {r: results[r]["launches"] for r in sorted(results)},
             "checks": r0["checks"], "world": world, "ckpt": r0["ckpt"],
             "nop_bytes": {r: OV.route_bytes(results[r]["routes"]) for r in sorted(results)},
-            "wall_s": time.perf_counter() - t0}
+            "pipeline": pipe, "wall_s": time.perf_counter() - t0}
 
 
 def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
@@ -355,6 +399,8 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     from repro_torch.config import ParallelConfig, RunConfig
     from repro_torch.core import overlap as OV
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import Grid
     from repro_torch.models import lm
@@ -367,7 +413,8 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     dev = resolve_device(a.device)
     if dev.type == "cpu":
         torch.set_num_threads(1)
-    grid = Grid(a.data, a.mx, a.my, rank)
+    grid = Grid(a.data, a.mx, a.my, rank, pods=a.pods)
+    pipe = a.pods > 1
     t0 = time.perf_counter()
     w = comm.init_world(grid, device=dev, init_file=init_file)
     try:
@@ -377,17 +424,31 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
         rc = RunConfig("custom", "train", a.seq, a.batch, lr=a.lr)
         pcfg = ParallelConfig(strategy=a.strategy, data=a.data, mx=a.mx, my=a.my,
                               overlap=a.overlap, comm_dtype=a.comm_dtype,
-                              microbatches=a.microbatches)
+                              microbatches=a.microbatches, pods=a.pods,
+                              pod_axis_role=a.pod_role)
+        gcfg = _guard_cfg(a)
         full = lm.init_master_params(cfg, seed=0, device=dev)
-        params = specs.shard_tree(full, specs.param_specs(full, grid, strategy=a.strategy),
-                                  grid)
-        for _, t in lm.flatten(params):
-            t.requires_grad_(True)
+        runner = None
+        if pipe:
+            # the JAX pipeline's lr horizon is the run's length
+            from repro_torch.parallel import pipeline as PP
+            runner, kstep = PP.build_pipeline_train_step(cfg, pcfg, rc, grid,
+                                                         total_steps=a.steps,
+                                                         compute_dtype=dtype, guard=gcfg)
+            params = runner.place_params(full)
+        else:
+            params = specs.shard_tree(full, specs.param_specs(full, grid, strategy=a.strategy),
+                                      grid)
+            for _, t in lm.flatten(params):
+                t.requires_grad_(True)
+            kstep = TS.build_train_step(cfg, pcfg, rc, total_steps=LR_HORIZON,
+                                        compute_dtype=dtype, mesh=grid, guard=gcfg)
         ds = SyntheticLM(cfg.vocab_size, a.seq, a.batch)
 
         def local(step):
-            lb = specs.local_batch(ds.batch_at(step), grid, a.microbatches, a.strategy,
-                                   pcfg.residual)
+            b = ds.batch_at(step)
+            lb = (runner.local_batch(b) if pipe else
+                  specs.local_batch(b, grid, a.microbatches, a.strategy, pcfg.residual))
             return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in lb.items()}
 
         checks, plain_params = {}, None
@@ -400,9 +461,14 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
             init = [t.detach().clone() for _, t in lm.flatten(params)]
             plain_params = lm.unflatten([p for p, _ in lm.flatten(params)],
                                         [t.clone().requires_grad_(True) for t in init])
-            pstep = TS.build_train_step(cfg, pcfg, rc, compute_dtype=dtype, mesh=grid,
-                                        plain=True)
-            popt = TS.init_grid_opt_state(plain_params, grid, pcfg)
+            if pipe:
+                prunner, pstep = PP.build_pipeline_train_step(
+                    cfg, pcfg, rc, grid, total_steps=a.steps, compute_dtype=dtype, plain=True)
+                popt = prunner.init_opt(plain_params)
+            else:
+                pstep = TS.build_train_step(cfg, pcfg, rc, compute_dtype=dtype, mesh=grid,
+                                            plain=True)
+                popt = TS.init_grid_opt_state(plain_params, grid, pcfg)
             checks["plain_losses"], checks["plain_grad_norms"] = [], []
             for s in range(a.steps):
                 plain_params, popt, m = pstep(plain_params, popt, local(s))
@@ -413,7 +479,8 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
         del full
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        opt_state = TS.init_grid_opt_state(params, grid, pcfg)
+        opt_state = (runner.init_opt(params) if pipe
+                     else TS.init_grid_opt_state(params, grid, pcfg))
         state = {"params": params, "opt_state": opt_state}
         del params, opt_state
         ccfg = _ckpt_config(a)
@@ -427,16 +494,16 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
             if fleet is not None:
                 writer_ppids = {s: _parent_pid(pid) for s, pid in fleet.pids().items()}
             t1 = time.perf_counter()
-            state, start = CG.restore(a.ckpt_dir, state, grid, pcfg, mgr, ccfg.verify)
+            if pipe:
+                state, start = CG.restore_pipeline(a.ckpt_dir, state, runner, mgr, ccfg.verify)
+            else:
+                state, start = CG.restore(a.ckpt_dir, state, grid, pcfg, mgr, ccfg.verify)
             if start:
                 restore_s = time.perf_counter() - t1
-                lines.append(f"restored checkpoint at step {start}")
-            ckpt = CG.GridCheckpointer(mgr, grid, pcfg)
+                lines.append(f"restored {'pipeline ' if pipe else ''}checkpoint at step {start}")
+            ckpt = CG.GridCheckpointer(mgr, grid, pcfg, runner)
         # every rank runs the same guard on the same values (the loss and
         # the grad norm are global), so all of them skip or raise together
-        gcfg = _guard_cfg(a)
-        kstep = TS.build_train_step(cfg, pcfg, rc, total_steps=LR_HORIZON, compute_dtype=dtype,
-                                    mesh=grid, guard=gcfg)
         grad_norms, lrs, skipped = [], [], []
         step = _recording(kstep, grad_norms, lrs)
         if gcfg is not None:
@@ -468,8 +535,14 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
                                       / (q.detach() - t0).norm().clamp_min(1e-30))
                 for (path, k), (_, q), t0 in zip(lm.flatten(state["params"]),
                                                  lm.flatten(plain_params), init)}
+        paths = {"attention": {k: dict(v) for k, v in FA.IMPL_LAUNCHES.items()},
+                 "matmul": {k: dict(v) for k, v in MM.IMPL_LAUNCHES.items()}}
         comm.barrier()
         return {"history": state["history"], "grad_norms": grad_norms, "lrs": lrs,
+                "stage": grid.axis_index("pod"), "paths": paths,
+                "executed": [(t.kind, t.mb) for t in runner.executed] if pipe else None,
+                "max_stash": runner.max_stash if pipe else None,
+                "boundary_bytes": runner.boundary_bytes if pipe else None,
                 "skipped": skipped, "first_data_index": dix(start),
                 "pids": {"rank": os.getpid(), "writer_parents": writer_ppids},
                 "step_s": state["step_s"], "setup_s": setup_s,

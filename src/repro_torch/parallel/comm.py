@@ -46,11 +46,20 @@ derived ``model`` (``launch/mesh.RING_AXES``): each of size > 1 gets its
 gloo groups, and on CUDA its ring counters at ``64 c`` in the flag
 region and its two receive slots (c its index in ``RING_AXES``), so a
 ring of any size on any of them has its own hop count and memory.
+
+The pipeline's ``pod`` axis (``launch/mesh.POD``) gets gloo groups only:
+:func:`raw_psum` over it (the global norm across stages) goes through
+the bulk region like any bulk collective, and :func:`pod_exchange` is
+the stage-boundary hop, a point-to-point copy between the ranks of one
+``pod`` group (gloo's ``isend``/``irecv`` on the CPU; on CUDA the sender
+publishes through its bulk region and the receiver copies out of it
+between two barriers of the group), so it needs no ring slots.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import tempfile
 from dataclasses import dataclass, field
@@ -61,7 +70,7 @@ import torch.distributed as dist
 
 from repro_torch.core import quant as Q
 from repro_torch.kernels import build
-from repro_torch.launch.mesh import RING_AXES, Grid
+from repro_torch.launch.mesh import GROUP_AXES, POD, RING_AXES, Grid
 
 # symmetric buffer layout (bytes), the same on every rank
 FLAGS_BYTES = 4096                 # per ring axis c: landed at 64c, credit at 64c + 8
@@ -102,6 +111,7 @@ class World:
     # of a ring: SPMD order)
     hops: Dict[str, int] = field(default_factory=lambda: {a: 0 for a in RING_AXES})
     probes: int = 0                    # ping-pong probes run (their counters grow)
+    exchanges: int = 0                 # pod_exchange calls (the gloo tags)
 
     @property
     def cuda(self) -> bool:
@@ -122,7 +132,8 @@ def init_world(grid: Grid, *, device="cpu", init_file: Optional[str] = None,
     """Join the world of ``grid`` as ``grid.rank``: the gloo process group
     (rendezvous through a ``FileStore`` at ``init_file``, which every rank
     of the world names), one gloo group per line of each axis (megatron's
-    ``model`` included), and on CUDA the symmetric buffers."""
+    ``model`` and the pipeline's ``pod`` included; axes of size 1 open
+    none), and on CUDA the symmetric buffers."""
     global _WORLD
     import datetime
     dev = torch.device(device)
@@ -136,7 +147,7 @@ def init_world(grid: Grid, *, device="cpu", init_file: Optional[str] = None,
                                 world_size=grid.world,
                                 timeout=datetime.timedelta(seconds=timeout_s))
     w = World(grid, dev)
-    for ax in RING_AXES:
+    for ax in GROUP_AXES:
         if grid.size(ax) == 1:
             continue
         seen = set()
@@ -352,29 +363,32 @@ def _sync():
         torch.cuda.current_stream(w.device).synchronize()
 
 
-def _bulk_rounds(src: torch.Tensor, ax: str, read) -> None:
+def _bulk_rounds(src: Optional[torch.Tensor], ax: str, read, *, numel: int = 0,
+                 dtype=None) -> None:
     """CUDA bulk exchange: ``src`` (1-D, contiguous) is published through
     this rank's bulk region in rounds of at most ``BULK_BYTES``; after each
     round's barrier ``read(off, cnt, views)`` gets every group member's
-    part as ``views[k]`` (k the axis index)."""
+    part as ``views[k]`` (k the axis index).  A rank with nothing to send
+    passes ``src=None`` with the ``numel`` and ``dtype`` the others send."""
     w = world()
     ranks = w.grid.axis_ranks(ax)
-    elt = src.element_size()
+    if src is not None:
+        numel, dtype = src.numel(), src.dtype
+    elt = torch.empty((), dtype=dtype).element_size()
     cap = BULK_BYTES // elt
-    total = src.numel()
     off = 0
     while True:
-        cnt = min(cap, total - off)
-        if cnt > 0:
-            sym_view(w.grid.rank, BULK_OFFSET, cnt * elt, src.dtype).copy_(src[off:off + cnt])
+        cnt = min(cap, numel - off)
+        if src is not None and cnt > 0:
+            sym_view(w.grid.rank, BULK_OFFSET, cnt * elt, dtype).copy_(src[off:off + cnt])
         _sync()
         barrier(ax)
-        views = [sym_view(r, BULK_OFFSET, cnt * elt, src.dtype) for r in ranks]
+        views = [sym_view(r, BULK_OFFSET, cnt * elt, dtype) for r in ranks]
         read(off, cnt, views)
         _sync()
         barrier(ax)
         off += cnt
-        if off >= total:
+        if off >= numel:
             break
 
 
@@ -474,6 +488,35 @@ def raw_ppermute(x: torch.Tensor, ax: str, shift: int = 1) -> torch.Tensor:
         out[off:off + cnt].copy_(views[src_idx])
     _bulk_rounds(src, ax, read)
     return out.view(x.shape)
+
+
+def pod_exchange(out: Optional[torch.Tensor], dst: Optional[int], srcs: Sequence[int],
+                 shape, dtype) -> Dict[int, torch.Tensor]:
+    """Point-to-point copies along ``pod``: every rank of this rank's
+    ``pod`` group calls it together.  This rank sends ``out`` (or
+    nothing) to the pod ``dst`` and receives one tensor from each pod in
+    ``srcs``; every message of the call has ``shape`` and ``dtype``.
+    Returns {source pod: received tensor}."""
+    w = world()
+    w.exchanges += 1
+    if w.cuda:
+        numel = math.prod(shape)
+        got = {k: torch.empty(numel, dtype=dtype, device=w.device) for k in srcs}
+
+        def read(off, cnt, views):
+            for k in srcs:
+                got[k][off:off + cnt].copy_(views[k])
+        _bulk_rounds(out.contiguous().reshape(-1) if out is not None else None, POD, read,
+                     numel=numel, dtype=dtype)
+        return {k: t.view(shape) for k, t in got.items()}
+    rank_of = lambda k: w.grid.rank_at(**{POD: k})
+    got = {k: torch.empty(shape, dtype=dtype) for k in srcs}
+    reqs = [dist.irecv(got[k], rank_of(k), tag=w.exchanges) for k in srcs]
+    if out is not None:
+        reqs.append(dist.isend(out.contiguous(), rank_of(dst), tag=w.exchanges))
+    for r in reqs:
+        r.wait()
+    return got
 
 
 # ---------------------------------------------------------------------------

@@ -69,7 +69,13 @@ def build_train_step(cfg: ModelConfig, pcfg: ParallelConfig, rc: RunConfig, *,
     ``nonfinite`` under ``guard``), as 0-d tensors.  With ``mesh`` the
     grid step: params are this rank's blocks, ``opt_state`` comes from
     :func:`init_grid_opt_state` and ``batch`` is this rank's block
-    (``specs.local_batch``)."""
+    (``specs.local_batch``).  A pipeline config (``pcfg.pipeline_enabled``)
+    is refused: its step is ``parallel/pipeline.build_pipeline_train_step``."""
+    if pcfg.pipeline_enabled:
+        raise ValueError(
+            "pcfg.pipeline_enabled: use parallel/pipeline.build_pipeline_train_step for the "
+            "1F1B pipeline step (state is per-stage; this single-program builder cannot "
+            "express it)")
     pctx = PCtx(mode="train", pcfg=pcfg, mesh=mesh, plain=plain, seq_len=rc.seq_len)
     n_micro = pcfg.microbatches
     if mesh is not None:
@@ -143,18 +149,23 @@ def init_grid_opt_state(params, mesh: Grid, pcfg: ParallelConfig) -> adamw.AdamS
     return adamw.init(parts)
 
 
-def grid_global_norm(grads, info, axes) -> torch.Tensor:
-    """sqrt of the sum of squares over every element of the global
-    gradient: each rank's blocks, a replicated leaf divided by the ranks
-    that hold it, then a psum over ``axes``, the strategy's
-    (``specs.grid_axes``), which hold every rank once."""
+def grid_norm_sq(grads, info, axes) -> torch.Tensor:
+    """The sum of squares over every element of the global gradient: each
+    rank's blocks, a replicated leaf divided by the ranks that hold it,
+    then a psum over ``axes``, the strategy's (``specs.grid_axes``), which
+    hold every rank once."""
     sq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
     for g, (_, repl, _) in zip(grads, info):
         n = 1
         for a in repl:
             n *= comm.axis_size(a)
         sq = sq + torch.sum(torch.square(g.float())) / n
-    return torch.sqrt(_raw_psum_axes(sq, axes))
+    return _raw_psum_axes(sq, axes)
+
+
+def grid_global_norm(grads, info, axes) -> torch.Tensor:
+    """sqrt of :func:`grid_norm_sq`."""
+    return torch.sqrt(grid_norm_sq(grads, info, axes))
 
 
 def _raw_psum_axes(x, axes):

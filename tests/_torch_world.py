@@ -705,3 +705,296 @@ def megatron_train_job(grid, z):
             params={"/".join(p): t.numpy() for p, t in lm.flatten(full)}
             if grid.rank == 0 else None)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the 1F1B pipeline (parallel/pipeline.py): worlds of pods x (data, mx, my)
+# ---------------------------------------------------------------------------
+
+def run_pipeline_world(pods, shape, job, args=(), timeout=600.0):
+    """Run ``job(grid, *args)`` in every rank of a ``pods`` x (data, mx, my)
+    world on the CPU; returns {rank: result}."""
+    from repro_torch.parallel import comm
+    world = pods * shape[0] * shape[1] * shape[2]
+    return comm.run_ranks(_pipe_rank_main, world,
+                          (pods, shape, job, args, comm.temp_init_file()), timeout)
+
+
+def _pipe_rank_main(rank, pods, shape, job, args, init_file):
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import Grid
+    from repro_torch.parallel import comm
+    grid = Grid(*shape, rank, pods=pods)
+    comm.init_world(grid, device="cpu", init_file=init_file)
+    try:
+        result = job(grid, *args)
+        comm.barrier()
+        return result
+    finally:
+        comm.shutdown()
+
+
+def _np_tree(z, prefix):
+    out = {}
+    for k in z.files:
+        if k.startswith(prefix):
+            d = out
+            parts = k[len(prefix):].split("/")
+            for p in parts[:-1]:
+                d = d.setdefault(p, {})
+            d[parts[-1]] = z[k]
+    return out
+
+
+def _pipe_cfgs(kind):
+    from _pipeline_cases import NUM, RT
+    from repro_torch.config import ModelConfig, RunConfig
+    if kind == "num":
+        return (ModelConfig(name="pipe-test", family="dense", num_layers=NUM["layers"],
+                            d_model=NUM["d"], num_heads=NUM["heads"], num_kv_heads=NUM["kv"],
+                            d_ff=NUM["ff"], vocab_size=NUM["vocab"], qk_norm=True),
+                RunConfig("pipe", "train", NUM["seq"], NUM["batch"], lr=NUM["lr"],
+                          warmup_steps=NUM["warmup"]))
+    return (ModelConfig(name="guard-test", family="dense", num_layers=RT["layers"],
+                        d_model=RT["d"], num_heads=RT["heads"], num_kv_heads=RT["kv"],
+                        d_ff=RT["ff"], vocab_size=RT["vocab"], mlp_kind="swiglu"),
+            RunConfig("t", "train", RT["seq"], RT["batch"], lr=RT["lr"]))
+
+
+def _pipe_pcfg(grid, strategy="hecaton", overlap="none", residual="seq", micro=4):
+    from repro_torch.config import ParallelConfig
+    return ParallelConfig(strategy=strategy, data=grid.data, mx=grid.mx, my=grid.my,
+                          overlap=overlap, residual=residual, microbatches=micro,
+                          grad_reduce_dtype="fp32", remat="none", pods=grid.pods,
+                          pod_axis_role="pipeline")
+
+
+def _stage_full(runner, tree):
+    """A stage tree of this rank's blocks -> the stage's global arrays
+    (numpy), on the stage's rank 0; None elsewhere."""
+    from repro_torch.models import lm
+    from repro_torch.parallel import specs
+    sp = runner.param_specs(tree)
+    full = {".".join(p): specs.gather_full(t.detach(), specs.spec_of(sp, p)).numpy()
+            for p, t in lm.flatten(tree)}
+    return full if runner.stage_grid.rank == 0 else None
+
+
+def pipeline_num_job(grid, in_path, cases):
+    """{name: result} of the cases (of ``_pipeline_cases.CASES``) that run
+    on this world's shape."""
+    return {c[0]: _pipeline_num_case(grid, in_path, c) for c in cases}
+
+
+def _pipeline_num_case(grid, in_path, case):
+    """One case of ``_pipeline_cases.CASES``: the loss, this stage's global
+    gradients, the executed order and stash peak at the initial
+    parameters; the ``steps`` case also two optimizer steps (horizon 2)."""
+    from repro_torch.bridge import master_params_from_jax
+    from repro_torch.models import lm
+    from repro_torch.parallel import pipeline as PP
+    z = np.load(in_path)
+    name, pods, _, strategy, overlap, residual, micro = case
+    cfg, rc = _pipe_cfgs("num")
+    pcfg = _pipe_pcfg(grid, strategy, overlap, residual, micro)
+    runner, step = PP.build_pipeline_train_step(
+        cfg, pcfg, rc, grid, total_steps=2 if name == "steps" else 10_000,
+        compute_dtype=torch.float32)
+    sp = runner.place_params(master_params_from_jax(_np_tree(z, "init/"), device="cpu"))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in runner.local_batch(
+        {"tokens": z["batch/tokens"], "labels": z["batch/labels"]}).items()}
+    loss, grads = runner.loss_and_grads(sp, batch)
+    paths = [p for p, _ in lm.flatten(sp)]
+    out = {"stage": runner.stage, "loss": None if loss is None else float(loss),
+           "executed": [(t.kind, t.mb) for t in runner.executed],
+           "max_stash": runner.max_stash,
+           "grads": _stage_full(runner, lm.unflatten(paths, grads))}
+    if name == "steps":
+        opt = runner.init_opt(sp)
+        out["losses"], out["grad_norms"], out["lrs"] = [], [], []
+        for _ in range(2):
+            sp, opt, m = step(sp, opt, batch)
+            out["losses"].append(float(m["loss"]))
+            out["grad_norms"].append(float(m["grad_norm"]))
+            out["lrs"].append(float(m["lr"]))
+        out["params"] = _stage_full(runner, sp)
+    return out
+
+
+def _rt_world(grid, z, guard=None):
+    """The runtime replays' runner, step, fresh-state and batch makers."""
+    from _pipeline_cases import RT
+    from repro_torch.bridge import master_params_from_jax
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.parallel import pipeline as PP
+    cfg, rc = _pipe_cfgs("rt")
+    runner, step = PP.build_pipeline_train_step(cfg, _pipe_pcfg(grid, micro=RT["micro"]), rc,
+                                                grid, compute_dtype=torch.float32, guard=guard)
+    p0 = _np_tree(z, "rt_init/")
+    ds = SyntheticLM(RT["vocab"], RT["seq"], RT["batch"], seed=RT["seed"])
+
+    def fresh():
+        sp = runner.place_params(master_params_from_jax(p0, device="cpu"))
+        return {"params": sp, "opt_state": runner.init_opt(sp)}
+
+    def batch(i, nan=False):
+        b = ds.batch_at(i)
+        b["loss_mask"] = np.full((RT["batch"], RT["seq"]), np.nan if nan else 1.0, np.float32)
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in runner.local_batch(b).items()}
+    return runner, step, fresh, batch
+
+
+def _state_leaves(state):
+    from repro_torch.checkpoint import manager as M
+    return [torch.as_tensor(t).detach().clone() for t in M._leaf_paths(
+        {"params": state["params"], "opt_state": state["opt_state"]}).values()]
+
+
+def _clean(step, fresh, batch, total, bl):
+    """A run over the blocklist-filtered stream: (history, final leaves)."""
+    from repro_torch.runtime import guard as G
+    from repro_torch.train import loop as TL
+    st = TL.train(step, fresh(), (batch(G.data_index(s, bl)) for s in range(total)),
+                  num_steps=total, log_every=1000, log_fn=lambda *a: None)
+    return st["history"], _state_leaves(st)
+
+
+def pipeline_rt_job(grid, in_path, root, cases, ckpt_args):
+    """On the 2x(1x1x2) world: the numerics ``cases`` of its shape, the
+    runtime replays (:func:`_pipeline_rt`) and the checkpoints
+    (:func:`pipeline_ckpt_job` with ``ckpt_args``)."""
+    return {"num": pipeline_num_job(grid, in_path, cases), "rt": _pipeline_rt(grid, in_path, root),
+            "ckpt": pipeline_ckpt_job(grid, in_path, *ckpt_args)}
+
+
+def _pipeline_rt(grid, in_path, root):
+    """``check_guard.py``'s B2 and B3 and ``check_checkpoint.py
+    --pipeline-quorum`` on this world: rank 0 holds the (stage-pinned,
+    two-writer) manager, every rank runs ``run_supervised`` and the same
+    guard; each run's record, and whether its resumed steps and final
+    state equal (bit for bit) the port's clean run over the filtered
+    stream."""
+    import os
+    from _pipeline_cases import B_POISON, B_TOTAL, Q_TOTAL
+    from repro_torch.checkpoint import grid as CG
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.config import GuardConfig
+    from repro_torch.parallel import pipeline as PP
+    from repro_torch.runtime import guard as G
+    from repro_torch.runtime.fault import FailureInjector, run_supervised
+    from repro_torch.train import loop as TL
+    z = np.load(in_path)
+    out = {}
+    for tag, gkw, in_graph in (("B2", dict(grad_spike_factor=1e9, skip_cap=2, patience=99), True),
+                               ("B3", dict(loss_spike_factor=2.0, patience=2, skip_cap=999),
+                                False)):
+        gc = GuardConfig(**gkw)
+        runner, step, fresh, batch = _rt_world(grid, z, gc if in_graph else None)
+        d = os.path.join(root, tag)
+        mgr = (CheckpointManager(d, keep=5, writers=2, writer_map=PP.stage_writer_map(2))
+               if grid.rank == 0 else None)
+        ck = CG.GridCheckpointer(mgr, grid, runner.pcfg, runner)
+        restored_at, seen = [], []
+
+        def make_state(resume):
+            state, start = fresh(), 0
+            if resume is not None:
+                if mgr is not None:
+                    seen.append(list(mgr.all_steps()))
+                state, start = CG.restore_pipeline(d, state, runner, mgr, step=resume)
+                restored_at.append(start)
+            return state, start
+
+        def run_steps(state, start, inc):
+            bl = G.load_blocklist(d)
+            stream = (batch(G.data_index(s, bl), nan=G.data_index(s, bl) in B_POISON)
+                      for s in range(start, B_TOTAL))
+            return TL.train(step, state, stream, start_step=start, num_steps=B_TOTAL, ckpt=ck,
+                            ckpt_every=2, log_every=1000, guard=G.TrainingGuard(gc),
+                            data_index_fn=lambda s: G.data_index(s, bl),
+                            log_fn=lambda *a: None)
+
+        state, n = run_supervised(make_state, run_steps, ckpt=ck, sleep_fn=lambda _: None)
+        bl = G.load_blocklist(d)
+        want_hist, want_leaves = _clean(step, fresh, batch, B_TOTAL, bl)
+        got = dict(state["history"])
+        out[tag] = dict(history=state["history"], incarnations=n, restored_at=restored_at,
+                        seen0=seen[0] if seen else None, blocklist=bl,
+                        resume_bit_equal=all(got[s] == x for s, x in want_hist
+                                             if s >= restored_at[0]),
+                        state_bit_equal=all(torch.equal(a, b) for a, b in
+                                            zip(_state_leaves(state), want_leaves)))
+    # the pipeline-quorum crash-resume: writer 1 of step 4's save dies
+    runner, step, fresh, batch = _rt_world(grid, z)
+    d = os.path.join(root, "quorum")
+    mgr = (CheckpointManager(d, writers=2, writer_map=PP.stage_writer_map(2))
+           if grid.rank == 0 else None)
+    ck = CG.GridCheckpointer(mgr, grid, runner.pcfg, runner)
+    inj = FailureInjector(writer_fail_at={4: 1})
+    seen = []
+
+    def make_state(resume):
+        state, start = fresh(), 0
+        if resume is not None:
+            if mgr is not None:
+                seen.append(list(mgr.all_steps()))
+            state, start = CG.restore_pipeline(d, state, runner, mgr, step=resume)
+        return state, start
+
+    def run_q(state, start, inc):
+        return TL.train(step, state, (batch(s) for s in range(start, Q_TOTAL)),
+                        start_step=start, num_steps=Q_TOTAL, ckpt=ck, ckpt_every=2,
+                        log_every=1000, injector=inj, log_fn=lambda *a: None)
+
+    state, n = run_supervised(make_state, run_q, ckpt=ck, sleep_fn=lambda _: None)
+    want_hist, _ = _clean(step, fresh, batch, Q_TOTAL, [])
+    got = dict(state["history"])
+    writers = None
+    if mgr is not None:
+        import json
+        with open(os.path.join(d, "step_00000008", "MANIFEST.json")) as f:
+            writers = {k: v["writer"] for k, v in json.load(f)["manifest"].items()}
+    out["quorum"] = dict(history=state["history"], incarnations=n, seen0=seen[0] if seen else None,
+                         steps=mgr.all_steps() if mgr is not None else None, log=list(inj.log),
+                         writers=writers,
+                         resume_bit_equal=all(got[s] == x for s, x in want_hist if s >= 4))
+    return out
+
+
+def pipeline_ckpt_job(grid, in_path, jax_dir, port_dir, byte_dirs):
+    """The cross-package checkpoints on this world: JAX's pipeline
+    checkpoint in ``jax_dir`` restored and resumed; a run from the initial
+    parameters saving its own at step CKPT_STEPS into ``port_dir``; and
+    each (source, target, writers, quorum) of ``byte_dirs``: JAX's save of a
+    state restored and saved again by this world with that writer layout."""
+    from _pipeline_cases import CKPT_STEPS
+    from repro_torch.checkpoint import grid as CG
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.parallel import pipeline as PP
+    z = np.load(in_path)
+    runner, step, fresh, batch = _rt_world(grid, z)
+
+    def manager(d, writers=2, quorum=None):
+        return (CheckpointManager(d, writers=writers, quorum=quorum,
+                                  writer_map=PP.stage_writer_map(writers))
+                if grid.rank == 0 else None)
+
+    def fold(state, start, total, save_to=None):
+        p, o, losses = state["params"], state["opt_state"], []
+        for i in range(start, total):
+            if save_to is not None and i == CKPT_STEPS:
+                CG.GridCheckpointer(manager(save_to), grid, runner.pcfg, runner).save_async(
+                    i, {"params": p, "opt_state": o})
+            p, o, m = step(p, o, batch(i))
+            losses.append(float(m["loss"]))
+        return losses
+
+    st, start = CG.restore_pipeline(jax_dir, fresh(), runner, manager(jax_dir), step=CKPT_STEPS)
+    out = {"from_jax": fold(st, start, 2 * CKPT_STEPS),
+           "own": fold(fresh(), 0, 2 * CKPT_STEPS, save_to=port_dir)}
+    for src, dst, writers, quorum in byte_dirs:
+        st, s0 = CG.restore_pipeline(src, fresh(), runner, manager(src), step=None)
+        CG.GridCheckpointer(manager(dst, writers, quorum), grid, runner.pcfg, runner).save_async(
+            s0, st)
+    return out
