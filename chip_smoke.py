@@ -73,7 +73,7 @@ Phases, each fatal on failure:
    AG-matmul, on both wires, against their plain versions (``case`` lines
    with ``"n": 4``; off the ``kernels`` line's sums);
 9. ``grid_train``: the hecaton grid training step of full-width
-   qwen3-0.6b on a 1x2x2 grid of four rank processes sharing the card
+   qwen3-0.6b at 8 of its 28 layers on a 1x2x2 grid of four rank processes sharing the card
    (``overlap="fused"``, bf16 over fp32 masters, batch 8 x 512, 2
    microbatches, remat fusion, 3 steps) through the training launcher's
    grid entry: its route table, every rank's launches (each of the three
@@ -85,7 +85,7 @@ Phases, each fatal on failure:
    (over the plain run's update; reported), and step ms, which four
    time-sliced ranks on one card make no grid speed;
 10. ``grid_train_int8``: the same grid step on the int8 wire
-   (``--comm-dtype int8``, 2 steps, full width, 28 layers): every rank
+   (``--comm-dtype int8``, 2 steps, full width, 8 layers): every rank
    launches each of the three int8 ring-kernel variants, every step's
    loss and grad norm within 1e-3 and 1e-2 of the plain int8 grid, the
    first loss within 5e-2 of the bf16 wire's (JAX's QUANT_RTOL); the
@@ -98,7 +98,7 @@ Phases, each fatal on failure:
    own), against the plain grid;
 11b. ``grid_megatron``: the paper's baseline, ``--strategy megatron`` on
    the same four ranks (one ``model`` ring of four, the seq residual,
-   ``overlap="fused"``), full width and depth, bf16, batch 8 x 512, 2
+   ``overlap="fused"``), full width at 8 layers, bf16, batch 8 x 512, 2
    microbatches, 2 steps, through the launcher's grid entry: every step's
    loss and grad norm against the plain megatron grid (1e-3, 1e-2), the
    first loss against the single-device port (1e-3), every rank launching
@@ -174,7 +174,33 @@ Phases, each fatal on failure:
    same pipeline over 1x1x2 hecaton stages (four ranks, ``overlap=
    "fused"``, 4 layers, 1 step), each of the three ring kernels launched
    on every rank, against its plain pipeline;
-17. print one JSON line of per-kernel numbers, then the result line.
+17. ``grid_pod_data``: the pod axis as data parallelism through the
+   training launcher's ``--pods 2 --pod-role data`` over a 1x1x2 grid a
+   pod (four rank processes; the batch, the gradient sum and the ZeRO-1
+   moments over ``("pod", "data")``), the training cell's settings at
+   full width and 4 layers, ``overlap="fused"``, 2 steps: the
+   ``grid_train`` gates against the plain pod-data grid, every rank
+   launching the three ring kernels;
+18. ``serve_dense``: full-width qwen3-0.6b in fp32, each prompt of 64,
+   256, 512 and 512 tokens prefilled into its own dense KV cache
+   (``serve/step.build_prefill``) and decoded GEN tokens greedily; every
+   sequence's tokens must equal the paged engine's on the same prompts;
+19. ``serve_quant_kv``: the ``serve`` trace through ``--quant-kv`` (the
+   int8 paged arena): every request finishes; one int8 block is (128 +
+   4) / 256 of the bf16 pool's exactly; every K/V row the bf16 arena
+   holds, written on the card through ``quant_paged_write``, reads back
+   through ``quant_paged_gather`` within scale / 2, each scale max |row|
+   / 127 of its row; the first decode
+   tick's logits, teacher-forced on the same tokens, within a bound of
+   the bf16 arena's; decode tok/s beside the ``serve`` line's (both
+   host-bound);
+20. ``grid_serve``: full-width qwen3-0.6b served on the 1x2x2 grid of
+   four rank processes (hecaton, fused, bf16) through the serving
+   launcher's grid entry: a prefill of 4 x 512 into sharded dense caches
+   (the ring kernels) and 16 decode ticks (the 1D layout) teacher-forced
+   on the one-card dense path's greedy tokens; every step's logits on
+   every rank within a bound of that path's;
+21. print one JSON line of per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
@@ -218,7 +244,7 @@ from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.context import PCtx  # noqa: E402
 from repro_torch.runtime import fault as rt_fault  # noqa: E402
 from repro_torch.runtime import guard as rt_guard  # noqa: E402
-from repro_torch.serve.cache import CachePool, PoolConfig  # noqa: E402
+from repro_torch.serve.cache import CachePool, PoolConfig, dense_cache_bytes  # noqa: E402
 from repro_torch.train import loop as train_loop  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
 
@@ -312,6 +338,10 @@ MEG_RING_CASES = (
 PROBE_ROUNDS = 200
 GRID = (1, 2, 2)
 GRID_STEPS = 3
+# the depth of grid_train, grid_train_int8 and grid_megatron (cut from 28
+# to keep the script's time; every layer runs the same kernels, and the
+# three share one depth, as their loss and NoP-byte comparisons need)
+GRID_LAYERS = 8
 GRID_TIMEOUT_S = 900
 # the kernels' grid against the plain versions' grid (and the first loss
 # against the single-device port): bf16 sums in other orders
@@ -323,7 +353,7 @@ GRID_LABEL = "4 ranks time-sliced on one card; not a grid speed"
 INT8_STEPS, QUANT_RTOL = 2, 0.05
 # bidir: a short run at cut depth (it runs no kernel of its own)
 BIDIR_LAYERS, BIDIR_STEPS = 4, 1
-# megatron (the paper's baseline) on GRID's ranks: full depth, 2 steps; every
+# megatron (the paper's baseline) on GRID's ranks: GRID_LAYERS, 2 steps; every
 # rank must launch these kernels
 MEG_STEPS = 2
 MEG_KERNELS = ("matmul_rs", "ag_matmul", "tile_matmul", "gated_matmul", "flash_attention",
@@ -388,6 +418,35 @@ PIPE_HEC_GRID, PIPE_HEC_LAYERS, PIPE_HEC_STEPS = (1, 1, 2), 4, 1
 PIPE_KERNELS = ("tile_matmul", "gated_matmul", "swiglu_bwd", "flash_attention",
                 "flash_attention_bwd")
 PIPE_LABEL = "stage processes time-sliced on one card; not a pipeline speed"
+# the pod axis as data parallelism: --pods 2 --pod-role data over a 1x1x2
+# grid a pod (four ranks), the training cell's settings, 2 steps at
+# POD_DATA_LAYERS layers (the batch, gradient sum and moments over the
+# pods do not depend on depth)
+POD_DATA_PODS, POD_DATA_GRID, POD_DATA_STEPS = 2, (1, 1, 2), 2
+POD_DATA_LAYERS = BIDIR_LAYERS
+# the dense KV cache: full-width qwen3-0.6b in fp32, each prompt prefilled
+# into its own dense cache and decoded GEN tokens greedily, against the
+# one-card paged engine on the same prompts
+DENSE_PROMPT_LENS = (64, 256, 512, 512)
+# the int8 paged arena: the serve phase's trace through --quant-kv; one
+# int8 block against the bf16 arena's ((dh + 4) / (2 dh) at dh 128); the
+# first decode tick's logits, teacher-forced on the same tokens, against
+# the bf16 arena's: max |int8 - bf16| over max |bf16|
+QUANT_KV_RATIO = (128 + 4) / 256
+# the roundtrip's bound in scales: 1/2 (round to nearest) plus the fp32
+# roundings of x / scale and q * scale (|x| / scale <= 127, 2^-23 each);
+# each scale must be max |row| / 127 (in fp64) within one fp32 rounding
+QUANT_ROUND_SLACK = 127 * 2.0 ** -22
+QUANT_SCALE_RTOL = 2.0 ** -23
+QUANT_KV_LOGIT_TOL = 0.06                 # 0.0270 measured on an H100 80GB HBM3, 700 W
+HOST_BOUND = "host-bound: the host's per-op launch cost, not the card, sets decode tok/s"
+# serving on the rank grid: 1x2x2 (four ranks), hecaton, fused, bf16; one
+# prefill of GRID_SERVE_BATCH prompts of GRID_SERVE_PROMPT tokens, then
+# GRID_SERVE_TICKS decode ticks teacher-forced on the one-card dense path's
+# greedy tokens; each step's logits against that path's: max |grid - one
+# card| over max |one card|
+GRID_SERVE, GRID_SERVE_BATCH, GRID_SERVE_PROMPT, GRID_SERVE_TICKS = (1, 2, 2), 4, 512, 16
+GRID_SERVE_TOL = 0.05                     # 0.0248 measured on an H100 80GB HBM3, 700 W
 
 
 def log(*a):
@@ -1219,6 +1278,9 @@ def profile_train(cfg, params, opt, rc, batch):
     log(events.table(sort_by="self_device_time_total", row_limit=40))
 
 
+SERVE_TOK_S = {}                          # decode tok/s of each arch's serve run
+
+
 def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNELS,
                 suffix=""):
     """Serve ``arch`` in bf16 through the serving entry point: 8 requests,
@@ -1246,6 +1308,7 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
             "decode_tokens", "decode_s", "decode_tok_s", "peak_blocks",
             "dense_equiv_blocks", "paged_peak_bytes", "dense_cache_bytes", "warmup_s")
     log(f"serve{suffix} " + json.dumps(dict({k: r[k] for k in keys}, arch=arch)))
+    SERVE_TOK_S[arch] = r["decode_tok_s"]
     log(f"kernels{suffix} " + json.dumps(launches))
     # every served (bf16) matmul and gate with M > 16 (a prefill) went
     # through wgmma, every one with M <= 16 (decode) through gemv: none on
@@ -1563,24 +1626,26 @@ def ring_kernels_phase():
 
 
 def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID_STEPS,
-                     layers=0, kernels=RING_KERNELS, bf16_step0=None, strategy="hecaton"):
-    """Train qwen3-0.6b (full width; ``layers`` cuts the depth) on a 1x2x2
-    grid of four rank processes through the training launcher's grid entry
-    under ``strategy`` and ``overlap`` on the ``wire``, beside the plain
-    grid from the same parameters.  Every rank must launch each of
-    ``kernels``.  On the bf16 wire the first loss is held against the
-    single-device port's (1e-3); on the int8 wire against it and
-    ``bf16_step0`` (the bf16 wire's first loss) to QUANT_RTOL.  Returns
-    (ok, launches summed over the ranks, the first loss, each rank's NoP
-    bytes per step by route)."""
+                     layers=GRID_LAYERS, kernels=RING_KERNELS, bf16_step0=None,
+                     strategy="hecaton", grid=GRID, pods=1):
+    """Train qwen3-0.6b (full width; ``layers`` cuts the depth) on a grid of
+    rank processes (``grid`` per pod; ``pods`` > 1 makes the pods more
+    data parallelism, ``--pod-role data``) through the training
+    launcher's grid entry under ``strategy`` and ``overlap`` on the
+    ``wire``, beside the plain grid from the same parameters.  Every rank
+    must launch each of ``kernels``.  On the bf16 wire the first loss is
+    held against the single-device port's (1e-3); on the int8 wire against
+    it and ``bf16_step0`` (the bf16 wire's first loss) to QUANT_RTOL.
+    Returns (ok, launches summed over the ranks, the first loss, each
+    rank's NoP bytes per step by route)."""
     torch.cuda.empty_cache()
-    d, mx, my = GRID
+    d, mx, my = grid
     args = launch_train.parser().parse_args([
         "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV, "--batch", str(TRAIN_BATCH),
         "--seq", str(TRAIN_SEQ), "--microbatches", str(TRAIN_MICRO), "--layers", str(layers),
         "--steps", str(steps), "--strategy", strategy, "--data", str(d), "--mx", str(mx),
-        "--my", str(my), "--overlap", overlap, "--comm-dtype", wire,
-        "--timeout", str(GRID_TIMEOUT_S)])
+        "--my", str(my), "--overlap", overlap, "--comm-dtype", wire, "--pods", str(pods),
+        "--pod-role", "data", "--timeout", str(GRID_TIMEOUT_S)])
     try:
         r = launch_train.run_grid(args, log_fn=log, check_plain=True)   # the main path
     except Exception as e:
@@ -1606,7 +1671,8 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
     log(f"{name}_routes " + json.dumps(r["routes"]))
     log(f"{name}_kernels " + json.dumps(launches))
     log(f"{name} " + json.dumps(dict(
-        arch=ARCH, layers=r["cfg"].num_layers, grid="x".join(map(str, GRID)),
+        arch=ARCH, layers=r["cfg"].num_layers,
+        grid=(f"{pods}x" if pods > 1 else "") + "x".join(map(str, grid)),
         strategy=strategy, overlap=overlap, comm_dtype=wire, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         microbatches=TRAIN_MICRO,
         remat="fusion", dtype="bfloat16",
@@ -2328,6 +2394,247 @@ def grid_runtime_phase():
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the rest of serving: the dense KV cache, the int8 paged arena, the grid
+# ---------------------------------------------------------------------------
+
+def _max_rel(a, b):
+    """max |a - b| over max |b|, in fp32 (tensors or numpy arrays)."""
+    a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def serve_dense_phase():
+    """Full-width qwen3-0.6b in fp32: each of DENSE_PROMPT_LENS prefilled
+    into its own dense cache (``serve/step.build_prefill``, one length a
+    batch) and decoded GEN tokens greedily (``build_decode_step``), then
+    the same prompts through the paged engine: every sequence's tokens
+    must be equal (JAX's ``test_decode_parity_dense_paged_teacher``), and
+    the dense run must launch the serving kernels."""
+    from repro_torch.serve import engine as SE
+    from repro_torch.serve import step as SRV
+    from repro_torch.serve.cache import blocks_for
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    dt = torch.float32
+    params = lm.init_params(cfg, seed=SEED, device=DEV, dtype=dt)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in DENSE_PROMPT_LENS]
+    max_seq = max(DENSE_PROMPT_LENS) + GEN
+    rc = RunConfig("serve", "decode", max_seq, 1)
+    prefill = SRV.build_prefill(cfg, rc=rc, compute_dtype=dt)
+    decode = SRV.build_decode_step(cfg, compute_dtype=dt)
+    dense, pre_ms, tick_ms = [], [], []
+    ops.reset_launches()
+    with torch.inference_mode():                  # the main path
+        for p in prompts:
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, {"tokens": torch.from_numpy(
+                p.astype(np.int64))[None].to(DEV)})
+            tok = SRV.greedy_sample(logits)
+            torch.cuda.synchronize()
+            pre_ms.append(1e3 * (time.perf_counter() - t0))
+            toks = [int(tok[0, 0])]
+            t0 = time.perf_counter()
+            for i in range(GEN - 1):
+                pos = torch.full((1, 1), len(p) + i, dtype=torch.int64, device=DEV)
+                logits, caches = decode(params, caches, tok.long(), pos)
+                tok = SRV.greedy_sample(logits)
+                toks.append(int(tok[0, 0]))
+            torch.cuda.synchronize()
+            tick_ms.append(1e3 * (time.perf_counter() - t0) / (GEN - 1))
+            dense.append(toks)
+    launches = dict(ops.LAUNCHES)
+    pool = PoolConfig(slots=len(prompts), block=BLOCK,
+                      num_blocks=len(prompts) * blocks_for(max_seq, BLOCK) + 1,
+                      max_seq=max_seq)
+    eng = SE.DecodeEngine(cfg, params, pool, device=DEV, compute_dtype=dt)
+    fin = eng.run([SE.Request(rid=i, prompt=p, max_new=GEN) for i, p in enumerate(prompts)])
+    paged = [fin[i].tokens for i in range(len(prompts))]
+    same = [a == b for a, b in zip(dense, paged)]
+    ok = all(same) and all(launches[k] > 0 for k in SERVE_KERNELS)
+    log("serve_dense " + json.dumps(dict(
+        arch=ARCH, dtype="float32", prompt_lens=DENSE_PROMPT_LENS, gen=GEN,
+        tokens_equal_paged=same, first_tokens=[t[:8] for t in dense],
+        prefill_ms=pre_ms, decode_tick_ms=tick_ms, decode_note=HOST_BOUND,
+        dense_cache_bytes=[dense_cache_bytes(cfg, 1, len(p) + GEN, dt) for p in prompts],
+        launches=launches,
+        ok=ok)))
+    del params, eng
+    return ok
+
+
+def _quant_gather_check(bf16_pool):
+    """Every K/V row the bf16 pool holds (all layers, the leased blocks),
+    written on the card through ``quant_paged_write`` into a fresh int8
+    arena and read back through ``quant_paged_gather`` in fp32: within
+    scale / 2 of the row (round to nearest; QUANT_ROUND_SLACK for the
+    fp32 roundings), per element, and each row's scale read back is
+    max |row| / 127 of the written row (QUANT_SCALE_RTOL), so a scale too
+    large cannot pass the rounding bound.  Returns (ok, the largest
+    |read - written| / scale, the largest |scale - max|row|/127| over
+    max|row|/127, rows checked)."""
+    from repro_torch.models import attention as ATT
+    worst, scale_worst, rows = 0.0, 0.0, 0
+    slots = [s for s in range(bf16_pool.pool.slots) if bf16_pool.active[s]]
+    table = torch.as_tensor(bf16_pool.table[slots], dtype=torch.int64, device=DEV)
+    lengths = torch.zeros(len(slots), dtype=torch.int32, device=DEV)
+    for arena in bf16_pool.arenas["attn"]:
+        for layer in arena:
+            n = [int(bf16_pool.lengths[s]) for s in slots]
+            vals = ATT.paged_gather(layer, table)[:, :max(n)]
+            q = torch.zeros(layer.shape, dtype=torch.int8, device=DEV)
+            sc = torch.ones(layer.shape[:-1] + (1,), dtype=torch.float32, device=DEV)
+            ATT.quant_paged_write(q, sc, vals, table, lengths)
+            got = ATT.quant_paged_gather(q, sc, table, torch.float32)[:, :max(n)]
+            scale = ATT.paged_gather(sc, table)[:, :max(n)]
+            for b, m in enumerate(n):
+                row = vals[b, :m].float()
+                err = (got[b, :m] - row).abs() / scale[b, :m]
+                worst = max(worst, float(err.max()))
+                amax = row.abs().amax(dim=-1, keepdim=True).double()
+                want = torch.where(amax > 0, amax / 127, torch.ones_like(amax))
+                scale_worst = max(scale_worst, float(
+                    ((scale[b, :m].double() - want).abs() / want).max()))
+                rows += m * layer.shape[2]
+    ok = worst <= 0.5 + QUANT_ROUND_SLACK and scale_worst <= QUANT_SCALE_RTOL
+    return ok, worst, scale_worst, rows
+
+
+def serve_quant_kv_phase(bf16_tok_s):
+    """The serve phase's trace through ``--quant-kv`` (bf16): every request
+    finishes with GEN tokens; one int8 block is QUANT_KV_RATIO of the bf16
+    pool's exactly; on the card ``quant_paged_gather`` reads back every
+    row the bf16 arena holds within scale / 2; the first decode tick's
+    logits, teacher-forced on the same tokens over the same prompts,
+    against the bf16 arena's (QUANT_KV_LOGIT_TOL).  Decode tok/s is
+    printed beside the ``serve`` line's, both host-bound."""
+    from repro_torch.serve import step as SRV
+    torch.cuda.empty_cache()
+    args = launch_serve.parser().parse_args([
+        "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV,
+        "--slots", str(SLOTS), "--block", str(BLOCK), "--requests", str(REQUESTS),
+        "--prompt-lens", ",".join(map(str, PROMPT_LENS)), "--gen", str(GEN),
+        "--seed", str(SEED), "--quant-kv"])
+    ops.reset_launches()
+    r = launch_serve.run(args)                    # the main path
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    fin = r["finished"]
+    ok_fin = len(fin) == REQUESTS and all(len(f.tokens) == GEN for f in fin.values())
+    ratio = r["block_bytes"] / r["dense_block_bytes"]
+    ok_ratio = ratio == QUANT_KV_RATIO
+    # teacher-forced: the same SLOTS prompts prefilled into a bf16 and an
+    # int8 pool, then one decode tick on the same tokens
+    cfg = get_config(ARCH)
+    params = r["engine"].params
+    rng = np.random.default_rng(SEED + 1)
+    lens = [PROMPT_LENS[i % len(PROMPT_LENS)] for i in range(SLOTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
+    pc = PoolConfig(slots=SLOTS, block=BLOCK, num_blocks=r["engine"].pool.pool.num_blocks,
+                    max_seq=r["engine"].pool.pool.max_seq)
+    prefill = SRV.build_prefill_paged(cfg, compute_dtype=torch.bfloat16)
+    decode = SRV.build_decode_step(cfg, compute_dtype=torch.bfloat16)
+    pools, logits = {}, {}
+    with torch.inference_mode():
+        for quant in (False, True):
+            pool = CachePool(cfg, pc, device=DEV, dtype=torch.bfloat16, quant_kv=quant)
+            for p in prompts:
+                slot = pool.admit(len(p))
+                prefill(params, pool.prefill_tree(slot),
+                        torch.from_numpy(p.astype(np.int64))[None].to(DEV), len(p))
+                pool.commit_prefill(slot, len(p))
+                pool.ensure_append(slot)
+            tokens = torch.arange(1, SLOTS + 1, device=DEV)[:, None] * 7
+            pos = torch.from_numpy(pool.lengths.astype(np.int64)[:, None]).to(DEV)
+            logits[quant] = decode(params, pool.decode_tree(), tokens, pos)[0]
+            pools[quant] = pool
+        ok_gather, worst, scale_worst, rows = _quant_gather_check(pools[False])
+    torch.cuda.synchronize()
+    rel = _max_rel(logits[True], logits[False])
+    argmax_same = bool((logits[True].argmax(-1) == logits[False].argmax(-1)).all())
+    ok = (ok_fin and ok_ratio and ok_gather and rel <= QUANT_KV_LOGIT_TOL
+          and all(launches[k] > 0 for k in SERVE_KERNELS))
+    log("serve_quant_kv " + json.dumps(dict(
+        arch=ARCH, dtype="bfloat16", sequences=r["sequences"], ticks=r["ticks"],
+        preemptions=r["preemptions"], prefill_ms_mean=r["prefill_ms_mean"],
+        decode_tok_s=r["decode_tok_s"], serve_bf16_decode_tok_s=bf16_tok_s,
+        decode_note=HOST_BOUND, block_bytes=r["block_bytes"],
+        bf16_block_bytes=r["dense_block_bytes"], ratio=ratio, want_ratio=QUANT_KV_RATIO,
+        paged_peak_bytes=r["paged_peak_bytes"], gather_worst_over_scale=worst,
+        scale_worst_rel=scale_worst, tol_scale_rel=QUANT_SCALE_RTOL, gather_rows=rows,
+        tick_logits_rel=rel, tol_tick_logits_rel=QUANT_KV_LOGIT_TOL,
+        tick_argmax_same=argmax_same, launches=launches, ok=ok)))
+    del pools, logits, r
+    return ok
+
+
+def grid_serve_phase():
+    """Full-width qwen3-0.6b served on a 1x2x2 grid of four rank processes
+    (hecaton, fused, bf16) through the serving launcher's grid entry:
+    ``build_prefill`` of GRID_SERVE_BATCH x GRID_SERVE_PROMPT into sharded
+    dense caches, then GRID_SERVE_TICKS decode ticks teacher-forced on the
+    one-card dense path's greedy tokens.  Every step's logits of every
+    rank against the one-card path's (GRID_SERVE_TOL); every rank must
+    launch the ring kernels in prefill and the serving kernels in
+    decode."""
+    from repro_torch.serve import step as SRV
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    dt = torch.bfloat16
+    plen, B, ticks = GRID_SERVE_PROMPT, GRID_SERVE_BATCH, GRID_SERVE_TICKS
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, size=(B, plen))
+    params = lm.init_params(cfg, seed=SEED, device=DEV, dtype=dt)
+    rc = RunConfig("serve", "decode", plen + ticks + 1, B)
+    prefill = SRV.build_prefill(cfg, rc=rc, compute_dtype=dt)
+    decode = SRV.build_decode_step(cfg, compute_dtype=dt)
+    want, teacher = [], []
+    with torch.inference_mode():
+        logits, caches = prefill(params, {"tokens": torch.from_numpy(prompts).to(DEV)})
+        want.append(logits.float().cpu())
+        for i in range(ticks):
+            tok = SRV.greedy_sample(logits)
+            teacher.append(tok[:, 0].cpu().numpy())
+            pos = torch.full((B, 1), plen + i, dtype=torch.int64, device=DEV)
+            logits, caches = decode(params, caches, tok.long(), pos)
+            want.append(logits.float().cpu())
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    d, mx, my = GRID_SERVE
+    args = launch_serve.parser().parse_args([
+        "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV, "--slots", str(B),
+        "--prompt-lens", str(plen), "--gen", str(ticks + 1), "--seed", str(SEED),
+        "--data", str(d), "--mx", str(mx), "--my", str(my), "--overlap", "fused",
+        "--timeout", str(GRID_TIMEOUT_S)])
+    try:
+        r = launch_serve.run_grid(args, teacher=np.stack(teacher, axis=1),
+                                  keep_logits=True)          # the main path
+    except Exception as e:
+        log(f"grid_serve FAILED: {type(e).__name__}: {e}")
+        return False, {}
+    rels = {}
+    for rank, got in r["logits"].items():
+        lo, hi = r["rows"][rank]
+        rels[rank] = [_max_rel(g, w[lo:hi]) for g, w in zip(got, want)]
+    worst = max(max(v) for v in rels.values())
+    launches = r["launches"]
+    ok_launch = all(lc["prefill"][k] > 0 for lc in launches.values() for k in
+                    ("ag_matmul", "matmul_rs")) and all(
+        lc["decode"][k] > 0 for lc in launches.values() for k in ("matmul", "flash_attention"))
+    ok = (len(rels) == d * mx * my and all(len(v) == ticks + 1 for v in rels.values())
+          and worst <= GRID_SERVE_TOL and ok_launch)
+    log("grid_serve_kernels " + json.dumps(launches))
+    log("grid_serve " + json.dumps(dict(
+        arch=ARCH, grid="x".join(map(str, GRID_SERVE)), strategy="hecaton", overlap="fused",
+        dtype="bfloat16", batch=B, prompt=plen, ticks=ticks,
+        logits_rel_prefill=[v[0] for v in rels.values()],
+        logits_rel_ticks_max=[max(v[1:]) for v in rels.values()], logits_rel_worst=worst,
+        tol_logits_rel=GRID_SERVE_TOL, prefill_ms=1e3 * r["prefill_s"],
+        decode_tok_s=r["decode_tok_s"], note=GRID_LABEL, wall_s=r["wall_s"], ok=ok)))
+    return ok, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2390,6 +2697,12 @@ def main(argv=None):
     ok_gph, _ = grid_pipeline_phase("grid_pipeline_hecaton", grid=PIPE_HEC_GRID,
                                     layers=PIPE_HEC_LAYERS, steps=PIPE_HEC_STEPS,
                                     overlap="fused", kernels=RING_KERNELS, wgmma=False)
+    ok_gpd, _, _, _ = grid_train_phase("grid_pod_data", steps=POD_DATA_STEPS,
+                                       layers=POD_DATA_LAYERS, grid=POD_DATA_GRID,
+                                       pods=POD_DATA_PODS)
+    ok_sd = serve_dense_phase()
+    ok_sq = serve_quant_kv_phase(SERVE_TOK_S.get(ARCH))
+    ok_gs, _ = grid_serve_phase()
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
     # serving run, the ring kernels' from the bf16 grid run and their int8
@@ -2429,6 +2742,8 @@ def main(argv=None):
                               ("ckpt", ok_c), ("grid_ckpt", ok_gc), ("runtime", ok_rt),
                               ("grid_runtime", ok_grt), ("pipe_kernels", ok_pk),
                               ("grid_pipeline", ok_gp), ("grid_pipeline_hecaton", ok_gph),
+                              ("grid_pod_data", ok_gpd), ("serve_dense", ok_sd),
+                              ("serve_quant_kv", ok_sq), ("grid_serve", ok_gs),
                               ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]

@@ -74,10 +74,10 @@ class ParallelConfig:
     are 1): hecaton's 2D tiling, or the megatron baseline's 1D ``model``
     axis of mx * my ranks with its residual layout; the overlap mode and
     wire dtype, and the step's microbatching, gradient rounding, remat and
-    fused loss, and the pod axis (``pods``, ``pod_axis_role``: the 1F1B
-    pipeline).  The grid step always keeps its AdamW moments ZeRO-1
-    sharded over data and solves the attention layout as the JAX
-    package's "auto".  ``strategy``, ``overlap``, ``comm_dtype``,
+    fused loss, and the pod axis (``pods``, ``pod_axis_role``: more data
+    parallelism, or the 1F1B pipeline).  The grid step always keeps its
+    AdamW moments ZeRO-1 sharded over the data axes and solves the
+    attention layout as the JAX package's "auto".  ``strategy``, ``overlap``, ``comm_dtype``,
     ``residual``, ``pods``, ``pod_axis_role`` and ``microbatches`` are
     validated as the JAX package validates them: a typo raises."""
     strategy: str = "hecaton"               # hecaton | megatron
@@ -98,8 +98,9 @@ class ParallelConfig:
     residual: str = "seq"
     # the pod axis in front of the grid (pods > 1): "pipeline" runs one
     # contiguous stage of the block stack per pod under a 1F1B schedule
-    # (parallel/pipeline.py); "data", the JAX package's extra data
-    # parallelism over pods, is not ported (ROADMAP queue 1)
+    # (parallel/pipeline.py); "data", the JAX package's default, makes the
+    # pods more data parallelism (the batch over ("pod", "data")), which the
+    # launcher runs as a data axis of pods * data ranks (train._grid_shape)
     pods: int = 1
     pod_axis_role: str = "data"             # data | pipeline
 

@@ -6,6 +6,21 @@ runs after a warm-up, and prefill latency and decode tok/s are reported
 separately.  ``--device`` defaults to ``cuda`` (the CUDA kernels);
 ``--device cpu`` runs the plain PyTorch versions.  The dense archs and
 ``mamba2-130m`` (the ssm family, prompts at their exact lengths) serve.
+``--quant-kv`` keeps the paged K/V as int8 with fp32 row scales and
+prints one block's bytes beside the compute dtype's arena's.
+
+``--data D --mx X --my Y`` (any of them > 1) serves on the rank grid
+instead: D*X*Y rank processes (as the training launcher spawns them;
+on a one-card machine they share card 0), each holding its blocks of
+the seeded parameters (``serve/step.grid_params``), prefill a batch of
+``--slots`` prompts of the longest ``--prompt-lens`` length into sharded
+dense caches (``serve/step.build_prefill``: hecaton's dataflow, the ring
+kernels under ``--overlap fused``) and decode ``--gen`` tokens greedily
+(``build_decode_step``: the 1D layout over the model axes).  The paged
+engine does not run on a grid.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mx 1 --my 2 --prompt-lens 16 --gen 8
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --dtype bfloat16 --slots 4 --requests 8 --gen 32
@@ -60,16 +75,28 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", help="cuda (kernels) or cpu")
     ap.add_argument("--dtype", default="float32", choices=DTYPES,
                     help="compute and weight dtype")
+    ap.add_argument("--quant-kv", action="store_true",
+                    help="store paged K/V as int8 + per-row fp32 scales "
+                         "(docs/DESIGN.md §11)")
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--mx", type=int, default=1)
+    ap.add_argument("--my", type=int, default=1)
+    ap.add_argument("--overlap", default="none", choices=("none", "ring", "bidir", "fused"),
+                    help="the grid's collectives (fused: the ring kernels)")
+    ap.add_argument("--timeout", type=float, default=0.0,
+                    help="seconds before a grid run is stopped as hung (0: none)")
     return ap
 
 
 def run(args) -> dict:
     """Serve the trace that ``args`` describe; returns the report's numbers."""
+    if args.data * args.mx * args.my > 1:
+        return run_grid(args)
     import numpy as np
     import torch
     from repro_torch.config import get_config, get_smoke_config
     from repro_torch.models import lm
-    from repro_torch.serve.cache import PoolConfig, blocks_for, dense_cache_bytes
+    from repro_torch.serve.cache import CachePool, PoolConfig, blocks_for, dense_cache_bytes
     from repro_torch.serve.engine import DecodeEngine
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -83,7 +110,7 @@ def run(args) -> dict:
     eng = DecodeEngine(cfg, params, pool, device=args.device, compute_dtype=dtype,
                        eos_id=None if args.eos_id < 0 else args.eos_id,
                        method=args.sample, temperature=args.temperature,
-                       top_p=args.top_p, seed=args.seed)
+                       top_p=args.top_p, seed=args.seed, quant_kv=args.quant_kv)
     t0 = time.perf_counter()
     eng.warmup(prompt_lens=prompt_lens)
     warm_s = time.perf_counter() - t0
@@ -107,11 +134,126 @@ def run(args) -> dict:
         "dense_equiv_blocks": pool.dense_equiv_blocks,
         "dense_cache_bytes": dense_cache_bytes(cfg, args.slots, max_seq, dtype),
         "paged_peak_bytes": eng.pool.paged_bytes_peak(),
+        "block_bytes": eng.pool.block_bytes,
+        # one block of the compute dtype's arena, the int8 pool's yardstick
+        "dense_block_bytes": CachePool(cfg, PoolConfig(1, args.block, 2, args.block),
+                                       device="meta", dtype=dtype).block_bytes,
     }
+
+
+# ---------------------------------------------------------------------------
+# the grid
+# ---------------------------------------------------------------------------
+
+def run_grid(args, teacher=None, keep_logits: bool = False) -> dict:
+    """Serve one batch on the rank grid (module docstring).  ``teacher``
+    ([slots, gen] token ids) feeds decode tick i token ``teacher[:, i]``
+    instead of the greedy one, so every tick's logits can be held against
+    another path's; ``keep_logits`` returns each rank's logits of the
+    prefill and of every tick.  Returns the tokens of every row, the
+    prefill's and the ticks' seconds, and each rank's kernel launches in
+    prefill and in decode."""
+    import numpy as np
+    from repro_torch import resolve_device
+    from repro_torch.parallel import comm
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()                       # once, before the ranks start
+    world = args.data * args.mx * args.my
+    t0 = time.perf_counter()
+    res = comm.run_ranks(_grid_rank, world, (vars(args), teacher, keep_logits,
+                                             comm.temp_init_file()), args.timeout)
+    rows = [res[r] for r in sorted(res) if res[r]["model_index"] == 0]
+    r0 = res[0]
+    return {"tokens": np.concatenate([r["tokens"] for r in rows]),
+            "prefill_s": r0["prefill_s"], "decode_s": r0["decode_s"],
+            "decode_tok_s": args.slots * (args.gen - 1) / max(r0["decode_s"], 1e-9),
+            "launches": {r: {"prefill": res[r]["prefill_launches"],
+                             "decode": res[r]["decode_launches"]} for r in sorted(res)},
+            "logits": {r: res[r]["logits"] for r in sorted(res)} if keep_logits else None,
+            "rows": {r: res[r]["rows"] for r in sorted(res)},
+            "world": world, "wall_s": time.perf_counter() - t0}
+
+
+def _grid_rank(rank: int, opts: dict, teacher, keep_logits: bool, init_file: str) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch import resolve_device
+    from repro_torch.config import ParallelConfig, RunConfig, get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import MODEL, Grid
+    from repro_torch.models import lm
+    from repro_torch.parallel import comm, specs
+    from repro_torch.serve import step as SRV
+
+    a = argparse.Namespace(**opts)
+    dev = resolve_device(a.device)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    grid = Grid(a.data, a.mx, a.my, rank)
+    w = comm.init_world(grid, device=dev, init_file=init_file)
+    try:
+        dev = w.device
+        cfg = get_smoke_config(a.arch) if a.smoke else get_config(a.arch)
+        dtype = getattr(torch, a.dtype)
+        pcfg = ParallelConfig(data=a.data, mx=a.mx, my=a.my, overlap=a.overlap)
+        plen = max(int(x) for x in a.prompt_lens.split(",") if x)
+        rc = RunConfig("serve", "decode", plen + a.gen, a.slots)
+        params = SRV.grid_params(lm.init_master_params(cfg, seed=a.seed, device=dev), grid,
+                                 pcfg, dtype)
+        prompts = np.random.default_rng(a.seed).integers(0, cfg.vocab_size,
+                                                         size=(a.slots, plen))
+        lb = specs.local_batch({"tokens": prompts}, grid)
+        nd, di = grid.data, grid.coords["data"]
+        rows = slice(di * a.slots // nd, (di + 1) * a.slots // nd)
+        prefill = SRV.build_prefill(cfg, pcfg, rc, grid, compute_dtype=dtype)
+        decode = SRV.build_decode_step(cfg, pcfg, rc, grid, compute_dtype=dtype)
+        sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+        kept = []
+        with torch.inference_mode():
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            local = torch.from_numpy(np.ascontiguousarray(lb["tokens"])).to(dev)
+            pos = torch.arange(plen, device=dev)[None].expand(local.shape[0], plen)
+            logits, caches = prefill(params, {"tokens": local, "positions": pos})
+            sync()
+            prefill_s = time.perf_counter() - t0
+            prefill_launches = dict(ops.LAUNCHES)
+            ops.reset_launches()
+            toks = [SRV.greedy_sample(logits)[:, 0].cpu()]
+            if keep_logits:
+                kept.append(logits.float().cpu().numpy())
+            t0 = time.perf_counter()
+            for i in range(a.gen - 1):
+                tok = (toks[-1] if teacher is None
+                       else torch.as_tensor(np.asarray(teacher)[rows, i]))
+                pos = torch.full((tok.shape[0], 1), plen + i, dtype=torch.int64, device=dev)
+                logits, caches = decode(params, caches, tok[:, None].long().to(dev), pos)
+                toks.append(SRV.greedy_sample(logits)[:, 0].cpu())
+                if keep_logits:
+                    kept.append(logits.float().cpu().numpy())
+            sync()
+            decode_s = time.perf_counter() - t0
+        comm.barrier()
+        return {"tokens": torch.stack(toks, dim=1).numpy(), "prefill_s": prefill_s,
+                "decode_s": decode_s, "prefill_launches": prefill_launches,
+                "decode_launches": dict(ops.LAUNCHES), "logits": kept,
+                "rows": (rows.start, rows.stop), "model_index": grid.axis_index(MODEL)}
+    finally:
+        comm.shutdown()
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.data * args.mx * args.my > 1:
+        r = run_grid(args)
+        print(f"grid[{args.data}x{args.mx}x{args.my}] {args.overlap}: "
+              f"{args.slots} prompts, prefill {1e3 * r['prefill_s']:.1f} ms, decode "
+              f"{r['decode_tok_s']:.1f} tok/s")
+        for i, t in enumerate(r["tokens"][:4]):
+            print(f"  row={i} tokens={t[:10].tolist()}")
+        return
     r = run(args)
     print(f"warmup {r['warmup_s']:.2f}s")
     print(f"{r['sequences']} sequences  ticks={r['ticks']}  "
@@ -123,6 +265,9 @@ def main(argv=None):
     print(f"pool             peak {r['peak_blocks']}/{r['leasable_blocks']} blocks  "
           f"(dense arena equiv {r['dense_equiv_blocks']} blocks / "
           f"{r['dense_cache_bytes']} B)")
+    if args.quant_kv:
+        print(f"int8 kv          block {r['block_bytes']} B vs {r['dense_block_bytes']} B "
+              f"in {args.dtype} ({r['block_bytes'] / r['dense_block_bytes']:.4f})")
     for rid in sorted(r["finished"])[:4]:
         f = r["finished"][rid]
         print(f"  rid={rid} plen={f.prompt_len} {f.reason:7s} tokens={f.tokens[:10]}")

@@ -40,8 +40,13 @@ JAX pipeline layout (``checkpoint/grid.py``); the guard, watchdog and
 blocklist are wired as on the grid.  It ends with ``pipeline[N stages x
 (XxY)] final loss ...``.  On one card the stage processes take turns
 (time-slicing), so a run shows the function, not a pipeline speed.
-``--pod-role data`` with ``--pods > 1`` (the pod axis as more data
-parallelism) is not ported and raises.
+``--pods N`` with the default ``--pod-role data`` makes the pods more
+data parallelism, as the JAX launcher does: N x D*X*Y rank processes,
+laid out row-major over (pod, data, mx, my), which is a grid of N*D data
+ranks: the batch, the gradient sum and the ZeRO-1 moments over
+``("pod", "data")``, pod-major, are those over that data axis
+(``_grid_shape``); every other flag works as on one pod, and the run
+ends with ``grid[NxDxXxY] final loss ...``.
 
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``--device cpu``
 runs the plain PyTorch versions (gloo carries the grid's data).
@@ -121,7 +126,8 @@ def parser() -> argparse.ArgumentParser:
                     help="packages; with --pod-role pipeline each pod runs one 1F1B stage of "
                          "the block stack")
     ap.add_argument("--pod-role", default="data", choices=POD_ROLES,
-                    help="what the pod axis does when --pods > 1 (only pipeline is ported)")
+                    help="what the pod axis does when --pods > 1: more data parallelism, "
+                         "or one 1F1B stage per pod")
     ap.add_argument("--overlap", default="none", choices=OVERLAP_MODES,
                     help="grid collectives: bulk, ppermute rings (one way or both), or the "
                          "ring kernels")
@@ -167,6 +173,17 @@ def parser() -> argparse.ArgumentParser:
 
 def _stages(args) -> int:
     return args.pods if args.pod_role == "pipeline" else 1
+
+
+def _grid_shape(args):
+    """(data, pods) of the rank grid.  The pod role ``data`` folds the pods
+    into the data axis: ranks row-major over (pod, data, mx, my) are the
+    ranks of a grid of pods * data data ranks, and JAX's ``P(("pod",
+    "data"))`` deals the batch, and ZeRO-1 its moment parts, pod-major,
+    which is that data axis's index."""
+    if _stages(args) > 1:
+        return args.data, args.pods
+    return args.pods * args.data, 1
 
 
 def _ckpt_config(args):
@@ -333,10 +350,6 @@ def _check_grid_args(args) -> None:
         raise ValueError(f"strategy={args.strategy!r} not in {STRATEGIES}")
     OV.check_mode(args.overlap)
     Q.check_comm_dtype(args.comm_dtype)
-    if args.pods > 1 and args.pod_role != "pipeline":
-        raise NotImplementedError(
-            "--pod-role data with --pods > 1 (the pod axis joining the data axes) is not "
-            "ported yet; --pod-role pipeline runs the pods as 1F1B stages")
 
 
 def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
@@ -371,11 +384,12 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     r0 = results[0]
     cfg = _config(args)
     h = r0["history"]
-    if h and args.pods > 1:
+    pods = f"{args.pods}x" if args.pods > 1 else ""
+    if h and _stages(args) > 1:
         log_fn(f"pipeline[{args.pods} stages x ({args.mx}x{args.my})] final loss "
                f"{h[-1][1]:.4f} (first {h[0][1]:.4f})")
     elif h:
-        log_fn(f"grid[{args.data}x{args.mx}x{args.my}] final loss {h[-1][1]:.4f} "
+        log_fn(f"grid[{pods}{args.data}x{args.mx}x{args.my}] final loss {h[-1][1]:.4f} "
                f"(first {h[0][1]:.4f})")
     pipe = {k: {r: results[r][k] for r in sorted(results)}
             for k in ("stage", "executed", "max_stash", "boundary_bytes", "paths")}
@@ -413,8 +427,9 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     dev = resolve_device(a.device)
     if dev.type == "cpu":
         torch.set_num_threads(1)
-    grid = Grid(a.data, a.mx, a.my, rank, pods=a.pods)
-    pipe = a.pods > 1
+    data, pods = _grid_shape(a)
+    grid = Grid(data, a.mx, a.my, rank, pods=pods)
+    pipe = pods > 1
     t0 = time.perf_counter()
     w = comm.init_world(grid, device=dev, init_file=init_file)
     try:
@@ -422,9 +437,9 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
         cfg = _config(a)
         dtype = getattr(torch, a.dtype)
         rc = RunConfig("custom", "train", a.seq, a.batch, lr=a.lr)
-        pcfg = ParallelConfig(strategy=a.strategy, data=a.data, mx=a.mx, my=a.my,
+        pcfg = ParallelConfig(strategy=a.strategy, data=data, mx=a.mx, my=a.my,
                               overlap=a.overlap, comm_dtype=a.comm_dtype,
-                              microbatches=a.microbatches, pods=a.pods,
+                              microbatches=a.microbatches, pods=pods,
                               pod_axis_role=a.pod_role)
         gcfg = _guard_cfg(a)
         full = lm.init_master_params(cfg, seed=0, device=dev)

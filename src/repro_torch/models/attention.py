@@ -1,14 +1,21 @@
-"""GQA attention with the paged KV cache of the serving tier.
+"""GQA attention with the serving tier's KV caches.
 
 Counterpart of the dense-GQA parts of ``repro/models/attention.py``:
-``init_attn``, ``PagedKVCache``/``init_paged_kv``, ``paged_write``/
-``paged_gather`` and ``apply_attn`` (one device, and training on the
-hecaton grid, where each rank attends with its own heads over the full
-sequence).  The softmax attention itself is
-``PCtx.attention`` (the flash-attention kernel on the card), which reads
-the g q-heads of a group against one kv-head, so K/V are never repeated.
-Unlike the JAX package, the arenas are updated in place: a decode step
-writes one token per slot instead of copying the whole arena.
+``init_attn``, the three caches of a dense model and their factories
+(``KVCache``/``init_kv_cache``, the per-sequence arena with one length
+shared by the batch; ``PagedKVCache``/``init_paged_kv``, the block pool;
+``QuantPagedKVCache``/``init_paged_kv_quant``, the int8 block pool with
+fp32 row scales, DESIGN.md §11), ``paged_write``/``paged_gather``,
+``quant_paged_write``/``quant_paged_gather`` and ``apply_attn`` (one
+device; on the rank grid training, prefill and decode, where each rank
+attends with its own heads over the full sequence).  The softmax
+attention itself is ``PCtx.attention`` (the flash-attention kernel on
+the card), which reads the g q-heads of a group against one kv-head, so
+K/V are never repeated.  The int8 arena is dequantized into the compute
+dtype at gather time and then runs the same attention, as the JAX
+package does.  Unlike the JAX package, the caches are updated in place:
+a decode step writes one token per row instead of copying the whole
+arena.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core import quant as Q
 from repro_torch.models import layers as L
 
 
@@ -39,6 +47,17 @@ def init_attn(cfg: ModelConfig, generator: torch.Generator, layers: int):
     return p
 
 
+class KVCache(NamedTuple):
+    """Dense per-sequence KV cache: every row owns ``S_max`` positions up
+    front, and one ``length`` (the tokens already written) is shared by
+    the batch, as the JAX package's ``dynamic_update_slice`` writes all
+    rows at one offset.  Inside ``lm.forward`` every leaf carries a
+    leading layer axis (``length`` too, as the JAX tree stacks it)."""
+    k: torch.Tensor            # [(L,) B, S_max, nkv, dh]
+    v: torch.Tensor
+    length: torch.Tensor       # [(L,)] int32
+
+
 class PagedKVCache(NamedTuple):
     """Block-paged KV cache (docs/DESIGN.md §10).
 
@@ -52,6 +71,64 @@ class PagedKVCache(NamedTuple):
     lengths: torch.Tensor      # [B] int32 tokens already written per slot
 
 
+class QuantPagedKVCache(NamedTuple):
+    """Int8 block-paged KV arena (docs/DESIGN.md §11): the protocol of
+    :class:`PagedKVCache`, with per-token-per-head symmetric int8 payloads
+    and a trailing-1 fp32 scale arena beside each (``max|row| / 127`` over
+    the head dim; 1.0 where nothing was written, so untouched blocks
+    dequantize to exact zeros).  A head dim below ``quant.MIN_QUANT_DIM``
+    keeps the compute dtype (:func:`quant_arena_dtype`), and its scale
+    arena stays at 1.0."""
+    k: torch.Tensor            # int8 [(L,) n_blocks, block, nkv, dh]
+    k_scale: torch.Tensor      # fp32 [(L,) n_blocks, block, nkv, 1]
+    v: torch.Tensor
+    v_scale: torch.Tensor
+    block_table: torch.Tensor  # [B, max_blocks] int64 block ids (0 = null)
+    lengths: torch.Tensor      # [B] int32
+
+
+# the leaves of each cache that hold one entry per layer (the rest, the
+# block table and the slots' lengths, are shared by every layer)
+LAYER_LEAVES = {KVCache: ("k", "v", "length"), PagedKVCache: ("k", "v"),
+                QuantPagedKVCache: ("k", "k_scale", "v", "v_scale")}
+
+
+def layer_cache(cache, i: int):
+    """Layer ``i``'s view of a cache whose per-layer leaves are stacked."""
+    return cache._replace(**{f: getattr(cache, f)[i] for f in LAYER_LEAVES[type(cache)]})
+
+
+def advance(cache, n: int):
+    """The cache with its lengths moved on by ``n`` written tokens."""
+    if isinstance(cache, KVCache):
+        return cache._replace(length=cache.length + n)
+    return cache._replace(lengths=cache.lengths + n)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int, dtype, device,
+                  layers: int, kv_heads: int = 0) -> KVCache:
+    """Zero dense caches for ``layers`` layers (``kv_heads``: the heads a
+    grid rank holds, default all of them)."""
+    shape = (layers, batch, s_max, kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((layers,), dtype=torch.int32, device=device))
+
+
+def dense_write(arena: torch.Tensor, vals: torch.Tensor, length: torch.Tensor) -> None:
+    """Write ``vals`` [B, S, ...] at positions ``length .. length + S - 1``
+    of every row of the dense arena [B, S_max, ...], in place."""
+    pos = length.long() + torch.arange(vals.shape[1], device=vals.device)
+    arena.index_copy_(1, pos, vals.to(arena.dtype))
+
+
+def quant_arena_dtype(row_dim: int, dtype):
+    """int8 for rows of at least ``quant.MIN_QUANT_DIM`` elements, else the
+    dense dtype (a narrower row's scale would eat the byte win; the JAX
+    package's ``_quant_arena_dtype``)."""
+    return torch.int8 if row_dim >= Q.MIN_QUANT_DIM else dtype
+
+
 def init_paged_kv(cfg: ModelConfig, num_blocks: int, block: int, batch: int,
                   max_blocks: int, dtype, device, layers: int) -> PagedKVCache:
     dh = cfg.resolved_head_dim
@@ -63,6 +140,28 @@ def init_paged_kv(cfg: ModelConfig, num_blocks: int, block: int, batch: int,
         torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+def init_paged_kv_quant(cfg: ModelConfig, num_blocks: int, block: int, batch: int,
+                        max_blocks: int, dtype, device, layers: int) -> QuantPagedKVCache:
+    dh, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    shape = (layers, num_blocks, block, nkv, dh)
+    dt = quant_arena_dtype(dh, dtype)
+    ones = lambda: torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device)  # noqa: E731
+    return QuantPagedKVCache(
+        torch.zeros(shape, dtype=dt, device=device), ones(),
+        torch.zeros(shape, dtype=dt, device=device), ones(),
+        torch.zeros((batch, max_blocks), dtype=torch.int64, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def _slots(arena: torch.Tensor, block_table: torch.Tensor, lengths: torch.Tensor, S: int):
+    """(block ids, offsets) [B, S] of positions ``lengths[b] + s``; a
+    position past the table resolves to its last entry."""
+    block = arena.shape[1]
+    pos = lengths.long()[:, None] + torch.arange(S, device=arena.device)[None, :]
+    blk_slot = torch.clamp(pos // block, max=block_table.shape[1] - 1)
+    return torch.gather(block_table, 1, blk_slot), pos % block
+
+
 def paged_write(arena: torch.Tensor, vals: torch.Tensor, block_table: torch.Tensor,
                 lengths: torch.Tensor) -> None:
     """Scatter ``vals`` [B, S, ...] into the block arena, in place.
@@ -71,12 +170,8 @@ def paged_write(arena: torch.Tensor, vals: torch.Tensor, block_table: torch.Tens
     ``block_table[b, pos // block]``, offset ``pos % block``.  Positions past
     the table resolve to its last entry (the null block unless the slot
     leases the whole table), as in the JAX package."""
-    B, S = vals.shape[:2]
-    block = arena.shape[1]
-    pos = lengths.long()[:, None] + torch.arange(S, device=vals.device)[None, :]
-    blk_slot = torch.clamp(pos // block, max=block_table.shape[1] - 1)
-    blk = torch.gather(block_table, 1, blk_slot)                    # [B,S]
-    arena[blk, pos % block] = vals.to(arena.dtype)
+    blk, off = _slots(arena, block_table, lengths, vals.shape[1])
+    arena[blk, off] = vals.to(arena.dtype)
 
 
 def paged_gather(arena: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -89,16 +184,46 @@ def paged_gather(arena: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
     return g.reshape(B, nblk * arena.shape[1], *arena.shape[2:])
 
 
+def quant_paged_write(arena: torch.Tensor, scales: torch.Tensor, vals: torch.Tensor,
+                      block_table: torch.Tensor, lengths: torch.Tensor) -> None:
+    """Quantize ``vals`` [B, S, ...] per trailing-axis row
+    (``quant.quant_int8``) and scatter the int8 payload and its fp32 scales
+    at the same arena indices, in place (the null-block rule of
+    :func:`paged_write`).  A dense-dtype arena (:func:`quant_arena_dtype`)
+    takes ``vals`` as they are and leaves its scales at 1.0."""
+    if arena.dtype != torch.int8:
+        paged_write(arena, vals, block_table, lengths)
+        return
+    q, s = Q.quant_int8(vals)
+    blk, off = _slots(arena, block_table, lengths, vals.shape[1])
+    arena[blk, off] = q
+    scales[blk, off] = s
+
+
+def quant_paged_gather(arena: torch.Tensor, scales: torch.Tensor, block_table: torch.Tensor,
+                       dtype) -> torch.Tensor:
+    """:func:`paged_gather` of an int8 arena, dequantized into ``dtype``
+    (a dense-dtype arena is only cast).  Positions past a slot's length
+    read finite values (the scales start at 1.0) that attention masks."""
+    if arena.dtype != torch.int8:
+        return paged_gather(arena, block_table).to(dtype)
+    B, nblk = block_table.shape
+    g = Q.dequant_int8(arena[block_table], scales[block_table], dtype)
+    return g.reshape(B, nblk * arena.shape[1], *arena.shape[2:])
+
+
 def apply_attn(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
-               cache: Optional[PagedKVCache] = None,
-               ) -> Tuple[torch.Tensor, Optional[PagedKVCache]]:
+               cache=None) -> Tuple[torch.Tensor, Optional[NamedTuple]]:
     """Causal self-attention: x [B,S,H] -> (y [B,S,H], cache with lengths
     advanced by S).  On the grid x and y are canonical blocks and
-    ``positions`` covers the full sequence (the mixer gathers it).
+    ``positions`` covers the full sequence (the mixer gathers it); a
+    cache there holds this rank's kv heads.
 
-    With a paged cache, decode (S == 1) masks each slot at its own length;
-    prefill (S > 1) runs one sequence and offsets its queries by the slot's
-    length, as ``_sdpa`` does with ``q_offset``/``kv_len``."""
+    With a paged cache (fp or int8), decode (S == 1) masks each slot at
+    its own length; prefill (S > 1) runs one sequence and offsets its
+    queries by the slot's length, as ``_sdpa`` does with ``q_offset``/
+    ``kv_len``.  A dense cache writes every row at its one ``length`` and
+    masks all rows there."""
     dh = cfg.resolved_head_dim
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     B, S, _ = x.shape
@@ -115,12 +240,25 @@ def apply_attn(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.T
     k = L.apply_rope(k, cos, sin)
 
     new_cache, q_off, kv_len = None, None, None
-    if cache is not None:
-        paged_write(cache.k, k, cache.block_table, cache.lengths)
-        paged_write(cache.v, v, cache.block_table, cache.lengths)
-        new_cache = cache._replace(lengths=cache.lengths + S)
-        k = paged_gather(cache.k, cache.block_table).to(q.dtype)
-        v = paged_gather(cache.v, cache.block_table).to(q.dtype)
+    if isinstance(cache, KVCache):
+        dense_write(cache.k, k, cache.length)
+        dense_write(cache.v, v, cache.length)
+        new_cache = advance(cache, S)
+        k, v = cache.k.to(q.dtype), cache.v.to(q.dtype)
+        q_off = cache.length.reshape(1).expand(B).contiguous()
+        kv_len = new_cache.length.reshape(1).expand(B).contiguous()
+    elif cache is not None:
+        if isinstance(cache, QuantPagedKVCache):
+            quant_paged_write(cache.k, cache.k_scale, k, cache.block_table, cache.lengths)
+            quant_paged_write(cache.v, cache.v_scale, v, cache.block_table, cache.lengths)
+            k = quant_paged_gather(cache.k, cache.k_scale, cache.block_table, q.dtype)
+            v = quant_paged_gather(cache.v, cache.v_scale, cache.block_table, q.dtype)
+        else:
+            paged_write(cache.k, k, cache.block_table, cache.lengths)
+            paged_write(cache.v, v, cache.block_table, cache.lengths)
+            k = paged_gather(cache.k, cache.block_table).to(q.dtype)
+            v = paged_gather(cache.v, cache.block_table).to(q.dtype)
+        new_cache = advance(cache, S)
         if S > 1 and B != 1:
             raise ValueError("paged prefill runs one sequence at a time")
         # decode: q_off = length, kv_len = length + 1 is the grouped-decode

@@ -1,8 +1,8 @@
 """Decoder-only LM assembly (dense and SSM families).
 
-Counterpart of ``repro/models/lm.py::init_params``, ``forward`` (dense
-and ``ssm`` branches, with ``remat``, ``skip_head`` and the ``hidden``
-output),
+Counterpart of ``repro/models/lm.py::init_params``, ``init_caches``,
+``forward`` (dense and ``ssm`` branches, over the dense, paged and int8
+paged caches, with ``remat``, ``skip_head`` and the ``hidden`` output),
 ``xent_loss``, ``head_loss``, ``train_loss`` and ``LMOut``.  Parameters
 are the JAX package's nested dict with stacked ``[L, ...]`` leaves; a
 Python loop over layers takes the place of ``lax.scan`` and unbinds each
@@ -36,6 +36,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import hecaton as HEC
 from repro_torch.core import overlap as OV
 from repro_torch.core import schedule
+from repro_torch.models import attention as ATT
 from repro_torch.models import blocks as BLK
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
@@ -118,6 +119,12 @@ def init_master_params(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def init_caches(cfg: ModelConfig, batch: int, s_max: int, dtype, device="cuda"):
+    """Stacked per-layer dense decode caches (``serve/cache.init_dense``)."""
+    from repro_torch.serve import cache as CM
+    return CM.init_dense(cfg, batch, s_max, dtype, device)
+
+
 def head_weight(cfg: ModelConfig, params, dtype, pctx=None) -> torch.Tensor:
     """The LM head as [d, V] in ``dtype``: serving's prepared matrix, else
     the untied ``lm_head.w`` or the tied table through ``pctx.head_weight``
@@ -136,9 +143,10 @@ def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
                  positions: torch.Tensor, remat: str, cache=None) -> torch.Tensor:
     """The layer loop: each stacked leaf is unbound once (one backward
     node stacks its per-layer gradients), and each layer runs under the
-    remat policy (``core/schedule.py``).  ``cache`` (a PagedKVCache, or
-    for the ssm family an SSMState, with [L, ...] leaves) gives layer i its
-    rows, which it writes in place."""
+    remat policy (``core/schedule.py``).  ``cache`` (a KVCache,
+    PagedKVCache or QuantPagedKVCache, or for the ssm family an SSMState,
+    with [L, ...] leaves) gives layer i its rows, which it writes in
+    place."""
     items = flatten(stacked)
     paths = [p for p, _ in items]
     per_layer = [leaf.unbind(0) for _, leaf in items]
@@ -152,7 +160,7 @@ def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
                 state.conv.copy_(new.conv)
                 state.ssm.copy_(new.ssm)
             return x
-        cache_l = None if cache is None else cache._replace(k=cache.k[i], v=cache.v[i])
+        cache_l = None if cache is None else ATT.layer_cache(cache, i)
         return BLK.apply_attn_block(pctx, cfg, p, x, positions=positions, cache=cache_l)[0]
 
     layer = schedule.apply_remat(layer, remat)
@@ -165,9 +173,10 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             caches: Optional[Dict[str, Any]] = None, remat: str = "none",
             skip_head: bool = False) -> LMOut:
     """batch: tokens [B,S] (+ positions [B,S], "_dtype", "dropout_rng" a
-    ``torch.Generator``); caches: {"attn": PagedKVCache with [L, ...]
-    arenas} (dense) or {"mamba": SSMState with [L, B, ...] leaves} (ssm),
-    updated in place and returned, or None.  ``skip_head`` returns the
+    ``torch.Generator``); caches: {"attn": a KVCache, PagedKVCache or
+    QuantPagedKVCache with [L, ...] leaves} (dense) or {"mamba": SSMState
+    with [L, B, ...] leaves} (ssm), updated in place and returned with
+    their lengths advanced, or None.  ``skip_head`` returns the
     post-final-norm ``hidden`` instead of logits (``train_loss``)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
@@ -191,7 +200,7 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     else:
         attn = None if caches is None else caches["attn"]
         x = _layer_stack(pctx, cfg, params["blocks"], x, positions, remat, attn)
-        new_caches = None if attn is None else {"attn": attn._replace(lengths=attn.lengths + S)}
+        new_caches = None if attn is None else {"attn": ATT.advance(attn, S)}
 
     x = pctx.norm(cfg.norm_kind, params["final_norm"], x)
     if skip_head:

@@ -36,6 +36,19 @@ step's global sequence length ``seq_len`` (a rank sees its block only):
 ``"seq"`` cuts it over ``model`` when the ring divides it, else every
 rank of the axis holds it whole.
 
+Serving on the grid takes JAX's two modes.  ``mode="prefill"`` runs
+the strategy's dataflow as training does, without autograd, so
+hecaton's projections are its grid ops (the ring kernels under
+``overlap="fused"``) and the head is its seq-scatter linear.
+``mode="decode"`` runs the 1D layout over the combined model axes with
+the replicated residual whatever the strategy (DESIGN.md §4: a step of
+one token cannot token-scatter): :attr:`strategy` is ``"megatron"``, so
+every projection is ``parallel/megatron.py``'s over ``model`` (the
+(mx, my) ranks row-major, the index JAX's ``("mx", "my")`` gives), and
+the parameters must be in that layout (``serve/step.build_decode_step``
+re-lays hecaton's tiles once).  On one device ``"serve"``, ``"prefill"``
+and ``"decode"`` are the same.
+
 ``mode="train"`` only enables :meth:`dropout`, as in the JAX package.
 ``plain=True`` routes everything to the plain versions on any device,
 differentiated by PyTorch's autograd: it is the reference that
@@ -67,7 +80,7 @@ _PLAIN = SimpleNamespace(matmul=ref.matmul_plain,
                          tile_matmul=ref.tile_matmul_plain,
                          ssd=ref.ssd_plain)
 
-MODES = ("serve", "train")
+MODES = ("serve", "train", "prefill", "decode")
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +91,7 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class PCtx:
     plain: bool = False                    # plain versions even on CUDA
-    mode: str = "serve"                    # serve | train (enables dropout)
+    mode: str = "serve"                    # serve | train | prefill | decode
     pcfg: ParallelConfig = field(default_factory=ParallelConfig)
     mesh: Optional[Grid] = None            # the grid, or one device
     seq_len: Optional[int] = None          # the step's global sequence (megatron)
@@ -86,26 +99,33 @@ class PCtx:
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {self.mode!r}")
-        if self.mesh is not None and self.mode != "train":
-            raise NotImplementedError("grid serving is not ported (ROADMAP queue 1)")
+        if self.mesh is not None and self.mode == "serve":
+            raise ValueError("a grid serves in mode 'prefill' or 'decode'")
+
+    @property
+    def strategy(self) -> str:
+        """The layout the methods run: ``pcfg.strategy``, except decode on
+        a grid, which runs the 1D layout (megatron's) over the model axes."""
+        return "megatron" if self.mode == "decode" else self.pcfg.strategy
 
     @property
     def use_hecaton(self) -> bool:
-        return self.mesh is not None and self.pcfg.strategy == "hecaton"
+        return self.mesh is not None and self.strategy == "hecaton"
 
     @property
     def use_megatron(self) -> bool:
-        return self.mesh is not None and self.pcfg.strategy == "megatron"
+        return self.mesh is not None and self.strategy == "megatron"
 
     @property
     def ax(self) -> Optional[shd.AxisInfo]:
-        return shd.axis_info(self.mesh, self.pcfg.strategy)
+        return shd.axis_info(self.mesh, self.strategy)
 
     @property
     def residual(self) -> str:
         """The residual layout (``config.RESIDUAL_LAYOUTS``); hecaton's
-        tiling is token-sharded whatever it says."""
-        return self.pcfg.residual
+        tiling is token-sharded whatever it says, and decode forces
+        ``"replicated"`` (one token cannot token-scatter)."""
+        return "replicated" if self.mode == "decode" else self.pcfg.residual
 
     def global_seq_len(self) -> int:
         if self.seq_len is None:
@@ -120,8 +140,8 @@ class PCtx:
 
     @property
     def data_shards(self) -> int:
-        """How many ranks split the batch (the data axis)."""
-        return 1 if self.mesh is None else self.mesh.size("data")
+        """How many ranks split the batch (the data axes)."""
+        return 1 if self.mesh is None else self.ax.n_data
 
     @property
     def seq_shards(self) -> int:
@@ -255,8 +275,8 @@ class PCtx:
         for ``table.T``).  Otherwise the block's transposed view: on one
         device the table's, under megatron [H, V/n] (``(model, None)``
         transposed is the head's ``(None, model)``), for hecaton's
-        seq-scatter head [H/my, V/mx]."""
-        if not self.use_hecaton or not self.pcfg.fused_loss:
+        seq-scatter head [H/my, V/mx] (the non-fused loss, and serving)."""
+        if not self.use_hecaton or not self.pcfg.fused_loss or not self.train:
             return table.to(dtype).t()
         full = table.to(dtype)
         for ax, dim in (("my", 1), ("mx", 0)):

@@ -58,6 +58,11 @@ from repro_torch.parallel import sharding as shd
 
 
 def _mm(pctx, x, w):
+    """A rank's local product: the tile matmul where autograd will
+    differentiate, else (serving) ``PCtx``'s forward-only matmul, as one
+    device runs it."""
+    if not ops.needs_grad(x, w):
+        return pctx._proj(x, w)
     return ops.tile_mm(x, w, plain=pctx.plain)
 
 
@@ -103,7 +108,10 @@ def _seq_ring(pctx, seq_len: int):
 
 def _seq(pctx):
     """:func:`_seq_ring` of the step's sequence: a rank's blocks are local,
-    so the extent JAX reads off ``x.shape[1]`` comes from ``pctx``."""
+    so the extent JAX reads off ``x.shape[1]`` comes from ``pctx`` (which
+    a replicated residual, decode's, never needs)."""
+    if pctx.residual != "seq":
+        return None
     return _seq_ring(pctx, pctx.global_seq_len())
 
 

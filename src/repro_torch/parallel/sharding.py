@@ -111,6 +111,15 @@ def solve_attn_layout(ax: AxisInfo, n_heads: int, batch_per_data: int) -> AttnLa
     return AttnLayout(ax.data_axes, (), "WARNING: attention replicated over model axes")
 
 
+def one(axes):
+    """A spec entry of a tuple of axes: None, the axis, or the tuple
+    (``sharding._one`` of the JAX package)."""
+    axes = tuple(axes)
+    if not axes:
+        return None
+    return axes[0] if len(axes) == 1 else axes
+
+
 def seq_shardable(ax: Optional[AxisInfo], seq_len: int) -> bool:
     """Can a megatron residual of this (global) sequence extent shard over
     the model axis?  One model axis of size > 1 that divides the sequence;

@@ -1,13 +1,25 @@
-"""Paged KV block pool of the decode service (docs/DESIGN.md §10).
+"""KV caches of the decode service: the dense layout and the paged block
+pool (docs/DESIGN.md §10).
 
-Counterpart of ``repro/serve/cache.py`` for dense models' attention arena
-and the ssm family's per-slot states: ``PoolConfig``, ``blocks_for``,
-``NULL_BLOCK``, ``CachePool`` and ``dense_cache_bytes``.  The host
-accounting is the JAX package's, line for line, for both families: the
-admission gate leases ``ceil(prompt_len / block)`` blocks into a free
-slot or leaves the request queued, ``ensure_append`` leases lazily before
-each decode token, ``free_slot`` returns a lease, and the peak of
-``blocks_in_use`` is tracked against the dense ``[slots, max_seq]`` arena.
+Counterpart of ``repro/serve/cache.py`` for dense models' attention
+arena and the ssm family's per-slot states: ``init_dense``,
+``dense_cache_bytes``, ``PoolConfig``, ``blocks_for``, ``NULL_BLOCK`` and
+``CachePool``.
+
+* **dense** (:func:`init_dense`): every leaf is ``[L, B, S_max, ...]``,
+  so each sequence pins ``S_max`` tokens up front; ``serve/step.
+  build_prefill`` fills it and the grid's serving path shards it
+  (``serve/step.cache_specs``).
+* **paged** (:class:`CachePool`): one arena of fixed-size blocks that the
+  slots lease through a block table.  The host accounting is the JAX
+  package's, line for line, for both families: the admission gate leases
+  ``ceil(prompt_len / block)`` blocks into a free slot or leaves the
+  request queued, ``ensure_append`` leases lazily before each decode
+  token, ``free_slot`` returns a lease, and the peak of ``blocks_in_use``
+  is tracked against the dense ``[slots, max_seq]`` arena.  With
+  ``quant_kv=True`` the arenas hold int8 payloads and fp32 row scales
+  (``models/attention.QuantPagedKVCache``, DESIGN.md §11).
+
 The steps write the device arenas and the decode tick's SSM states in
 place, so the JAX package's ``absorb_decode`` has no counterpart here; a
 prefill runs on fresh zero state rows, which ``absorb_prefill`` scatters
@@ -27,19 +39,35 @@ from repro_torch.models import attention as ATT
 from repro_torch.models import ssm as SSM
 
 
-def dense_cache_bytes(cfg: ModelConfig, batch: int, s_max: int, dtype) -> int:
-    """Bytes of the dense per-sequence cache the JAX package would pin:
-    K and V ``[L, B, S_max, nkv, dh]`` plus one int32 length per layer, or
-    for the ssm family the ``[L, B, ...]`` conv (``dtype``) and SSM (fp32)
-    states."""
-    elt = torch.empty((), dtype=dtype).element_size()
+def init_dense(cfg: ModelConfig, batch: int, s_max: int, dtype, device="cuda",
+               kv_heads: int = 0):
+    """Stacked per-layer dense decode caches: ``{"attn": KVCache}`` with K
+    and V ``[L, B, S_max, nkv, dh]`` and one int32 length per layer, or for
+    the ssm family ``{"mamba": SSMState}`` with ``[L, B, ...]`` conv
+    (``dtype``) and SSM (fp32) states.  ``kv_heads`` is the kv heads a
+    grid rank holds (default all)."""
     if cfg.family == "ssm":
-        s = cfg.ssm
-        conv = (s.conv_kernel - 1) * SSM.conv_channels(cfg) * elt
-        ssm = SSM.n_heads(cfg) * s.head_dim * s.state_dim * 4
-        return cfg.num_layers * batch * (conv + ssm)
-    per = cfg.num_layers * batch * s_max * cfg.num_kv_heads * cfg.resolved_head_dim
-    return 2 * per * elt + 4 * cfg.num_layers
+        return {"mamba": SSM.init_ssm_state(cfg, cfg.num_layers, batch, dtype,
+                                            torch.device(device))}
+    if cfg.family != "dense":
+        raise NotImplementedError(f"dense caches for family {cfg.family!r} are not ported yet")
+    return {"attn": ATT.init_kv_cache(cfg, batch, s_max, dtype, torch.device(device),
+                                      cfg.num_layers, kv_heads)}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a cache tree (dicts and NamedTuples)."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def dense_cache_bytes(cfg: ModelConfig, batch: int, s_max: int, dtype) -> int:
+    """Total bytes of the dense cache :func:`init_dense` builds (sized on
+    the ``meta`` device, nothing allocated)."""
+    return tree_bytes(init_dense(cfg, batch, s_max, dtype, "meta"))
 
 
 NULL_BLOCK = 0           # reserved trash block backing unleased table entries
@@ -89,11 +117,12 @@ class CachePool:
     ``prefill_tree``); the host copy of table and lengths is authoritative."""
 
     def __init__(self, cfg: ModelConfig, pool: PoolConfig, *, device,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant_kv: bool = False):
         if cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(f"paged pool for family {cfg.family!r} "
                                       "is not ported yet")
         self.cfg, self.pool = cfg, pool
+        self.quant_kv = bool(quant_kv)
         self.device = torch.device(device)
         mb = pool.max_blocks_per_slot
         self.arenas: Dict[str, Any] = {}
@@ -103,9 +132,12 @@ class CachePool:
             self.states["mamba"] = SSM.init_ssm_state(cfg, cfg.num_layers, pool.slots, dtype,
                                                       self.device)
         else:
-            paged = ATT.init_paged_kv(cfg, pool.num_blocks, pool.block, pool.slots, mb,
-                                      dtype, self.device, cfg.num_layers)
-            self.arenas["attn"] = (paged.k, paged.v)
+            # int8 payload + fp32 row-scale arenas (DESIGN §11), or the
+            # compute dtype's; the table and lengths are rebuilt per call
+            mk = ATT.init_paged_kv_quant if self.quant_kv else ATT.init_paged_kv
+            paged = mk(cfg, pool.num_blocks, pool.block, pool.slots, mb, dtype, self.device,
+                       cfg.num_layers)
+            self.arenas["attn"] = self._arena_leaves(paged)
         # host accounting
         self.table = np.zeros((pool.slots, mb), np.int32)
         self.lengths = np.zeros(pool.slots, np.int32)
@@ -177,11 +209,18 @@ class CachePool:
         self.active[slot] = False
 
     # -- device tree assembly -------------------------------------------
+    def _arena_leaves(self, cache) -> tuple:
+        """The arena leaves of a paged cache, in its constructor's order
+        (table and lengths excluded)."""
+        if self.quant_kv:
+            return cache.k, cache.k_scale, cache.v, cache.v_scale
+        return cache.k, cache.v
+
     def _paged(self, table_rows: np.ndarray, lengths_rows: np.ndarray):
-        k, v = self.arenas["attn"]
-        return ATT.PagedKVCache(
-            k, v, torch.as_tensor(table_rows, dtype=torch.int64).to(self.device),
-            torch.as_tensor(lengths_rows, dtype=torch.int32).to(self.device))
+        klass = ATT.QuantPagedKVCache if self.quant_kv else ATT.PagedKVCache
+        return klass(*self.arenas["attn"],
+                     torch.as_tensor(table_rows, dtype=torch.int64).to(self.device),
+                     torch.as_tensor(lengths_rows, dtype=torch.int32).to(self.device))
 
     def decode_tree(self):
         """Cache tree for one decode tick over all ``slots`` rows (the SSM
@@ -214,9 +253,14 @@ class CachePool:
     # -- reporting -------------------------------------------------------
     @property
     def block_bytes(self) -> int:
-        """Bytes one leased block pins across all layers' paged arenas
-        (0 for the ssm family, which has none)."""
+        """Bytes one leased block pins across all layers' paged arenas,
+        scales included (0 for the ssm family, which has none)."""
         return sum(a[:, 0].numel() * a.element_size() for a in self.arenas.get("attn", ()))
 
+    def paged_bytes_in_use(self) -> int:
+        """Bytes of the blocks leased now."""
+        return self.block_bytes * self.blocks_in_use
+
     def paged_bytes_peak(self) -> int:
+        """Bytes leased at the pool's high-water mark."""
         return self.block_bytes * self.peak_blocks_in_use

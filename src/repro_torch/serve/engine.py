@@ -14,7 +14,8 @@ the same draws on replay.  Attention prompts are right-padded to a block
 multiple; ssm prompts run at their exact length, because padding a
 recurrence would corrupt the carried conv and SSD states.  Times are host
 clocks around work that ends in ``torch.cuda.synchronize()`` (where JAX
-uses ``block_until_ready``).
+uses ``block_until_ready``).  ``quant_kv`` keeps the attention arenas
+as int8 payloads with fp32 row scales (``CachePool(quant_kv=True)``).
 """
 
 from __future__ import annotations
@@ -68,11 +69,13 @@ class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params, pool: PoolConfig, *,
                  device="cuda", compute_dtype=torch.float32,
                  eos_id: Optional[int] = None, method: str = "greedy",
-                 temperature: float = 1.0, top_p: float = 0.9, seed: int = 0):
+                 temperature: float = 1.0, top_p: float = 0.9, seed: int = 0,
+                 quant_kv: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
-        self.pool = CachePool(cfg, pool, device=self.device, dtype=compute_dtype)
+        self.pool = CachePool(cfg, pool, device=self.device, dtype=compute_dtype,
+                              quant_kv=quant_kv)
         self.eos_id = eos_id
         self.method, self.temperature, self.top_p = method, temperature, top_p
         self.seed = seed

@@ -237,6 +237,46 @@ def test_forward_kernels_match_plain(dev):
     _close(a.logits, b.logits)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_int8_arena_decode_tick_matches_plain(dev, dtype):
+    """One decode tick over the int8 paged arena (``quant_kv``: quantized at
+    write, dequantized into the compute dtype at gather) through the
+    kernels against the plain versions on the same arenas, at the row 3
+    bound of the logits' dtype; the int8 rows both ticks write are at most
+    one level apart (a value on a rounding boundary) and their scales
+    within the dtype's bound."""
+    params = lm.init_params(CFG, seed=3, device=dev, dtype=dtype)
+    pool = CachePool(CFG, PoolConfig(2, 16, 9, 64), device=dev, dtype=dtype, quant_kv=True)
+    rng = np.random.default_rng(4)
+    for n in (40, 23):
+        slot = pool.admit(n)
+        toks = torch.from_numpy(rng.integers(0, 500, (1, n))).to(dev)
+        lm.forward(PCtx(), CFG, params, {"tokens": toks, "_dtype": dtype},
+                   caches=pool.prefill_tree(slot))
+        pool.commit_prefill(slot, n)
+        assert pool.ensure_append(slot)
+    snap = [t.clone() for t in pool.arenas["attn"]]
+    batch = {"tokens": torch.tensor([[7], [11]], device=dev),
+             "positions": torch.from_numpy(pool.lengths.astype(np.int64)[:, None]).to(dev),
+             "_dtype": dtype}
+    ops.reset_launches()
+    with torch.inference_mode():
+        a = lm.forward(PCtx(), CFG, params, batch, caches=pool.decode_tree()).logits
+    assert ops.LAUNCHES["flash_attention"] > 0 and ops.LAUNCHES["matmul"] > 0
+    wrote = [t.clone() for t in pool.arenas["attn"]]
+    for t, s0 in zip(pool.arenas["attn"], snap):
+        t.copy_(s0)
+    with torch.inference_mode():
+        b = lm.forward(PCtx(plain=True), CFG, params, batch, caches=pool.decode_tree()).logits
+    _close(a, b)
+    assert pool.arenas["attn"][0].dtype == torch.int8
+    for x, y in zip(wrote, pool.arenas["attn"]):
+        if x.dtype == torch.int8:
+            assert (x.int() - y.int()).abs().max() <= 1
+        else:
+            torch.testing.assert_close(x, y, rtol=TOL[dtype], atol=0)
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}

@@ -512,8 +512,13 @@ def test_launcher_pipeline_on_cpu(tmp_path):
 
 
 def test_launcher_refuses_pod_role_data_and_one_pod_pipeline():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launch_train.run(_args("--steps 1 --pod-role data"))
+    """``--pod-role data`` with two pods is no pipeline: it trains as data
+    parallelism over the pods (``tests/test_torch_pod_data.py`` holds it
+    against JAX), logging no pipeline line; a one-pod pipeline is refused."""
+    lines = []
+    run = launch_train.run(_args("--steps 1 --pod-role data"), log_fn=lines.append)
+    assert run["world"] == 2 and run["pipeline"]["executed"] == {0: None, 1: None}
+    assert not any(line.startswith("pipeline[") for line in lines), lines
     with pytest.raises(ValueError, match="pods > 1"):
         launch_train.run(launch_train.parser().parse_args(
             "--smoke --device cpu --steps 1 --pod-role pipeline".split()))
