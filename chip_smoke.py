@@ -73,7 +73,8 @@ Phases, each fatal on failure:
    AG-matmul, on both wires, against their plain versions (``case`` lines
    with ``"n": 4``; off the ``kernels`` line's sums);
 9. ``grid_train``: the hecaton grid training step of full-width
-   qwen3-0.6b at 8 of its 28 layers on a 1x2x2 grid of four rank processes sharing the card
+   qwen3-0.6b at 2 of its 28 layers (GRID_LAYERS) on a 1x2x2 grid of four
+   rank processes sharing the card
    (``overlap="fused"``, bf16 over fp32 masters, batch 8 x 512, 2
    microbatches, remat fusion, 3 steps) through the training launcher's
    grid entry: its route table, every rank's launches (each of the three
@@ -85,7 +86,7 @@ Phases, each fatal on failure:
    (over the plain run's update; reported), and step ms, which four
    time-sliced ranks on one card make no grid speed;
 10. ``grid_train_int8``: the same grid step on the int8 wire
-   (``--comm-dtype int8``, 2 steps, full width, 8 layers): every rank
+   (``--comm-dtype int8``, 2 steps, full width, 2 layers): every rank
    launches each of the three int8 ring-kernel variants, every step's
    loss and grad norm within 1e-3 and 1e-2 of the plain int8 grid, the
    first loss within 5e-2 of the bf16 wire's (JAX's QUANT_RTOL); the
@@ -93,12 +94,12 @@ Phases, each fatal on failure:
    plain versions at the same blocks, in fp32 tightly enough (1e-5 on
    all but 0.1% of the elements, one int8 level there) that the bf16
    wire's kernel fails the same check, which it prints;
-11. ``grid_bidir``: ``--overlap bidir --comm-dtype int8`` at 4 layers for
+11. ``grid_bidir``: ``--overlap bidir --comm-dtype int8`` at 2 layers for
    one step (the -1 hops through the symmetric buffers; no kernel of its
    own), against the plain grid;
 11b. ``grid_megatron``: the paper's baseline, ``--strategy megatron`` on
    the same four ranks (one ``model`` ring of four, the seq residual,
-   ``overlap="fused"``), full width at 8 layers, bf16, batch 8 x 512, 2
+   ``overlap="fused"``), full width at 2 layers, bf16, batch 8 x 512, 2
    microbatches, 2 steps, through the launcher's grid entry: every step's
    loss and grad norm against the plain megatron grid (1e-3, 1e-2), the
    first loss against the single-device port (1e-3), every rank launching
@@ -119,7 +120,7 @@ Phases, each fatal on failure:
    line gives checkpoint bytes, each async save's stall, each background
    write's seconds and GB/s, and the median step with and without a write
    in flight;
-13. ``grid_ckpt``: the 1x2x2 grid (fused, bf16 wire, 4 layers at full
+13. ``grid_ckpt``: the 1x2x2 grid (fused, bf16 wire, 2 layers at full
    width) saving after each step; a fresh grid restores step 1 and runs
    step 2 against the uninterrupted run's (1e-3 relative), and one card
    restores the grid's checkpoint and runs step 2 against the grid's
@@ -130,7 +131,7 @@ Phases, each fatal on failure:
    batch 2's ``loss_mask`` all NaN: ``update_skipped`` only at step 2,
    every parameter and moment ``torch.equal`` across it, the other
    losses against two runs over the stream without batch 2 (the ``ckpt``
-   gate); ``rollback`` (4 layers) runs ``run_supervised`` over an
+   gate); ``rollback`` (2 layers) runs ``run_supervised`` over an
    ``AsyncCheckpointManager`` (2 writers, every 2 steps) with NaN at data
    3 and 4 and ``skip_cap`` 2: the ``DivergenceError`` names step 3 and
    data (3, 4), the save of step 4 (published before the rollback) is
@@ -145,19 +146,19 @@ Phases, each fatal on failure:
    a write in flight and with none, boundary stall, write s and GB/s,
    the fleet's pack s, spawn-to-first-heartbeat s, the handover: shm or
    spill), resumes from the fleet's step 4 against the ``ckpt`` phase's
-   references, and at 4 layers saves once with
+   references, and at 2 layers saves once with
    writer 1 SIGKILLed in its torn window: published with
    ``reassigned["1"]``, restored bit-equal, the thread writers' files
    apart from that record;
-15. ``grid_runtime``: the 1x2x2 grid at 4 layers through the launcher
+15. ``grid_runtime``: the 1x2x2 grid at 2 layers through the launcher
    with ``--guard --ckpt-procs`` and a ``blocklist.json`` in its
    directory: the four ranks' loss histories identical, the first data
    index ``data_index(0, blocklist)``, the writers children of rank 0, and
    one card restoring the fleet-written step within 1e-3 of the grid;
 16. ``grid_pipeline``: the inter-pod 1F1B pipeline through the launcher's
-   ``--pods 2 --pod-role pipeline``: full-width paper-tinyllama-1.1b (22
-   layers, d 2048, 32/4 heads of dh 64, d_ff 5632, vocab 32,000, untied
-   head; 11 layers a stage) on two one-rank stages sharing the card, bf16
+   ``--pods 2 --pod-role pipeline``: full-width paper-tinyllama-1.1b (d
+   2048, 32/4 heads of dh 64, d_ff 5632, vocab 32,000, untied head) at 4
+   of its 22 layers (PIPE_LAYERS, 2 a stage) on two one-rank stages sharing the card, bf16
    over fp32 masters, batch 8 x 512 in 4 microbatches, remat fusion, 2
    steps, beside the plain pipeline from the same parameters: every
    step's loss and grad norm against it (1e-3, 1e-2), the first loss
@@ -172,13 +173,13 @@ Phases, each fatal on failure:
    speed); the kernels held at this model's shapes first (``case`` lines
    off the ``kernels`` line's sums); then ``grid_pipeline_hecaton``, the
    same pipeline over 1x1x2 hecaton stages (four ranks, ``overlap=
-   "fused"``, 4 layers, 1 step), each of the three ring kernels launched
+   "fused"``, 2 layers, 1 step), each of the three ring kernels launched
    on every rank, against its plain pipeline;
 17. ``grid_pod_data``: the pod axis as data parallelism through the
    training launcher's ``--pods 2 --pod-role data`` over a 1x1x2 grid a
    pod (four rank processes; the batch, the gradient sum and the ZeRO-1
    moments over ``("pod", "data")``), the training cell's settings at
-   full width and 4 layers, ``overlap="fused"``, 2 steps: the
+   full width and 2 layers, ``overlap="fused"``, 2 steps: the
    ``grid_train`` gates against the plain pod-data grid, every rank
    launching the three ring kernels;
 18. ``serve_dense``: full-width qwen3-0.6b in fp32, each prompt of 64,
@@ -200,7 +201,33 @@ Phases, each fatal on failure:
    (the ring kernels) and 16 decode ticks (the 1D layout) teacher-forced
    on the one-card dense path's greedy tokens; every step's logits on
    every rank within a bound of that path's;
-21. print one JSON line of per-kernel numbers, then the result line.
+21. ``mla_kernels``: multi-head latent attention (minicpm3-4b at full
+   width: 40 heads, latent 256, rope 32, dn = dv = 64): the absorbed
+   decode kernel (``csrc/mla_decode.cu``) against its plain version at
+   the serving tick (4 slots over the pool's 544-row page view, one slot
+   idle; the kernels line's row) and off it (B 1 to 3, T 64, off the
+   32-key tile, an empty row), bf16 and fp32, fp32 out held to 2e-4; the
+   attention forward (the three prefills, the training microbatch) and
+   backward at dh 96, zero-padded to 128, off the kernels line's sums;
+22. ``mla_model_check``: a 300-token prefill and 8 decode steps through
+   the kernels against the plain path, bf16 at 62 layers, fp32 at 2 (the
+   ``ssm_model_check`` gates); the absorbed decode launched once a layer
+   and step, every bf16 prefill's attention on the tensor cores;
+23. ``serve_mla``: full-width minicpm3-4b served in bf16 through the
+   serving entry point (the serve phase's trace, prompts 64/256/512):
+   the serve gates, every decode tick (the warm-up's too) launching the
+   absorbed decode kernel 62 times, every prefill's attention on wgmma;
+24. ``serve_mla_quant_kv``: the same trace through ``--quant-kv`` (the
+   ``serve_quant_kv`` gates; one int8 latent block exactly (256 + 4 + 32
+   + 4) / 576 of bf16's);
+25. ``train_mla``: full-width minicpm3-4b at 8 of its 62 layers through
+   the training launcher (bf16 over fp32 masters, batch 8 x 512, 2
+   microbatches, remat fusion, 4 steps): every training kernel, every
+   attention launch on wgmma, step ms and peak memory; then the loss and
+   every gradient of one microbatch against the plain path
+   (``mla_grad_check``, the ``grad_check`` gates at 8 and 2 layers);
+26. print every phase's seconds (``phase_s``), then one JSON line of
+   per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
@@ -294,6 +321,10 @@ KERNELS = {
                        "src/repro/kernels/ring_matmul.py:1118"),
     "ag_matmul_contract_int8": ("src/repro_torch/kernels/csrc/ring_matmul.cu",
                                 "src/repro/kernels/ring_matmul.py:1290"),
+    # MLA's absorbed decode has no pallas_call: it replaces the decode
+    # form's einsums of apply_mla
+    "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
+                   "src/repro/models/attention.py:511"),
 }
 RING_KERNELS = ("ag_matmul", "matmul_rs", "ag_matmul_contract")
 INT8_KERNELS = tuple(k + "_int8" for k in RING_KERNELS)
@@ -339,9 +370,10 @@ PROBE_ROUNDS = 200
 GRID = (1, 2, 2)
 GRID_STEPS = 3
 # the depth of grid_train, grid_train_int8 and grid_megatron (cut from 28
-# to keep the script's time; every layer runs the same kernels, and the
-# three share one depth, as their loss and NoP-byte comparisons need)
-GRID_LAYERS = 8
+# to 8, then to 2, to keep the script's time; every layer runs the same
+# kernels, and the three share one depth, as their loss and NoP-byte
+# comparisons need)
+GRID_LAYERS = 2
 GRID_TIMEOUT_S = 900
 # the kernels' grid against the plain versions' grid (and the first loss
 # against the single-device port): bf16 sums in other orders
@@ -351,8 +383,9 @@ GRID_LABEL = "4 ranks time-sliced on one card; not a grid speed"
 # the int8 wire: 2 full-width steps; the first loss against the bf16
 # wire's (JAX's QUANT_RTOL, tests/_mp/check_overlap.py)
 INT8_STEPS, QUANT_RTOL = 2, 0.05
-# bidir: a short run at cut depth (it runs no kernel of its own)
-BIDIR_LAYERS, BIDIR_STEPS = 4, 1
+# bidir: a short run at cut depth (it runs no kernel of its own); the
+# depth of the other short grid runs too (cut from 4 to 2)
+BIDIR_LAYERS, BIDIR_STEPS = 2, 1
 # megatron (the paper's baseline) on GRID's ranks: GRID_LAYERS, 2 steps; every
 # rank must launch these kernels
 MEG_STEPS = 2
@@ -406,15 +439,17 @@ HANG_STEP, HANG_TIMEOUT_S, HANG_SLEEP_S = 5, 3.0, 4.0
 # grid_runtime: the blocklist in the grid's checkpoint directory
 GRID_BLOCKLIST, GRID_RUNTIME_STEPS = (0, 2), 2
 # the 1F1B pipeline (--pods 2 --pod-role pipeline): full-width
-# paper-tinyllama-1.1b (untied head; 22 layers, 11 a stage) on two one-rank
+# paper-tinyllama-1.1b (untied head) at PIPE_LAYERS of its 22 layers (cut
+# to keep the script's time; PIPE_LAYERS / 2 a stage) on two one-rank
 # stages, batch 8 x 512 in 4 microbatches; then the composed run, hecaton
 # stages of 1x1x2 (four ranks) under the fused overlap at PIPE_HEC_LAYERS
-# layers.  Every stage rank must launch PIPE_KERNELS (the composed run's
-# every rank the ring kernels); PIPE_MICRO_BATCH x TRAIN_SEQ is a
-# microbatch, the shape the kernel cases hold
+# layers (cut from 4).  Every stage rank must launch PIPE_KERNELS (the
+# composed run's every rank the ring kernels); PIPE_MICRO_BATCH x TRAIN_SEQ
+# is a microbatch, the shape the kernel cases hold
 PIPE_ARCH, PIPE_PODS, PIPE_MICRO, PIPE_STEPS = "paper-tinyllama-1.1b", 2, 4, 2
+PIPE_LAYERS = 4
 PIPE_MICRO_BATCH = TRAIN_BATCH // PIPE_MICRO
-PIPE_HEC_GRID, PIPE_HEC_LAYERS, PIPE_HEC_STEPS = (1, 1, 2), 4, 1
+PIPE_HEC_GRID, PIPE_HEC_LAYERS, PIPE_HEC_STEPS = (1, 1, 2), 2, 1
 PIPE_KERNELS = ("tile_matmul", "gated_matmul", "swiglu_bwd", "flash_attention",
                 "flash_attention_bwd")
 PIPE_LABEL = "stage processes time-sliced on one card; not a pipeline speed"
@@ -447,6 +482,21 @@ HOST_BOUND = "host-bound: the host's per-op launch cost, not the card, sets deco
 # card| over max |one card|
 GRID_SERVE, GRID_SERVE_BATCH, GRID_SERVE_PROMPT, GRID_SERVE_TICKS = (1, 2, 2), 4, 512, 16
 GRID_SERVE_TOL = 0.05                     # 0.0248 measured on an H100 80GB HBM3, 700 W
+# multi-head latent attention: minicpm3-4b at full width (62 layers, d 2560,
+# 40 heads, latent 256, rope 32, dn = dv = 64, vocab 73,472 padded, untied)
+# served in bf16 on the paged pool (SLOTS, BLOCK, REQUESTS, GEN) with prompts
+# of MLA_PROMPT_LENS, then through --quant-kv; its model check runs a
+# MLA_CHECK_PROMPT-token prefill and MLA_CHECK_DECODE decode steps; it trains
+# at MLA_TRAIN_LAYERS of its 62 layers (the fp32 state of 62 does not fit
+# the card), MLA_TRAIN_STEPS steps (1 warm-up) of the training cell's shape
+MLA_ARCH = "minicpm3-4b"
+MLA_PROMPT_LENS = (64, 256, 512)
+MLA_CHECK_PROMPT, MLA_CHECK_DECODE = 300, 8
+MLA_TRAIN_LAYERS, MLA_TRAIN_STEPS = 8, 4
+MLA_SERVE_KERNELS = ("matmul", "gated_matmul", "flash_attention", "mla_decode")
+# one int8 latent block against bf16's: (256 + 4 + 32 + 4) / (2 (256 + 32))
+MLA_QUANT_RATIO = (256 + 4 + 32 + 4) / 576
+MLA_QUANT_LOGIT_TOL = 0.06               # 0.0349 measured on an H100 80GB HBM3, 700 W
 
 
 def log(*a):
@@ -1139,9 +1189,10 @@ def _rel(a, b):
     return [((x - y).norm() / y.norm().clamp_min(1e-30)).item() for x, y in zip(a, b)]
 
 
-def grad_check(cfg):
+def grad_check(cfg, name="grad_check"):
     """Loss and every leaf's gradient of one microbatch through the kernels
-    against the plain-op path: bf16 at full depth, fp32 at two layers."""
+    against the plain-op path: bf16 at ``cfg``'s depth, fp32 at two
+    layers; logged as ``name``."""
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH // TRAIN_MICRO, seed=SEED)
     batch = {k: torch.from_numpy(v).to(DEV) for k, v in data.batch_at(0).items()}
     ok, report = True, {}
@@ -1175,7 +1226,7 @@ def grad_check(cfg):
         report[str(dtype).replace("torch.", "")] = entry
         del params, res
         torch.cuda.empty_cache()
-    log("grad_check " + json.dumps(report))
+    log(f"{name} " + json.dumps(report))
     return ok
 
 
@@ -1279,6 +1330,7 @@ def profile_train(cfg, params, opt, rc, batch):
 
 
 SERVE_TOK_S = {}                          # decode tok/s of each arch's serve run
+SERVE_TICKS = {}                          # decode ticks of each arch's serve run
 
 
 def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNELS,
@@ -1309,6 +1361,7 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
             "dense_equiv_blocks", "paged_peak_bytes", "dense_cache_bytes", "warmup_s")
     log(f"serve{suffix} " + json.dumps(dict({k: r[k] for k in keys}, arch=arch)))
     SERVE_TOK_S[arch] = r["decode_tok_s"]
+    SERVE_TICKS[arch] = r["ticks"]
     log(f"kernels{suffix} " + json.dumps(launches))
     # every served (bf16) matmul and gate with M > 16 (a prefill) went
     # through wgmma, every one with M <= 16 (decode) through gemv: none on
@@ -2497,25 +2550,29 @@ def _quant_gather_check(bf16_pool):
                 want = torch.where(amax > 0, amax / 127, torch.ones_like(amax))
                 scale_worst = max(scale_worst, float(
                     ((scale[b, :m].double() - want).abs() / want).max()))
-                rows += m * layer.shape[2]
+                rows += m * (layer[0, 0].numel() // layer.shape[-1])
     ok = worst <= 0.5 + QUANT_ROUND_SLACK and scale_worst <= QUANT_SCALE_RTOL
     return ok, worst, scale_worst, rows
 
 
-def serve_quant_kv_phase(bf16_tok_s):
+def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
+                         want_ratio=QUANT_KV_RATIO, logit_tol=QUANT_KV_LOGIT_TOL,
+                         kernels=SERVE_KERNELS, name="serve_quant_kv"):
     """The serve phase's trace through ``--quant-kv`` (bf16): every request
-    finishes with GEN tokens; one int8 block is QUANT_KV_RATIO of the bf16
+    finishes with GEN tokens; one int8 block is ``want_ratio`` of the bf16
     pool's exactly; on the card ``quant_paged_gather`` reads back every
     row the bf16 arena holds within scale / 2; the first decode tick's
     logits, teacher-forced on the same tokens over the same prompts,
-    against the bf16 arena's (QUANT_KV_LOGIT_TOL).  Decode tok/s is
-    printed beside the ``serve`` line's, both host-bound."""
+    against the bf16 arena's (``logit_tol``).  Decode tok/s is printed
+    beside the ``serve`` line's, both host-bound.  Returns (ok, the
+    main path's launches)."""
     from repro_torch.serve import step as SRV
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     args = launch_serve.parser().parse_args([
-        "--arch", ARCH, "--dtype", "bfloat16", "--device", DEV,
+        "--arch", arch, "--dtype", "bfloat16", "--device", DEV,
         "--slots", str(SLOTS), "--block", str(BLOCK), "--requests", str(REQUESTS),
-        "--prompt-lens", ",".join(map(str, PROMPT_LENS)), "--gen", str(GEN),
+        "--prompt-lens", ",".join(map(str, prompt_lens)), "--gen", str(GEN),
         "--seed", str(SEED), "--quant-kv"])
     ops.reset_launches()
     r = launch_serve.run(args)                    # the main path
@@ -2524,13 +2581,13 @@ def serve_quant_kv_phase(bf16_tok_s):
     fin = r["finished"]
     ok_fin = len(fin) == REQUESTS and all(len(f.tokens) == GEN for f in fin.values())
     ratio = r["block_bytes"] / r["dense_block_bytes"]
-    ok_ratio = ratio == QUANT_KV_RATIO
+    ok_ratio = ratio == want_ratio
     # teacher-forced: the same SLOTS prompts prefilled into a bf16 and an
     # int8 pool, then one decode tick on the same tokens
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     params = r["engine"].params
     rng = np.random.default_rng(SEED + 1)
-    lens = [PROMPT_LENS[i % len(PROMPT_LENS)] for i in range(SLOTS)]
+    lens = [prompt_lens[i % len(prompt_lens)] for i in range(SLOTS)]
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lens]
     pc = PoolConfig(slots=SLOTS, block=BLOCK, num_blocks=r["engine"].pool.pool.num_blocks,
                     max_seq=r["engine"].pool.pool.max_seq)
@@ -2554,20 +2611,21 @@ def serve_quant_kv_phase(bf16_tok_s):
     torch.cuda.synchronize()
     rel = _max_rel(logits[True], logits[False])
     argmax_same = bool((logits[True].argmax(-1) == logits[False].argmax(-1)).all())
-    ok = (ok_fin and ok_ratio and ok_gather and rel <= QUANT_KV_LOGIT_TOL
-          and all(launches[k] > 0 for k in SERVE_KERNELS))
-    log("serve_quant_kv " + json.dumps(dict(
-        arch=ARCH, dtype="bfloat16", sequences=r["sequences"], ticks=r["ticks"],
+    ok = (ok_fin and ok_ratio and ok_gather and rel <= logit_tol
+          and all(launches[k] > 0 for k in kernels))
+    log(f"{name} " + json.dumps(dict(
+        arch=arch, dtype="bfloat16", sequences=r["sequences"], ticks=r["ticks"],
         preemptions=r["preemptions"], prefill_ms_mean=r["prefill_ms_mean"],
         decode_tok_s=r["decode_tok_s"], serve_bf16_decode_tok_s=bf16_tok_s,
         decode_note=HOST_BOUND, block_bytes=r["block_bytes"],
-        bf16_block_bytes=r["dense_block_bytes"], ratio=ratio, want_ratio=QUANT_KV_RATIO,
+        bf16_block_bytes=r["dense_block_bytes"], ratio=ratio, want_ratio=want_ratio,
         paged_peak_bytes=r["paged_peak_bytes"], gather_worst_over_scale=worst,
         scale_worst_rel=scale_worst, tol_scale_rel=QUANT_SCALE_RTOL, gather_rows=rows,
-        tick_logits_rel=rel, tol_tick_logits_rel=QUANT_KV_LOGIT_TOL,
-        tick_argmax_same=argmax_same, launches=launches, ok=ok)))
+        tick_logits_rel=rel, tol_tick_logits_rel=logit_tol,
+        tick_argmax_same=argmax_same, launches=launches,
+        seconds=time.perf_counter() - t_phase, ok=ok)))
     del pools, logits, r
-    return ok
+    return ok, launches
 
 
 def grid_serve_phase():
@@ -2635,6 +2693,241 @@ def grid_serve_phase():
     return ok, launches
 
 
+# ---------------------------------------------------------------------------
+# multi-head latent attention (minicpm3-4b)
+# ---------------------------------------------------------------------------
+
+def check_mla_decode(results, gen, B, T, kv_len, dtype, *, main=True, label=""):
+    """The absorbed decode kernel against ``ref.mla_decode_plain`` at
+    minicpm3-4b's dims (40 heads, latent 256, rope 32, scale 96^-0.5):
+    c_kv and k_rope are strided views of one gathered [B, T, 288] buffer,
+    as the paged gather hands them over.  fp32 out of both dtypes, held
+    to the fp32 bound.  The yardstick is one F.scaled_dot_product_attention
+    on the concatenated latent (q [B, 40, 1, 288] against one kv head, k
+    = [c_kv | k_rope], v = c_kv, ``scale=``), which the port never calls.
+    The bound counts the visible latent rows (a row of kv_len 0 reads all
+    T) and 2 x 40 x (288 + 256) operations per visible row."""
+    nh, (Ld, R) = 40, kfa.MLA_DIMS
+    elt = torch.tensor([], dtype=dtype).element_size()
+    rows = sum(T if n <= 0 else min(n, T) for n in kv_len)
+    nbytes = (B * nh * (Ld + R) + rows * (Ld + R)) * elt + B * nh * Ld * 4
+    nops = 2 * rows * nh * (Ld + R + Ld)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=DEV)
+    scale = 96 ** -0.5
+    sets = []
+    for _ in range(n_copies(B * T * (Ld + R) * elt)):
+        q_lat, q_rope = randn(gen, (B, nh, Ld), dtype), randn(gen, (B, nh, R), dtype)
+        sets.append((q_lat, q_rope, randn(gen, (B, T, Ld + R), dtype),
+                     torch.cat([q_lat, q_rope], dim=-1)[:, :, None]))
+    mask = (torch.arange(T, device=DEV)[None, :] < kl[:, None])[:, None, None, :]
+    args = lambda s: (s[0], s[1], s[2][..., :Ld], s[2][..., Ld:], kl, scale)  # noqa: E731
+    kern = lambda s: kfa.mla_decode(*args(s))  # noqa: E731
+    plain = lambda s: ref.mla_decode_plain(*args(s))  # noqa: E731
+    lib = lambda s: F.scaled_dot_product_attention(  # noqa: E731
+        s[3], s[2][:, None], s[2][:, None, :, :Ld], attn_mask=mask, scale=scale,
+        enable_gqa=True)
+    return record(results, "mla_decode", f"{label} B={B} nh={nh} T={T} kv_len={kv_len}",
+                  dtype, main, kern(sets[0]), plain(sets[0]),
+                  [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(s) for s in sets],
+                  [lambda s=s: lib(s) for s in sets], nbytes, nops, path="simt")
+
+
+def mla_kernel_phase(cfg):
+    """MLA's kernels at minicpm3-4b's full-width shapes: the absorbed
+    decode at the serving tick (4 slots over the pool's 544-row page view,
+    one slot idle at length 1; bf16, the kernels line's row) and off it
+    (B 1 to 3, T of 64, off the 32-key tile, 256 with an empty row; fp32
+    and bf16); then rows 3 and 3b at dh 96 (zero-padded to 128), off the
+    kernels line's sums: the three serving prefills, the training
+    microbatch's forward, its backward in bf16 and, at batch 1, fp32."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    m, nh = cfg.mla, cfg.num_heads
+    dh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    Tpool = -(-(max(MLA_PROMPT_LENS) + GEN) // BLOCK) * BLOCK
+    bf, f32 = torch.bfloat16, torch.float32
+    results, ok = [], True
+    for dtype in (bf, f32):
+        ok &= check_mla_decode(results, gen, SLOTS, Tpool, [64, 301, 512, 1], dtype,
+                               main=dtype == bf, label="decode tick")
+        ok &= check_mla_decode(results, gen, 1, 64, [64], dtype, main=False, label="one row")
+        ok &= check_mla_decode(results, gen, 2, 100, [37, 100], dtype, main=False,
+                               label="T off the tile")
+        ok &= check_mla_decode(results, gen, 3, 256, [256, 0, 129], dtype, main=False,
+                               label="empty row")
+    for P in MLA_PROMPT_LENS:
+        ok &= check_attention(results, gen, 1, nh, nh, dh, P, Tpool, [0], [P], bf, main=False,
+                              label="mla prefill")
+    ok &= check_attention(results, gen, 1, nh, nh, dh, 256, Tpool, [0], [256], f32,
+                          main=False, label="mla prefill")
+    B = TRAIN_BATCH // TRAIN_MICRO
+    ok &= check_attention(results, gen, B, nh, nh, dh, TRAIN_SEQ, TRAIN_SEQ, [0] * B,
+                          [TRAIN_SEQ] * B, bf, main=False, label="mla train")
+    ok &= check_attention_bwd(results, gen, B, nh, nh, dh, TRAIN_SEQ, bf, main=False)
+    ok &= check_attention_bwd(results, gen, 1, nh, nh, dh, TRAIN_SEQ, f32, main=False)
+    log("mla_kernels " + json.dumps(dict(cases=len(results), seconds=time.perf_counter() - t0,
+                                         ok=ok)))
+    return results, ok
+
+
+def _mla_logits(cfg, params, toks, plen, dtype, plain):
+    """Logits of a ``plen``-token prefill into a fresh paged pool, then one
+    decode step per remaining token of ``toks`` (fed, not sampled, so both
+    paths see the same inputs) at its position: [len(toks), V] fp32."""
+    n = len(toks)
+    pool = CachePool(cfg, PoolConfig(1, BLOCK, -(-n // BLOCK) + 1, n), device=DEV, dtype=dtype)
+    slot = pool.admit(plen)
+    pctx, t = PCtx(plain=plain), torch.from_numpy(toks).to(DEV)[None]
+    with torch.inference_mode():
+        out = lm.forward(pctx, cfg, params, {"tokens": t[:, :plen], "_dtype": dtype},
+                         caches=pool.prefill_tree(slot))
+        pool.commit_prefill(slot, plen)
+        logits = [out.logits[0]]
+        for i in range(plen, n):
+            if not pool.ensure_append(slot):
+                raise RuntimeError("the check's pool is sized for every token")
+            pos = torch.full((1, 1), i, dtype=torch.int64, device=DEV)
+            step = lm.forward(pctx, cfg, params, {"tokens": t[:, i:i + 1], "positions": pos,
+                                                  "_dtype": dtype}, caches=pool.decode_tree())
+            pool.advance(slot)
+            logits.append(step.logits[0])
+    return torch.cat(logits).float()
+
+
+def mla_model_check(cfg):
+    """minicpm3-4b at full width: a MLA_CHECK_PROMPT-token prompt's prefill
+    and MLA_CHECK_DECODE decode steps through the kernels against the
+    plain-op path, bf16 at 62 layers (and both against the plain fp32
+    forward), fp32 at 2 layers; the gates of ``ssm_model_check`` (bf16:
+    5e-2 relative, and the kernel path as close to fp32 as the plain bf16
+    path, 25% margin; fp32 1e-4).  The kernel path must launch the
+    absorbed decode once a layer and step, and every prefill attention on
+    the tensor cores in bf16."""
+    t0 = time.perf_counter()
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=MLA_CHECK_PROMPT + MLA_CHECK_DECODE)
+    ok, report = True, {}
+    for dtype, layers in ((torch.bfloat16, cfg.num_layers), (torch.float32, 2)):
+        c = cfg.scaled(num_layers=layers)
+        paths = [("kernel", dtype, False), ("plain", dtype, True)]
+        if dtype == torch.bfloat16:
+            paths.append(("plain_fp32", torch.float32, True))
+        logits = {}
+        for name, dt_, plain in paths:
+            params = lm.init_params(c, seed=SEED, device=DEV, dtype=dt_)
+            ops.reset_launches()
+            logits[name] = _mla_logits(c, params, toks, MLA_CHECK_PROMPT, dt_, plain)
+            if name == "kernel":
+                launches = dict(ops.LAUNCHES)
+                fa = dict(kfa.IMPL_LAUNCHES["flash_attention"])
+            del params
+            torch.cuda.empty_cache()
+        rel = lambda a, b: ((logits[a] - logits[b]).norm() / logits[b].norm()).item()  # noqa
+        want_fa = "wgmma" if dtype == torch.bfloat16 else "simt"
+        ok_launch = (launches["mla_decode"] == MLA_CHECK_DECODE * layers
+                     and fa[want_fa] == launches["flash_attention"] == layers)
+        entry = dict(layers=layers, prompt=MLA_CHECK_PROMPT, decode_steps=MLA_CHECK_DECODE,
+                     max_abs_err=(logits["kernel"] - logits["plain"]).abs().max().item(),
+                     rel_kernel_vs_plain=rel("kernel", "plain"),
+                     mla_decode_launches=launches["mla_decode"], attention_paths=fa)
+        good = bool(torch.isfinite(logits["kernel"]).all()) and ok_launch
+        if dtype == torch.bfloat16:
+            entry.update(rel_kernel_vs_fp32=rel("kernel", "plain_fp32"),
+                         rel_plain_vs_fp32=rel("plain", "plain_fp32"), tol_rel=5e-2)
+            good &= entry["rel_kernel_vs_plain"] <= 5e-2 and \
+                entry["rel_kernel_vs_fp32"] <= 1.25 * entry["rel_plain_vs_fp32"] + 1e-3
+        else:
+            entry["tol_rel"] = 1e-4
+            good &= entry["rel_kernel_vs_plain"] <= 1e-4
+        entry["ok"] = good
+        ok &= good
+        report[str(dtype).replace("torch.", "")] = entry
+    report["seconds"] = time.perf_counter() - t0
+    log("mla_model_check " + json.dumps(report))
+    return ok
+
+
+def serve_mla_phase():
+    """Full-width minicpm3-4b in bf16 through the serving entry point (the
+    serve phase's trace, prompts of MLA_PROMPT_LENS): beside the serve
+    phase's gates, every decode tick (the warm-up's included) launches the
+    absorbed decode kernel once a layer, the CUDA kernel every time, and
+    every prefill's attention runs on the tensor cores."""
+    t0 = time.perf_counter()
+    ok, launches = serve_phase(False, MLA_ARCH, MLA_PROMPT_LENS, MLA_SERVE_KERNELS, "_mla")
+    L, ticks = get_config(MLA_ARCH).num_layers, SERVE_TICKS[MLA_ARCH]
+    fa = dict(kfa.IMPL_LAUNCHES["flash_attention"])
+    md = dict(kfa.IMPL_LAUNCHES["mla_decode"])
+    ok_ticks = launches["mla_decode"] == L * (ticks + 1) and md["simt"] == launches["mla_decode"]
+    ok_prefill = fa["simt"] == 0 and fa["wgmma"] == launches["flash_attention"] > 0
+    ok &= ok_ticks and ok_prefill
+    log("serve_mla_paths " + json.dumps(dict(
+        mla_decode=md, mla_decode_per_tick=launches["mla_decode"] / (ticks + 1),
+        layers=L, ticks=ticks, warmup_ticks=1, flash_attention=fa,
+        seconds=time.perf_counter() - t0, ok=ok_ticks and ok_prefill)))
+    return ok, launches
+
+
+def train_mla_phase():
+    """Full-width minicpm3-4b at MLA_TRAIN_LAYERS of its 62 layers through
+    the training launcher (bf16 over fp32 masters, batch 8 x 512, 2
+    microbatches, remat fusion, MLA_TRAIN_STEPS steps, the first a
+    warm-up): every training kernel launches, every attention forward and
+    backward on the tensor cores (dh 96 padded to 128), every tile matmul
+    and gate on wgmma; step ms and peak memory; then the loss and every
+    gradient of one microbatch against the plain path (``grad_check``:
+    bf16 at MLA_TRAIN_LAYERS layers, fp32 at 2)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    args = launch_train.parser().parse_args([
+        "--arch", MLA_ARCH, "--layers", str(MLA_TRAIN_LAYERS), "--dtype", "bfloat16",
+        "--device", DEV, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--microbatches", str(TRAIN_MICRO), "--steps", str(MLA_TRAIN_STEPS)])
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    r = launch_train.run(args, log_fn=log)            # the main path
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(ops.LAUNCHES)
+    paths = {k: dict(v) for k, v in kfa.IMPL_LAUNCHES.items()}
+    mm_paths = {k: dict(kmm.IMPL_LAUNCHES[k]) for k in ("tile_matmul", "gated_matmul")}
+    cfg, losses = r["cfg"], [loss for _, loss in r["history"]]
+    step_ms_all = [1e3 * t for t in r["step_s"]]
+    step_ms = float(np.median(step_ms_all[1:]))
+    ok_paths = all(paths[k]["simt"] == 0 and paths[k]["wgmma"] == launches[k] > 0
+                   for k in ("flash_attention", "flash_attention_bwd"))
+    ok_mm = all(c["wgmma"] == launches[k] > 0 and c["wgmma"] == sum(c.values())
+                for k, c in mm_paths.items())
+    ok = (all(math.isfinite(x) for x in losses) and ok_paths and ok_mm
+          and all(launches[k] > 0 for k in TRAIN_KERNELS) and launches["mla_decode"] == 0)
+    n_params = sum(t.numel() for _, t in lm.flatten(r["state"]["params"]))
+    del r
+    torch.cuda.empty_cache()
+    t_run = time.perf_counter() - t0
+    ok_g = grad_check(cfg, "mla_grad_check")
+    log("train_mla " + json.dumps(dict(
+        arch=MLA_ARCH, layers=cfg.num_layers, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=TRAIN_MICRO, remat="fusion", dtype="bfloat16", losses=losses,
+        step_ms_median=step_ms, step_ms=step_ms_all[1:], warmup_step_ms=step_ms_all[0],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), peak_gib=peak_gib,
+        launches=launches, attention_paths=paths, mm_paths=mm_paths, run_seconds=t_run,
+        seconds=time.perf_counter() - t0, ok=ok, grad_check_ok=ok_g)))
+    return ok and ok_g, launches
+
+
+PHASE_S = {}                              # seconds of each phase, in run order
+
+
+def timed(name, fn, *a, **kw):
+    """``fn(*a, **kw)``, its seconds kept in PHASE_S under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*a, **kw)
+    finally:
+        PHASE_S[name] = time.perf_counter() - t0
+        log(f"phase {name} {PHASE_S[name]:.1f}s")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2648,67 +2941,81 @@ def main(argv=None):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = build.build_all()
+    PHASE_S["build"] = time.perf_counter() - t0
     log(f"build {time.perf_counter() - t0:.2f}s " +
         json.dumps({k: v.strip()[-400:] for k, v in logs.items()}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
                          check=True, capture_output=True, text=True).stdout.strip()
 
-    ok_sass = sass_counts()
+    ok_sass = timed("sass", sass_counts)
     cfg = get_config(ARCH)
-    results, ok_k = kernel_phase(cfg)
-    t_results, ok_tk = train_kernel_phase(cfg)
+    results, ok_k = timed("kernels", kernel_phase, cfg)
+    t_results, ok_tk = timed("train_kernels", train_kernel_phase, cfg)
     results += t_results
-    ok_m = model_check(cfg)
-    ok_g = grad_check(cfg)
-    ok_t, t_launches = train_phase(args.profile)
-    ok_s, s_launches = serve_phase(args.profile)
+    ok_m = timed("model_check", model_check, cfg)
+    ok_g = timed("grad_check", grad_check, cfg)
+    ok_t, t_launches = timed("train", train_phase, args.profile)
+    ok_s, s_launches = timed("serve", serve_phase, args.profile)
     ssm_cfg = get_config(SSM_ARCH)
-    s_results, ok_sk = ssd_kernel_phase(ssm_cfg)
+    s_results, ok_sk = timed("ssd_kernels", ssd_kernel_phase, ssm_cfg)
     results += s_results
-    ok_sm = ssm_model_check(ssm_cfg)
-    ok_ss, ss_launches = serve_phase(args.profile, SSM_ARCH, SSM_PROMPT_LENS,
-                                     SSM_SERVE_KERNELS, "_ssm")
-    r_results, ok_rk = ring_kernels_phase()
+    ok_sm = timed("ssm_model_check", ssm_model_check, ssm_cfg)
+    ok_ss, ss_launches = timed("serve_ssm", serve_phase, args.profile, SSM_ARCH,
+                               SSM_PROMPT_LENS, SSM_SERVE_KERNELS, "_ssm")
+    r_results, ok_rk = timed("ring_kernels", ring_kernels_phase)
     results += r_results
-    ok_gt, g_launches, bf16_step0, hec_nop = grid_train_phase()
-    ok_gq, q_launches, _, _ = grid_train_phase("grid_train_int8", wire="int8",
-                                               steps=INT8_STEPS, kernels=INT8_KERNELS,
-                                               bf16_step0=bf16_step0)
-    ok_gb, _, _, _ = grid_train_phase("grid_bidir", overlap="bidir", wire="int8",
-                                      steps=BIDIR_STEPS, layers=BIDIR_LAYERS, kernels=())
-    ok_gm, _, _, meg_nop = grid_train_phase("grid_megatron", steps=MEG_STEPS,
-                                            kernels=MEG_KERNELS, strategy="megatron")
+    ok_gt, g_launches, bf16_step0, hec_nop = timed("grid_train", grid_train_phase)
+    ok_gq, q_launches, _, _ = timed("grid_train_int8", grid_train_phase, "grid_train_int8",
+                                    wire="int8", steps=INT8_STEPS, kernels=INT8_KERNELS,
+                                    bf16_step0=bf16_step0)
+    ok_gb, _, _, _ = timed("grid_bidir", grid_train_phase, "grid_bidir", overlap="bidir",
+                           wire="int8", steps=BIDIR_STEPS, layers=BIDIR_LAYERS, kernels=())
+    ok_gm, _, _, meg_nop = timed("grid_megatron", grid_train_phase, "grid_megatron",
+                                 steps=MEG_STEPS, kernels=MEG_KERNELS, strategy="megatron")
     log("grid_nop_bytes " + json.dumps(dict(
         note="per rank and step: the logged forward collectives (recompute included), "
              "bytes received; the backward's transposes are not logged",
         hecaton=hec_nop, megatron=meg_nop,
         megatron_over_hecaton={r: meg_nop[r]["total"] / hec_nop[r]["total"]
                                for r in meg_nop if r in hec_nop and hec_nop[r]["total"]})))
-    ok_c, ckpt_refs = ckpt_phase()
-    ok_gc = grid_ckpt_phase()
-    ok_rt = runtime_phase(ckpt_refs)
-    ok_grt = grid_runtime_phase()
-    p_results, ok_pk = pipe_kernel_phase(get_config(PIPE_ARCH))
+    ok_c, ckpt_refs = timed("ckpt", ckpt_phase)
+    ok_gc = timed("grid_ckpt", grid_ckpt_phase)
+    ok_rt = timed("runtime", runtime_phase, ckpt_refs)
+    ok_grt = timed("grid_runtime", grid_runtime_phase)
+    p_results, ok_pk = timed("pipe_kernels", pipe_kernel_phase, get_config(PIPE_ARCH))
     results += p_results
-    ok_gp, _ = grid_pipeline_phase()
-    ok_gph, _ = grid_pipeline_phase("grid_pipeline_hecaton", grid=PIPE_HEC_GRID,
-                                    layers=PIPE_HEC_LAYERS, steps=PIPE_HEC_STEPS,
-                                    overlap="fused", kernels=RING_KERNELS, wgmma=False)
-    ok_gpd, _, _, _ = grid_train_phase("grid_pod_data", steps=POD_DATA_STEPS,
-                                       layers=POD_DATA_LAYERS, grid=POD_DATA_GRID,
-                                       pods=POD_DATA_PODS)
-    ok_sd = serve_dense_phase()
-    ok_sq = serve_quant_kv_phase(SERVE_TOK_S.get(ARCH))
-    ok_gs, _ = grid_serve_phase()
+    ok_gp, _ = timed("grid_pipeline", grid_pipeline_phase, layers=PIPE_LAYERS)
+    ok_gph, _ = timed("grid_pipeline_hecaton", grid_pipeline_phase, "grid_pipeline_hecaton",
+                      grid=PIPE_HEC_GRID, layers=PIPE_HEC_LAYERS, steps=PIPE_HEC_STEPS,
+                      overlap="fused", kernels=RING_KERNELS, wgmma=False)
+    ok_gpd, _, _, _ = timed("grid_pod_data", grid_train_phase, "grid_pod_data",
+                            steps=POD_DATA_STEPS, layers=POD_DATA_LAYERS, grid=POD_DATA_GRID,
+                            pods=POD_DATA_PODS)
+    ok_sd = timed("serve_dense", serve_dense_phase)
+    ok_sq, _ = timed("serve_quant_kv", serve_quant_kv_phase, SERVE_TOK_S.get(ARCH))
+    ok_gs, _ = timed("grid_serve", grid_serve_phase)
+    torch.cuda.empty_cache()
+    mla_cfg = get_config(MLA_ARCH)
+    m_results, ok_mk = timed("mla_kernels", mla_kernel_phase, mla_cfg)
+    results += m_results
+    ok_mm = timed("mla_model_check", mla_model_check, mla_cfg)
+    ok_ms, ms_launches = timed("serve_mla", serve_mla_phase)
+    ok_mq, _ = timed("serve_mla_quant_kv", serve_quant_kv_phase, SERVE_TOK_S.get(MLA_ARCH),
+                     MLA_ARCH, MLA_PROMPT_LENS, MLA_QUANT_RATIO, MLA_QUANT_LOGIT_TOL,
+                     MLA_SERVE_KERNELS, "serve_mla_quant_kv")
+    ok_mt, _ = timed("train_mla", train_mla_phase)
+    log("phase_s " + json.dumps(dict(PHASE_S, total=time.perf_counter() - t_start)))
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
     # serving run, the ring kernels' from the bf16 grid run and their int8
     # variants' from the int8 grid run (summed over the four ranks), the
-    # training kernels' from the training run
-    launches = {k: (ss_launches if k == "ssd" else s_launches if k in SERVE_KERNELS
+    # absorbed decode's from the MLA serving run, the training kernels'
+    # from the training run
+    launches = {k: (ms_launches if k == "mla_decode" else ss_launches if k == "ssd"
+                    else s_launches if k in SERVE_KERNELS
                     else g_launches if k in RING_KERNELS
                     else q_launches if k in INT8_KERNELS else t_launches).get(k, 0)
                 for k in KERNELS}
@@ -2744,6 +3051,9 @@ def main(argv=None):
                               ("grid_pipeline", ok_gp), ("grid_pipeline_hecaton", ok_gph),
                               ("grid_pod_data", ok_gpd), ("serve_dense", ok_sd),
                               ("serve_quant_kv", ok_sq), ("grid_serve", ok_gs),
+                              ("mla_kernels", ok_mk), ("mla_model_check", ok_mm),
+                              ("serve_mla", ok_ms), ("serve_mla_quant_kv", ok_mq),
+                              ("train_mla", ok_mt),
                               ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]

@@ -7,7 +7,9 @@ returns, after ``jax.tree.map(np.asarray, ...)`` (numpy leaves, stacked
 parameters, and ``shard_master_params_from_jax`` one grid rank's blocks of
 them (``gather_master_params`` is the inverse, for the tests).
 bfloat16 arrays cross through a ``uint16`` view, so no JAX or ml_dtypes
-import is needed here.  This is what makes both packages compute the same
+import is needed here.  The trees cross leaf by leaf whatever the mixer:
+an MLA model's (``wq_a``, ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``,
+``wkv_b``, ``wo``) as a GQA model's.  This is what makes both packages compute the same
 function in the parity tests.
 """
 

@@ -2,11 +2,12 @@
 
 A copy of the parts of ``repro/config.py`` the ported slices read: the
 frozen :class:`ModelConfig` with ``padded_vocab``/``resolved_head_dim``/
-``scaled``, :class:`SSMConfig` (the Mamba2 mixer), the arch registry, and
+``scaled``, :class:`SSMConfig` (the Mamba2 mixer), :class:`MLAConfig`
+(multi-head latent attention), the arch registry, and
 the fields of :class:`ParallelConfig`, :class:`GuardConfig` and
 :class:`RunConfig` that the training steps read (one device and the
 hecaton grid), with the JAX package's defaults, and
-:class:`CheckpointConfig` whole.  MoE/MLA/hybrid/enc-dec fields arrive
+:class:`CheckpointConfig` whole.  MoE/hybrid/enc-dec fields arrive
 with the slices that use them.
 """
 
@@ -15,6 +16,16 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek/MiniCPM3 style)."""
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclass(frozen=True)
@@ -46,6 +57,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     embed_dropout: float = 0.0              # train mode only
     ssm: Optional[SSMConfig] = None
+    mla: Optional[MLAConfig] = None
 
     @property
     def padded_vocab(self) -> int:

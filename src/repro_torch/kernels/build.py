@@ -5,7 +5,12 @@ shared library with a plain C interface (all sources at once, in
 parallel), then loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-        -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+        -Xcompiler -fPIC --split-compile=0 \
+        -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+
+``--split-compile=0`` lets each nvcc optimize and assemble its device
+code on every core in parallel, so the longest source no longer builds
+on one core while the others wait.
 
 The build directory is ``build/kernels`` at the root of the checkout (git
 ignores it); a library is named by the hash of its source, the shared
@@ -29,9 +34,9 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "flash_attention", "swiglu_bwd", "ssd", "ring_matmul")
+SOURCES = ("matmul", "flash_attention", "swiglu_bwd", "ssd", "ring_matmul", "mla_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _U = ctypes.c_ulonglong
@@ -50,6 +55,9 @@ ARGTYPES = {
     },
     "swiglu_bwd": {
         "hk_swiglu_bwd": [_P] * 5 + [_L, _I, _I, _P],
+    },
+    "mla_decode": {
+        "hk_mla_decode": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F, _I, _P, _I, _P],
     },
     "ssd": {
         "hk_ssd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P],

@@ -26,8 +26,9 @@ package's ``custom_vjp``), so that a selective-checkpoint policy
 Without a gradient (:func:`needs_grad` false: serving, under
 ``inference_mode``) ``matmul``, ``gated_matmul`` and ``attention`` launch
 their forward kernels directly, without the custom ops' dispatch cost on
-the host-bound decode tick; ``matmul`` and ``ssd`` (the Mamba2 prefill
-scan) are forward-only and raise when asked for a gradient.
+the host-bound decode tick; ``matmul``, ``ssd`` (the Mamba2 prefill
+scan) and ``mla_decode`` (MLA's absorbed decode attention) are
+forward-only and raise when asked for a gradient.
 """
 
 from __future__ import annotations
@@ -46,7 +47,8 @@ LAUNCHES: Dict[str, int] = {"matmul": 0, "gated_matmul": 0, "flash_attention": 0
                             "tile_matmul": 0, "swiglu_bwd": 0, "flash_attention_bwd": 0,
                             "ssd": 0, "ag_matmul": 0, "matmul_rs": 0,
                             "ag_matmul_contract": 0, "ag_matmul_int8": 0,
-                            "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0}
+                            "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0,
+                            "mla_decode": 0}
 
 
 def reset_launches() -> None:
@@ -119,6 +121,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                               kv_len=kv_len)
     LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
+               k_rope: torch.Tensor, kv_len: torch.Tensor, scale: float) -> torch.Tensor:
+    """MLA's absorbed decode attention: o_lat fp32 [B, nh, L]; shapes of
+    ``ref.mla_decode_plain``.  Forward only."""
+    if needs_grad(q_lat, q_rope, c_kv, k_rope):
+        raise RuntimeError("ops.mla_decode has no backward; MLA trains through the "
+                           "prefill form (ops.attention)")
+    if _on_cpu(q_lat):
+        return _ref.mla_decode_plain(q_lat, q_rope, c_kv, k_rope, kv_len, scale)
+    out = _fa.mla_decode(q_lat, q_rope, c_kv, k_rope, kv_len, scale)
+    LAUNCHES["mla_decode"] += 1
     return out
 
 

@@ -92,6 +92,25 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
 
 
+def mla_decode_plain(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
+                     k_rope: torch.Tensor, kv_len: torch.Tensor, scale: float) -> torch.Tensor:
+    """Absorbed MLA decode (``models/attention.apply_mla``'s decode form):
+    every query head attends over one shared latent kv head.
+
+    q_lat [B,nh,L] and q_rope [B,nh,R] (the query already absorbed into
+    the latent, and its rotary part); c_kv [B,T,L] and k_rope [B,T,R] (the
+    latent cache); kv_len [B] masks positions ``>= kv_len[b]``.  The score
+    is ``(q_lat . c_kv + q_rope . k_rope) * scale``, masked to -1e30 and
+    softmaxed over T; returns ``o_lat = p . c_kv`` in fp32 [B,nh,L], all
+    in fp32 from the inputs' dtype."""
+    B, T = c_kv.shape[0], c_kv.shape[1]
+    s = (torch.einsum("bhl,btl->bht", q_lat.float(), c_kv.float())
+         + torch.einsum("bhr,btr->bht", q_rope.float(), k_rope.float())) * scale
+    mask = torch.arange(T, device=c_kv.device)[None, :] < kv_len.reshape(B, 1).to(c_kv.device)
+    p = torch.softmax(s.masked_fill(~mask[:, None, :], NEG_INF), dim=-1)
+    return torch.einsum("bht,btl->bhl", p, c_kv.float())
+
+
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True):
     """(dq, dk, dv) of :func:`attention_plain` under the training mask

@@ -4,7 +4,8 @@ Counterpart of ``repro/launch/serve.py``, with the same flags and report:
 a synthetic arrival trace (more requests than slots, mixed prompt lengths)
 runs after a warm-up, and prefill latency and decode tok/s are reported
 separately.  ``--device`` defaults to ``cuda`` (the CUDA kernels);
-``--device cpu`` runs the plain PyTorch versions.  The dense archs and
+``--device cpu`` runs the plain PyTorch versions.  The dense archs,
+``minicpm3-4b`` (MLA: latent caches, the absorbed decode kernel) and
 ``mamba2-130m`` (the ssm family, prompts at their exact lengths) serve.
 ``--quant-kv`` keeps the paged K/V as int8 with fp32 row scales and
 prints one block's bytes beside the compute dtype's arena's.
@@ -12,7 +13,7 @@ prints one block's bytes beside the compute dtype's arena's.
 ``--data D --mx X --my Y`` (any of them > 1) serves on the rank grid
 instead: D*X*Y rank processes (as the training launcher spawns them;
 on a one-card machine they share card 0), each holding its blocks of
-the seeded parameters (``serve/step.grid_params``), prefill a batch of
+the seeded parameters (``serve/step.grid_params``; not MLA), prefill a batch of
 ``--slots`` prompts of the longest ``--prompt-lens`` length into sharded
 dense caches (``serve/step.build_prefill``: hecaton's dataflow, the ring
 kernels under ``--overlap fused``) and decode ``--gen`` tokens greedily
@@ -26,6 +27,8 @@ engine does not run on a grid.
         --dtype bfloat16 --slots 4 --requests 8 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --dtype bfloat16 --prompt-lens 64,200,512 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
+        --dtype bfloat16 --prompt-lens 64,256,512 --gen 32 [--quant-kv]
 """
 
 from __future__ import annotations
@@ -155,7 +158,12 @@ def run_grid(args, teacher=None, keep_logits: bool = False) -> dict:
     prefill and in decode."""
     import numpy as np
     from repro_torch import resolve_device
+    from repro_torch.config import get_config, get_smoke_config
     from repro_torch.parallel import comm
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.mla:
+        raise NotImplementedError(f"MLA ({cfg.name}) does not serve on the rank grid; it serves "
+                                  "on one device")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         from repro_torch.kernels import build

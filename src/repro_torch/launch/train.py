@@ -51,6 +51,11 @@ ends with ``grid[NxDxXxY] final loss ...``.
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``--device cpu``
 runs the plain PyTorch versions (gloo carries the grid's data).
 
+``--arch minicpm3-4b`` (MLA) trains on one device only, its attention
+on the flash kernels at the padded head dim 96 -> 128; ``--layers``
+cuts its depth to fit the card (8 layers: ~14 GB of fp32 state).  The
+grid flags and ``--pods`` > 1 refuse it.
+
 ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps in the JAX
 package's format (``checkpoint/manager.py``): async saves unless
 ``--ckpt-sync``, ``--ckpt-keep`` kept, ``--ckpt-writers`` logical writers
@@ -369,6 +374,9 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     from repro_torch.parallel import comm
 
     _check_grid_args(args)
+    if _config(args).mla:
+        raise NotImplementedError(f"MLA ({args.arch}) trains on one device only: the rank grid "
+                                  "and the pod axis do not take it")
     if check_plain and args.ckpt_dir:
         raise ValueError("check_plain trains from the initial parameters: no --ckpt-dir")
     dev = resolve_device(args.device)

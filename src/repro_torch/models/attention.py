@@ -1,4 +1,4 @@
-"""GQA attention with the serving tier's KV caches.
+"""GQA and MLA attention with the serving tier's KV caches.
 
 Counterpart of the dense-GQA parts of ``repro/models/attention.py``:
 ``init_attn``, the three caches of a dense model and their factories
@@ -16,6 +16,16 @@ dtype at gather time and then runs the same attention, as the JAX
 package does.  Unlike the JAX package, the caches are updated in place:
 a decode step writes one token per row instead of copying the whole
 arena.
+
+Multi-head latent attention (minicpm3-4b, one device): ``init_mla``, the
+latent caches ``MLACache``/``PagedMLACache``/``QuantPagedMLACache`` (the
+normed latent ``c_kv`` [.., kv_lora] and the rotated ``k_rope`` [.., dr],
+no head axis) with their factories, and ``apply_mla`` in JAX's two
+forms: prefill and training up-project the latent through ``wkv_b`` and
+run ``PCtx.attention`` at dh = dn + dr with v zero-padded from dv to
+that; decode (one token against a cache) is the absorbed form, whose
+attention over the latent rows is ``PCtx.mla_decode`` (the absorbed
+decode kernel on the card).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import quant as Q
@@ -45,6 +56,27 @@ def init_attn(cfg: ModelConfig, generator: torch.Generator, layers: int):
         p["q_norm"] = torch.ones((layers, dh), dtype=torch.float32, device=dev)
         p["k_norm"] = torch.ones((layers, dh), dtype=torch.float32, device=dev)
     return p
+
+
+def init_mla(cfg: ModelConfig, generator: torch.Generator, layers: int):
+    """Stacked [layers, ...] MLA parameters in fp32 (``repro``'s
+    ``init_mla``): the query's low-rank pair ``wq_a``/``wq_b`` with the
+    ``q_norm`` between them, ``wkv_a`` into the latent and the rope key,
+    ``kv_norm`` on the latent, its up-projection ``wkv_b`` to per-head
+    (k_nope | v), and ``wo``."""
+    m = cfg.mla
+    H, nh = cfg.d_model, cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    dev = generator.device
+    return {
+        "wq_a": L.normal_init((layers, H, m.q_lora_rank), generator),
+        "q_norm": torch.ones((layers, m.q_lora_rank), dtype=torch.float32, device=dev),
+        "wq_b": L.normal_init((layers, m.q_lora_rank, nh * (dn + dr)), generator),
+        "wkv_a": L.normal_init((layers, H, m.kv_lora_rank + dr), generator),
+        "kv_norm": torch.ones((layers, m.kv_lora_rank), dtype=torch.float32, device=dev),
+        "wkv_b": L.normal_init((layers, m.kv_lora_rank, nh * (dn + dv)), generator),
+        "wo": L.normal_init((layers, nh * dv, H), generator, scale=1.0 / (nh * dv) ** 0.5),
+    }
 
 
 class KVCache(NamedTuple):
@@ -87,10 +119,43 @@ class QuantPagedKVCache(NamedTuple):
     lengths: torch.Tensor      # [B] int32
 
 
+class MLACache(NamedTuple):
+    """Dense per-sequence latent cache of MLA: :class:`KVCache`'s protocol
+    with the normed latent and the rotated rope key, which every head
+    shares, in place of per-head K and V."""
+    c_kv: torch.Tensor         # [(L,) B, S_max, kv_lora]
+    k_rope: torch.Tensor       # [(L,) B, S_max, dr]
+    length: torch.Tensor       # [(L,)] int32
+
+
+class PagedMLACache(NamedTuple):
+    """Block-paged latent cache: :class:`PagedKVCache`'s protocol."""
+    c_kv: torch.Tensor         # [(L,) n_blocks, block, kv_lora]
+    k_rope: torch.Tensor       # [(L,) n_blocks, block, dr]
+    block_table: torch.Tensor  # [B, max_blocks] int64
+    lengths: torch.Tensor      # [B] int32
+
+
+class QuantPagedMLACache(NamedTuple):
+    """Int8 block-paged latent cache (DESIGN.md §11): a per-row fp32 scale
+    arena beside each payload; a component narrower than
+    ``quant.MIN_QUANT_DIM`` (the smoke config's 4-wide rope rows) keeps
+    the compute dtype and its scales stay 1.0."""
+    c_kv: torch.Tensor         # int8 [(L,) n_blocks, block, kv_lora]
+    c_scale: torch.Tensor      # fp32 [(L,) n_blocks, block, 1]
+    k_rope: torch.Tensor       # int8 [(L,) n_blocks, block, dr]
+    r_scale: torch.Tensor      # fp32 [(L,) n_blocks, block, 1]
+    block_table: torch.Tensor  # [B, max_blocks] int64
+    lengths: torch.Tensor      # [B] int32
+
+
 # the leaves of each cache that hold one entry per layer (the rest, the
 # block table and the slots' lengths, are shared by every layer)
 LAYER_LEAVES = {KVCache: ("k", "v", "length"), PagedKVCache: ("k", "v"),
-                QuantPagedKVCache: ("k", "k_scale", "v", "v_scale")}
+                QuantPagedKVCache: ("k", "k_scale", "v", "v_scale"),
+                MLACache: ("c_kv", "k_rope", "length"), PagedMLACache: ("c_kv", "k_rope"),
+                QuantPagedMLACache: ("c_kv", "c_scale", "k_rope", "r_scale")}
+DENSE_CACHES = (KVCache, MLACache)
 
 
 def layer_cache(cache, i: int):
@@ -100,7 +165,7 @@ def layer_cache(cache, i: int):
 
 def advance(cache, n: int):
     """The cache with its lengths moved on by ``n`` written tokens."""
-    if isinstance(cache, KVCache):
+    if isinstance(cache, DENSE_CACHES):
         return cache._replace(length=cache.length + n)
     return cache._replace(lengths=cache.lengths + n)
 
@@ -113,6 +178,16 @@ def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int, dtype, device,
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros((layers,), dtype=torch.int32, device=device))
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, s_max: int, dtype, device,
+                   layers: int) -> MLACache:
+    """Zero dense latent caches for ``layers`` layers."""
+    m = cfg.mla
+    return MLACache(
+        torch.zeros((layers, batch, s_max, m.kv_lora_rank), dtype=dtype, device=device),
+        torch.zeros((layers, batch, s_max, m.qk_rope_head_dim), dtype=dtype, device=device),
+        torch.zeros((layers,), dtype=torch.int32, device=device))
 
 
 def dense_write(arena: torch.Tensor, vals: torch.Tensor, length: torch.Tensor) -> None:
@@ -149,6 +224,33 @@ def init_paged_kv_quant(cfg: ModelConfig, num_blocks: int, block: int, batch: in
     return QuantPagedKVCache(
         torch.zeros(shape, dtype=dt, device=device), ones(),
         torch.zeros(shape, dtype=dt, device=device), ones(),
+        torch.zeros((batch, max_blocks), dtype=torch.int64, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def init_paged_mla(cfg: ModelConfig, num_blocks: int, block: int, batch: int,
+                   max_blocks: int, dtype, device, layers: int) -> PagedMLACache:
+    m = cfg.mla
+    return PagedMLACache(
+        torch.zeros((layers, num_blocks, block, m.kv_lora_rank), dtype=dtype, device=device),
+        torch.zeros((layers, num_blocks, block, m.qk_rope_head_dim), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, max_blocks), dtype=torch.int64, device=device),
+        torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def init_paged_mla_quant(cfg: ModelConfig, num_blocks: int, block: int, batch: int,
+                         max_blocks: int, dtype, device, layers: int) -> QuantPagedMLACache:
+    """Int8 latent arenas, each component by :func:`quant_arena_dtype`'s
+    rule on its own row width."""
+    m = cfg.mla
+    lead = (layers, num_blocks, block)
+    ones = lambda: torch.ones(lead + (1,), dtype=torch.float32, device=device)  # noqa: E731
+    return QuantPagedMLACache(
+        torch.zeros(lead + (m.kv_lora_rank,), dtype=quant_arena_dtype(m.kv_lora_rank, dtype),
+                    device=device), ones(),
+        torch.zeros(lead + (m.qk_rope_head_dim,),
+                    dtype=quant_arena_dtype(m.qk_rope_head_dim, dtype), device=device), ones(),
         torch.zeros((batch, max_blocks), dtype=torch.int64, device=device),
         torch.zeros((batch,), dtype=torch.int32, device=device))
 
@@ -212,18 +314,53 @@ def quant_paged_gather(arena: torch.Tensor, scales: torch.Tensor, block_table: t
     return g.reshape(B, nblk * arena.shape[1], *arena.shape[2:])
 
 
+# each payload leaf's scale leaf in the int8 arenas
+SCALE_LEAVES = {"k": "k_scale", "v": "v_scale", "c_kv": "c_scale", "k_rope": "r_scale"}
+
+
+def cache_rows(cache, vals, dtype):
+    """Write ``vals`` (one [B, S, ...] tensor per payload leaf of a layer's
+    ``cache``: (k, v), or MLA's (c_kv, k_rope)) at the cache's lengths, in
+    place, and return what attention reads: (each leaf's rows [B, T, ...]
+    in ``dtype``, q_offset, kv_len, the cache advanced by S).
+
+    A dense cache writes every row at its one ``length`` and masks all
+    rows there.  A paged cache (fp, or int8 quantized at write and
+    dequantized at gather) masks each slot at its own length: decode
+    (S == 1) has q_offset = length and kv_len = length + 1, the grouped
+    decode mask; prefill (S > 1) runs one sequence whose queries start at
+    the slot's length, as ``_sdpa`` does with ``q_offset``/``kv_len``."""
+    B, S = vals[0].shape[:2]
+    names = [f for f in LAYER_LEAVES[type(cache)] if f in SCALE_LEAVES]
+    new = advance(cache, S)
+    if isinstance(cache, DENSE_CACHES):
+        for f, v in zip(names, vals):
+            dense_write(getattr(cache, f), v, cache.length)
+        return ([getattr(cache, f).to(dtype) for f in names],
+                cache.length.reshape(1).expand(B).contiguous(),
+                new.length.reshape(1).expand(B).contiguous(), new)
+    if S > 1 and B != 1:
+        raise ValueError("paged prefill runs one sequence at a time")
+    bt, rows = cache.block_table, []
+    for f, v in zip(names, vals):
+        arena = getattr(cache, f)
+        if hasattr(cache, SCALE_LEAVES[f]):
+            scales = getattr(cache, SCALE_LEAVES[f])
+            quant_paged_write(arena, scales, v, bt, cache.lengths)
+            rows.append(quant_paged_gather(arena, scales, bt, dtype))
+        else:
+            paged_write(arena, v, bt, cache.lengths)
+            rows.append(paged_gather(arena, bt).to(dtype))
+    return rows, cache.lengths, new.lengths, new
+
+
 def apply_attn(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
                cache=None) -> Tuple[torch.Tensor, Optional[NamedTuple]]:
     """Causal self-attention: x [B,S,H] -> (y [B,S,H], cache with lengths
     advanced by S).  On the grid x and y are canonical blocks and
     ``positions`` covers the full sequence (the mixer gathers it); a
-    cache there holds this rank's kv heads.
-
-    With a paged cache (fp or int8), decode (S == 1) masks each slot at
-    its own length; prefill (S > 1) runs one sequence and offsets its
-    queries by the slot's length, as ``_sdpa`` does with ``q_offset``/
-    ``kv_len``.  A dense cache writes every row at its one ``length`` and
-    masks all rows there."""
+    cache there holds this rank's kv heads.  The caches' writes and masks
+    are :func:`cache_rows`'."""
     dh = cfg.resolved_head_dim
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     B, S, _ = x.shape
@@ -240,31 +377,65 @@ def apply_attn(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.T
     k = L.apply_rope(k, cos, sin)
 
     new_cache, q_off, kv_len = None, None, None
-    if isinstance(cache, KVCache):
-        dense_write(cache.k, k, cache.length)
-        dense_write(cache.v, v, cache.length)
-        new_cache = advance(cache, S)
-        k, v = cache.k.to(q.dtype), cache.v.to(q.dtype)
-        q_off = cache.length.reshape(1).expand(B).contiguous()
-        kv_len = new_cache.length.reshape(1).expand(B).contiguous()
-    elif cache is not None:
-        if isinstance(cache, QuantPagedKVCache):
-            quant_paged_write(cache.k, cache.k_scale, k, cache.block_table, cache.lengths)
-            quant_paged_write(cache.v, cache.v_scale, v, cache.block_table, cache.lengths)
-            k = quant_paged_gather(cache.k, cache.k_scale, cache.block_table, q.dtype)
-            v = quant_paged_gather(cache.v, cache.v_scale, cache.block_table, q.dtype)
-        else:
-            paged_write(cache.k, k, cache.block_table, cache.lengths)
-            paged_write(cache.v, v, cache.block_table, cache.lengths)
-            k = paged_gather(cache.k, cache.block_table).to(q.dtype)
-            v = paged_gather(cache.v, cache.block_table).to(q.dtype)
-        new_cache = advance(cache, S)
-        if S > 1 and B != 1:
-            raise ValueError("paged prefill runs one sequence at a time")
-        # decode: q_off = length, kv_len = length + 1 is the grouped-decode
-        # mask; prefill: the prompt's queries start at the slot's length
-        q_off, kv_len = cache.lengths, new_cache.lengths
+    if cache is not None:
+        (k, v), q_off, kv_len, new_cache = cache_rows(cache, (k, v), q.dtype)
     o = pctx.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                        causal=True, q_offset=q_off, kv_len=kv_len)
     y = pctx.mixer_out(o.transpose(1, 2).reshape(B, S, -1), p["wo"])
+    return y, new_cache
+
+
+def apply_mla(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
+              cache=None) -> Tuple[torch.Tensor, Optional[NamedTuple]]:
+    """Multi-head latent attention on one device: x [B,S,H] -> (y [B,S,H],
+    cache with lengths advanced by S), over a dense, paged or int8 latent
+    cache (:func:`cache_rows`) or none.
+
+    Prefill and training up-project the latent (``wkv_b``, the product
+    op) into per-head k_nope and v, attend with q = [q_nope | q_rope]
+    against k = [k_nope | k_rope] at dh = dn + dr (v zero-padded to that
+    width, as the JAX package pads it) and keep the first dv columns.
+    Decode (S == 1 with a cache) never builds per-head K/V: q_nope is
+    absorbed into the latent through ``wkv_b``'s k part, ``PCtx.mla_decode``
+    attends over the latent rows with scale (dn + dr)^-0.5, and its fp32
+    o_lat goes out through ``wkv_b``'s v part."""
+    if pctx.mesh is not None:
+        raise NotImplementedError("MLA on the rank grid is not ported (the latent caches have "
+                                  "no head axis to shard)")
+    m = cfg.mla
+    nh, lora = cfg.num_heads, m.kv_lora_rank
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    B, S, _ = x.shape
+
+    ql, kv = pctx.mixer_in_many(x, p["wq_a"], p["wkv_a"])
+    ql = L.apply_norm("rmsnorm", {"scale": p["q_norm"]}, ql)
+    q = pctx.mixer_in(ql, p["wq_b"], interior=True).reshape(B, S, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    c_kv = L.apply_norm("rmsnorm", {"scale": p["kv_norm"]}, kv[..., :lora])
+    cos, sin = L.rope_cos_sin(positions, dr, cfg.rope_theta)
+    q_rope = L.apply_rope(q_rope, cos, sin)
+    k_rope = L.apply_rope(kv[:, :, None, lora:], cos, sin)[:, :, 0, :]
+
+    new_cache, q_off, kv_len = None, None, None
+    if cache is not None:
+        (c_kv, k_rope), q_off, kv_len, new_cache = cache_rows(cache, (c_kv, k_rope), x.dtype)
+
+    if cache is not None and S == 1:
+        # the absorbed decode: per-head K/V are never built
+        wkv = p["wkv_b"].reshape(lora, nh, dn + dv)
+        q_lat = torch.einsum("bhd,lhd->bhl", q_nope[:, 0], wkv[..., :dn].to(x.dtype))
+        o_lat = pctx.mla_decode(q_lat.contiguous(), q_rope[:, 0], c_kv, k_rope, kv_len,
+                                (dn + dr) ** -0.5)
+        o = torch.einsum("bhl,lhd->bhd", o_lat, wkv[..., dn:].float()).to(x.dtype)
+    else:
+        kv_up = pctx.mixer_in(c_kv, p["wkv_b"], interior=True)
+        T = kv_up.shape[1]
+        kv_up = kv_up.reshape(B, T, nh, dn + dv)
+        k = torch.cat([kv_up[..., :dn], k_rope[:, :, None, :].expand(B, T, nh, dr)], dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        vpad = F.pad(kv_up[..., dn:], (0, dn + dr - dv))
+        o = pctx.attention(qq.transpose(1, 2), k.transpose(1, 2), vpad.transpose(1, 2),
+                           causal=True, q_offset=q_off, kv_len=kv_len)
+        o = o.transpose(1, 2)[..., :dv]
+    y = pctx.mixer_out(o.reshape(B, S, nh * dv), p["wo"])
     return y, new_cache

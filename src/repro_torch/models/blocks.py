@@ -1,6 +1,7 @@
-"""Pre-norm residual blocks: attention + MLP, and mamba.  Counterpart of
-``repro/models/blocks.py::init_attn_block``/``apply_attn_block`` and
-``init_mamba_block``/``apply_mamba_block``."""
+"""Pre-norm residual blocks: attention (GQA, or MLA when ``cfg.mla``) +
+MLP, and mamba.  Counterpart of ``repro/models/blocks.py::
+init_attn_block``/``apply_attn_block`` and ``init_mamba_block``/
+``apply_mamba_block``."""
 
 from __future__ import annotations
 
@@ -22,20 +23,19 @@ def init_attn_block(cfg: ModelConfig, generator: torch.Generator, layers: int):
         "norm1": L.init_norm(cfg.norm_kind, cfg.d_model, dev, (layers,)),
         "norm2": L.init_norm(cfg.norm_kind, cfg.d_model, dev, (layers,)),
     }
-    p["attn"] = ATT.init_attn(cfg, generator, layers)
+    p["attn"] = (ATT.init_mla if cfg.mla else ATT.init_attn)(cfg, generator, layers)
     p["mlp"] = MLP.init_mlp(cfg, generator, layers)
     return p
 
 
 def apply_attn_block(pctx, cfg: ModelConfig, p, x: torch.Tensor, *,
                      positions: torch.Tensor,
-                     cache: Optional[ATT.PagedKVCache] = None,
-                     ) -> Tuple[torch.Tensor, Optional[ATT.PagedKVCache]]:
+                     cache=None) -> Tuple[torch.Tensor, Any]:
     """Returns (x, new_cache).  The norms run on the canonical residual
     (``PCtx.norm``), the mixers gather and scatter internally."""
     h = pctx.norm(cfg.norm_kind, p["norm1"], x)
-    a, new_cache = ATT.apply_attn(pctx, cfg, p["attn"], h, positions=positions,
-                                  cache=cache)
+    mixer = ATT.apply_mla if cfg.mla else ATT.apply_attn
+    a, new_cache = mixer(pctx, cfg, p["attn"], h, positions=positions, cache=cache)
     x = x + a
     h = pctx.norm(cfg.norm_kind, p["norm2"], x)
     return x + MLP.apply_mlp(pctx, cfg, p["mlp"], h).to(x.dtype), new_cache

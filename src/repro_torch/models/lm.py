@@ -1,8 +1,8 @@
 """Decoder-only LM assembly (dense and SSM families).
 
 Counterpart of ``repro/models/lm.py::init_params``, ``init_caches``,
-``forward`` (dense and ``ssm`` branches, over the dense, paged and int8
-paged caches, with ``remat``, ``skip_head`` and the ``hidden`` output),
+``forward`` (dense, MLA and ``ssm`` branches, over the dense, paged and
+int8 paged caches, with ``remat``, ``skip_head`` and the ``hidden`` output),
 ``xent_loss``, ``head_loss``, ``train_loss`` and ``LMOut``.  Parameters
 are the JAX package's nested dict with stacked ``[L, ...]`` leaves; a
 Python loop over layers takes the place of ``lax.scan`` and unbinds each
@@ -43,11 +43,11 @@ from repro_torch.models import ssm as SSM
 from repro_torch.parallel import comm
 from repro_torch.parallel import megatron as MEG
 
-# leaves that stay fp32 whatever the compute dtype: norm scales and biases,
-# and the mamba mixer's small leaves (its dt bias, decay, skip, gated-norm
-# scale and conv taps)
-FP32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "dt_bias", "A_log", "D", "norm",
-               "conv_w")
+# leaves that stay fp32 whatever the compute dtype: norm scales and biases
+# (MLA's q_norm and kv_norm too), and the mamba mixer's small leaves (its
+# dt bias, decay, skip, gated-norm scale and conv taps)
+FP32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "kv_norm", "dt_bias", "A_log", "D",
+               "norm", "conv_w")
 FAMILIES = ("dense", "ssm")
 
 
@@ -144,7 +144,8 @@ def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
     """The layer loop: each stacked leaf is unbound once (one backward
     node stacks its per-layer gradients), and each layer runs under the
     remat policy (``core/schedule.py``).  ``cache`` (a KVCache,
-    PagedKVCache or QuantPagedKVCache, or for the ssm family an SSMState,
+    PagedKVCache or QuantPagedKVCache or their MLA counterparts, or for
+    the ssm family an SSMState,
     with [L, ...] leaves) gives layer i its rows, which it writes in
     place."""
     items = flatten(stacked)
@@ -174,7 +175,9 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             skip_head: bool = False) -> LMOut:
     """batch: tokens [B,S] (+ positions [B,S], "_dtype", "dropout_rng" a
     ``torch.Generator``); caches: {"attn": a KVCache, PagedKVCache or
-    QuantPagedKVCache with [L, ...] leaves} (dense) or {"mamba": SSMState
+    QuantPagedKVCache with [L, ...] leaves, or for MLA their latent
+    counterparts MLACache, PagedMLACache, QuantPagedMLACache} (dense) or
+    {"mamba": SSMState
     with [L, B, ...] leaves} (ssm), updated in place and returned with
     their lengths advanced, or None.  ``skip_head`` returns the
     post-final-norm ``hidden`` instead of logits (``train_loss``)."""
@@ -182,6 +185,9 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     if pctx.mesh is not None and cfg.family != "dense":
         raise NotImplementedError(f"the grid step takes the dense family, not {cfg.family!r}")
+    if pctx.mesh is not None and cfg.mla:
+        raise NotImplementedError(f"MLA ({cfg.name}) on the rank grid is not ported; it runs "
+                                  "on one device")
     tokens = batch["tokens"]
     B, S = tokens.shape
     S *= pctx.seq_shards                      # a grid rank may hold a token shard

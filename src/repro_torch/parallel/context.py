@@ -5,8 +5,9 @@ Counterpart of ``repro/parallel/context.py``.  Model code calls the
 methods here and never the kernels or the collectives directly.
 
 One device (``mesh=None``): every projection, the FFN, the LM head,
-attention and the SSD scan route through ``kernels/ops.py`` (the CUDA
-kernel for a CUDA tensor, the plain version on the CPU).  One signal
+attention, MLA's absorbed decode and the SSD scan route through
+``kernels/ops.py`` (the CUDA kernel for a CUDA tensor, the plain version
+on the CPU).  One signal
 picks the route, ``ops.needs_grad``: when autograd will differentiate,
 projections, the head and the FFN's down-projection go through the
 differentiable tile matmul, and the FFN's gated up-projection and
@@ -50,6 +51,9 @@ re-lays hecaton's tiles once).  On one device ``"serve"``, ``"prefill"``
 and ``"decode"`` are the same.
 
 ``mode="train"`` only enables :meth:`dropout`, as in the JAX package.
+MLA (``mla_decode``, ``mixer_in(interior=True)``) runs on one device
+only; on the grid both raise.
+
 ``plain=True`` routes everything to the plain versions on any device,
 differentiated by PyTorch's autograd: it is the reference that
 ``chip_smoke.py`` holds the kernel path (forward and gradients) against
@@ -78,7 +82,8 @@ _PLAIN = SimpleNamespace(matmul=ref.matmul_plain,
                          gated_matmul=ref.gated_matmul_plain,
                          attention=ref.attention_plain,
                          tile_matmul=ref.tile_matmul_plain,
-                         ssd=ref.ssd_plain)
+                         ssd=ref.ssd_plain,
+                         mla_decode=ref.mla_decode_plain)
 
 MODES = ("serve", "train", "prefill", "decode")
 
@@ -202,9 +207,15 @@ class PCtx:
             h = _rows(self._proj(x2, w1, act))
         return self._proj(h, w2).reshape(*x.shape[:-1], w2.shape[1])
 
-    def mixer_in(self, x: torch.Tensor, w: torch.Tensor):
+    def mixer_in(self, x: torch.Tensor, w: torch.Tensor, interior: bool = False):
         """Projection into a token mixer: the full sequence, hidden over the
-        grid."""
+        grid.  ``interior``: ``x`` is already inside the mixer (MLA's
+        normed query latent), which the JAX package leaves GSPMD to
+        re-lay on the grid; on one device it is the plain projection, and
+        the grid refuses it (MLA on the grid is not ported)."""
+        if interior and self.mesh is not None:
+            raise NotImplementedError("MLA on the rank grid is not ported: mixer_in(interior="
+                                      "True) has no grid layout here")
         if self.use_hecaton:
             from repro_torch.core import hecaton as HEC
             return HEC.mixer_in(x, w.to(x.dtype), **self.grid_kwargs())
@@ -363,6 +374,13 @@ class PCtx:
         """q [B,nh,Sq,dh]; k,v [B,nkv,Sk,dh] (views of [B,S,heads,dh])."""
         return self.ops.attention(q, k, v, causal=causal, q_offset=q_offset,
                                   kv_len=kv_len)
+
+    def mla_decode(self, q_lat, q_rope, c_kv, k_rope, kv_len, scale: float) -> torch.Tensor:
+        """MLA's absorbed decode attention, ``ref.mla_decode_plain``'s shapes
+        (the kernel on the card): o_lat fp32 [B, nh, L].  One device only."""
+        if self.mesh is not None:
+            raise NotImplementedError("MLA on the rank grid is not ported")
+        return self.ops.mla_decode(q_lat, q_rope, c_kv, k_rope, kv_len, scale)
 
     # ------------------------------------------------------------------
     # the Mamba2 scan

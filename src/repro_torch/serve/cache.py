@@ -20,6 +20,10 @@ arena and the ssm family's per-slot states: ``init_dense``,
   ``quant_kv=True`` the arenas hold int8 payloads and fp32 row scales
   (``models/attention.QuantPagedKVCache``, DESIGN.md §11).
 
+An MLA model (``cfg.mla``) keeps its latent caches in both layouts:
+``MLACache`` dense, ``PagedMLACache`` or ``QuantPagedMLACache`` in the
+pool (``c_kv`` and ``k_rope``, each with a scale arena when int8).
+
 The steps write the device arenas and the decode tick's SSM states in
 place, so the JAX package's ``absorb_decode`` has no counterpart here; a
 prefill runs on fresh zero state rows, which ``absorb_prefill`` scatters
@@ -42,7 +46,9 @@ from repro_torch.models import ssm as SSM
 def init_dense(cfg: ModelConfig, batch: int, s_max: int, dtype, device="cuda",
                kv_heads: int = 0):
     """Stacked per-layer dense decode caches: ``{"attn": KVCache}`` with K
-    and V ``[L, B, S_max, nkv, dh]`` and one int32 length per layer, or for
+    and V ``[L, B, S_max, nkv, dh]`` and one int32 length per layer (MLA:
+    an ``MLACache`` with ``[L, B, S_max, kv_lora]`` and ``[L, B, S_max,
+    dr]`` latents), or for
     the ssm family ``{"mamba": SSMState}`` with ``[L, B, ...]`` conv
     (``dtype``) and SSM (fp32) states.  ``kv_heads`` is the kv heads a
     grid rank holds (default all)."""
@@ -51,6 +57,9 @@ def init_dense(cfg: ModelConfig, batch: int, s_max: int, dtype, device="cuda",
                                             torch.device(device))}
     if cfg.family != "dense":
         raise NotImplementedError(f"dense caches for family {cfg.family!r} are not ported yet")
+    if cfg.mla:
+        return {"attn": ATT.init_mla_cache(cfg, batch, s_max, dtype, torch.device(device),
+                                           cfg.num_layers)}
     return {"attn": ATT.init_kv_cache(cfg, batch, s_max, dtype, torch.device(device),
                                       cfg.num_layers, kv_heads)}
 
@@ -134,10 +143,15 @@ class CachePool:
         else:
             # int8 payload + fp32 row-scale arenas (DESIGN §11), or the
             # compute dtype's; the table and lengths are rebuilt per call
-            mk = ATT.init_paged_kv_quant if self.quant_kv else ATT.init_paged_kv
+            if cfg.mla:
+                mk = ATT.init_paged_mla_quant if self.quant_kv else ATT.init_paged_mla
+            else:
+                mk = ATT.init_paged_kv_quant if self.quant_kv else ATT.init_paged_kv
             paged = mk(cfg, pool.num_blocks, pool.block, pool.slots, mb, dtype, self.device,
                        cfg.num_layers)
-            self.arenas["attn"] = self._arena_leaves(paged)
+            self._paged_type = type(paged)
+            self.arenas["attn"] = tuple(getattr(paged, f)
+                                        for f in ATT.LAYER_LEAVES[self._paged_type])
         # host accounting
         self.table = np.zeros((pool.slots, mb), np.int32)
         self.lengths = np.zeros(pool.slots, np.int32)
@@ -209,16 +223,10 @@ class CachePool:
         self.active[slot] = False
 
     # -- device tree assembly -------------------------------------------
-    def _arena_leaves(self, cache) -> tuple:
-        """The arena leaves of a paged cache, in its constructor's order
-        (table and lengths excluded)."""
-        if self.quant_kv:
-            return cache.k, cache.k_scale, cache.v, cache.v_scale
-        return cache.k, cache.v
-
     def _paged(self, table_rows: np.ndarray, lengths_rows: np.ndarray):
-        klass = ATT.QuantPagedKVCache if self.quant_kv else ATT.PagedKVCache
-        return klass(*self.arenas["attn"],
+        """The paged cache over the arenas (their per-layer leaves, in the
+        constructor's order) with this table and these lengths."""
+        return self._paged_type(*self.arenas["attn"],
                      torch.as_tensor(table_rows, dtype=torch.int64).to(self.device),
                      torch.as_tensor(lengths_rows, dtype=torch.int32).to(self.device))
 

@@ -7,8 +7,8 @@ sampling entry point.  PyTorch runs eagerly, so a builder returns a plain
 function where the JAX package returns one to jit.  Random draws come
 from a ``torch.Generator`` the caller seeds.
 
-On the rank grid (``mesh`` a ``launch/mesh.Grid``, the dense family)
-every rank runs the step on its blocks, as in training:
+On the rank grid (``mesh`` a ``launch/mesh.Grid``, the dense family
+without MLA) every rank runs the step on its blocks, as in training:
 
 * the parameters are this rank's blocks of the master-form tree in the
   compute dtype (:func:`grid_params`), the strategy's tiling with the
@@ -101,8 +101,8 @@ def build_decode_step(cfg: ModelConfig, pcfg: Optional[ParallelConfig] = None,
                       compute_dtype=torch.bfloat16):
     """One-token decode over every row of a cache tree; the tree decides
     the layout (dense ``KVCache``, paged ``PagedKVCache`` or int8
-    ``QuantPagedKVCache``, or the ssm family's states, all advanced in
-    place).  On the grid ``params`` are :func:`grid_params`' blocks; the
+    ``QuantPagedKVCache``, MLA's latent counterparts of the three, or the
+    ssm family's states, all advanced in place).  On the grid ``params`` are :func:`grid_params`' blocks; the
     step re-lays them for the 1D layout once per tree (module
     docstring)."""
     pcfg = pcfg or ParallelConfig()
@@ -172,6 +172,9 @@ def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, mesh, batch: int):
         return None
     if cfg.family != "dense":
         raise NotImplementedError(f"grid caches for family {cfg.family!r} are not ported yet")
+    if cfg.mla:
+        raise NotImplementedError(f"grid caches for MLA ({cfg.name}) are not ported: its latent "
+                                  "caches have no kv-head axis to shard")
     ax = shd.axis_info(mesh, pcfg.strategy)
     lay = shd.solve_attn_layout(ax, cfg.num_kv_heads, max(1, batch // ax.n_data))
     if lay.note != "heads fully sharded":

@@ -16,7 +16,10 @@ bounds: each rounds its fp32 sums once, and an fp32 output of bf16 inputs
 ring kernels run in rank processes on the card (``tests/_torch_world.py``:
 two ranks for the kernels and their backward rings, four for two grid
 training steps), each held against the plain route on the same inputs,
-on the bf16 wire and on the int8 wire.
+on the bf16 wire and on the int8 wire.  MLA's absorbed decode kernel
+(fp32 out of fp32 or bf16 inputs: the fp32 bound either way), attention
+at head dims off the kernels' 64 and 128 (zero-padded), and an MLA model
+with its latent caches are held against their plain versions too.
 """
 
 import numpy as np
@@ -24,7 +27,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import ModelConfig, ParallelConfig, SSMConfig
+from repro_torch.config import MLAConfig, ModelConfig, ParallelConfig, SSMConfig
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 from repro_torch.kernels import ops, ref
@@ -604,3 +607,152 @@ def test_grid_steps_through_ring_kernels_match_plain(grid_cuda):
         for name, p in plain["params"].items():
             d = np.linalg.norm(kern["params"][name] - p) / np.linalg.norm(p)
             assert d <= 1e-4, (rank, name, d)
+
+
+# ---------------------------------------------------------------------------
+# MLA: the absorbed decode kernel, attention at padded head dims, the model
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,T,kv_len", [(1, 64, [64]), (2, 100, [1, 77]),
+                                        (4, 545, [64, 300, 545, 2]), (3, 33, [0, 32, 33])],
+                         ids=["B1", "B2-off-tile", "B4-serving", "B3-empty-row"])
+def test_mla_decode_kernel(dev, dtype, B, T, kv_len):
+    """o_lat of the absorbed decode at minicpm3-4b's dims (40 heads, latent
+    256, rope 32) against ``ref.mla_decode_plain``: ragged ``kv_len``, T
+    off the 32-key tile, a row with no key (the uniform average of c_kv);
+    c_kv and k_rope are strided views of one [B, T, 288] buffer.  The
+    output is fp32 (both compute from the same inputs in fp32): 2e-4."""
+    nh, Ld, R = 40, 256, 32
+    q_lat = _randn((B, nh, Ld), dtype, dev, 40)
+    q_rope = _randn((B, nh, R), dtype, dev, 41)
+    kv = _randn((B, T, Ld + R), dtype, dev, 42)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    args = (q_lat, q_rope, kv[..., :Ld], kv[..., Ld:], kl, 96 ** -0.5)
+    before = kfa.IMPL_LAUNCHES["mla_decode"]["simt"]
+    got = kfa.mla_decode(*args)
+    assert got.dtype == torch.float32 and got.shape == (B, nh, Ld)
+    assert kfa.IMPL_LAUNCHES["mla_decode"]["simt"] == before + 1
+    _close(got, ref.mla_decode_plain(*args))
+    if kv_len[0] == 0:
+        _close(got[0], kv[0, :, :Ld].float().mean(dim=0)[None].expand(nh, Ld))
+
+
+def test_mla_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    z = torch.zeros(1, 4, 16, device=dev)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="MLA decode takes"):
+        kfa.mla_decode(z, z[..., :4], z, z[..., :4], one, 1.0)
+
+
+@pytest.mark.parametrize("dh", [96, 40])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Sk,q_off,kv_len", [
+    (1, 80, 96, [0], [80]), (3, 1, 70, [0, 9, 69], [1, 10, 70]), (2, 64, 64, None, None)])
+def test_flash_attention_padded_head_dims(dev, dh, dtype, B, Sq, Sk, q_off, kv_len):
+    """MLA's dh 96 (and 40, off both kernel dims) runs zero-padded to 128
+    (64) with the caller's dh^-0.5 scale: prefill, decode and the training
+    mask against the plain version, the output back at dh."""
+    nh, nkv = 6, 2
+    q = _randn((B, Sq, nh, dh), dtype, dev, 60).transpose(1, 2)
+    k = _randn((B, Sk, nkv, dh), dtype, dev, 61).transpose(1, 2)
+    v = _randn((B, Sk, nkv, dh), dtype, dev, 62).transpose(1, 2)
+    t = lambda a: None if a is None else torch.tensor(a, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, q_offset=t(q_off), kv_len=t(kv_len))
+    out = kfa.flash_attention(q, k, v, **kw)
+    assert out.shape == q.shape
+    _close(out, ref.attention_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dh", [96, 40])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_bwd_padded_head_dims(dev, dh, dtype):
+    """(dq, dk, dv) at a padded head dim against the plain version's
+    autograd, each back at dh; deterministic."""
+    B, S, nh, nkv = 2, 80, 4, 2
+    q = _randn((B, S, nh, dh), dtype, dev, 63).transpose(1, 2)
+    k = _randn((B, S, nkv, dh), dtype, dev, 64).transpose(1, 2)
+    v = _randn((B, S, nkv, dh), dtype, dev, 65).transpose(1, 2)
+    do = _randn((B, S, nh, dh), dtype, dev, 66).transpose(1, 2)
+    o, lse = kfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    o_p, lse_p = ref.attention_plain(q, k, v, causal=True, return_lse=True)
+    _close(o, o_p)
+    _close(lse, lse_p)
+    got = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(got, ref.attention_bwd_plain(q, k, v, do, causal=True)):
+        assert a.shape == b.shape and a.dtype == dtype
+        _close(a, b)
+    again = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+# minicpm3-4b's head dims (latent 256, rope 32, dn = dv = 64: attention at
+# dh 96), a narrow model around them
+MLA_CFG = ModelConfig(name="cuda-mla", family="dense", num_layers=2, d_model=128,
+                      num_heads=4, num_kv_heads=4, d_ff=256, vocab_size=500,
+                      mla=MLAConfig(q_lora_rank=64, kv_lora_rank=256, qk_nope_head_dim=64,
+                                    qk_rope_head_dim=32, v_head_dim=64))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["paged", "int8"])
+def test_mla_prefill_and_decode_kernels_match_plain(dev, quant):
+    """fp32 prefill of two prompts and three decode ticks through the
+    kernels (prefill attention at dh 96, padded to 128; the absorbed decode
+    kernel once a layer and tick) against the plain versions, each on its
+    own pool fed the same tokens."""
+    params = lm.init_params(MLA_CFG, seed=5, device=dev, dtype=torch.float32)
+    logits = {}
+    for plain in (False, True):
+        pool = CachePool(MLA_CFG, PoolConfig(2, 16, 9, 64), device=dev, quant_kv=quant)
+        rng = np.random.default_rng(6)
+        ops.reset_launches()
+        got = []
+        with torch.inference_mode():
+            for n in (40, 23):
+                slot = pool.admit(n)
+                toks = torch.from_numpy(rng.integers(0, 500, (1, n))).to(dev)
+                got.append(lm.forward(PCtx(plain=plain), MLA_CFG, params,
+                                      {"tokens": toks, "_dtype": torch.float32},
+                                      caches=pool.prefill_tree(slot)).logits[:, -1])
+                pool.commit_prefill(slot, n)
+            for i in range(3):
+                for s in range(2):
+                    assert pool.ensure_append(s)
+                batch = {"tokens": torch.tensor([[7 + i], [11 + i]], device=dev),
+                         "positions": torch.from_numpy(
+                             pool.lengths.astype(np.int64)[:, None]).to(dev),
+                         "_dtype": torch.float32}
+                got.append(lm.forward(PCtx(plain=plain), MLA_CFG, params, batch,
+                                      caches=pool.decode_tree()).logits[:, 0])
+                for s in range(2):
+                    pool.advance(s)
+        if not plain:
+            assert ops.LAUNCHES["mla_decode"] == 3 * MLA_CFG.num_layers, ops.LAUNCHES
+            assert ops.LAUNCHES["flash_attention"] == 2 * MLA_CFG.num_layers, ops.LAUNCHES
+        logits[plain] = got
+    for a, b in zip(logits[False], logits[True]):
+        _close(a, b)
+
+
+def test_mla_train_loss_and_grads_kernels_match_plain(dev):
+    """fp32 loss and every gradient of the MLA model through the kernels
+    (the flash forward and backward at dh 96, padded to 128; the tile
+    matmul) against the plain path's autograd."""
+    params = lm.init_master_params(MLA_CFG, seed=7, device=dev)
+    leaves = [t.requires_grad_() for _, t in lm.flatten(params)]
+    rng = np.random.default_rng(8)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 500, (2, 48))).to(dev),
+             "labels": torch.from_numpy(rng.integers(0, 500, (2, 48))).to(dev),
+             "_dtype": torch.float32}
+    out = {}
+    for plain in (False, True):
+        ops.reset_launches()
+        pctx = PCtx(plain=plain, mode="train", pcfg=ParallelConfig())
+        loss, _ = lm.train_loss(pctx, MLA_CFG, params, batch, remat="fusion")
+        out[plain] = (loss, torch.autograd.grad(loss, leaves))
+        if not plain:
+            assert all(ops.LAUNCHES[k] > 0 for k in (
+                "tile_matmul", "flash_attention", "flash_attention_bwd")), ops.LAUNCHES
+    _close(out[False][0], out[True][0])
+    for a, b in zip(out[False][1], out[True][1]):
+        _close(a, b)

@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.checkpoint.manager", "repro_torch.checkpoint.grid",
             "repro_torch.runtime.guard", "repro_torch.runtime.fault",
             "repro_torch.runtime.procs", "repro_torch.parallel.megatron",
-            "repro_torch.parallel.pipeline"} <= set(mods)
+            "repro_torch.parallel.pipeline", "repro_torch.configs.minicpm3_4b",
+            "repro_torch.kernels.flash_attention"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -73,4 +74,5 @@ def test_checkpoint_modules_are_scanned():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"checkpoint/wire.py", "checkpoint/manager.py", "checkpoint/grid.py",
             "runtime/guard.py", "runtime/fault.py", "runtime/procs.py",
-            "parallel/megatron.py", "parallel/pipeline.py"} <= scanned
+            "parallel/megatron.py", "parallel/pipeline.py", "configs/minicpm3_4b.py",
+            "kernels/flash_attention.py"} <= scanned

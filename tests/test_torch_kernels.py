@@ -132,11 +132,16 @@ def test_ops_take_plain_on_cpu_and_count_nothing():
     assert torch.equal(ops.matmul(x, w, act="silu"), ref.matmul_plain(x, w, act="silu"))
     assert torch.equal(ops.gated_matmul(x, w, wb), ref.gated_matmul_plain(x, w, wb))
     assert torch.equal(ops.attention(q, kv, kv), ref.attention_plain(q, kv, kv))
+    lat, lens = q[:, :, 0], torch.tensor([3, 5], dtype=torch.int32)
+    assert torch.equal(ops.mla_decode(lat, lat[..., :4], kv[:, 0], kv[:, 1, :, :4], lens, 0.3),
+                       ref.mla_decode_plain(lat, lat[..., :4], kv[:, 0], kv[:, 1, :, :4], lens,
+                                            0.3))
     assert ops.LAUNCHES == {"matmul": 0, "gated_matmul": 0, "flash_attention": 0,
                             "tile_matmul": 0, "swiglu_bwd": 0, "flash_attention_bwd": 0,
                             "ssd": 0, "ag_matmul": 0, "matmul_rs": 0,
                             "ag_matmul_contract": 0, "ag_matmul_int8": 0,
-                            "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0}
+                            "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0,
+                            "mla_decode": 0}
     assert torch.equal(ops.tile_matmul(x, w), ref.tile_matmul_plain(x, w))
     assert all(n == 0 for n in ops.LAUNCHES.values())
 

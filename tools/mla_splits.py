@@ -1,0 +1,96 @@
+"""What the key split buys the absorbed MLA decode kernel (``mla::decode``
+in ``csrc/mla_decode.cu``), on the card.
+
+    python3 tools/mla_splits.py            # one H100
+
+Builds the kernels (``kernels/build.py``), prints ``nvcc -Xptxas -v``'s
+register and spill report for the decode and combine kernels, then times
+``hk_mla_decode`` at minicpm3-4b's dims (40 heads, latent 256, rope 32,
+bf16) with the key split forced to 1, 2 and the wrapper's choice
+(``flash_attention.mla_splits``), at the serving tick of
+``chip_smoke.mla_kernel_phase`` (4 slots over T 544) and at single rows
+of one and two tiles.  Each time is a call in a CUDA graph of 20 calls
+(``chip_smoke.bench_ms``'s method, on one input set, so the L2 may hold
+it).  One JSON line a case: the card, its power limit, the shape, the
+split and the us per call.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+
+import torch  # noqa: E402
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+
+NH, (LAT, ROPE) = 40, kfa.MLA_DIMS
+CASES = (("serving tick", 4, 544, [64, 301, 512, 1]), ("one tile", 1, 32, [32]),
+         ("two tiles", 1, 64, [64]), ("one row of 544", 1, 544, [544]))
+
+
+def time_us(lib, B, T, kv_len, nsplit, calls=20, reps=10):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q_lat = torch.randn((B, NH, LAT), generator=g, device="cuda").bfloat16()
+    q_rope = torch.randn((B, NH, ROPE), generator=g, device="cuda").bfloat16()
+    kv = torch.randn((B, T, LAT + ROPE), generator=g, device="cuda").bfloat16()
+    c_kv, k_rope = kv[..., :LAT], kv[..., LAT:]
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    o = torch.empty((B, NH, LAT), device="cuda")
+    part = torch.empty(B * NH * nsplit * kfa.MLA_PART, device="cuda")
+
+    def call():
+        code = lib.hk_mla_decode(q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
+                                 k_rope.data_ptr(), kl.data_ptr(), o.data_ptr(), B, NH, T,
+                                 LAT, ROPE, *q_lat.stride()[:2], *q_rope.stride()[:2],
+                                 *c_kv.stride()[:2], *k_rope.stride()[:2], 96 ** -0.5, nsplit,
+                                 part.data_ptr(), 1,
+                                 torch.cuda.current_stream().cuda_stream)
+        build.check(lib, code, "hk_mla_decode")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            call()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return 1e3 * start.elapsed_time(end) / (reps * calls)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("mla_splits: no CUDA device available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "--id=0"], check=True, capture_output=True, text=True).stdout.strip()
+    report = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                             os.devnull, str(build.CSRC / "mla_decode.cu")],
+                            capture_output=True, text=True)
+    print("\n".join(line for line in (report.stdout + report.stderr).splitlines()
+                    if "registers" in line or "spill" in line or "Compiling" in line))
+    lib = build.library("mla_decode")
+    for label, B, T, kv_len in CASES:
+        for nsplit in sorted({1, 2, kfa.mla_splits(B, T)}):
+            print(json.dumps(dict(card=smi, case=label, B=B, T=T, kv_len=kv_len, nsplit=nsplit,
+                                  chosen=nsplit == kfa.mla_splits(B, T),
+                                  us=time_us(lib, B, T, kv_len, nsplit))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
