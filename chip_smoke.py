@@ -208,22 +208,28 @@ Phases, each fatal on failure:
    idle; the kernels line's row) and off it (B 1 to 3, T 64, off the
    32-key tile, an empty row), bf16 and fp32, fp32 out held to 2e-4; the
    attention forward (the three prefills, the training microbatch) and
-   backward at dh 96, zero-padded to 128, off the kernels line's sums;
+   backward at dk 96 / dv 64, natively on the tensor cores in bf16 (the
+   route that padded v to 96 and all three to 128 held and timed in
+   turns beside it, SDPA's yardstick the faster of its call on v at 64
+   and at 96), off the kernels line's sums;
 22. ``mla_model_check``: a 300-token prefill and 8 decode steps through
    the kernels against the plain path, bf16 at 62 layers, fp32 at 2 (the
    ``ssm_model_check`` gates); the absorbed decode launched once a layer
-   and step, every bf16 prefill's attention on the tensor cores;
+   and step, every bf16 prefill's attention on the tensor cores at
+   (96, 64), natively;
 23. ``serve_mla``: full-width minicpm3-4b served in bf16 through the
    serving entry point (the serve phase's trace, prompts 64/256/512):
    the serve gates, every decode tick (the warm-up's too) launching the
-   absorbed decode kernel 62 times, every prefill's attention on wgmma;
+   absorbed decode kernel 62 times, every prefill's attention on wgmma
+   at (96, 64), natively;
 24. ``serve_mla_quant_kv``: the same trace through ``--quant-kv`` (the
    ``serve_quant_kv`` gates; one int8 latent block exactly (256 + 4 + 32
-   + 4) / 576 of bf16's);
+   + 4) / 576 of bf16's; every prefill's attention native at (96, 64));
 25. ``train_mla``: full-width minicpm3-4b at 8 of its 62 layers through
    the training launcher (bf16 over fp32 masters, batch 8 x 512, 2
    microbatches, remat fusion, 4 steps): every training kernel, every
-   attention launch on wgmma, step ms and peak memory; then the loss and
+   attention launch on wgmma at (96, 64), natively, step ms and peak
+   memory; then the loss and
    every gradient of one microbatch against the plain path
    (``mla_grad_check``, the ``grad_check`` gates at 8 and 2 layers);
 26. print every phase's seconds (``phase_s``), then one JSON line of
@@ -564,13 +570,16 @@ def randn(gen, shape, dtype, scale=1.0):
 
 
 def record(results, kernel, case, dtype, main, out, want, kern_calls, plain_calls,
-           lib_calls, nbytes, nops, timer=bench_ms, kernel_ms=None, path=None, extra=None):
+           lib_calls, nbytes, nops, timer=bench_ms, kernel_ms=None, path=None, extra=None,
+           library_ms=None):
     """``out``/``want`` may be tuples (a backward's gradients, the gated
     kernel's kept products): each pair is held to the tolerance of its
     output's dtype and the worst error is reported.  ``dtype`` is the
     inputs' dtype, which sets the peak rate of the bound.  ``kernel_ms``,
     when given, was timed by the caller (two paths in turns); ``path``
-    names the kernel's path in the case line; ``extra`` adds fields."""
+    names the kernel's path in the case line; ``extra`` adds fields;
+    ``library_ms``, when given, was timed by the caller (no
+    ``lib_calls``)."""
     outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
     errs, ok, tols = [], True, {}
     for o, w in zip(outs, wants):
@@ -587,7 +596,7 @@ def record(results, kernel, case, dtype, main, out, want, kern_calls, plain_call
              reason={k: why for k, (_, why) in tols.items()}, ok=ok,
              kernel_ms=timer(kern_calls) if kernel_ms is None else kernel_ms,
              plain_ms=timer(plain_calls),
-             library_ms=timer(lib_calls) if lib_calls else None,
+             library_ms=timer(lib_calls) if lib_calls else library_ms,
              bound_ms=b_ms, bound_by=b_by)
     if path is not None:
         r["path"] = path
@@ -672,51 +681,121 @@ def sdpa_mask(B, Sq, Sk, q_off, kv_len, device):
     return m[:, None]                                   # [B,1,Sq,Sk]
 
 
+def _sdpa_fastest(lib_calls):
+    """SDPA's yardstick over its forms (v at its own dv, v padded to dk):
+    each form's ms per call (None where PyTorch refuses the form) and the
+    fastest, ``library_ms``."""
+    got = {}
+    for form, calls in lib_calls.items():
+        try:
+            got[form] = bench_ms(calls)
+        except RuntimeError as e:                 # a form no SDPA backend takes
+            log(f"sdpa {form} refused: {str(e)[:200]}")
+            got[form] = None
+    taken = [t for t in got.values() if t is not None]
+    return got, (min(taken) if taken else None)
+
+
+def pad_heads(t, d):
+    """A [B, heads, S, d'] view of [B, S, heads, d'] memory zero-padded to
+    d in the same layout, as a model pads v to dk for kernels of one head
+    dim."""
+    return F.pad(t.transpose(1, 2), (0, d - t.shape[-1])).transpose(1, 2)
+
+
+def profiled_ms(fn, reps=5):
+    """Device ms per call of ``fn`` from torch.profiler: its kernels' own
+    time (``device_ms``), without the host's time between launches, and
+    each kernel's share of it by name."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    per = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            name = _short(e.key)
+            per[name] = per.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    return device_ms(events) / reps, per
+
+
+def route_dims(path, dk, dv):
+    """The kernels' "dkxdv" that a path of the attention checks runs:
+    "wgmma_padded" is the tensor cores on v padded to dk first."""
+    if path == "wgmma_padded":
+        path, dv = "wgmma", dk
+    return "x".join(map(str, kfa.kernel_dims(dk, dv, path)))
+
+
 def check_attention(results, gen, B, nh, nkv, dh, Sq, Sk, q_off, kv_len, dtype, *,
-                    main=True, label=""):
+                    main=True, label="", dv=None):
+    """The forward at q, k of dh and v of ``dv`` (default dh) against
+    ``ref.attention_plain``.  On the tensor cores (bf16) the SIMT path is
+    held and timed on the same inputs, in turns; at dv < dh (MLA's 96 / 64)
+    so is the route that pads v to dh first ("wgmma_padded": the wrapper
+    then pads all three to 128, as the model and wrapper did before the
+    native (96, 64) kernels), and SDPA's yardstick is the faster of its
+    call on v at dv and on v padded to dh."""
+    dv = dv or dh
     elt = torch.tensor([], dtype=dtype).element_size()
     qo = torch.tensor(q_off, dtype=torch.int32, device=DEV)
     kl = torch.tensor(kv_len, dtype=torch.int32, device=DEV)
     # data-dependent work: visible (query, key) pairs and the K/V rows read
     pairs = sum(min(kv_len[b], q_off[b] + i + 1) for b in range(B) for i in range(Sq))
     kv_rows = sum(min(kv_len[b], q_off[b] + Sq) for b in range(B))
-    nbytes = (2 * B * Sq * nh * dh + 2 * kv_rows * nkv * dh) * elt
-    nops = 4 * pairs * nh * dh
+    # read q (dh), write o (dv); read k (dh) and v (dv) of the visible rows
+    nbytes = (B * Sq * nh + kv_rows * nkv) * (dh + dv) * elt
+    nops = 2 * pairs * nh * (dh + dv)
     sets = []
-    for _ in range(n_copies(B * Sk * nkv * dh * 2 * elt)):
-        # the model's layout: [B, S, heads, dh], handed over as transposed views
+    for _ in range(n_copies(B * Sk * nkv * (dh + dv) * elt)):
+        # the model's layout: [B, S, heads, d], handed over as transposed views
         q = randn(gen, (B, Sq, nh, dh), dtype).transpose(1, 2)
         k = randn(gen, (B, Sk, nkv, dh), dtype).transpose(1, 2)
-        v = randn(gen, (B, Sk, nkv, dh), dtype).transpose(1, 2)
-        sets.append((q, k, v))
+        v = randn(gen, (B, Sk, nkv, dv), dtype).transpose(1, 2)
+        sets.append((q, k, v) + ((pad_heads(v, dh),) if dv != dh else ()))
     mask = sdpa_mask(B, Sq, Sk, qo, kl, DEV)
-    kern = lambda s, p: kfa.flash_attention(*s, causal=True, q_offset=qo, kv_len=kl, impl=p)
-    plain = lambda s: ref.attention_plain(*s, causal=True, q_offset=qo, kv_len=kl)
-    lib = lambda s: F.scaled_dot_product_attention(*s, attn_mask=mask, enable_gqa=True)
-    case = f"{label} B={B} nh={nh} nkv={nkv} dh={dh} Sq={Sq} Sk={Sk}"
-    impl = kfa.forward_impl(dtype, B, nh, nkv, Sq, Sk, dh)
-    calls = {p: [lambda s=s, p=p: kern(s, p) for s in sets] for p in kfa.IMPLS}
+    kw = dict(causal=True, q_offset=qo, kv_len=kl)
+    kern = lambda s, p: (  # noqa: E731
+        kfa.flash_attention(*s[:2], s[3], impl="wgmma", **kw)[..., :dv] if p == "wgmma_padded"
+        else kfa.flash_attention(*s[:3], impl=p, **kw))
+    plain = lambda s: ref.attention_plain(*s[:3], **kw)  # noqa: E731
+    sdpa = lambda s, vv: F.scaled_dot_product_attention(  # noqa: E731
+        *s[:2], vv, attn_mask=mask, enable_gqa=True)
+    lib_forms = {f"v{dv}": [lambda s=s: sdpa(s, s[2]) for s in sets]}
+    if dv != dh:
+        lib_forms[f"v{dv}_padded_to_{dh}"] = [lambda s=s: sdpa(s, s[3]) for s in sets]
+    sdpa_ms, lib_ms = _sdpa_fastest(lib_forms)
+    case = f"{label} B={B} nh={nh} nkv={nkv} dh={dh}" + (f" dv={dv}" if dv != dh else "") + \
+        f" Sq={Sq} Sk={Sk}"
+    impl = kfa.forward_impl(dtype, B, nh, nkv, Sq, Sk, dh, dv)
+    paths = kfa.IMPLS + (("wgmma_padded",) if dv != dh and impl == "wgmma" else ())
+    calls = {p: [lambda s=s, p=p: kern(s, p) for s in sets] for p in paths}
     times = paired_ms(bench_ms, calls) if impl == "wgmma" else {impl: None}
     ok = True
     for p in times:                     # the chosen path first: its row is the main one
+        extra = dict(kernel_dims=route_dims(p, dh, dv), sdpa_ms=sdpa_ms) if dv != dh else None
         ok &= record(results, "flash_attention", case, dtype, main and p == impl,
                      kern(sets[0], p), plain(sets[0]), calls[p],
-                     [lambda s=s: plain(s) for s in sets],
-                     [lambda s=s: lib(s) for s in sets], nbytes, nops,
-                     kernel_ms=times[p], path=p)
+                     [lambda s=s: plain(s) for s in sets], None, nbytes, nops,
+                     kernel_ms=times[p], path=p, library_ms=lib_ms, extra=extra)
     return ok
 
 
 def paired_ms(timer, calls):
-    """Each path's ms per call for the two paths of ``calls``, the first
-    key's (the chosen path) first: the two are timed in turns (other,
-    chosen, chosen, other) and each path's two readings averaged, so a
-    drift of the card's clock over the case falls on both alike."""
-    a, b = calls
-    got = {a: [], b: []}
-    for p in (b, a, a, b):
+    """Each path's ms per call for the paths of ``calls``, the first key's
+    (the chosen path) first: they are timed in turns (the others, chosen,
+    chosen, the others in reverse: for two paths other, chosen, chosen,
+    other) and each path's two readings averaged, so a drift of the
+    card's clock over the case falls on all alike."""
+    first, *others = calls
+    got = {p: [] for p in calls}
+    for p in others[::-1] + [first, first] + others:
         got[p].append(timer(calls[p]))
-    return {p: sum(got[p]) / len(got[p]) for p in (a, b)}
+    return {p: sum(got[p]) / len(got[p]) for p in calls}
 
 
 def kernel_phase(cfg):
@@ -868,41 +947,78 @@ def check_swiglu_bwd(results, gen, M, F_, dtype, *, main=True):
                   [lambda s=s: plain(s) for s in sets], None, nbytes, 20 * M * F_)
 
 
-def check_attention_bwd(results, gen, B, nh, nkv, dh, S, dtype, *, causal=True, main=True):
+def check_attention_bwd(results, gen, B, nh, nkv, dh, S, dtype, *, causal=True, main=True,
+                        dv=None):
     """dq, dk, dv under the training mask against the plain version's
-    autograd; [B,S,heads,dh] tensors go in as transposed views.  The
-    yardstick is the backward of F.scaled_dot_product_attention."""
+    autograd; [B,S,heads,d] tensors go in as transposed views, q and k at
+    dh, v, o and dO at ``dv`` (default dh).  The yardstick is the backward
+    of F.scaled_dot_product_attention (at dv < dh the faster of its forms
+    on v at dv and on v and dO padded to dh); at dv < dh the route that
+    pads v, o and dO to dh first ("wgmma_padded", then 128 in the wrapper)
+    is held and timed in turns with the native one, and each path's and
+    SDPA form's device time alone is read from torch.profiler."""
+    dv = dv or dh
     elt = torch.tensor([], dtype=dtype).element_size()
     q = randn(gen, (B, S, nh, dh), dtype).transpose(1, 2)
     k = randn(gen, (B, S, nkv, dh), dtype).transpose(1, 2)
-    v = randn(gen, (B, S, nkv, dh), dtype).transpose(1, 2)
-    do = randn(gen, (B, S, nh, dh), dtype).transpose(1, 2)
+    v = randn(gen, (B, S, nkv, dv), dtype).transpose(1, 2)
+    do = randn(gen, (B, S, nh, dv), dtype).transpose(1, 2)
     o, lse = kfa.flash_attention(q, k, v, causal=causal, return_lse=True)
     o_p, lse_p = ref.attention_plain(q, k, v, causal=causal, return_lse=True)
     pairs = B * (S * (S + 1) // 2 if causal else S * S)
-    # read q, k, v, o, dO and the fp32 LSE; write dq, dk, dv
-    nbytes = (3 * B * S * nh * dh + 2 * B * S * nkv * dh) * elt + 4 * B * nh * S \
-        + (B * S * nh * dh + 2 * B * S * nkv * dh) * elt
-    nops = 10 * pairs * nh * dh
-    kern = lambda p: kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, impl=p)
-    plain = lambda: ref.attention_bwd_plain(q, k, v, do, causal=causal)
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
-    lib = lambda: torch.autograd.grad(o_l, (ql, kl, vl), do, retain_graph=True)
+    # read q, k, v, o, dO and the fp32 LSE; write dq, dk, dv: each at its width
+    nbytes = 2 * B * S * (nh + nkv) * (dh + dv) * elt + 4 * B * nh * S
+    # S = Q K^T, dQ, dK over dh; dP = dO V^T, dV over dv
+    nops = pairs * nh * (6 * dh + 4 * dv)
+    padded = {}
+    if dv != dh:
+        padded = dict(v=pad_heads(v, dh), do=pad_heads(do, dh))
+        padded["o"], padded["lse"] = kfa.flash_attention(q, k, padded["v"], causal=causal,
+                                                         return_lse=True)
+
+    def kern(p):
+        if p == "wgmma_padded":
+            got = kfa.flash_attention_bwd(q, k, padded["v"], padded["o"], padded["lse"],
+                                          padded["do"], causal=causal, impl="wgmma")
+            return got[0], got[1], got[2][..., :dv]
+        return kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, impl=p)
+
+    plain = lambda: ref.attention_bwd_plain(q, k, v, do, causal=causal)  # noqa: E731
+    lib_forms = {}
+    for form, vv, dd in ((f"v{dv}", v, do),) + (
+            ((f"v{dv}_padded_to_{dh}", padded["v"], padded["do"]),) if padded else ()):
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, vv))
+        try:
+            o_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=True)
+        except RuntimeError as e:                 # a form no SDPA backend takes
+            log(f"sdpa {form} refused: {str(e)[:200]}")
+            continue
+        lib_forms[form] = lambda o_l=o_l, ql=ql, kl=kl, vl=vl, dd=dd: torch.autograd.grad(
+            o_l, (ql, kl, vl), dd, retain_graph=True)
+    sdpa_ms = {form: event_ms(fn) for form, fn in lib_forms.items()}
+    lib_ms = min(sdpa_ms.values()) if sdpa_ms else None
     ok_fwd = bool(torch.allclose(o.float(), o_p.float(), atol=TOL[o.dtype][0],
                                  rtol=TOL[o.dtype][0])) and \
         bool(torch.allclose(lse, lse_p, atol=2e-4, rtol=2e-4))
-    case = f"{'causal' if causal else 'full'} B={B} nh={nh} nkv={nkv} dh={dh} S={S}"
-    impl = kfa.backward_impl(dtype, B, nh, nkv, S, S, dh)
-    timer = lambda c: event_ms(c[0])
-    calls = {p: [lambda p=p: kern(p)] for p in kfa.IMPLS}
+    case = f"{'causal' if causal else 'full'} B={B} nh={nh} nkv={nkv} dh={dh}" + \
+        (f" dv={dv}" if dv != dh else "") + f" S={S}"
+    impl = kfa.backward_impl(dtype, B, nh, nkv, S, S, dh, dv)
+    timer = lambda c: event_ms(c[0])  # noqa: E731
+    paths = kfa.IMPLS + (("wgmma_padded",) if padded and impl == "wgmma" else ())
+    calls = {p: [lambda p=p: kern(p)] for p in paths}
     times = paired_ms(timer, calls) if impl == "wgmma" else {impl: None}
     ok = ok_fwd
+    if dv != dh:      # device time alone: the event times above include the host's gaps
+        prof = {p: profiled_ms(calls[p][0]) for p in times}
+        prof.update({f"sdpa_{form}": profiled_ms(fn) for form, fn in lib_forms.items()})
+        dev_ms = {p: ms for p, (ms, _) in prof.items()}
     for p in times:
+        extra = dict(kernel_dims=route_dims(p, dh, dv), sdpa_ms=sdpa_ms, device_ms=dev_ms,
+                     device_ms_by_kernel=prof[p][1]) if dv != dh else None
         got = kern(p)
         ok &= record(results, "flash_attention_bwd", case, dtype, main and p == impl, got,
-                     plain(), calls[p], [plain], [lib], nbytes, nops, timer=timer,
-                     kernel_ms=times[p], path=p)
+                     plain(), calls[p], [plain], None, nbytes, nops, timer=timer,
+                     kernel_ms=times[p], path=p, library_ms=lib_ms, extra=extra)
         ok &= all(torch.equal(a, b) for a, b in zip(got, kern(p)))     # deterministic
     return ok
 
@@ -2578,6 +2694,7 @@ def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
     r = launch_serve.run(args)                    # the main path
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    dims = dict(kfa.DIM_LAUNCHES)
     fin = r["finished"]
     ok_fin = len(fin) == REQUESTS and all(len(f.tokens) == GEN for f in fin.values())
     ratio = r["block_bytes"] / r["dense_block_bytes"]
@@ -2585,6 +2702,9 @@ def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
     # teacher-forced: the same SLOTS prompts prefilled into a bf16 and an
     # int8 pool, then one decode tick on the same tokens
     cfg = get_config(arch)
+    # MLA: every prefill's attention at (96, 64), natively on the tensor cores
+    ok_dims = cfg.mla is None or \
+        native_launches(dims, "flash_attention", mla_dims(cfg)) == launches["flash_attention"]
     params = r["engine"].params
     rng = np.random.default_rng(SEED + 1)
     lens = [prompt_lens[i % len(prompt_lens)] for i in range(SLOTS)]
@@ -2611,7 +2731,7 @@ def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
     torch.cuda.synchronize()
     rel = _max_rel(logits[True], logits[False])
     argmax_same = bool((logits[True].argmax(-1) == logits[False].argmax(-1)).all())
-    ok = (ok_fin and ok_ratio and ok_gather and rel <= logit_tol
+    ok = (ok_fin and ok_ratio and ok_gather and rel <= logit_tol and ok_dims
           and all(launches[k] > 0 for k in kernels))
     log(f"{name} " + json.dumps(dict(
         arch=arch, dtype="bfloat16", sequences=r["sequences"], ticks=r["ticks"],
@@ -2622,7 +2742,7 @@ def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
         paged_peak_bytes=r["paged_peak_bytes"], gather_worst_over_scale=worst,
         scale_worst_rel=scale_worst, tol_scale_rel=QUANT_SCALE_RTOL, gather_rows=rows,
         tick_logits_rel=rel, tol_tick_logits_rel=logit_tol,
-        tick_argmax_same=argmax_same, launches=launches,
+        tick_argmax_same=argmax_same, launches=launches, attention_dims=dims_json(dims),
         seconds=time.perf_counter() - t_phase, ok=ok)))
     del pools, logits, r
     return ok, launches
@@ -2732,18 +2852,36 @@ def check_mla_decode(results, gen, B, T, kv_len, dtype, *, main=True, label=""):
                   [lambda s=s: lib(s) for s in sets], nbytes, nops, path="simt")
 
 
+def mla_dims(cfg):
+    """(dk, dv) of MLA's prefill and training attention: (dn + dr, dv)."""
+    m = cfg.mla
+    return m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+
+
+def native_launches(dims_counts, kernel, dims):
+    """Launches of ``kernel`` at (dk, dv) = ``dims`` natively on the tensor
+    cores, in a snapshot of ``kfa.DIM_LAUNCHES``."""
+    return dims_counts.get((kernel, "wgmma", *dims, "native"), 0)
+
+
+def dims_json(dims_counts):
+    """A snapshot of ``kfa.DIM_LAUNCHES`` with string keys."""
+    return {f"{n} {p} {a}x{b} {how}": c for (n, p, a, b, how), c in sorted(dims_counts.items())}
+
+
 def mla_kernel_phase(cfg):
     """MLA's kernels at minicpm3-4b's full-width shapes: the absorbed
     decode at the serving tick (4 slots over the pool's 544-row page view,
     one slot idle at length 1; bf16, the kernels line's row) and off it
     (B 1 to 3, T of 64, off the 32-key tile, 256 with an empty row; fp32
-    and bf16); then rows 3 and 3b at dh 96 (zero-padded to 128), off the
-    kernels line's sums: the three serving prefills, the training
-    microbatch's forward, its backward in bf16 and, at batch 1, fp32."""
+    and bf16); then rows 3 and 3b at dk 96 / dv 64 (natively on the tensor
+    cores in bf16, beside the route that padded v to 96 and all three to
+    128, timed in turns; padded to 128 on the SIMT path), off the kernels
+    line's sums: the three serving prefills, the training microbatch's
+    forward, its backward in bf16 and, at batch 1, fp32."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
-    m, nh = cfg.mla, cfg.num_heads
-    dh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    nh, (dk, dv) = cfg.num_heads, mla_dims(cfg)
     Tpool = -(-(max(MLA_PROMPT_LENS) + GEN) // BLOCK) * BLOCK
     bf, f32 = torch.bfloat16, torch.float32
     results, ok = [], True
@@ -2756,15 +2894,15 @@ def mla_kernel_phase(cfg):
         ok &= check_mla_decode(results, gen, 3, 256, [256, 0, 129], dtype, main=False,
                                label="empty row")
     for P in MLA_PROMPT_LENS:
-        ok &= check_attention(results, gen, 1, nh, nh, dh, P, Tpool, [0], [P], bf, main=False,
-                              label="mla prefill")
-    ok &= check_attention(results, gen, 1, nh, nh, dh, 256, Tpool, [0], [256], f32,
-                          main=False, label="mla prefill")
+        ok &= check_attention(results, gen, 1, nh, nh, dk, P, Tpool, [0], [P], bf, main=False,
+                              label="mla prefill", dv=dv)
+    ok &= check_attention(results, gen, 1, nh, nh, dk, 256, Tpool, [0], [256], f32,
+                          main=False, label="mla prefill", dv=dv)
     B = TRAIN_BATCH // TRAIN_MICRO
-    ok &= check_attention(results, gen, B, nh, nh, dh, TRAIN_SEQ, TRAIN_SEQ, [0] * B,
-                          [TRAIN_SEQ] * B, bf, main=False, label="mla train")
-    ok &= check_attention_bwd(results, gen, B, nh, nh, dh, TRAIN_SEQ, bf, main=False)
-    ok &= check_attention_bwd(results, gen, 1, nh, nh, dh, TRAIN_SEQ, f32, main=False)
+    ok &= check_attention(results, gen, B, nh, nh, dk, TRAIN_SEQ, TRAIN_SEQ, [0] * B,
+                          [TRAIN_SEQ] * B, bf, main=False, label="mla train", dv=dv)
+    ok &= check_attention_bwd(results, gen, B, nh, nh, dk, TRAIN_SEQ, bf, main=False, dv=dv)
+    ok &= check_attention_bwd(results, gen, 1, nh, nh, dk, TRAIN_SEQ, f32, main=False, dv=dv)
     log("mla_kernels " + json.dumps(dict(cases=len(results), seconds=time.perf_counter() - t0,
                                          ok=ok)))
     return results, ok
@@ -2802,7 +2940,7 @@ def mla_model_check(cfg):
     5e-2 relative, and the kernel path as close to fp32 as the plain bf16
     path, 25% margin; fp32 1e-4).  The kernel path must launch the
     absorbed decode once a layer and step, and every prefill attention on
-    the tensor cores in bf16."""
+    the tensor cores in bf16, natively at (dk, dv) = (96, 64)."""
     t0 = time.perf_counter()
     toks = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, size=MLA_CHECK_PROMPT + MLA_CHECK_DECODE)
@@ -2820,16 +2958,20 @@ def mla_model_check(cfg):
             if name == "kernel":
                 launches = dict(ops.LAUNCHES)
                 fa = dict(kfa.IMPL_LAUNCHES["flash_attention"])
+                dims = dict(kfa.DIM_LAUNCHES)
             del params
             torch.cuda.empty_cache()
         rel = lambda a, b: ((logits[a] - logits[b]).norm() / logits[b].norm()).item()  # noqa
         want_fa = "wgmma" if dtype == torch.bfloat16 else "simt"
         ok_launch = (launches["mla_decode"] == MLA_CHECK_DECODE * layers
                      and fa[want_fa] == launches["flash_attention"] == layers)
+        if dtype == torch.bfloat16:         # every bf16 prefill at (96, 64), natively
+            ok_launch &= native_launches(dims, "flash_attention", mla_dims(cfg)) == layers
         entry = dict(layers=layers, prompt=MLA_CHECK_PROMPT, decode_steps=MLA_CHECK_DECODE,
                      max_abs_err=(logits["kernel"] - logits["plain"]).abs().max().item(),
                      rel_kernel_vs_plain=rel("kernel", "plain"),
-                     mla_decode_launches=launches["mla_decode"], attention_paths=fa)
+                     mla_decode_launches=launches["mla_decode"], attention_paths=fa,
+                     attention_dims=dims_json(dims))
         good = bool(torch.isfinite(logits["kernel"]).all()) and ok_launch
         if dtype == torch.bfloat16:
             entry.update(rel_kernel_vs_fp32=rel("kernel", "plain_fp32"),
@@ -2852,19 +2994,24 @@ def serve_mla_phase():
     serve phase's trace, prompts of MLA_PROMPT_LENS): beside the serve
     phase's gates, every decode tick (the warm-up's included) launches the
     absorbed decode kernel once a layer, the CUDA kernel every time, and
-    every prefill's attention runs on the tensor cores."""
+    every prefill's attention runs on the tensor cores at (dk, dv) =
+    (96, 64), natively."""
     t0 = time.perf_counter()
     ok, launches = serve_phase(False, MLA_ARCH, MLA_PROMPT_LENS, MLA_SERVE_KERNELS, "_mla")
-    L, ticks = get_config(MLA_ARCH).num_layers, SERVE_TICKS[MLA_ARCH]
+    cfg = get_config(MLA_ARCH)
+    L, ticks = cfg.num_layers, SERVE_TICKS[MLA_ARCH]
     fa = dict(kfa.IMPL_LAUNCHES["flash_attention"])
     md = dict(kfa.IMPL_LAUNCHES["mla_decode"])
+    dims = dict(kfa.DIM_LAUNCHES)
     ok_ticks = launches["mla_decode"] == L * (ticks + 1) and md["simt"] == launches["mla_decode"]
-    ok_prefill = fa["simt"] == 0 and fa["wgmma"] == launches["flash_attention"] > 0
+    ok_prefill = fa["simt"] == 0 and fa["wgmma"] == launches["flash_attention"] > 0 and \
+        native_launches(dims, "flash_attention", mla_dims(cfg)) == fa["wgmma"]
     ok &= ok_ticks and ok_prefill
     log("serve_mla_paths " + json.dumps(dict(
         mla_decode=md, mla_decode_per_tick=launches["mla_decode"] / (ticks + 1),
         layers=L, ticks=ticks, warmup_ticks=1, flash_attention=fa,
-        seconds=time.perf_counter() - t0, ok=ok_ticks and ok_prefill)))
+        attention_dims=dims_json(dims), seconds=time.perf_counter() - t0,
+        ok=ok_ticks and ok_prefill)))
     return ok, launches
 
 
@@ -2873,7 +3020,7 @@ def train_mla_phase():
     the training launcher (bf16 over fp32 masters, batch 8 x 512, 2
     microbatches, remat fusion, MLA_TRAIN_STEPS steps, the first a
     warm-up): every training kernel launches, every attention forward and
-    backward on the tensor cores (dh 96 padded to 128), every tile matmul
+    backward on the tensor cores natively at (dk, dv) = (96, 64), every tile matmul
     and gate on wgmma; step ms and peak memory; then the loss and every
     gradient of one microbatch against the plain path (``grad_check``:
     bf16 at MLA_TRAIN_LAYERS layers, fp32 at 2)."""
@@ -2890,11 +3037,13 @@ def train_mla_phase():
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(ops.LAUNCHES)
     paths = {k: dict(v) for k, v in kfa.IMPL_LAUNCHES.items()}
+    dims = dict(kfa.DIM_LAUNCHES)
     mm_paths = {k: dict(kmm.IMPL_LAUNCHES[k]) for k in ("tile_matmul", "gated_matmul")}
     cfg, losses = r["cfg"], [loss for _, loss in r["history"]]
     step_ms_all = [1e3 * t for t in r["step_s"]]
     step_ms = float(np.median(step_ms_all[1:]))
     ok_paths = all(paths[k]["simt"] == 0 and paths[k]["wgmma"] == launches[k] > 0
+                   and native_launches(dims, k, mla_dims(cfg)) == launches[k]
                    for k in ("flash_attention", "flash_attention_bwd"))
     ok_mm = all(c["wgmma"] == launches[k] > 0 and c["wgmma"] == sum(c.values())
                 for k, c in mm_paths.items())
@@ -2910,7 +3059,8 @@ def train_mla_phase():
         microbatches=TRAIN_MICRO, remat="fusion", dtype="bfloat16", losses=losses,
         step_ms_median=step_ms, step_ms=step_ms_all[1:], warmup_step_ms=step_ms_all[0],
         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), peak_gib=peak_gib,
-        launches=launches, attention_paths=paths, mm_paths=mm_paths, run_seconds=t_run,
+        launches=launches, attention_paths=paths, attention_dims=dims_json(dims),
+        mm_paths=mm_paths, run_seconds=t_run,
         seconds=time.perf_counter() - t0, ok=ok, grad_check_ok=ok_g)))
     return ok and ok_g, launches
 

@@ -50,8 +50,8 @@ ARGTYPES = {
         "hk_flash_attention": [_P, _P, _P, _P, _P, _P] + [_I] * 6 + [_L] * 12
                               + [_I, _F, _I, _P, _P, _I, _P],
         "hk_flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_P, _I, _F, _I, _P],
-        "hk_flash_attention_tc": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_I, _F, _P, _P],
-        "hk_flash_attention_bwd_tc": [_P] * 10 + [_I] * 6 + [_P, _I, _F, _P],
+        "hk_flash_attention_tc": [_P] * 6 + [_I] * 7 + [_L] * 12 + [_I, _F, _P, _P],
+        "hk_flash_attention_bwd_tc": [_P] * 10 + [_I] * 7 + [_P, _I, _F, _P],
     },
     "swiglu_bwd": {
         "hk_swiglu_bwd": [_P] * 5 + [_L, _I, _I, _P],

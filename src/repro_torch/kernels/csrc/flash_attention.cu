@@ -29,10 +29,13 @@
 // the kv-head, so the GQA sum needs no atomics), and a second kernel owns
 // a row tile and loops over its KV tiles for dQ.
 //
-// Layout: q [B, nh, Sq, dh], k/v [B, nkv, Sk, dh], o, dO and the gradients
-// like their inputs, each given by element strides (batch, head, position)
-// with dh contiguous, so the model hands over its [B, S, heads, dh]
-// tensors without a transpose.  dh is 64 or 128.
+// Layout: q [B, nh, Sq, dk], k [B, nkv, Sk, dk], v [B, nkv, Sk, dv], o and
+// dO [B, nh, Sq, dv], the gradients like their inputs, each given by
+// element strides (batch, head, position) with the head dim contiguous, so
+// the model hands over its [B, S, heads, d] tensors without a transpose.
+// The SIMT kernels take dk = dv = 64 or 128; the tensor-core ones (dk, dv)
+// = (64, 64), (128, 128) or MLA's (96, 64) (q and k at dn + dr = 64 + 32,
+// v at 64), which runs natively: no column of its products is padding.
 //
 // Bound on an H100 SXM: decode (Sq = 1) reads each slot's K/V once,
 // kv_len * nkv * dh * 2 tensors * 2 bytes per layer, and is byte bound;
@@ -59,6 +62,15 @@
 //   the 4 threads that hold it; P rounded to bf16 in registers and fed as
 //   the register A operand of O += P V, V read as an MN-major B operand;
 //   the mask only on tiles that straddle a limit, tiles past it skipped.
+//   A d-wide operand is laid down in ceil(d / 64) halves of 64 columns
+//   (128-byte rows): at dk 96 the second half holds columns 64..95, TMA
+//   fills the rest of its box with zeros (the map's inner extent is 96, so
+//   no global byte is read for them), and the products run over the 96
+//   columns only: S = Q K^T in dk / 16 = 6 k-steps, O += P V at N = dv = 64,
+//   dQ += dS K and dK += dS^T Q at N = 96 (m64n96k16; the MN-major B reads
+//   its second half's first 32 columns).  Keeping 128-byte halves costs the
+//   shared memory of 32 unused columns (66.6 KB a forward block, two still
+//   fit an SM) and keeps one swizzle, one descriptor form and one TMA box.
 //   Backward: flash_bwd_dot for D, then a dK/dV kernel (one block per 64
 //   keys, K and V held in shared memory, the producer streaming 32-row
 //   tiles of Q and dO of every q-head of the group from the causal start:
@@ -300,27 +312,44 @@ struct BwdStrides {
   long long dqb, dqh, dqs, dkb, dkh, dks, dvb, dvh, dvs;           // gradients
 };
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) { return __bfloat162float(v); }
+// D[b, h, i] = sum_d dO * O over O's DH columns (the tensor cores' dv): LPR = DH / VEC lanes
+// own a row, 16 bytes of it each, so every load is 16 bytes wide and a warp reads 32 / LPR
+// rows; 8 warps, ROWS rows a block.
+template <typename T, int DH>
+struct BwdDot {
+  static constexpr int VEC = 16 / sizeof(T), LPR = DH / VEC, ROWS = 8 * (32 / LPR);
+};
 
-// D[b, h, i] = sum_d dO * O: one warp per row, 8 rows per block.
 template <typename T, int DH>
 __global__ void __launch_bounds__(256)
 flash_bwd_dot(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ D,
               int B, int nh, int Sq, BwdStrides st) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * 8 + warp;
-  if (row >= (long long)B * nh * Sq) return;
-  const int i = row % Sq, h = (row / Sq) % nh, b = row / ((long long)Sq * nh);
-  const T* orow = o + b * st.ob + h * st.oh + i * st.os;
-  const T* grow = dout + b * st.gb + h * st.gh + i * st.gs;
+  constexpr int VEC = BwdDot<T, DH>::VEC, LPR = BwdDot<T, DH>::LPR;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * BwdDot<T, DH>::ROWS + threadIdx.x / LPR;
+  const bool live = row < (long long)B * nh * Sq;
   float acc = 0.f;
+  if (live) {
+    const int i = row % Sq, h = (row / Sq) % nh, b = row / ((long long)Sq * nh);
+    const int d = (lane % LPR) * VEC;
+    float ov[VEC], gv[VEC];
+    load_vec(o + b * st.ob + h * st.oh + i * st.os + d, ov);
+    load_vec(dout + b * st.gb + h * st.gh + i * st.gs + d, gv);
 #pragma unroll
-  for (int d = lane; d < DH; d += 32) acc += to_f(orow[d]) * to_f(grow[d]);
+    for (int e = 0; e < VEC; ++e) acc += ov[e] * gv[e];
+  }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) D[row] = acc;
+  for (int off = LPR / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && lane % LPR == 0) D[row] = acc;
+}
+
+template <typename T, int DH>
+static void launch_dot(const T* o, const T* dout, float* D, int B, int nh, int Sq,
+                       const BwdStrides& st, cudaStream_t stream) {
+  const long long rows = (long long)B * nh * Sq;
+  constexpr int R = BwdDot<T, DH>::ROWS;
+  flash_bwd_dot<T, DH><<<(unsigned)((rows + R - 1) / R), 256, 0, stream>>>(o, dout, D, B, nh,
+                                                                            Sq, st);
 }
 
 // dK, dV: one block per (KV tile of BK keys, kv-head, batch); it loops over
@@ -549,9 +578,7 @@ static int launch_bwd_dh(const void* q, const void* k, const void* v, const void
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   const T* gp = static_cast<const T*>(dout);
-  const long long rows = (long long)B * nh * Sq;
-  flash_bwd_dot<T, DH><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const T*>(o), gp, D, B, nh, Sq, st);
+  launch_dot<T, DH>(static_cast<const T*>(o), gp, D, B, nh, Sq, st, stream);
   constexpr size_t s_kv = dkdv_smem<DH>(), s_q = dq_smem<DH>();
   cudaFuncSetAttribute(flash_bwd_dkdv<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)s_kv);
@@ -582,12 +609,18 @@ constexpr int THREADS = 160;  // one consumer warpgroup (128) + one producer war
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// ROWS positions from s0 of one (batch, head): DH / 64 halves of ROWS x 128 bytes
-template <int DH, int ROWS>
+// Bytes of ROWS rows of a D-wide operand: ceil(D / 64) halves of ROWS x 128 bytes (at D 96 the
+// second half's columns 96..127 are TMA's zero fill or never written, and never read).
+template <int D, int ROWS>
+__host__ __device__ constexpr int tile_bytes() { return (D + 63) / 64 * ROWS * 128; }
+
+// ROWS positions from s0 of one (batch, head) of a D-wide map, as tile_bytes<D, ROWS>()
+template <int D, int ROWS>
 __device__ __forceinline__ void tma_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* b,
                                          int s0, int h, int bb) {
 #pragma unroll
-  for (int hf = 0; hf < DH / 64; ++hf) tma_load(dst + hf * ROWS * 128, map, b, hf * 64, s0, h, bb);
+  for (int hf = 0; hf < (D + 63) / 64; ++hf)
+    tma_load(dst + hf * ROWS * 128, map, b, hf * 64, s0, h, bb);
 }
 
 // D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory
@@ -606,8 +639,34 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// D[64 x 128] += A[64 x 16] B[16 x 128]: A (bf16 pairs) in registers, B MN-major in
-// shared memory
+// D[64 x 96] += A[64 x 16] B[16 x 96]: A (bf16 pairs) in registers, B MN-major in shared
+// memory (its first 64-column half, then 32 columns of the second, lbo bytes on)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A (bf16 pairs) in registers, B MN-major in shared
+// memory
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -638,11 +697,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
 }
 
 
-template <int DH>
-__device__ __forceinline__ void wgmma_rs(float (&d)[DH / 2], const uint32_t* a, uint64_t db);
+// D[64 x N] += A[64 x 16] B[16 x N], N = 64, 96 or 128; lbo: the distance of B's halves
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t db);
 template <>
 __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t* a, uint64_t db) {
   wgmma_rs_n64(d, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48], const uint32_t* a, uint64_t db) {
+  wgmma_rs_n96(d, a, db);
 }
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a, uint64_t db) {
@@ -661,13 +725,28 @@ __device__ __forceinline__ void to_frag(const float (&s)[N / 2], uint32_t (&a)[N
   }
 }
 
+// S (+)= A B^T over D columns, A and B K-major tiles of ROWS_A and ROWS_B rows: D / 16 k-steps,
+// the 4 of a 64-column half 32 bytes apart, the halves ROWS x 128 bytes apart.
+template <int D, int ROWS_A, int ROWS_B, int N>
+__device__ __forceinline__ void mma_kmajor(float (&s)[N / 2], uint32_t a, uint32_t b) {
+  static_assert(N == 32 || N == 64, "the score products are m64n32 or m64n64");
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const uint64_t da = desc(a + (k / 4) * ROWS_A * 128 + (k % 4) * 32, 16);
+    const uint64_t db = desc(b + (k / 4) * ROWS_B * 128 + (k % 4) * 32, 16);
+    if constexpr (N == 64) wgmma_ss_n64(s, da, db, k);
+    else wgmma_ss_n32(s, da, db, k);
+  }
+}
+
 // Rows R0 .. R0 + 63 of a block (row R = query R / g, q-head kvh g + R % g, read through the
-// strides) into [DH / 64][64 rows][128 B] in the 128-byte swizzle; rows past rows_total are 0.
-template <int DH>
+// strides) of a D-wide tensor into tile_bytes<D, BM>() in the 128-byte swizzle; rows past
+// rows_total are 0.
+template <int D>
 __device__ __forceinline__ void load_rows(uint8_t* dst, const bf16* t, long long sb, long long sh,
                                           long long ss, int b, int kvh, int g, int R0,
                                           int rows_total, int tid) {
-  constexpr int CH = DH / 8;  // 16-byte chunks of a row
+  constexpr int CH = D / 8;  // 16-byte chunks of a row (12 at D 96)
   for (int i = tid; i < BM * CH; i += 128) {
     const int r = i / CH, cc = i % CH, R = R0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -682,34 +761,35 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const bf16* t, long long
 
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
 
-// The K/V producer of a forward or dQ block: tiles 0 .. ntiles - 1 of (b, kvh) into the ring.
-template <int DH>
+// The K/V producer of a forward or dQ block: tiles 0 .. ntiles - 1 of (b, kvh) into the ring,
+// a stage K (DK wide) then V (DV wide).
+template <int DK, int DV>
 __device__ __forceinline__ void produce_kv(uint8_t* KV, uint64_t* full, uint64_t* empty,
                                            const CUtensorMap* kmap, const CUtensorMap* vmap,
                                            int ntiles, int kvh, int b) {
-  constexpr int TILE = DH * 128;
+  constexpr int KT = tile_bytes<DK, BN>(), ST = KT + tile_bytes<DV, BN>();
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % NST;
     if (t >= NST) bar_wait(&empty[s], (t / NST - 1) & 1);
-    bar_expect(&full[s], 2 * TILE);
-    tma_tile<DH, BN>(KV + 2 * s * TILE, kmap, &full[s], t * BN, kvh, b);
-    tma_tile<DH, BN>(KV + (2 * s + 1) * TILE, vmap, &full[s], t * BN, kvh, b);
+    bar_expect(&full[s], ST);
+    tma_tile<DK, BN>(KV + s * ST, kmap, &full[s], t * BN, kvh, b);
+    tma_tile<DV, BN>(KV + s * ST + KT, vmap, &full[s], t * BN, kvh, b);
   }
 }
 
 // Forward: one block per (tile of 64 rows, kv-head, batch), rows as in the SIMT kernel;
 // heavier (later) causal tiles are scheduled first.
-template <int DH>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 2)
 fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
     const bf16* __restrict__ q, bf16* __restrict__ o, const int* __restrict__ q_off,
     const int* __restrict__ kv_len, int nh, int nkv, int Sq, int Sk, Strides st, int causal,
     float scale, float* __restrict__ lse) {
-  constexpr int TILE = DH * 128;  // 64 rows (or keys) x DH in bf16
+  constexpr int KT = tile_bytes<DK, BN>(), ST = KT + tile_bytes<DV, BN>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1k(smem_raw);
-  uint8_t* KV = Qs + TILE;  // stage s: K at KV + 2 s TILE, V after it
-  uint64_t* full = reinterpret_cast<uint64_t*>(KV + NST * 2 * TILE);
+  uint8_t* KV = Qs + tile_bytes<DK, BM>();  // stage s: K at KV + s ST, V KT after it
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + NST * ST);
   uint64_t* empty = full + NST;
 
   const int tid = threadIdx.x, b = blockIdx.z, kvh = blockIdx.y, g = nh / nkv;
@@ -730,32 +810,28 @@ fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMa
   }
   __syncthreads();
   if (tid >= 128) {  // the producer warp
-    if (tid == 128) produce_kv<DH>(KV, full, empty, &kmap, &vmap, ntiles, kvh, b);
+    if (tid == 128) produce_kv<DK, DV>(KV, full, empty, &kmap, &vmap, ntiles, kvh, b);
     return;
   }
 
-  load_rows<DH>(Qs, q, st.qb, st.qh, st.qs, b, kvh, g, R0, rows_total, tid);
+  load_rows<DK>(Qs, q, st.qb, st.qh, st.qs, b, kvh, g, R0, rows_total, tid);
   consumers_sync();
   const int lane = tid % 32, ra = (tid / 32) * 16 + lane / 4, cb = 2 * (lane % 4);
   const int qp[2] = {qoff + (R0 + ra) / g, qoff + (R0 + ra + 8) / g};
   const int qfirst = qoff + R0 / g;
   const float sl2 = scale * LOG2E;  // scores in log2 units
   const uint32_t qaddr = saddr(Qs);
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[DH / 2];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, acc[DV / 2];
   zero(acc);
 
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % NST, k0 = t * BN;
-    const uint32_t kaddr = saddr(KV + 2 * s * TILE), vaddr = kaddr + TILE;
+    const uint32_t kaddr = saddr(KV + s * ST), vaddr = kaddr + KT;
     float sc[BN / 2];
     zero(sc);
     bar_wait(&full[s], (t / NST) & 1);
     wg_fence();
-#pragma unroll
-    for (int k = 0; k < DH / 16; ++k) {
-      const uint32_t off = (k / 4) * BN * 128 + (k % 4) * 32;  // BM == BN rows in Q and K
-      wgmma_ss_n64(sc, desc(qaddr + off, 16), desc(kaddr + off, 16), k);
-    }
+    mma_kmajor<DK, BM, BN, BN>(sc, qaddr, kaddr);
     wg_commit();
     wg_wait<0>();
     keep(sc);
@@ -798,7 +874,7 @@ fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMa
           sc[4 * i + 2 * h + e] = p;
         }
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[4 * i + j] *= alpha[j / 2];
     uint32_t pf[BN / 4];
@@ -806,7 +882,7 @@ fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMa
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs<DH>(acc, &pf[4 * kk], desc(vaddr + kk * 2048, BN * 128));
+      wgmma_rs<DV>(acc, &pf[4 * kk], desc(vaddr + kk * 2048, BN * 128));
     wg_commit();
     wg_wait<0>();
     keep(acc);
@@ -824,7 +900,7 @@ fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMa
     bf16* orow = o + b * st.ob + (long long)hh * st.oh + (long long)qi * st.os;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + cb) =
           __floats2bfloat162_rn(acc[4 * i + 2 * h] * inv, acc[4 * i + 2 * h + 1] * inv);
     if (lse != nullptr && lane % 4 == 0)
@@ -833,19 +909,20 @@ fwd(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMa
 }
 
 // dQ: one block per (tile of 64 rows, kv-head, batch), as the forward; loops over the K/V
-// tiles its rows see: S = Q K^T, dP = dO V^T, dS = P (dP - D), dQ += dS K.
-template <int DH>
+// tiles its rows see: S = Q K^T (over dk), dP = dO V^T (over dv), dS = P (dP - D),
+// dQ += dS K (N = dk).
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
        const bf16* __restrict__ q, const bf16* __restrict__ dout, const float* __restrict__ lse,
        const float* __restrict__ D, bf16* __restrict__ dq, int nh, int nkv, int Sq, int Sk,
        BwdStrides st, int causal, float scale) {
-  constexpr int TILE = DH * 128;
+  constexpr int KT = tile_bytes<DK, BN>(), ST = KT + tile_bytes<DV, BN>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1k(smem_raw);
-  uint8_t* Gs = Qs + TILE;
-  uint8_t* KV = Gs + TILE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(KV + NST * 2 * TILE);
+  uint8_t* Gs = Qs + tile_bytes<DK, BM>();
+  uint8_t* KV = Gs + tile_bytes<DV, BM>();
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + NST * ST);
   uint64_t* empty = full + NST;
 
   const int tid = threadIdx.x, b = blockIdx.z, kvh = blockIdx.y, g = nh / nkv;
@@ -862,12 +939,12 @@ bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtenso
   }
   __syncthreads();
   if (tid >= 128) {
-    if (tid == 128) produce_kv<DH>(KV, full, empty, &kmap, &vmap, ntiles, kvh, b);
+    if (tid == 128) produce_kv<DK, DV>(KV, full, empty, &kmap, &vmap, ntiles, kvh, b);
     return;
   }
 
-  load_rows<DH>(Qs, q, st.qb, st.qh, st.qs, b, kvh, g, R0, rows_total, tid);
-  load_rows<DH>(Gs, dout, st.gb, st.gh, st.gs, b, kvh, g, R0, rows_total, tid);
+  load_rows<DK>(Qs, q, st.qb, st.qh, st.qs, b, kvh, g, R0, rows_total, tid);
+  load_rows<DV>(Gs, dout, st.gb, st.gh, st.gs, b, kvh, g, R0, rows_total, tid);
   consumers_sync();
   const int lane = tid % 32, ra = (tid / 32) * 16 + lane / 4, cb = 2 * (lane % 4);
   int qp[2];
@@ -882,27 +959,19 @@ bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtenso
   }
   const float sl2 = scale * LOG2E;
   const uint32_t qaddr = saddr(Qs), gaddr = saddr(Gs);
-  float acc[DH / 2];
+  float acc[DK / 2];
   zero(acc);
 
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % NST, k0 = t * BN;
-    const uint32_t kaddr = saddr(KV + 2 * s * TILE), vaddr = kaddr + TILE;
+    const uint32_t kaddr = saddr(KV + s * ST), vaddr = kaddr + KT;
     float sc[BN / 2], dp[BN / 2];
     zero(sc);
     zero(dp);
     bar_wait(&full[s], (t / NST) & 1);
     wg_fence();
-#pragma unroll
-    for (int k = 0; k < DH / 16; ++k) {
-      const uint32_t off = (k / 4) * BN * 128 + (k % 4) * 32;
-      wgmma_ss_n64(sc, desc(qaddr + off, 16), desc(kaddr + off, 16), k);
-    }
-#pragma unroll
-    for (int k = 0; k < DH / 16; ++k) {
-      const uint32_t off = (k / 4) * BN * 128 + (k % 4) * 32;
-      wgmma_ss_n64(dp, desc(gaddr + off, 16), desc(vaddr + off, 16), k);
-    }
+    mma_kmajor<DK, BM, BN, BN>(sc, qaddr, kaddr);
+    mma_kmajor<DV, BM, BN, BN>(dp, gaddr, vaddr);
     wg_commit();
     wg_wait<0>();
     keep(sc);
@@ -925,7 +994,7 @@ bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtenso
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs<DH>(acc, &df[4 * kk], desc(kaddr + kk * 2048, BN * 128));
+      wgmma_rs<DK>(acc, &df[4 * kk], desc(kaddr + kk * 2048, BN * 128));
     wg_commit();
     wg_wait<0>();
     keep(acc);
@@ -939,7 +1008,7 @@ bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtenso
     if (R >= rows_total) continue;
     bf16* row = dq + b * st.dqb + (long long)(kvh * g + R % g) * st.dqh + (long long)(R / g) * st.dqs;
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i)
+    for (int i = 0; i < DK / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * i + cb) =
           __floats2bfloat162_rn(acc[4 * i + 2 * h] * scale, acc[4 * i + 2 * h + 1] * scale);
   }
@@ -948,22 +1017,23 @@ bwd_dq(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtenso
 // dK, dV: one block per (tile of 64 keys, kv-head, batch).  K and V stay in shared memory;
 // the producer streams tiles of 32 query positions of each q-head of the group from the
 // causal start (Q and dO by TMA), and the products run transposed so the keys are the
-// wgmma's M: S^T = K Q^T, P^T = exp(S^T scale - LSE), dV += P^T dO, dP^T = V dO^T,
-// dS^T = P^T (dP^T - D), dK += dS^T Q.  No atomics: the block owns its keys.
-template <int DH>
+// wgmma's M: S^T = K Q^T (over dk), P^T = exp(S^T scale - LSE), dV += P^T dO (N = dv),
+// dP^T = V dO^T (over dv), dS^T = P^T (dP^T - D), dK += dS^T Q (N = dk).  No atomics: the
+// block owns its keys.
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
          const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap gmap,
          const float* __restrict__ lse, const float* __restrict__ D, bf16* __restrict__ dk,
          bf16* __restrict__ dv, int nh, int nkv, int Sq, int Sk, BwdStrides st, int causal,
          float scale) {
-  constexpr int KT = DH * 128;       // 64 keys x DH
-  constexpr int RT = DH * BMB * 2;   // 32 rows x DH
+  constexpr int KT = tile_bytes<DK, BN>(), VT = tile_bytes<DV, BN>();   // 64 keys
+  constexpr int QT = tile_bytes<DK, BMB>(), RT = QT + tile_bytes<DV, BMB>();  // 32 rows
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Ks = align1k(smem_raw);
   uint8_t* Vs = Ks + KT;
-  uint8_t* RS = Vs + KT;  // stage s: Q at RS + 2 s RT, dO after it
-  uint64_t* kvbar = reinterpret_cast<uint64_t*>(RS + NST * 2 * RT);
+  uint8_t* RS = Vs + VT;  // stage s: Q at RS + s RT, dO QT after it
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(RS + NST * RT);
   uint64_t* full = kvbar + 1;
   uint64_t* empty = full + NST;
 
@@ -983,16 +1053,16 @@ bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUten
   __syncthreads();
   if (tid >= 128) {
     if (tid == 128) {
-      bar_expect(kvbar, 2 * KT);
-      tma_tile<DH, BN>(Ks, &kmap, kvbar, k0, kvh, b);
-      tma_tile<DH, BN>(Vs, &vmap, kvbar, k0, kvh, b);
+      bar_expect(kvbar, KT + VT);
+      tma_tile<DK, BN>(Ks, &kmap, kvbar, k0, kvh, b);
+      tma_tile<DV, BN>(Vs, &vmap, kvbar, k0, kvh, b);
       for (int it = 0; it < n_it; ++it) {
         const int s = it % NST, h = kvh * g + it / per_head;
         const int qi0 = qstart + (it % per_head) * BMB;
         if (it >= NST) bar_wait(&empty[s], (it / NST - 1) & 1);
-        bar_expect(&full[s], 2 * RT);
-        tma_tile<DH, BMB>(RS + 2 * s * RT, &qmap, &full[s], qi0, h, b);
-        tma_tile<DH, BMB>(RS + (2 * s + 1) * RT, &gmap, &full[s], qi0, h, b);
+        bar_expect(&full[s], RT);
+        tma_tile<DK, BMB>(RS + s * RT, &qmap, &full[s], qi0, h, b);
+        tma_tile<DV, BMB>(RS + s * RT + QT, &gmap, &full[s], qi0, h, b);
       }
     }
     return;
@@ -1002,7 +1072,7 @@ bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUten
   const int kp[2] = {k0 + ra, k0 + ra + 8};
   const float sl2 = scale * LOG2E;
   const uint32_t kaddr = saddr(Ks), vaddr = saddr(Vs);
-  float dka[DH / 2], dva[DH / 2];
+  float dka[DK / 2], dva[DV / 2];
   zero(dka);
   zero(dva);
   bar_wait(kvbar, 0);
@@ -1021,24 +1091,14 @@ bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUten
         l2[i][e] = qi < Sq ? lse[ri] * LOG2E : 0.f;
         dd[i][e] = qi < Sq ? D[ri] : 0.f;
       }
-    const uint32_t qaddr = saddr(RS + 2 * s * RT), gaddr = qaddr + RT;
+    const uint32_t qaddr = saddr(RS + s * RT), gaddr = qaddr + QT;
     float sc[BMB / 2], dp[BMB / 2];
     zero(sc);
     zero(dp);
     bar_wait(&full[s], (it / NST) & 1);
     wg_fence();
-#pragma unroll
-    for (int k = 0; k < DH / 16; ++k) {
-      const uint32_t offk = (k / 4) * BN * 128 + (k % 4) * 32;
-      const uint32_t offq = (k / 4) * BMB * 128 + (k % 4) * 32;
-      wgmma_ss_n32(sc, desc(kaddr + offk, 16), desc(qaddr + offq, 16), k);
-    }
-#pragma unroll
-    for (int k = 0; k < DH / 16; ++k) {
-      const uint32_t offk = (k / 4) * BN * 128 + (k % 4) * 32;
-      const uint32_t offq = (k / 4) * BMB * 128 + (k % 4) * 32;
-      wgmma_ss_n32(dp, desc(vaddr + offk, 16), desc(gaddr + offq, 16), k);
-    }
+    mma_kmajor<DK, BN, BMB, BMB>(sc, kaddr, qaddr);
+    mma_kmajor<DV, BN, BMB, BMB>(dp, vaddr, gaddr);
     wg_commit();
     wg_wait<0>();
     keep(sc);
@@ -1062,10 +1122,10 @@ bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUten
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BMB / 16; ++kk)
-      wgmma_rs<DH>(dva, &pf[4 * kk], desc(gaddr + kk * 2048, BMB * 128));
+      wgmma_rs<DV>(dva, &pf[4 * kk], desc(gaddr + kk * 2048, BMB * 128));
 #pragma unroll
     for (int kk = 0; kk < BMB / 16; ++kk)
-      wgmma_rs<DH>(dka, &df[4 * kk], desc(qaddr + kk * 2048, BMB * 128));
+      wgmma_rs<DK>(dka, &df[4 * kk], desc(qaddr + kk * 2048, BMB * 128));
     wg_commit();
     wg_wait<0>();
     keep(dva);
@@ -1081,63 +1141,77 @@ bwd_dkdv(const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUten
     bf16* krow = dk + b * st.dkb + (long long)kvh * st.dkh + (long long)kp[h] * st.dks;
     bf16* vrow = dv + b * st.dvb + (long long)kvh * st.dvh + (long long)kp[h] * st.dvs;
 #pragma unroll
-    for (int i = 0; i < DH / 8; ++i) {
+    for (int i = 0; i < DK / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i + cb) =
           __floats2bfloat162_rn(dka[4 * i + 2 * h] * scale, dka[4 * i + 2 * h + 1] * scale);
+#pragma unroll
+    for (int i = 0; i < DV / 8; ++i)
       *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * i + cb) =
           __floats2bfloat162_rn(dva[4 * i + 2 * h], dva[4 * i + 2 * h + 1]);
-    }
   }
 }
 
 // ---- host side ----
 
-template <int DH>
-constexpr size_t fwd_smem() { return 1024 + DH * 128 * (1 + 2 * NST) + 2 * NST * 8; }
-template <int DH>
-constexpr size_t dq_smem() { return 1024 + DH * 128 * (2 + 2 * NST) + 2 * NST * 8; }
-template <int DH>
-constexpr size_t dkdv_smem() { return 1024 + 2 * DH * 128 + 2 * NST * DH * BMB * 2 + (1 + 2 * NST) * 8; }
+template <int DK, int DV>
+constexpr size_t fwd_smem() {
+  return 1024 + tile_bytes<DK, BM>() + NST * (tile_bytes<DK, BN>() + tile_bytes<DV, BN>()) +
+         2 * NST * 8;
+}
+template <int DK, int DV>
+constexpr size_t dq_smem() {
+  return 1024 + tile_bytes<DK, BM>() + tile_bytes<DV, BM>() +
+         NST * (tile_bytes<DK, BN>() + tile_bytes<DV, BN>()) + 2 * NST * 8;
+}
+template <int DK, int DV>
+constexpr size_t dkdv_smem() {
+  return 1024 + tile_bytes<DK, BN>() + tile_bytes<DV, BN>() +
+         NST * (tile_bytes<DK, BMB>() + tile_bytes<DV, BMB>()) + (1 + 2 * NST) * 8;
+}
+// two forward and two dQ blocks share an SM (228 KB, 1 KB of it reserved a block) at every
+// instantiated (dk, dv): __launch_bounds__(THREADS, 2)
+constexpr bool two_fit(size_t smem) { return 2 * (smem + 1024) <= 233472; }
+static_assert(two_fit(fwd_smem<128, 128>()) && two_fit(dq_smem<128, 128>()) &&
+              two_fit(fwd_smem<96, 64>()) && two_fit(dq_smem<96, 64>()), "two blocks an SM");
 
-template <int DH>
+template <int DK, int DV>
 static int launch_fwd(const void* q, const void* k, const void* v, void* o, const int* q_off,
                       const int* kv_len, int B, int nh, int nkv, int Sq, int Sk,
                       const Strides& st, int causal, float scale, float* lse,
                       cudaStream_t stream) {
   CUtensorMap km, vm;
-  if (!tensor_map(&km, k, DH, Sk, nkv, B, st.kb, st.kh, st.ks, BN) ||
-      !tensor_map(&vm, v, DH, Sk, nkv, B, st.vb, st.vh, st.vs, BN))
+  if (!tensor_map(&km, k, DK, Sk, nkv, B, st.kb, st.kh, st.ks, BN) ||
+      !tensor_map(&vm, v, DV, Sk, nkv, B, st.vb, st.vh, st.vs, BN))
     return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = fwd_smem<DH>();
-  cudaFuncSetAttribute(fwd<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr size_t smem = fwd_smem<DK, DV>();
+  cudaFuncSetAttribute(fwd<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const dim3 grid((Sq * (nh / nkv) + BM - 1) / BM, nkv, B);
-  fwd<DH><<<grid, THREADS, smem, stream>>>(km, vm, static_cast<const bf16*>(q),
-                                             static_cast<bf16*>(o), q_off, kv_len, nh, nkv, Sq,
-                                             Sk, st, causal, scale, lse);
+  fwd<DK, DV><<<grid, THREADS, smem, stream>>>(km, vm, static_cast<const bf16*>(q),
+                                                 static_cast<bf16*>(o), q_off, kv_len, nh, nkv,
+                                                 Sq, Sk, st, causal, scale, lse);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DK, int DV>
 static int launch_bwd(const void* q, const void* k, const void* v, const void* o,
                       const void* dout, const float* lse, float* D, void* dq, void* dk, void* dv,
                       int B, int nh, int nkv, int Sq, int Sk, const BwdStrides& st, int causal,
                       float scale, cudaStream_t stream) {
   CUtensorMap km, vm, qm, gm;
-  if (!tensor_map(&km, k, DH, Sk, nkv, B, st.kb, st.kh, st.ks, BN) ||
-      !tensor_map(&vm, v, DH, Sk, nkv, B, st.vb, st.vh, st.vs, BN) ||
-      !tensor_map(&qm, q, DH, Sq, nh, B, st.qb, st.qh, st.qs, BMB) ||
-      !tensor_map(&gm, dout, DH, Sq, nh, B, st.gb, st.gh, st.gs, BMB))
+  if (!tensor_map(&km, k, DK, Sk, nkv, B, st.kb, st.kh, st.ks, BN) ||
+      !tensor_map(&vm, v, DV, Sk, nkv, B, st.vb, st.vh, st.vs, BN) ||
+      !tensor_map(&qm, q, DK, Sq, nh, B, st.qb, st.qh, st.qs, BMB) ||
+      !tensor_map(&gm, dout, DV, Sq, nh, B, st.gb, st.gh, st.gs, BMB))
     return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)B * nh * Sq;
-  flash_bwd_dot<bf16, DH><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), D, B, nh, Sq, st);
-  constexpr size_t s_kv = dkdv_smem<DH>(), s_q = dq_smem<DH>();
-  cudaFuncSetAttribute(bwd_dkdv<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_kv);
-  cudaFuncSetAttribute(bwd_dq<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_q);
-  bwd_dkdv<DH><<<dim3((Sk + BN - 1) / BN, nkv, B), THREADS, s_kv, stream>>>(
+  launch_dot<bf16, DV>(static_cast<const bf16*>(o), static_cast<const bf16*>(dout), D, B, nh,
+                       Sq, st, stream);
+  constexpr size_t s_kv = dkdv_smem<DK, DV>(), s_q = dq_smem<DK, DV>();
+  cudaFuncSetAttribute(bwd_dkdv<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_kv);
+  cudaFuncSetAttribute(bwd_dq<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s_q);
+  bwd_dkdv<DK, DV><<<dim3((Sk + BN - 1) / BN, nkv, B), THREADS, s_kv, stream>>>(
       km, vm, qm, gm, lse, D, static_cast<bf16*>(dk), static_cast<bf16*>(dv), nh, nkv, Sq, Sk,
       st, causal, scale);
-  bwd_dq<DH><<<dim3((Sq * (nh / nkv) + BM - 1) / BM, nkv, B), THREADS, s_q, stream>>>(
+  bwd_dq<DK, DV><<<dim3((Sq * (nh / nkv) + BM - 1) / BM, nkv, B), THREADS, s_q, stream>>>(
       km, vm, static_cast<const bf16*>(q), static_cast<const bf16*>(dout), lse, D,
       static_cast<bf16*>(dq), nh, nkv, Sq, Sk, st, causal, scale);
   return (int)cudaGetLastError();
@@ -1209,32 +1283,40 @@ int hk_flash_attention_bwd(const void* q, const void* k, const void* v, const vo
 }
 
 // The bf16 tensor-core forward (wgmma; K/V by TMA): the contract of hk_flash_attention
-// without the key split.  Returns a cudaError_t (cudaErrorInvalidValue for a dh it does not
+// without the key split, with q and k at dk and v and o at dv: (dk, dv) = (64, 64),
+// (96, 64) or (128, 128).  Returns a cudaError_t (cudaErrorInvalidValue for dims it does not
 // take or a layout TMA refuses).
 int hk_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
                           const void* q_off, const void* kv_len, int B, int nh, int nkv, int Sq,
-                          int Sk, int dh, long long qb, long long qh, long long qs, long long kb,
-                          long long kh, long long ks, long long vb, long long vh, long long vs,
-                          long long ob, long long oh, long long os, int causal, float scale,
-                          void* lse, void* stream) {
-  if ((dh != 64 && dh != 128) || nh % nkv) return (int)cudaErrorInvalidValue;
+                          int Sk, int dk, int dv, long long qb, long long qh, long long qs,
+                          long long kb, long long kh, long long ks, long long vb, long long vh,
+                          long long vs, long long ob, long long oh, long long os, int causal,
+                          float scale, void* lse, void* stream) {
+  if (nh % nkv) return (int)cudaErrorInvalidValue;
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qo = static_cast<const int*>(q_off);
   const int* kl = static_cast<const int*>(kv_len);
   float* lp = static_cast<float*>(lse);
-  return dh == 64 ? tc::launch_fwd<64>(q, k, v, o, qo, kl, B, nh, nkv, Sq, Sk, st, causal, scale,
-                                       lp, s)
-                  : tc::launch_fwd<128>(q, k, v, o, qo, kl, B, nh, nkv, Sq, Sk, st, causal,
-                                        scale, lp, s);
+  if (dk == 64 && dv == 64)
+    return tc::launch_fwd<64, 64>(q, k, v, o, qo, kl, B, nh, nkv, Sq, Sk, st, causal, scale, lp,
+                                  s);
+  if (dk == 96 && dv == 64)
+    return tc::launch_fwd<96, 64>(q, k, v, o, qo, kl, B, nh, nkv, Sq, Sk, st, causal, scale, lp,
+                                  s);
+  if (dk == 128 && dv == 128)
+    return tc::launch_fwd<128, 128>(q, k, v, o, qo, kl, B, nh, nkv, Sq, Sk, st, causal, scale,
+                                    lp, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 tensor-core backward: the contract of hk_flash_attention_bwd.
+// The bf16 tensor-core backward: the contract of hk_flash_attention_bwd at the forward's
+// (dk, dv) = (dim_k, dim_v): dq and dk at dk, o, dO and dv at dv.
 int hk_flash_attention_bwd_tc(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const void* lse, void* D, void* dq, void* dk,
-                              void* dv, int B, int nh, int nkv, int Sq, int Sk, int dh,
-                              const long long* strides, int causal, float scale, void* stream) {
-  if (dh != 64 && dh != 128) return (int)cudaErrorInvalidValue;
+                              void* dv, int B, int nh, int nkv, int Sq, int Sk, int dim_k,
+                              int dim_v, const long long* strides, int causal, float scale,
+                              void* stream) {
   if (Sq != Sk || nh % nkv) return (int)cudaErrorInvalidValue;
   const long long* t = strides;
   const BwdStrides st{t[0],  t[1],  t[2],  t[3],  t[4],  t[5],  t[6],  t[7],
@@ -1243,10 +1325,16 @@ int hk_flash_attention_bwd_tc(const void* q, const void* k, const void* v, const
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   float* Dp = static_cast<float*>(D);
-  return dh == 64 ? tc::launch_bwd<64>(q, k, v, o, dout, lp, Dp, dq, dk, dv, B, nh, nkv, Sq, Sk,
-                                       st, causal, scale, s)
-                  : tc::launch_bwd<128>(q, k, v, o, dout, lp, Dp, dq, dk, dv, B, nh, nkv, Sq, Sk,
-                                        st, causal, scale, s);
+  if (dim_k == 64 && dim_v == 64)
+    return tc::launch_bwd<64, 64>(q, k, v, o, dout, lp, Dp, dq, dk, dv, B, nh, nkv, Sq, Sk, st,
+                                  causal, scale, s);
+  if (dim_k == 96 && dim_v == 64)
+    return tc::launch_bwd<96, 64>(q, k, v, o, dout, lp, Dp, dq, dk, dv, B, nh, nkv, Sq, Sk, st,
+                                  causal, scale, s);
+  if (dim_k == 128 && dim_v == 128)
+    return tc::launch_bwd<128, 128>(q, k, v, o, dout, lp, Dp, dq, dk, dv, B, nh, nkv, Sq, Sk,
+                                    st, causal, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* hk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

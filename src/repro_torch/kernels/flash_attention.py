@@ -14,11 +14,17 @@ from the shapes alone; ``impl=`` overrides them (the card's tests and
 ``chip_smoke.py`` run both paths on the same inputs).  A path's kernel
 that fails raises: nothing falls back to the other.
 
-The kernels are built for head dims 64 and 128 (``HEAD_DIMS``).  Any
-other multiple of 8 up to 128 (MLA's 96 = 64 + 32) is zero-padded to the
-next of them (:func:`padded_head_dim`) and the outputs sliced back: zero
-columns add exact zeros to every dot product, and the scale stays the
-caller's ``dh ** -0.5``.  At dh 96 that is a third more work.
+q and k have their head dim dk, v and the output theirs, dv.  The
+tensor-core kernels are built for (dk, dv) = (64, 64), (96, 64) and
+(128, 128) (``KERNEL_DIMS``): MLA's dk 96 = dn + dr = 64 + 32 against
+its dv 64 runs natively, with no column of padding.  The SIMT kernels
+take (64, 64) and (128, 128).  Any other dims, multiples of 8
+up to 128, run on the path's least pair that holds both
+(:func:`kernel_dims`): q and k are zero-padded to its dk, v to its dv, and
+the output is sliced back.  Zero columns add exact zeros to every dot
+product, and the scale stays the caller's ``dk ** -0.5``.
+``DIM_LAUNCHES`` counts each launch by path and kernel dims, and whether
+it ran native or padded.
 
 :func:`mla_decode` wraps the absorbed MLA decode (``csrc/mla_decode.cu``):
 row 3's function with one latent kv head shared by every query head.
@@ -28,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -37,7 +43,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+# the (dk, dv) pairs each path's kernels are built for, least work first
+KERNEL_DIMS = {"wgmma": ((64, 64), (96, 64), (128, 128)), "simt": ((64, 64), (128, 128))}
+MAX_HEAD_DIM = 128
 BQ, BK = 16, 32        # rows per block and keys per tile of the SIMT kernels
 TC_ROWS = 64           # rows per block of the tensor-core kernels (one wgmma's M)
 SMS = 132              # H100 SXM streaming multiprocessors
@@ -51,45 +59,54 @@ IMPL_LAUNCHES: Dict[str, Dict[str, int]] = {
 # forward launches by (path, query length), so a run shows which path each
 # prefill length took
 SQ_LAUNCHES: Counter = Counter()
+# forward and backward launches by (kernel, path, kernel dk, kernel dv,
+# "native" or "padded"), so a run shows every MLA call took (96, 64) natively
+DIM_LAUNCHES: Counter = Counter()
 
 
 def reset_impl_launches() -> None:
-    """Zero ``IMPL_LAUNCHES`` and ``SQ_LAUNCHES``."""
+    """Zero ``IMPL_LAUNCHES``, ``SQ_LAUNCHES`` and ``DIM_LAUNCHES``."""
     for counts in IMPL_LAUNCHES.values():
         for path in counts:
             counts[path] = 0
     SQ_LAUNCHES.clear()
+    DIM_LAUNCHES.clear()
 
 
 def forward_impl(dtype: torch.dtype, B: int, nh: int, nkv: int, Sq: int, Sk: int,
-                 dh: int) -> str:
+                 dk: int, dv: Optional[int] = None) -> str:
     """The forward's path: ``"wgmma"`` for bf16 when the rows of one
     (batch, kv-head), Sq x (nh / nkv), fill at least one tile of TC_ROWS;
     else ``"simt"``: fp32 inputs (held to 2e-4, which a bf16 product
     cannot meet), and decode and short prefills, which are byte-bound and
-    would fill a few of a wgmma's 64 rows (4 slots x 2 rows: 8).  ``dh``
-    is the caller's head dim, which runs padded (:func:`padded_head_dim`)."""
-    padded_head_dim(dh)
+    would fill a few of a wgmma's 64 rows (4 slots x 2 rows: 8).  ``dk``
+    and ``dv`` (default dk) are the caller's head dims, checked by
+    :func:`kernel_dims`."""
+    kernel_dims(dk, dk if dv is None else dv)
     if dtype == torch.bfloat16 and Sq * (nh // nkv) >= TC_ROWS:
         return "wgmma"
     return "simt"
 
 
 def backward_impl(dtype: torch.dtype, B: int, nh: int, nkv: int, Sq: int, Sk: int,
-                  dh: int) -> str:
+                  dk: int, dv: Optional[int] = None) -> str:
     """The backward's path: ``"wgmma"`` for bf16, ``"simt"`` for fp32 (any
-    head dim the wrapper takes)."""
-    padded_head_dim(dh)
+    head dims the wrapper takes)."""
+    kernel_dims(dk, dk if dv is None else dv)
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
-def padded_head_dim(dh: int) -> int:
-    """The kernel head dim that runs ``dh``: the least of ``HEAD_DIMS`` at
-    or above it.  A head dim that is not a multiple of 8 in (0, 128]
-    raises."""
-    if dh % 8 or not 0 < dh <= HEAD_DIMS[-1]:
-        raise ValueError(f"head_dim {dh} is not a multiple of 8 in (0, {HEAD_DIMS[-1]}]")
-    return next(d for d in HEAD_DIMS if d >= dh)
+def kernel_dims(dk: int, dv: int, impl: str = "wgmma") -> Tuple[int, int]:
+    """The kernels' (dk, dv) that run the caller's (dk, dv) on path
+    ``impl``: the first pair of ``KERNEL_DIMS[impl]`` that holds both, the
+    caller's own where the path has it ((96, 64) runs natively on the
+    tensor cores; on the SIMT path it pads to (128, 128)).  A dim that is
+    not a multiple of 8 in (0, 128] raises."""
+    for d in (dk, dv):
+        if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+            raise ValueError(f"head dims ({dk}, {dv}): each must be a multiple of 8 in "
+                             f"(0, {MAX_HEAD_DIM}]")
+    return next(p for p in KERNEL_DIMS[impl] if p[0] >= dk and p[1] >= dv)
 
 
 def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -137,58 +154,65 @@ def _check_strided(q: torch.Tensor, *ts: torch.Tensor) -> None:
                              "their data 16-byte aligned")
 
 
+def _count(name: str, impl: str, dims: Tuple[int, int], kdims: Tuple[int, int]) -> None:
+    IMPL_LAUNCHES[name][impl] += 1
+    DIM_LAUNCHES[(name, impl, *kdims, "native" if dims == kdims else "padded")] += 1
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None, return_lse: bool = False,
                     impl: Optional[str] = None):
-    """q [B,nh,Sq,dh]; k,v [B,nkv,Sk,dh] -> [B,nh,Sq,dh] in q's layout.
+    """q [B,nh,Sq,dk]; k [B,nkv,Sk,dk]; v [B,nkv,Sk,dv] -> [B,nh,Sq,dv].
 
-    Any strides are taken as long as dh is contiguous, so permuted views of
-    [B, S, heads, dh] tensors go in without a copy.  ``return_lse`` also
-    returns each row's log-sum-exp of the scaled scores, fp32 [B,nh,Sq]
-    (the keys are then not split over blocks).  ``impl``: the path, by
-    default :func:`forward_impl`'s choice.  A dh off ``HEAD_DIMS`` runs
-    zero-padded (module docstring) and comes out as a view of the padded
-    output."""
+    Any strides are taken as long as the head dim is contiguous, so
+    permuted views of [B, S, heads, d] tensors go in without a copy; the
+    output is [B, Sq, nh, dv] memory seen as [B, nh, Sq, dv], so the
+    model's ``transpose(1, 2).reshape(B, Sq, nh * dv)`` is a view.
+    ``return_lse`` also returns each row's log-sum-exp of the scaled
+    scores, fp32 [B,nh,Sq] (the keys are then not split over blocks).
+    ``impl``: the path, by default :func:`forward_impl`'s choice.  Dims
+    off the path's kernels run zero-padded (module docstring) and come out
+    as a view of the padded output."""
     if q.device.type != "cuda":
         raise ValueError(f"CUDA flash-attention kernel got a {q.device} tensor")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash attention takes fp32 or bf16, got {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("q must be [B,nh,Sq,dh] and k, v [B,nkv,Sk,dh]")
-    B, nh, Sq, dh = q.shape
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError("q must be [B,nh,Sq,dk], k [B,nkv,Sk,dk] and v [B,nkv,Sk,dv]")
+    B, nh, Sq, dk = q.shape
     _, nkv, Sk, _ = k.shape
-    if k.shape[0] != B or k.shape[3] != dh or nh % nkv:
+    dv = v.shape[3]
+    if k.shape[0] != B or k.shape[3] != dk or nh % nkv:
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
-    dp, scale = padded_head_dim(dh), dh ** -0.5
-    q, k, v = (_pad(t, dp) for t in (q, k, v))
+    impl = _impl(impl, forward_impl(q.dtype, B, nh, nkv, Sq, Sk, dk, dv), q.dtype)
+    (kdk, kdv), scale = kernel_dims(dk, dv, impl), dk ** -0.5
+    q, k, v = _pad(q, kdk), _pad(k, kdk), _pad(v, kdv)
     _check_strided(q, k, v)
-    impl = _impl(impl, forward_impl(q.dtype, B, nh, nkv, Sq, Sk, dp), q.dtype)
-    o = torch.empty_like(q)
+    o = torch.empty((B, Sq, nh, kdv), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((B, nh, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              _per_batch(q_offset, B, q, "q_offset"), _per_batch(kv_len, B, q, "kv_len"),
-              B, nh, nkv, Sq, Sk, dp,
-              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-              int(causal), scale)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _per_batch(q_offset, B, q, "q_offset"), _per_batch(kv_len, B, q, "kv_len"))
     lse_ptr = lse.data_ptr() if lse is not None else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = build.library("flash_attention")
     if impl == "wgmma":
-        code = lib.hk_flash_attention_tc(*common, lse_ptr, stream)
+        code = lib.hk_flash_attention_tc(*ptrs, B, nh, nkv, Sq, Sk, kdk, kdv, *strides,
+                                         int(causal), scale, lse_ptr, stream)
         build.check(lib, code, "hk_flash_attention_tc")
     else:
         nsplit = 1 if return_lse else kv_splits(B, nh, nkv, Sq, Sk)
-        part = (torch.empty(B * nh * Sq * nsplit * (dp + 2), dtype=torch.float32,
+        part = (torch.empty(B * nh * Sq * nsplit * (kdk + 2), dtype=torch.float32,
                             device=q.device) if nsplit > 1 else None)
-        code = lib.hk_flash_attention(*common, nsplit,
-                                      part.data_ptr() if part is not None else None,
+        code = lib.hk_flash_attention(*ptrs, B, nh, nkv, Sq, Sk, kdk, *strides, int(causal),
+                                      scale, nsplit, part.data_ptr() if part is not None else None,
                                       lse_ptr, DTYPES[q.dtype], stream)
         build.check(lib, code, "hk_flash_attention")
-    IMPL_LAUNCHES["flash_attention"][impl] += 1
+    _count("flash_attention", impl, (dk, dv), (kdk, kdv))
     SQ_LAUNCHES[(impl, Sq)] += 1
-    o = o[..., :dh]
+    o = o[..., :dv]
     return (o, lse) if return_lse else o
 
 
@@ -196,46 +220,52 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, impl: Optional[str] = None):
     """(dq, dk, dv) of ``flash_attention`` under the training mask: q_offset
-    0, no kv_len, Sq == Sk.  ``o`` and ``lse`` are the forward's outputs, ``do``
-    the gradient of ``o``; all by strides with dh contiguous.  The gradients
-    come out in the inputs' dtype and layouts.  ``impl``: the path, by
-    default :func:`backward_impl`'s choice.  Deterministic on both paths.
-    A dh off ``HEAD_DIMS`` runs zero-padded, as the forward does."""
+    0, no kv_len, Sq == Sk.  q [B,nh,S,dk], k [B,nkv,S,dk], v [B,nkv,S,dv];
+    ``o`` and ``lse`` are the forward's outputs, ``do`` the gradient of
+    ``o`` ([B,nh,S,dv]); all by strides with the head dim contiguous.  The
+    gradients come out in the inputs' dtype, shapes and layouts.
+    ``impl``: the path, by default :func:`backward_impl`'s choice.
+    Deterministic on both paths.  Dims off the path's kernels run
+    zero-padded, as the forward does."""
     if q.device.type != "cuda":
         raise ValueError(f"CUDA flash-attention backward got a {q.device} tensor")
     if q.dtype not in DTYPES:
         raise TypeError(f"flash attention takes fp32 or bf16, got {q.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or o.shape != q.shape \
-            or do.shape != q.shape:
-        raise ValueError("q, o, do must be [B,nh,S,dh] and k, v [B,nkv,S,dh]")
-    B, nh, Sq, dh = q.shape
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3] \
+            or o.shape != (*q.shape[:3], v.shape[3]) or do.shape != o.shape:
+        raise ValueError("q must be [B,nh,S,dk], k [B,nkv,S,dk], v [B,nkv,S,dv] and o, do "
+                         "[B,nh,S,dv]")
+    B, nh, Sq, dk = q.shape
     _, nkv, Sk, _ = k.shape
-    if Sq != Sk or k.shape[0] != B or k.shape[3] != dh or nh % nkv:
+    dv = v.shape[3]
+    if Sq != Sk or k.shape[0] != B or k.shape[3] != dk or nh % nkv:
         raise ValueError("the attention backward takes the training mask only "
                          f"(Sq == Sk): q {tuple(q.shape)}, k {tuple(k.shape)}")
     if lse.shape != (B, nh, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be the forward's contiguous fp32 [B, nh, Sq]")
-    dp, scale = padded_head_dim(dh), dh ** -0.5
-    q, k, v, o, do = (_pad(t, dp) for t in (q, k, v, o, do))
+    impl = _impl(impl, backward_impl(q.dtype, B, nh, nkv, Sq, Sk, dk, dv), q.dtype)
+    (kdk, kdv), scale = kernel_dims(dk, dv, impl), dk ** -0.5
+    q, k = _pad(q, kdk), _pad(k, kdk)
+    v, o, do = _pad(v, kdv), _pad(o, kdv), _pad(do, kdv)
     _check_strided(q, k, v, o, do)
-    impl = _impl(impl, backward_impl(q.dtype, B, nh, nkv, Sq, Sk, dp), q.dtype)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq, dk_, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     D = torch.empty((B, nh, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(
-        *[st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]])
+        *[st for t in (q, k, v, o, do, dq, dk_, dv_) for st in t.stride()[:3]])
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-              B, nh, nkv, Sq, Sk, dp, ctypes.addressof(strides), int(causal), scale)
+              lse.data_ptr(), D.data_ptr(), dq.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
+              B, nh, nkv, Sq, Sk)
+    tail = (ctypes.addressof(strides), int(causal), scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = build.library("flash_attention")
     if impl == "wgmma":
-        code = lib.hk_flash_attention_bwd_tc(*common, stream)
+        code = lib.hk_flash_attention_bwd_tc(*common, kdk, kdv, *tail, stream)
         build.check(lib, code, "hk_flash_attention_bwd_tc")
     else:
-        code = lib.hk_flash_attention_bwd(*common, DTYPES[q.dtype], stream)
+        code = lib.hk_flash_attention_bwd(*common, kdk, *tail, DTYPES[q.dtype], stream)
         build.check(lib, code, "hk_flash_attention_bwd")
-    IMPL_LAUNCHES["flash_attention_bwd"][impl] += 1
-    return dq[..., :dh], dk[..., :dh], dv[..., :dh]
+    _count("flash_attention_bwd", impl, (dk, dv), (kdk, kdv))
+    return dq[..., :dk], dk_[..., :dk], dv_[..., :dv]
 
 
 # ---------------------------------------------------------------------------

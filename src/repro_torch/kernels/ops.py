@@ -108,8 +108,10 @@ def gated_matmul(x: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_offset: Optional[torch.Tensor] = None,
               kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q [B,nh,Sq,dh]; k,v [B,nkv,Sk,dh]; mask of ``ref.attention_plain``.
-    With a gradient, only the training mask (no q_offset, no kv_len)."""
+    """q [B,nh,Sq,dk]; k [B,nkv,Sk,dk]; v [B,nkv,Sk,dv] -> [B,nh,Sq,dv]
+    (dv may differ from dk: MLA's 64 against 96); mask of
+    ``ref.attention_plain``.  With a gradient, only the training mask (no
+    q_offset, no kv_len)."""
     if needs_grad(q, k, v):
         if q_offset is not None or kv_len is not None:
             raise ValueError("the attention backward takes the training mask only "
@@ -250,7 +252,8 @@ _gated_op.register_autograd(_gated_bwd, setup_context=_gated_setup)
 @torch.library.custom_op("repro_torch::attention", mutates_args=())
 def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """(o, lse) under the training mask."""
+    """(o [B,nh,Sq,dv], lse) under the training mask; q and k at dk, v at
+    dv."""
     if _on_cpu(q):
         return _ref.attention_plain(q, k, v, causal=causal, return_lse=True)
     out = _fa.flash_attention(q, k, v, causal=causal, return_lse=True)

@@ -63,7 +63,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_len: Optional[torch.Tensor] = None, return_lse: bool = False):
     """Softmax attention with the mask of ``models/attention._sdpa``.
 
-    q [B,nh,Sq,dh]; k,v [B,nkv,Sk,dh]; q-head h reads kv-head h // (nh/nkv).
+    q [B,nh,Sq,dk]; k [B,nkv,Sk,dk]; v [B,nkv,Sk,dv], any dv (MLA's 64
+    against dk 96), giving o [B,nh,Sq,dv]; the scale is dk^-0.5; q-head h
+    reads kv-head h // (nh/nkv).
     Key ``kpos`` is visible to query ``qpos`` of batch row b when
     ``kpos <= q_offset[b] + qpos`` (if causal) and ``kpos < kv_len[b]``;
     ``q_offset`` defaults to 0 and ``kv_len`` to Sk.  Masked scores are
@@ -114,8 +116,8 @@ def mla_decode_plain(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tens
 def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True):
     """(dq, dk, dv) of :func:`attention_plain` under the training mask
-    (q_offset 0, no kv_len): PyTorch's autograd of the plain forward, in
-    the inputs' dtypes."""
+    (q_offset 0, no kv_len), at any dv: PyTorch's autograd of the plain
+    forward, in the inputs' dtypes and shapes."""
     with torch.enable_grad():
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
         o = attention_plain(qq, kk, vv, causal=causal)

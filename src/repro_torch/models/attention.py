@@ -22,8 +22,9 @@ latent caches ``MLACache``/``PagedMLACache``/``QuantPagedMLACache`` (the
 normed latent ``c_kv`` [.., kv_lora] and the rotated ``k_rope`` [.., dr],
 no head axis) with their factories, and ``apply_mla`` in JAX's two
 forms: prefill and training up-project the latent through ``wkv_b`` and
-run ``PCtx.attention`` at dh = dn + dr with v zero-padded from dv to
-that; decode (one token against a cache) is the absorbed form, whose
+run ``PCtx.attention`` with q and k at dk = dn + dr and v at its own dv
+(JAX pads v to dk; the port does not); decode (one token against a
+cache) is the absorbed form, whose
 attention over the latent rows is ``PCtx.mla_decode`` (the absorbed
 decode kernel on the card).
 """
@@ -33,7 +34,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import quant as Q
@@ -392,9 +392,10 @@ def apply_mla(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Te
     cache (:func:`cache_rows`) or none.
 
     Prefill and training up-project the latent (``wkv_b``, the product
-    op) into per-head k_nope and v, attend with q = [q_nope | q_rope]
-    against k = [k_nope | k_rope] at dh = dn + dr (v zero-padded to that
-    width, as the JAX package pads it) and keep the first dv columns.
+    op) into per-head k_nope and v, and attend with q = [q_nope | q_rope]
+    against k = [k_nope | k_rope] at dk = dn + dr and v at its own dv
+    (a view of the up-projection): the JAX package pads v to dk and
+    slices the output back, which the zero columns leave equal.
     Decode (S == 1 with a cache) never builds per-head K/V: q_nope is
     absorbed into the latent through ``wkv_b``'s k part, ``PCtx.mla_decode``
     attends over the latent rows with scale (dn + dr)^-0.5, and its fp32
@@ -433,9 +434,8 @@ def apply_mla(pctx, cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Te
         kv_up = kv_up.reshape(B, T, nh, dn + dv)
         k = torch.cat([kv_up[..., :dn], k_rope[:, :, None, :].expand(B, T, nh, dr)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        vpad = F.pad(kv_up[..., dn:], (0, dn + dr - dv))
-        o = pctx.attention(qq.transpose(1, 2), k.transpose(1, 2), vpad.transpose(1, 2),
-                           causal=True, q_offset=q_off, kv_len=kv_len)
-        o = o.transpose(1, 2)[..., :dv]
+        o = pctx.attention(qq.transpose(1, 2), k.transpose(1, 2),
+                           kv_up[..., dn:].transpose(1, 2), causal=True, q_offset=q_off,
+                           kv_len=kv_len).transpose(1, 2)
     y = pctx.mixer_out(o.reshape(B, S, nh * dv), p["wo"])
     return y, new_cache

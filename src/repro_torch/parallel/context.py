@@ -371,7 +371,8 @@ class PCtx:
     def attention(self, q, k, v, *, causal: bool = True,
                   q_offset: Optional[torch.Tensor] = None,
                   kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """q [B,nh,Sq,dh]; k,v [B,nkv,Sk,dh] (views of [B,S,heads,dh])."""
+        """q [B,nh,Sq,dk]; k [B,nkv,Sk,dk]; v [B,nkv,Sk,dv] (views of
+        [B,S,heads,d]) -> [B,nh,Sq,dv]."""
         return self.ops.attention(q, k, v, causal=causal, q_offset=q_offset,
                                   kv_len=kv_len)
 

@@ -13,7 +13,9 @@ On the CPU:
   ``ref.attention_plain`` / ``ref.attention_bwd_plain`` and against the
   JAX model's ``_sdpa`` and its ``jax.vjp`` at the bf16 bound, 2e-2 (one
   bf16 rounding of each output; P and dS in bf16 add ~2^-9 relative per
-  term, averaged over the keys).
+  term, averaged over the keys); at dk = dv and at MLA's dk 96 / dv 64
+  (a ``dh`` parameter given as (dk, dv)), which JAX's model computes on
+  v padded to 96 and sliced back.
 
 Marked ``cuda`` (skipped without a card): both paths against the plain
 version at the training shape and at ragged ones, prefill with q_offset
@@ -106,18 +108,23 @@ def _visible(B, Sq, Sk, causal, q_off, kv_len):
     return vis[:, None], empty
 
 
+def _dims(dh):
+    """(dk, dv) of a ``dh`` parameter: one int for dk = dv, or the pair."""
+    return dh if isinstance(dh, tuple) else (dh, dh)
+
+
 def emulate_fwd(q, k, v, *, causal=True, q_offset=None, kv_len=None):
     """(o in bf16, lse fp32) as the tensor-core forward computes them: scores
-    in fp32 over 64-key tiles, the online softmax in log2 units, P rounded
-    to bf16 before P V, fp32 sums."""
+    in fp32 over 64-key tiles (dk wide), the online softmax in log2 units,
+    P rounded to bf16 before P V (dv wide), fp32 sums."""
     B, nh, Sq, dh = q.shape
-    Sk, g = k.shape[2], nh // k.shape[1]
+    Sk, g, dv = k.shape[2], nh // k.shape[1], v.shape[3]
     qf, kf, vf = q.float(), k.float().repeat_interleave(g, 1), v.float().repeat_interleave(g, 1)
     vis, empty = _visible(B, Sq, Sk, causal, q_offset, kv_len)
     sl2 = dh ** -0.5 * math.log2(math.e)
     m = torch.full((B, nh, Sq, 1), NEG)
     l = torch.zeros((B, nh, Sq, 1))
-    acc = torch.zeros((B, nh, Sq, dh))
+    acc = torch.zeros((B, nh, Sq, dv))
     for k0 in range(0, Sk, BK):
         s = qf @ kf[:, :, k0:k0 + BK].transpose(-1, -2)
         x = torch.where(empty[:, None, None, None], torch.zeros_like(s), s * sl2)
@@ -148,7 +155,7 @@ def emulate_bwd(q, k, v, o, lse, do, *, causal=True):
     p = torch.exp2(qf @ kf.transpose(-1, -2) * (scale * l2e) - lse[..., None] * l2e)
     p = torch.where(vis, p, torch.zeros_like(p))
     ds = p * (dof @ vf.transpose(-1, -2) - D)
-    per_group = lambda t: t.reshape(B, nkv, g, S, dh).sum(2)
+    per_group = lambda t: t.reshape(B, nkv, g, S, t.shape[-1]).sum(2)
     dv = per_group(_bf(p).transpose(-1, -2) @ dof)
     dk = per_group(_bf(ds).transpose(-1, -2) @ qf) * scale
     dq = (_bf(ds) @ kf) * scale
@@ -156,12 +163,13 @@ def emulate_bwd(q, k, v, o, lse, do, *, causal=True):
 
 
 def _inputs(seed, B, nh, nkv, Sq, Sk, dh):
-    """bf16 q, k, v (and dO) from numpy, as the model's [B, S, heads, dh]
-    tensors handed over as transposed views."""
+    """bf16 q, k at dk, v (and dO) at dv from numpy, as the model's
+    [B, S, heads, d] tensors handed over as transposed views."""
+    dk, dv = _dims(dh)
     rng = np.random.default_rng(seed)
     t = lambda *shape: torch.from_numpy(
         rng.standard_normal(shape).astype(np.float32)).to(BF).transpose(1, 2)
-    return t(B, Sq, nh, dh), t(B, Sk, nkv, dh), t(B, Sk, nkv, dh), t(B, Sq, nh, dh)
+    return t(B, Sq, nh, dk), t(B, Sk, nkv, dk), t(B, Sk, nkv, dv), t(B, Sq, nh, dv)
 
 
 def _close(a, b, dtype):
@@ -170,12 +178,17 @@ def _close(a, b, dtype):
 
 
 # (B, nh, nkv, dh, Sq, Sk, q_off, kv_len): g 2 and 3, dh 64 and 128, a row
-# tile that ends inside a query's group, a prefill with offsets and an empty row
+# tile that ends inside a query's group, a prefill with offsets and an empty
+# row; then MLA's (dk, dv) = (96, 64) at g 1 (as minicpm3-4b) and 3
+MLA = (96, 64)
 FWD_CASES = [
     (2, 4, 2, 64, 33, 33, None, None),
     (3, 3, 1, 128, 40, 130, [0, 50, 7], [40, 90, 0]),
     (1, 6, 2, 64, 130, 130, None, None),
     (2, 2, 1, 128, 70, 100, [30, 0], [100, 70]),
+    (2, 4, 4, MLA, 80, 80, None, None),
+    (3, 3, 1, MLA, 40, 130, [0, 50, 7], [40, 90, 0]),
+    (1, 4, 4, MLA, 70, 100, [30], [100]),
 ]
 
 
@@ -192,12 +205,12 @@ def test_emulated_forward_rounding_within_bf16_bound(B, nh, nkv, dh, Sq, Sk, q_o
     if kv_len is not None and 0 in kv_len:
         b = kv_len.index(0)               # the empty row averages all of v
         mean_v = v[b].float().mean(1).repeat_interleave(nh // nkv, 0)
-        _close(o[b], mean_v[:, None].expand(nh, Sq, dh), BF)
+        _close(o[b], mean_v[:, None].expand(nh, Sq, v.shape[3]), BF)
 
 
 @pytest.mark.parametrize("B,nh,nkv,dh,S,causal", [
     (2, 4, 2, 64, 80, True), (1, 3, 1, 128, 33, True), (1, 6, 2, 64, 130, False),
-    (2, 4, 2, 128, 65, True)])
+    (2, 4, 2, 128, 65, True), (2, 4, 4, MLA, 80, True), (1, 6, 2, MLA, 130, False)])
 def test_emulated_backward_rounding_within_bf16_bound(B, nh, nkv, dh, S, causal):
     q, k, v, do = _inputs(1, B, nh, nkv, S, S, dh)
     o, lse = emulate_fwd(q, k, v, causal=causal)
@@ -208,18 +221,24 @@ def test_emulated_backward_rounding_within_bf16_bound(B, nh, nkv, dh, S, causal)
         _close(a, b, BF)
 
 
-@pytest.mark.parametrize("B,nh,nkv,dh,S", [(1, 4, 2, 64, 96), (2, 3, 1, 128, 40)])
+@pytest.mark.parametrize("B,nh,nkv,dh,S", [(1, 4, 2, 64, 96), (2, 3, 1, 128, 40),
+                                           (2, 4, 4, MLA, 80), (1, 6, 2, MLA, 130)])
 def test_emulation_matches_jax_sdpa_and_its_vjp(B, nh, nkv, dh, S):
     """The same bf16 inputs through the JAX model's ``_sdpa`` (fp32, k and v
-    repeated to the q heads) and ``jax.vjp`` of it, and through the
-    emulation: output and gradients at the bf16 bound."""
+    repeated to the q heads; at dv < dk, v zero-padded to dk and the output
+    sliced back, as ``repro/models/attention.py`` runs MLA) and ``jax.vjp``
+    of it, and through the emulation: output and gradients at the bf16
+    bound."""
     q, k, v, do = _inputs(2, B, nh, nkv, S, S, dh)
-    g = nh // nkv
+    g, (dk_, dv_) = nh // nkv, _dims(dh)
     o, lse = emulate_fwd(q, k, v, causal=True)
     dq, dk, dv = emulate_bwd(q, k, v, o, lse, do, causal=True)
-    j = lambda t: jnp.asarray(t.transpose(1, 2).float().numpy())      # [B, S, heads, dh]
+    assert o.shape[-1] == dv.shape[-1] == dv_ and dq.shape[-1] == dk.shape[-1] == dk_
+    j = lambda t: jnp.asarray(t.transpose(1, 2).float().numpy())      # [B, S, heads, d]
     rep = lambda t: jnp.repeat(t, g, axis=2)
-    fn = lambda a, b, c: JATT._sdpa(a, rep(b), rep(c), causal=True, q_offset=jnp.int32(0))
+    pad = lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, 0), (0, dk_ - dv_)))
+    fn = lambda a, b, c: JATT._sdpa(a, rep(b), rep(pad(c)), causal=True,
+                                    q_offset=jnp.int32(0))[..., :dv_]
     o_j, vjp = jax.vjp(fn, j(q), j(k), j(v))
     dq_j, dk_j, dv_j = vjp(j(do))
     back = lambda a: torch.from_numpy(np.array(a)).transpose(1, 2)
@@ -243,7 +262,8 @@ def _card_inputs(dev, seed, B, nh, nkv, Sq, Sk, dh):
 
 
 # the training shape, ragged shapes (S 33 and 80, g 1 and 3, dh 64), a
-# prefill with q_offset and kv_len and one with an empty row
+# prefill with q_offset and kv_len and one with an empty row; MLA's (96, 64)
+# natively on wgmma (padded to 128 on the SIMT path)
 CARD_FWD = [
     (4, 16, 8, 128, 512, 512, None, None),
     (2, 2, 2, 64, 33, 33, None, None),
@@ -251,6 +271,9 @@ CARD_FWD = [
     (1, 16, 8, 128, 256, 544, [0], [256]),
     (2, 6, 2, 64, 80, 130, [17, 40], [97, 120]),
     (3, 6, 2, 128, 40, 130, [0, 50, 7], [40, 90, 0]),
+    (1, 8, 8, MLA, 256, 544, [0], [256]),
+    (2, 6, 2, MLA, 80, 130, [17, 40], [97, 120]),
+    (3, 6, 2, MLA, 40, 130, [0, 50, 7], [40, 90, 0]),
 ]
 
 
@@ -274,7 +297,8 @@ def test_card_forward_both_paths_match_plain(dev, impl, B, nh, nkv, dh, Sq, Sk, 
 @pytest.mark.parametrize("impl", kfa.IMPLS)
 @pytest.mark.parametrize("B,nh,nkv,dh,S,causal", [
     (4, 16, 8, 128, 512, True), (2, 2, 2, 64, 33, True), (2, 6, 2, 64, 80, True),
-    (2, 6, 2, 64, 80, False), (1, 3, 1, 128, 130, True)])
+    (2, 6, 2, 64, 80, False), (1, 3, 1, 128, 130, True), (2, 8, 8, MLA, 130, True),
+    (2, 6, 2, MLA, 80, False)])
 def test_card_backward_both_paths_match_plain_and_repeat(dev, impl, B, nh, nkv, dh, S,
                                                          causal):
     q, k, v, do = _card_inputs(dev, 4, B, nh, nkv, S, S, dh)

@@ -18,8 +18,9 @@ two ranks for the kernels and their backward rings, four for two grid
 training steps), each held against the plain route on the same inputs,
 on the bf16 wire and on the int8 wire.  MLA's absorbed decode kernel
 (fp32 out of fp32 or bf16 inputs: the fp32 bound either way), attention
-at head dims off the kernels' 64 and 128 (zero-padded), and an MLA model
-with its latent caches are held against their plain versions too.
+at MLA's dk 96 / dv 64 (natively on the tensor cores, zero-padded on the
+SIMT path) and at head dims off every kernel (zero-padded), and an MLA
+model with its latent caches are held against their plain versions too.
 """
 
 import numpy as np
@@ -650,8 +651,9 @@ def test_mla_decode_wrapper_refuses_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize("B,Sq,Sk,q_off,kv_len", [
     (1, 80, 96, [0], [80]), (3, 1, 70, [0, 9, 69], [1, 10, 70]), (2, 64, 64, None, None)])
 def test_flash_attention_padded_head_dims(dev, dh, dtype, B, Sq, Sk, q_off, kv_len):
-    """MLA's dh 96 (and 40, off both kernel dims) runs zero-padded to 128
-    (64) with the caller's dh^-0.5 scale: prefill, decode and the training
+    """dk = dv = 96 (MLA's dims with v padded, as the JAX package runs
+    them) and 40, off every kernel pair, run zero-padded to 128 (64) with
+    the caller's dh^-0.5 scale: prefill, decode and the training
     mask against the plain version, the output back at dh."""
     nh, nkv = 6, 2
     q = _randn((B, Sq, nh, dh), dtype, dev, 60).transpose(1, 2)
@@ -687,19 +689,134 @@ def test_flash_attention_bwd_padded_head_dims(dev, dh, dtype):
 
 
 # minicpm3-4b's head dims (latent 256, rope 32, dn = dv = 64: attention at
-# dh 96), a narrow model around them
+# dk 96 / dv 64), a narrow model around them
 MLA_CFG = ModelConfig(name="cuda-mla", family="dense", num_layers=2, d_model=128,
                       num_heads=4, num_kv_heads=4, d_ff=256, vocab_size=500,
                       mla=MLAConfig(q_lora_rank=64, kv_lora_rank=256, qk_nope_head_dim=64,
                                     qk_rope_head_dim=32, v_head_dim=64))
 
 
+MLA_DIMS = (96, 64)      # minicpm3-4b's attention: dk = dn + dr = 64 + 32, dv 64
+
+
+def _native(name):
+    return kfa.DIM_LAUNCHES[(name, "wgmma", *MLA_DIMS, "native")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,nh,nkv,Sq,Sk,q_off,kv_len", [
+    (1, 40, 40, 64, 100, [0], [64]), (2, 6, 2, 80, 130, [17, 40], [97, 120]),
+    (2, 8, 8, 130, 130, None, None), (3, 6, 2, 40, 130, [0, 50, 7], [40, 90, 0])],
+    ids=["prefill-off-tile", "prefill-g3", "train-mask", "empty-row"])
+def test_flash_attention_mla_dims(dev, dtype, B, nh, nkv, Sq, Sk, q_off, kv_len):
+    """q and k at dk 96, v at dv 64 (a strided view, as ``apply_mla``
+    hands it over): bf16 on the tensor cores runs (96, 64) natively, fp32
+    on the SIMT path pads to (128, 128); the output at dv 64 in
+    [B, Sq, nh, dv] memory, against the plain version: the prefill mask
+    (q_offset, kv_len, Sk off the 64-key tile), the training mask with
+    its LSE, and a row with no key (the uniform average of v)."""
+    dk, dv = MLA_DIMS
+    q = _randn((B, Sq, nh, dk), dtype, dev, 70).transpose(1, 2)
+    k = _randn((B, Sk, nkv, dk), dtype, dev, 71).transpose(1, 2)
+    v = _randn((B, Sk, nkv, 2 * dv), dtype, dev, 72)[..., dv:].transpose(1, 2)
+    t = lambda a: None if a is None else torch.tensor(a, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, q_offset=t(q_off), kv_len=t(kv_len))
+    impl = kfa.forward_impl(dtype, B, nh, nkv, Sq, Sk, dk, dv)
+    ops.reset_launches()
+    out, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+    want, lse_p = ref.attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (B, nh, Sq, dv) and out.dtype == dtype
+    # native: [B, Sq, nh, dv] memory; padded: a view of the [.., 128] output
+    assert out.transpose(1, 2).is_contiguous() == (impl == "wgmma")
+    route = (impl, *MLA_DIMS, "native") if impl == "wgmma" else (impl, 128, 128, "padded")
+    assert kfa.DIM_LAUNCHES == {("flash_attention", *route): 1}
+    assert impl == ("wgmma" if dtype == torch.bfloat16 else "simt")
+    _close(out, want)
+    if kv_len is None:                    # the LSE is the backward's, training's mask
+        _close(lse, lse_p)
+    elif 0 in kv_len:
+        b = kv_len.index(0)
+        mean_v = v[b].float().mean(1).repeat_interleave(nh // nkv, 0)
+        _close(out[b], mean_v[:, None].expand(nh, Sq, dv))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,nh,nkv,S,causal", [(2, 8, 8, 130, True), (2, 6, 2, 80, True),
+                                               (1, 4, 2, 64, False)])
+def test_flash_attention_bwd_mla_dims(dev, dtype, B, nh, nkv, S, causal):
+    """(dq, dk, dv) at dk 96 / dv 64 against the plain version's autograd:
+    dq and dk at 96, dv at 64, each in the input dtype; bf16 natively on
+    the tensor cores; two calls agree bit for bit."""
+    dk, dv = MLA_DIMS
+    q = _randn((B, S, nh, dk), dtype, dev, 73).transpose(1, 2)
+    k = _randn((B, S, nkv, dk), dtype, dev, 74).transpose(1, 2)
+    v = _randn((B, S, nkv, dv), dtype, dev, 75).transpose(1, 2)
+    do = _randn((B, S, nh, dv), dtype, dev, 76).transpose(1, 2)
+    o, lse = kfa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    ops.reset_launches()
+    got = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = kfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = ref.attention_bwd_plain(q, k, v, do, causal=causal)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert _native("flash_attention_bwd") == 2 and len(kfa.DIM_LAUNCHES) == 1
+    for a, b, width in zip(got, want, (dk, dk, dv)):
+        assert a.shape == b.shape and a.shape[-1] == width and a.dtype == dtype
+        _close(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_attention_refuses_dims_it_cannot_take(dev):
+    """A dv (or dk) off the multiples of 8 up to 128, or a v whose
+    [B, nkv, S] differs from k's, raises before any CUDA call."""
+    q = torch.zeros(1, 2, 64, 96, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(1, 2, 64, 96, dtype=torch.bfloat16, device=dev)
+    ops.reset_launches()
+    for v in (torch.zeros(1, 2, 64, 60, dtype=torch.bfloat16, device=dev),
+              torch.zeros(1, 2, 64, 136, dtype=torch.bfloat16, device=dev)):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            kfa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match=r"v \[B,nkv,Sk,dv\]"):
+        kfa.flash_attention(q, k, torch.zeros(1, 2, 63, 64, dtype=torch.bfloat16, device=dev))
+    lse = torch.zeros(1, 2, 64, device=dev)
+    v60 = torch.zeros(1, 2, 64, 60, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kfa.flash_attention_bwd(q, k, v60, v60.expand(1, 2, 64, 60), lse, v60)
+    assert not kfa.DIM_LAUNCHES and sum(kfa.IMPL_LAUNCHES["flash_attention"].values()) == 0
+
+
+def test_mla_bf16_attention_runs_native(dev):
+    """The MLA model's bf16 training loss through the kernels: every
+    attention forward and backward runs (96, 64) natively on the tensor
+    cores, and the loss is within the bf16 bound of the plain path's."""
+    params = lm.init_master_params(MLA_CFG, seed=9, device=dev)
+    leaves = [t.requires_grad_() for _, t in lm.flatten(params)]
+    rng = np.random.default_rng(10)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 500, (2, 128))).to(dev),
+             "labels": torch.from_numpy(rng.integers(0, 500, (2, 128))).to(dev),
+             "_dtype": torch.bfloat16}
+    losses = {}
+    for plain in (False, True):
+        ops.reset_launches()
+        pctx = PCtx(plain=plain, mode="train", pcfg=ParallelConfig())
+        loss, _ = lm.train_loss(pctx, MLA_CFG, params, batch, remat="fusion")
+        torch.autograd.grad(loss, leaves)
+        losses[plain] = float(loss.detach())
+        if not plain:
+            L = MLA_CFG.num_layers
+            assert _native("flash_attention") == ops.LAUNCHES["flash_attention"] >= L
+            assert _native("flash_attention_bwd") == ops.LAUNCHES["flash_attention_bwd"] == L
+            assert all(key[-1] == "native" for key in kfa.DIM_LAUNCHES), kfa.DIM_LAUNCHES
+    assert abs(losses[False] - losses[True]) <= TOL[torch.bfloat16] * abs(losses[True])
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["paged", "int8"])
 def test_mla_prefill_and_decode_kernels_match_plain(dev, quant):
     """fp32 prefill of two prompts and three decode ticks through the
-    kernels (prefill attention at dh 96, padded to 128; the absorbed decode
-    kernel once a layer and tick) against the plain versions, each on its
-    own pool fed the same tokens."""
+    kernels (prefill attention at dk 96 / dv 64, padded to 128 on the fp32
+    SIMT path; the absorbed decode kernel once a layer and tick) against
+    the plain versions, each on its own pool fed the same tokens."""
     params = lm.init_params(MLA_CFG, seed=5, device=dev, dtype=torch.float32)
     logits = {}
     for plain in (False, True):
@@ -736,8 +853,8 @@ def test_mla_prefill_and_decode_kernels_match_plain(dev, quant):
 
 def test_mla_train_loss_and_grads_kernels_match_plain(dev):
     """fp32 loss and every gradient of the MLA model through the kernels
-    (the flash forward and backward at dh 96, padded to 128; the tile
-    matmul) against the plain path's autograd."""
+    (the flash forward and backward at dk 96 / dv 64, padded to 128 on the
+    fp32 SIMT path; the tile matmul) against the plain path's autograd."""
     params = lm.init_master_params(MLA_CFG, seed=7, device=dev)
     leaves = [t.requires_grad_() for _, t in lm.flatten(params)]
     rng = np.random.default_rng(8)

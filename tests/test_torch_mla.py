@@ -637,13 +637,57 @@ def test_mla_decode_op_is_forward_only():
 
 
 def test_flash_attention_head_dim_padding_rule():
-    """The wrapper's padding: a multiple of 8 up to 128 runs at the next
-    kernel head dim, anything else raises (before any CUDA call)."""
+    """The wrapper's (dk, dv) -> kernel rule: MLA's (96, 64) runs natively
+    on the tensor cores and pads to (128, 128) on the SIMT path; (64, 64)
+    and (128, 128) run as they are; other multiples of 8 up to 128 run on
+    the path's least pair that holds both dims; anything else raises
+    (before any CUDA call)."""
     from repro_torch.kernels import flash_attention as kfa
-    assert [kfa.padded_head_dim(d) for d in (8, 64, 72, 96, 128)] == [64, 64, 128, 128, 128]
-    for bad in (12, 0, 136):
+    tc = lambda dk, dv: kfa.kernel_dims(dk, dv, "wgmma")  # noqa: E731
+    simt = lambda dk, dv: kfa.kernel_dims(dk, dv, "simt")  # noqa: E731
+    assert tc(96, 64) == (96, 64) and simt(96, 64) == (128, 128)
+    want = [(64, 64), (64, 64), (128, 128), (128, 128), (128, 128)]
+    assert [tc(d, d) for d in (8, 64, 72, 96, 128)] == want
+    assert [simt(d, d) for d in (8, 64, 72, 96, 128)] == want
+    assert [tc(*d) for d in ((80, 40), (96, 32), (40, 64), (64, 96), (128, 64))] == \
+        [(96, 64), (96, 64), (64, 64), (128, 128), (128, 128)]
+    assert simt(40, 64) == (64, 64) and simt(80, 40) == (128, 128)
+    for bad in ((12, 12), (0, 0), (136, 136), (96, 60), (96, 136), (96, 0)):
         with pytest.raises(ValueError, match="multiple of 8"):
-            kfa.padded_head_dim(bad)
+            kfa.kernel_dims(*bad)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kfa.forward_impl(torch.bfloat16, 1, 40, 40, 64, 528, 96, 60)
     assert kfa.forward_impl(torch.bfloat16, 1, 40, 40, 64, 528, 96) == "wgmma"
+    assert kfa.forward_impl(torch.bfloat16, 1, 40, 40, 64, 528, 96, 64) == "wgmma"
+    assert kfa.forward_impl(torch.float32, 1, 40, 40, 64, 528, 96, 64) == "simt"
     assert kfa.backward_impl(torch.bfloat16, 4, 40, 40, 512, 512, 96) == "wgmma"
+    assert kfa.backward_impl(torch.bfloat16, 4, 40, 40, 512, 512, 96, 64) == "wgmma"
     assert kfa.mla_splits(4, 544) == 17 and kfa.mla_splits(1, 64) == 2
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["prefill", "train"])
+def test_apply_mla_hands_attention_v_at_dv(port, monkeypatch, grad):
+    """``apply_mla`` passes q and k at dk = dn + dr and v at its own dv
+    (a view of the up-projection, not a padded copy) to ``PCtx.attention``
+    and gets dv back, with and without a gradient."""
+    cfg, params = port
+    m, seen = cfg.mla, []
+    real = PCtx.attention
+
+    def spy(self, q, k, v, **kw):
+        o = real(self, q, k, v, **kw)
+        seen.append((q.shape, k.shape, v.shape, o.shape, v._base is not None))
+        return o
+
+    monkeypatch.setattr(PCtx, "attention", spy)
+    p0 = {k: v[0].clone().requires_grad_(grad) for k, v in params["blocks"]["attn"].items()}
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 5, cfg.d_model))
+                         .astype(np.float32))
+    with torch.set_grad_enabled(grad):
+        y, _ = ATT.apply_mla(PCtx(), cfg, p0, x, positions=torch.arange(5)[None].expand(2, 5))
+    (qs, ks, vs, os_, view), = seen
+    dk, dv, nh = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim, cfg.num_heads
+    assert dk != dv
+    assert qs == (2, nh, 5, dk) and ks == (2, nh, 5, dk)
+    assert vs == (2, nh, 5, dv) and os_ == (2, nh, 5, dv) and view
+    assert y.shape == x.shape and y.requires_grad == grad
