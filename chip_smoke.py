@@ -9,10 +9,11 @@ Phases, each fatal on failure:
    (one process per source, in parallel) and print the seconds; print the
    card's name and power limit as nvidia-smi reports them; print how many
    HGMMA (wgmma) and HMMA instructions each kernel function of the
-   flash-attention, matmul and ssd libraries holds (``cuobjdump -sass``),
-   and fail unless each tensor-core attention kernel, the wgmma matmul
-   (``wg::mm`` and its gated form ``wg::mm_gated``) and the tensor-core
-   scan (``tc::ssd``) hold HGMMA;
+   flash-attention, matmul, ssd and ring libraries holds (``cuobjdump
+   -sass``), and fail unless each tensor-core attention kernel, the wgmma
+   matmul (``wg::mm`` and its gated form ``wg::mm_gated``), the
+   tensor-core scan (``tc::ssd``) and the tensor-core AG-matmul and
+   matmul-RS (``ringtc::ag_wgmma``, ``ringtc::rs_wgmma``) hold HGMMA;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (qwen3-0.6b at full
    width), in fp32 and bf16, with the tolerance and its reason; time the
@@ -56,6 +57,20 @@ Phases, each fatal on failure:
    M > 16 (a prefill), on wgmma, and every served bf16 matmul and gate
    with M <= 16 (decode) on gemv; the scan's per-route counts
    (``ssm_ssd_paths``) every SSM prefill scan on wgmma;
+8a. ``ring_loopback``: every ring kernel and int8 variant over a loopback
+   ring (``kernels/ring_loopback.py``: all n ranks of one ring in this
+   process, each on its own stream over its own buffer, every grid capped
+   at its share of the card so that the n grids are resident together),
+   n = 2 at the RING_CASES and n = 4 at the MEG_RING_CASES, bf16 and fp32:
+   every rank's output against the ring's global result computed in fp32
+   (on the int8 wire its emulated semantics), over three calls (one from
+   hop 0, two carrying the hops on), at ``_ring_case``'s bounds; each
+   case timed by CUDA-graph replays of one call (n streams forked from
+   one and joined to it) beside one batched ``torch.matmul`` of the n
+   ranks' products and n x a rank's bound; a bf16 AG-matmul or matmul-RS
+   on the wgmma route is held and timed on the wmma route too, in turns
+   (``case`` lines with ``"loopback": true`` and ``"route"``).  These are
+   the ring kernels' own times, and the main rows of the kernels line;
 8. ``ring_kernels``: two rank processes on the card, one ring of n = 2
    through the symmetric buffers: a ping-pong probe of the cross-process
    flags (200 round trips in one launch each way, under a watchdog;
@@ -71,14 +86,18 @@ Phases, each fatal on failure:
    exit blocks, the AG-matmul of their backward, and the replicated
    layout's matmul-RS over columns with its backward's contracted
    AG-matmul, on both wires, against their plain versions (``case`` lines
-   with ``"n": 4``; off the ``kernels`` line's sums);
+   with ``"n": 4``; the time-sliced processes time the scheduler, so
+   none of these is a main row);
 9. ``grid_train``: the hecaton grid training step of full-width
    qwen3-0.6b at 2 of its 28 layers (GRID_LAYERS) on a 1x2x2 grid of four
    rank processes sharing the card
    (``overlap="fused"``, bf16 over fp32 masters, batch 8 x 512, 2
    microbatches, remat fusion, 3 steps) through the training launcher's
    grid entry: its route table, every rank's launches (each of the three
-   ring kernels must launch on every rank), every step's loss and grad
+   ring kernels must launch on every rank, every AG-matmul and matmul-RS
+   on the wgmma route, ``grid_train_ring_paths``; likewise in
+   ``grid_megatron``, ``grid_pipeline_hecaton``, ``grid_pod_data`` and
+   ``grid_serve``'s prefill), every step's loss and grad
    norm against the same grid trained through the plain versions from
    the same parameters (1e-3 and 1e-2 relative), the first step's loss
    against the single-device port on the same parameters and batch
@@ -264,6 +283,7 @@ from repro_torch.config import GuardConfig, ParallelConfig, RunConfig, get_confi
 from repro_torch.data.synthetic import Prefetcher, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import ring_matmul as krm  # noqa: E402
+from repro_torch.kernels import ring_loopback as LB  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import matmul as kmm  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
@@ -421,6 +441,17 @@ TC_FUNCTIONS = ("_ZN2tc3fwd", "_ZN2tc6bwd_dq", "_ZN2tc8bwd_dkdv")
 WG_FUNCTIONS = ("_ZN2wg2mm", "_ZN2wg8mm_gated")
 # the tensor-core SSD scan tc::ssd, likewise in the ssd library's SASS
 SSD_TC_FUNCTIONS = ("_ZN2tc3ssd",)
+# the tensor-core ring kernels ringtc::ag_wgmma and ringtc::rs_wgmma (rows 5 and 6 on
+# wgmma), likewise in the ring library's SASS
+RING_TC_FUNCTIONS = ("_ZN6ringtc8ag_wgmma", "_ZN6ringtc8rs_wgmma")
+# the ring kernels that take a route (ring_matmul.ring_impl): every bf16 launch
+# of these at the grid phases' full-width blocks must be on wgmma
+ROUTED_RING = ("ag_matmul", "matmul_rs")
+# the loopback ring (kernels/ring_loopback.py): all n ranks of one ring in this
+# process, on n streams: (n, the axis whose buffer layout it takes, the cases)
+LOOPBACK_RINGS = ((2, "my", RING_CASES), (4, "model", MEG_RING_CASES))
+LOOPBACK_TIMING = ("CUDA-graph replays of one call (n streams forked from and joined to one "
+                   "stream, the flags zeroed first), warm L2; the n grids resident at once")
 # kernel families of the device time (--profile): name fragments
 PROFILE_FAMILIES = ("wg::mm<", "wg::mm_gated", "wg::sum_splits", "gv::gemv", "mm_skinny",
                     "mm_splitk_epilogue", "mm_tc_bf16", "tc::fwd", "tc::bwd_dq",
@@ -891,13 +922,13 @@ def _sass(libname):
 
 def sass_counts():
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel function
-    of the flash-attention, matmul and ssd libraries, from ``cuobjdump
+    of the flash-attention, matmul, ssd and ring libraries, from ``cuobjdump
     -sass``; ok when every tensor-core attention kernel (TC_FUNCTIONS), the
-    wgmma matmul (WG_FUNCTIONS) and the tensor-core scan (SSD_TC_FUNCTIONS)
-    hold HGMMA."""
+    wgmma matmul (WG_FUNCTIONS), the tensor-core scan (SSD_TC_FUNCTIONS) and
+    the tensor-core AG-matmul and matmul-RS (RING_TC_FUNCTIONS) hold HGMMA."""
     shown, ok = {}, True
     for libname, prefixes in (("flash_attention", TC_FUNCTIONS), ("matmul", WG_FUNCTIONS),
-                              ("ssd", SSD_TC_FUNCTIONS)):
+                              ("ssd", SSD_TC_FUNCTIONS), ("ring_matmul", RING_TC_FUNCTIONS)):
         lib, counts, short = _sass(libname)
         shown[lib] = short
         ok &= all(any(m.startswith(pre) and c["HGMMA"] > 0 for m, c in counts.items())
@@ -1607,43 +1638,83 @@ def _int8_check(out, want, tol):
     return ok, float(err.max()), share
 
 
+def _ring_work(kernel, xs, ws, sd, n, elt, int8, pair):
+    """(bytes, operations) of one rank's part of a ring kernel's call: x and
+    w read, the output written, and the n - 1 arriving hops (the operand's
+    own width, or the int8 payload and its fp32 scales a row)."""
+    b, t, h = xs
+    o = ws[1]
+    hop = (lambda rows, cols, nseg=1: (n - 1) * (rows * cols + 4 * rows * nseg)) if int8 \
+        else (lambda rows, cols, nseg=1: (n - 1) * rows * cols * elt)
+    if kernel == "ag_matmul":
+        return (b * t * h + h * o + b * n * t * o) * elt + hop(b * t, h), 2 * b * n * t * h * o
+    if kernel == "ag_matmul_contract":
+        return (b * t * h + n * h * o + b * t * o) * elt + hop(b * t, h), 2 * b * t * n * h * o
+    ncols = o * (2 if pair else 1)
+    out_elts = b * t * ncols // n
+    out_cols = ncols if sd == 1 else ncols // n
+    return ((b * t * h + h * ncols + out_elts) * elt
+            + hop(out_elts // out_cols, out_cols, 2 if pair else 1)), 2 * b * t * h * ncols
+
+
+def _ring_errs(kernel, outs, wants, dtype, n, int8, mags):
+    """(ok, max error, fields) of ring outputs against what they should be:
+    the int8 wire by ``_int8_check`` (1e-5 in fp32, the bf16 bound in
+    bf16), bf16 matmul-RS over n > 2 at (n + 1) 2^-8 of the partials'
+    magnitudes ``mags``, everything else at its output dtype's TOL."""
+    ok = all(a.shape == c.shape and a.dtype == c.dtype and bool(torch.isfinite(a.float()).all())
+             for a, c in zip(outs, wants))
+    err = max(float((a.float() - c.float()).abs().max()) for a, c in zip(outs, wants))
+    if int8:
+        tol = INT8_TOL if dtype == torch.float32 else TOL[torch.bfloat16][0]
+        checks = [_int8_check(a, c, tol) for a, c in zip(outs, wants)]
+        return (ok and all(c[0] for c in checks), err,
+                dict(tol=tol, share_off=max(c[2] for c in checks), share_allowed=INT8_SHARE))
+    if kernel == "matmul_rs" and dtype == torch.bfloat16 and n > 2:
+        # each contribution is stored in bf16 and the accumulator crosses
+        # each hop in bf16, as the TPU kernel's does: n roundings of
+        # contributions and n - 1 of partial sums (the plain version rounds
+        # once), each at most 2^-8 (bf16's unit roundoff) of the value
+        # rounded, so within (n + 1) 2^-8 of the sum of the ranks' partials'
+        # magnitudes
+        tol = (n + 1) * 2.0 ** -8
+        ok &= all(bool(((a.float() - c.float()).abs() <= tol * m + 1e-6).all())
+                  for a, c, m in zip(outs, wants, mags))
+        return ok, err, dict(
+            tol=tol, tol_of="the sum of the ranks' partials' magnitudes",
+            err_over_partials=max(float(((a.float() - c.float()).abs() / (m + 1e-6)).max())
+                                  for a, c, m in zip(outs, wants, mags)))
+    tol = TOL[outs[0].dtype][0]
+    ok &= all(bool(torch.allclose(a.float(), c.float(), atol=tol, rtol=tol))
+              for a, c in zip(outs, wants))
+    return ok, err, dict(tol=tol)
+
+
 def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, wire="bf16", n=2, ax="my",
                timer=event_ms):
     """One ring kernel (on the bf16 or the int8 wire) against its plain
     version on this rank's inputs, each timed by ``timer``."""
     gen = torch.Generator(device=DEV).manual_seed(SEED + 1000 * idx + rank)
     x = randn(gen, xs, dtype)
-    elt = x.element_size()
-    b, t, h = xs
     o = ws[1]
     pair = kernel == "matmul_rs" and sd == 1 and label.startswith("gated")
     w = randn(gen, ws, dtype, ws[0] ** -0.5)
     w1b = randn(gen, ws, dtype, ws[0] ** -0.5) if pair else None
     int8 = wire == "int8"
-    # bytes of the n - 1 arriving hops of a [rows, cols] shard with nseg
-    # scales a row: the operand's own width, or the int8 payload + scales
-    hop = (lambda rows, cols, nseg=1: (n - 1) * (rows * cols + 4 * rows * nseg)) if int8 \
-        else (lambda rows, cols, nseg=1: (n - 1) * rows * cols * elt)
+    nbytes, nops = _ring_work(kernel, xs, ws, sd, n, x.element_size(), int8, pair)
     if kernel == "ag_matmul":
         kern = lambda cd=wire: krm.ag_fwd(x, w, ax, 1, n, cd)
         plain = lambda: (ref.ag_matmul_int8_plain if int8 else ref.ag_matmul_plain)(
             x, w, ax, dim=1)
         xg = ref.gather_over_int8(x, ax, 1) if int8 else comm.raw_all_gather(x, ax, 1)
         lib = lambda: torch.matmul(xg, w)
-        nops = 2 * b * n * t * h * o
-        nbytes = (b * t * h + h * o + b * n * t * o) * elt + hop(b * t, h)
     elif kernel == "ag_matmul_contract":
         kern = lambda cd=wire: krm.contract_fwd(x, w, ax, n, comm_dtype=cd)
         plain = lambda: (ref.ag_matmul_contract_int8_plain if int8
                          else ref.ag_matmul_contract_plain)(x, w, ax)
         xg = ref.gather_over_int8(x, ax, 2) if int8 else comm.raw_all_gather(x, ax, 2)
         lib = lambda: torch.matmul(xg, w)
-        nops = 2 * b * t * n * h * o
-        nbytes = (b * t * h + n * h * o + b * t * o) * elt + hop(b * t, h)
     else:
-        ncols = o * (2 if pair else 1)
-        out_elts = b * t * ncols // n
-        out_cols = ncols if sd == 1 else ncols // n
         if pair:
             kern = lambda cd=wire: krm.pair_fwd(x, w, w1b, ax, sd, n, cd)
             plain = lambda: (ref.matmul_rs_pair_int8_plain if int8 else
@@ -1655,59 +1726,32 @@ def _ring_case(idx, kernel, label, xs, ws, sd, main, dtype, rank, wire="bf16", n
             plain = lambda: (ref.matmul_rs_int8_plain if int8 else ref.matmul_rs_plain)(
                 x, w, ax, scatter_dim=sd)
             lib = lambda: torch.matmul(x, w)
-        nops = 2 * b * t * h * ncols
-        # x and w read, the output written, the arriving accumulators
-        nbytes = (b * t * h + h * ncols + out_elts) * elt + \
-            hop(out_elts // out_cols, out_cols, 2 if pair else 1)
     out, want = kern(), plain()
     outs, wants = (out, want) if isinstance(out, tuple) else ((out,), (want,))
     r = dict(kernel=kernel + ("_int8" if int8 else ""),
              case=f"{label} x={list(xs)} w={list(ws)}" + (f" scatter_dim={sd}" if sd else "")
              + (" pair" if pair else ""), wire=wire,
-             dtype=str(dtype).replace("torch.", ""), main=main and dtype == torch.bfloat16,
-             rank=rank, n=n, axis=ax)
-    if int8:
-        tol = INT8_TOL if dtype == torch.float32 else TOL[torch.bfloat16][0]
-        checks = [_int8_check(a, c, tol) for a, c in zip(outs, wants)]
-        ok = all(c[0] and a.dtype == w_.dtype for c, a, w_ in zip(checks, outs, wants))
-        err, share = max(c[1] for c in checks), max(c[2] for c in checks)
-        r.update(tol=tol, share_off=share, share_allowed=INT8_SHARE)
-        if dtype == torch.float32:
-            # the same case through the bf16 wire's kernel must fail the check
-            full = kern("bf16")
-            fulls = full if isinstance(full, tuple) else (full,)
-            fchecks = [_int8_check(a, c, tol) for a, c in zip(fulls, wants)]
-            r.update(bf16_wire_err=max(c[1] for c in fchecks),
-                     bf16_wire_share_off=max(c[2] for c in fchecks),
-                     bf16_wire_fails=not all(c[0] for c in fchecks))
-            ok &= r["bf16_wire_fails"]
-    elif kernel == "matmul_rs" and dtype == torch.bfloat16 and n > 2:
-        # each contribution is stored in bf16 and the accumulator crosses
-        # each hop in bf16, as the TPU kernel's does: n roundings of
-        # contributions and n - 1 of partial sums (the plain version rounds
-        # once), each at most 2^-8 (bf16's unit roundoff) of the value
-        # rounded, so within (n + 1) 2^-8 of the sum of the ranks' partials'
-        # magnitudes
+             dtype=str(dtype).replace("torch.", ""),
+             # the kernels line takes the loopback ring's times: a time-sliced
+             # process ring times the scheduler
+             main=False, main_block=main and dtype == torch.bfloat16,
+             rank=rank, n=n, axis=ax, process_ring=True)
+    mags = None
+    if kernel == "matmul_rs" and dtype == torch.bfloat16 and n > 2 and not int8:
         wc = torch.cat([w, w1b], dim=1) if pair else w
         absum = comm.raw_psum_scatter((x.float() @ wc.float()).abs(), ax, sd)
-        abss = absum.split(o, dim=-1) if pair else (absum,)
-        tol = (n + 1) * 2.0 ** -8
-        err = max((a.float() - c.float()).abs().max().item() for a, c in zip(outs, wants))
-        ok = all(a.shape == c.shape and a.dtype == c.dtype
-                 and bool(torch.isfinite(a.float()).all())
-                 and bool(((a.float() - c.float()).abs() <= tol * m + 1e-6).all())
-                 for a, c, m in zip(outs, wants, abss))
-        r.update(tol=tol, tol_of="the sum of the ranks' partials' magnitudes",
-                 err_over_partials=max(float(((a.float() - c.float()).abs() / (m + 1e-6)).max())
-                                       for a, c, m in zip(outs, wants, abss)))
-    else:
-        tol = TOL[outs[0].dtype][0]
-        err = max((a.float() - c.float()).abs().max().item() for a, c in zip(outs, wants))
-        ok = all(a.shape == c.shape and a.dtype == c.dtype
-                 and bool(torch.isfinite(a.float()).all())
-                 and bool(torch.allclose(a.float(), c.float(), atol=tol, rtol=tol))
-                 for a, c in zip(outs, wants))
-        r.update(tol=tol)
+        mags = absum.split(o, dim=-1) if pair else (absum,)
+    ok, err, fields = _ring_errs(kernel, outs, wants, dtype, n, int8, mags)
+    r.update(fields)
+    if int8 and dtype == torch.float32:
+        # the same case through the bf16 wire's kernel must fail the check
+        full = kern("bf16")
+        fulls = full if isinstance(full, tuple) else (full,)
+        fchecks = [_int8_check(a, c, fields["tol"]) for a, c in zip(fulls, wants)]
+        r.update(bf16_wire_err=max(c[1] for c in fchecks),
+                 bf16_wire_share_off=max(c[2] for c in fchecks),
+                 bf16_wire_fails=not all(c[0] for c in fchecks))
+        ok &= r["bf16_wire_fails"]
     b_ms, b_by = bound(nbytes, nops, dtype)
     r.update(max_err=err, ok=ok, kernel_ms=timer(kern), plain_ms=timer(plain),
              library_ms=timer(lib), bound_ms=b_ms, bound_by=b_by)
@@ -1794,6 +1838,130 @@ def ring_kernels_phase():
     return results, ok
 
 
+def _loopback_case(lb, idx, kernel, label, xs, ws, sd, main, dtype, wire):
+    """One ring kernel over the loopback ring ``lb`` (its n ranks on n
+    streams of this process): every rank's output against the ring's global
+    result in fp32 (``ring_loopback.reference``), after one call from hop 0
+    and two more that carry the hops on (the credit protocol across calls);
+    timed by CUDA-graph replays beside one batched ``torch.matmul`` of all
+    n ranks' products and n x a rank's bound.  A bf16 AG-matmul or
+    matmul-RS on the wgmma route is held and timed on the wmma route too,
+    the two in turns.  Returns the case rows (the chosen route's first)."""
+    n = lb.n
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7000 + 100 * n + idx)
+    int8 = wire == "int8"
+    pair = kernel == "matmul_rs" and sd == 1 and label.startswith("gated")
+    xl = [randn(gen, xs, dtype) for _ in range(n)]
+    wl = [randn(gen, ws, dtype, ws[0] ** -0.5) for _ in range(n)]
+    if pair:                                   # one kernel over [w1 | w1b]
+        wl = [torch.cat([w, randn(gen, ws, dtype, ws[0] ** -0.5)], dim=1) for w in wl]
+    split = ws[1] if pair and int8 else 0
+    h = xs[2]
+    if kernel == "ag_matmul":
+        run = lambda p=None, reset=False: LB.ag_matmul(lb, xl, wl, int8=int8, impl=p,
+                                                       reset=reset)
+        want_fn = lambda: LB.reference(kernel, xl, wl, int8=int8)
+        lib_a, lib_b = torch.cat(xl, dim=1).reshape(-1, h), torch.cat(wl, dim=1)
+    elif kernel == "ag_matmul_contract":
+        run = lambda p=None, reset=False: LB.ag_matmul_contract(lb, xl, wl, int8=int8,
+                                                                reset=reset)
+        want_fn = lambda: LB.reference(kernel, xl, wl, int8=int8)
+        lib_a, lib_b = torch.cat(xl, dim=2).reshape(-1, n * h), torch.cat(wl, dim=1)
+    else:
+        run = lambda p=None, reset=False: LB.matmul_rs(lb, xl, wl, sd, int8=int8, split=split,
+                                                       impl=p, reset=reset)
+        want_fn = lambda: LB.reference(kernel, xl, wl, sd, int8=int8, split=split)
+        lib_a, lib_b = torch.stack([x.reshape(-1, h) for x in xl]), torch.stack(wl)
+    nbytes, nops = _ring_work(kernel, xs, ws, sd, n, xl[0].element_size(), int8, pair)
+    b_ms, b_by = bound(n * nbytes, n * nops, dtype)
+    want = want_fn()
+    mags = LB.partial_magnitudes(xl, wl, sd) if kernel == "matmul_rs" else None
+    routes = [None]
+    if kernel in ROUTED_RING and not int8:
+        chosen = krm.ring_impl(dtype, (xs, tuple(wl[0].shape)),
+                               (xl[0].stride(), wl[0].stride()), n,
+                               sd if kernel == "matmul_rs" else None)
+        routes = [chosen] + (["wmma"] if chosen == "wgmma" else [])
+    checks = {}
+    for p in routes:                            # held first, then timed
+        ok, err = True, 0.0
+        for reset in (True, False, False):
+            ok_c, err_c, fields = _ring_errs(kernel, run(p, reset), want, dtype, n, int8, mags)
+            ok, err = ok and ok_c, max(err, err_c)
+        checks[p] = ok, err, fields
+    calls = {p: [lambda p=p: run(p, True)] for p in routes}
+    times = paired_ms(bench_ms, calls) if len(routes) > 1 else \
+        {routes[0]: bench_ms(calls[routes[0]])}
+    lib_ms, plain_ms = bench_ms([lambda: torch.matmul(lib_a, lib_b)]), bench_ms([want_fn])
+    name = kernel + ("_int8" if int8 else "")
+    routed = kernel in ROUTED_RING and not int8
+    rows = []
+    for p in routes:
+        route = p or ("simt" if dtype == torch.float32 else "wmma")
+        ok, err, fields = checks[p]
+        rows.append(dict(
+            kernel=name, case=f"{label} x={list(xs)} w={list(ws)}"
+            + (f" scatter_dim={sd}" if sd else "") + (" pair" if pair else ""),
+            loopback=True, route=route,
+            wire=wire, dtype=str(dtype).replace("torch.", ""), n=n, ranks=n,
+            main=main and dtype == torch.bfloat16 and n == 2 and p == routes[0],
+            max_err=err, ok=ok, **fields, kernel_ms=times[p], plain_ms=plain_ms,
+            plain="the global result in fp32 (ring_loopback.reference)", library_ms=lib_ms,
+            library="one batched torch.matmul of all n ranks' products",
+            bound_ms=b_ms, bound_by=b_by, bound_of="n ranks' bytes and operations",
+            blocks=lb.cap(name, dtype, route if routed else None,
+                          dtype if kernel == "ag_matmul_contract" else None),
+            timing=LOOPBACK_TIMING))
+    return rows
+
+
+def ring_loopback_phase():
+    """Every ring kernel and int8 variant over a loopback ring of n = 2 (the
+    RING_CASES) and of n = 4 (the MEG_RING_CASES), in bf16 and fp32, all n
+    ranks in this process on n streams (``kernels/ring_loopback.py``): the
+    first times of the ring kernels' own, against the fp32 global result."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results, ok, routes, harness = [], True, {}, {}
+    try:
+        for n, ax, cases in LOOPBACK_RINGS:
+            lb = LB.LoopbackRing(n, ax, DEV)
+            ops.reset_launches()
+            for wire in ("bf16", "int8"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    for idx, case in enumerate(cases):
+                        for r in _loopback_case(lb, idx, *case, dtype, wire):
+                            ok &= r["ok"]
+                            results.append(r)
+                            log("case " + json.dumps(r))
+            # a call without the ring kernel (the flags reset, each rank's
+            # counters zeroed on its stream, the fork and the join): the
+            # fixed cost inside every case's kernel_ms (the median of 3)
+            harness[n] = float(np.median([bench_ms([lambda: lb.run(
+                lambda r, ring_of, cnt: cnt.zero_(), True)]) for _ in range(3)]))
+            torch.cuda.synchronize()
+            routes[n] = {k: dict(v) for k, v in krm.IMPL_LAUNCHES.items()}
+            del lb
+    except Exception as e:                      # the phase fails; the script goes on
+        log(f"ring_loopback FAILED: {type(e).__name__}: {e}")
+        return results, False
+    log("ring_loopback " + json.dumps(dict(
+        rings=[dict(n=n, axis=ax, cases=len(c)) for n, ax, c in LOOPBACK_RINGS],
+        rows=len(results), route_launches=routes, harness_ms=harness,
+        harness="a call's flags reset, counter zeroing, fork and join, without the kernel",
+        ok=ok, phase_s=time.perf_counter() - t0)))
+    return results, ok
+
+
+def ring_route_check(name, paths, launches):
+    """Each rank's AG-matmul and matmul-RS launches by route (``paths``:
+    {rank: ring_matmul.IMPL_LAUNCHES}), printed; ok when every rank launched
+    both and every launch took wgmma (the grid phases run bf16 at the
+    full-width blocks, which the tensor cores take)."""
+    ok = all(paths[rk][k]["wgmma"] == launches[rk][k] > 0 for rk in paths for k in ROUTED_RING)
+    log(f"{name}_ring_paths " + json.dumps(dict(paths, ok=ok)))
+    return ok
+
 def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID_STEPS,
                      layers=GRID_LAYERS, kernels=RING_KERNELS, bf16_step0=None,
                      strategy="hecaton", grid=GRID, pods=1):
@@ -1802,9 +1970,11 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
     data parallelism, ``--pod-role data``) through the training
     launcher's grid entry under ``strategy`` and ``overlap`` on the
     ``wire``, beside the plain grid from the same parameters.  Every rank
-    must launch each of ``kernels``.  On the bf16 wire the first loss is
-    held against the single-device port's (1e-3); on the int8 wire against
-    it and ``bf16_step0`` (the bf16 wire's first loss) to QUANT_RTOL.
+    must launch each of ``kernels``; on the bf16 wire every rank's
+    AG-matmul and matmul-RS launches must all be on wgmma (printed by
+    route).  On the bf16 wire the first loss is held against the
+    single-device port's (1e-3); on the int8 wire against it and
+    ``bf16_step0`` (the bf16 wire's first loss) to QUANT_RTOL.
     Returns (ok, launches summed over the ranks, the first loss, each
     rank's NoP bytes per step by route)."""
     torch.cuda.empty_cache()
@@ -1831,11 +2001,13 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
     wire_rel = None if bf16_step0 is None else rel(losses[0], bf16_step0)
     worst_leaf = max(checks["param_rel"], key=checks["param_rel"].get)
     launches = r["launches"]
+    ok_routes = wire != "bf16" or ring_route_check(
+        name, {rk: p["ring"] for rk, p in r["pipeline"]["paths"].items()}, launches)
     ok = (all(math.isfinite(x) for x in losses + gnorms) and len(loss_rel) == steps
           and max(loss_rel) <= GRID_LOSS_TOL and single_rel <= single_tol
           and len(gnorm_rel) == steps and max(gnorm_rel) <= GRID_GNORM_TOL
           and (wire_rel is None or wire_rel <= QUANT_RTOL)
-          and all(launches[k][n] > 0 for k in launches for n in kernels))
+          and all(launches[k][n] > 0 for k in launches for n in kernels) and ok_routes)
     nop = {rank: {k: v / steps for k, v in b.items()} for rank, b in r["nop_bytes"].items()}
     log(f"{name}_routes " + json.dumps(r["routes"]))
     log(f"{name}_kernels " + json.dumps(launches))
@@ -1869,7 +2041,8 @@ def grid_pipeline_phase(name="grid_pipeline", grid=(1, 1, 1), layers=0, steps=PI
     stash peak against ``min(p - s, m)``, each of ``kernels`` launched on
     every rank, no rank launching the forward-only product and, with
     ``wgmma``, every attention launch on the tensor cores and every product
-    and gate on wgmma."""
+    and gate on wgmma; under the fused overlap, every rank's AG-matmul and
+    matmul-RS launches on wgmma."""
     from repro_torch.parallel import pipeline as PP
     torch.cuda.empty_cache()
     d, mx, my = grid
@@ -1908,6 +2081,9 @@ def grid_pipeline_phase(name="grid_pipeline", grid=(1, 1, 1), layers=0, steps=PI
             for k in ("matmul", "tile_matmul", "gated_matmul"):
                 c = pth["matmul"][k]
                 paths_ok &= c["wgmma"] == sum(c.values()) == launches[rk][k]
+    if overlap == "fused":
+        paths_ok &= ring_route_check(name, {rk: p["ring"] for rk, p in pipe["paths"].items()},
+                                     launches)
     ok = (all(math.isfinite(x) for x in losses + gnorms) and len(loss_rel) == steps
           and max(loss_rel) <= GRID_LOSS_TOL and single_rel <= GRID_LOSS_TOL
           and len(gnorm_rel) == steps and max(gnorm_rel) <= GRID_GNORM_TOL
@@ -2755,8 +2931,8 @@ def grid_serve_phase():
     dense caches, then GRID_SERVE_TICKS decode ticks teacher-forced on the
     one-card dense path's greedy tokens.  Every step's logits of every
     rank against the one-card path's (GRID_SERVE_TOL); every rank must
-    launch the ring kernels in prefill and the serving kernels in
-    decode."""
+    launch the ring kernels in prefill, every AG-matmul and matmul-RS of
+    them on wgmma, and the serving kernels in decode."""
     from repro_torch.serve import step as SRV
     torch.cuda.empty_cache()
     cfg = get_config(ARCH)
@@ -2800,8 +2976,10 @@ def grid_serve_phase():
     ok_launch = all(lc["prefill"][k] > 0 for lc in launches.values() for k in
                     ("ag_matmul", "matmul_rs")) and all(
         lc["decode"][k] > 0 for lc in launches.values() for k in ("matmul", "flash_attention"))
+    ok_routes = ring_route_check("grid_serve", r["ring_paths"],
+                                 {rk: lc["prefill"] for rk, lc in launches.items()})
     ok = (len(rels) == d * mx * my and all(len(v) == ticks + 1 for v in rels.values())
-          and worst <= GRID_SERVE_TOL and ok_launch)
+          and worst <= GRID_SERVE_TOL and ok_launch and ok_routes)
     log("grid_serve_kernels " + json.dumps(launches))
     log("grid_serve " + json.dumps(dict(
         arch=ARCH, grid="x".join(map(str, GRID_SERVE)), strategy="hecaton", overlap="fused",
@@ -3115,6 +3293,8 @@ def main(argv=None):
     ok_sm = timed("ssm_model_check", ssm_model_check, ssm_cfg)
     ok_ss, ss_launches = timed("serve_ssm", serve_phase, args.profile, SSM_ARCH,
                                SSM_PROMPT_LENS, SSM_SERVE_KERNELS, "_ssm")
+    l_results, ok_rl = timed("ring_loopback", ring_loopback_phase)
+    results += l_results
     r_results, ok_rk = timed("ring_kernels", ring_kernels_phase)
     results += r_results
     ok_gt, g_launches, bf16_step0, hec_nop = timed("grid_train", grid_train_phase)
@@ -3193,7 +3373,8 @@ def main(argv=None):
                               ("model_check", ok_m), ("grad_check", ok_g), ("train", ok_t),
                               ("serve", ok_s), ("ssd_kernels", ok_sk),
                               ("ssm_model_check", ok_sm), ("serve_ssm", ok_ss),
-                              ("ring_kernels", ok_rk), ("grid_train", ok_gt),
+                              ("ring_loopback", ok_rl), ("ring_kernels", ok_rk),
+                              ("grid_train", ok_gt),
                               ("grid_train_int8", ok_gq), ("grid_bidir", ok_gb),
                               ("grid_megatron", ok_gm),
                               ("ckpt", ok_c), ("grid_ckpt", ok_gc), ("runtime", ok_rt),

@@ -66,10 +66,18 @@
 //
 // Bound on an H100 SXM: per call 2 * rows * h * o * n FLOPs at 989 TFLOP/s
 // bf16 against the operand, output and hop bytes at 3.35 TB/s (an int8 hop:
-// the payload plus 4 bytes of scale per row).  The tile
-// loop is the simple one (64 x 64 output tiles, a K step of 32 through
-// shared memory, WMMA m16n16k16 for bf16 and SIMT fp32 otherwise, masked
-// edges, any extent): right first, fast later.
+// the payload plus 4 bytes of scale per row).
+//
+// Two product loops.  bf16 AG-matmul and matmul-RS whose operands TMA can
+// address take the tensor cores (route wgmma, namespace ringtc below: wg::mm's
+// TMA-fed wgmma main loop, wg.cuh).  Every other launch, and the contracted
+// ring and the int8 variants always, runs the simple tile loop (64 x 64 output
+// tiles, a K step of 32 through shared memory, WMMA m16n16k16 for bf16 (route
+// wmma) and SIMT fp32 (route simt), masked edges, any extent).  The wrapper
+// (kernels/ring_matmul.py, ring_impl) picks the route from the dtype, shapes
+// and strides alone.  Every host entry takes a block cap: 0 keeps one block an
+// SM at most (the process ring); a loopback ring of n streams in one process
+// passes its share of the card, so that all n grids are resident at once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,11 +86,16 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+#include "wg.cuh"
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 typedef unsigned long long u64;
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
+// the routes of AG-matmul and matmul-RS, as kernels/ring_matmul.py::IMPLS numbers them
+enum { RING_WGMMA = 0, RING_WMMA = 1, RING_SIMT = 2 };
 
 namespace {
 
@@ -160,19 +173,36 @@ __device__ bool arrive_last(unsigned int* counter) {
   return last;
 }
 
-// the grid copies a shard into a peer's slot
-__device__ void grid_copy(void* dst, const void* src, long long bytes) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
+// threads tid, tid + stride, ... copy a shard into a peer's slot (read around
+// L1); a thread keeps COPY_DEPTH 16-byte loads in flight before it stores, so
+// a hop's copy is not one memory latency per vector
+constexpr int COPY_DEPTH = 8;
+__device__ void copy_part(void* dst, const void* src, long long bytes, long long tid,
+                          long long stride) {
   if ((((uintptr_t)dst | (uintptr_t)src | (uintptr_t)bytes) & 15) == 0) {
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    for (long long i = tid; i < bytes / 16; i += stride) d[i] = __ldcg(s + i);
+    uint4* __restrict__ d = reinterpret_cast<uint4*>(dst);
+    const uint4* __restrict__ s = reinterpret_cast<const uint4*>(src);
+    const long long n = bytes / 16;
+    long long i = tid;
+    for (; i + (COPY_DEPTH - 1) * stride < n; i += COPY_DEPTH * stride) {
+      uint4 v[COPY_DEPTH];
+#pragma unroll
+      for (int j = 0; j < COPY_DEPTH; ++j) v[j] = __ldcg(s + i + j * stride);
+#pragma unroll
+      for (int j = 0; j < COPY_DEPTH; ++j) d[i + j * stride] = v[j];
+    }
+    for (; i < n; i += stride) d[i] = __ldcg(s + i);
   } else {
     unsigned short* d = reinterpret_cast<unsigned short*>(dst);
     const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
     for (long long i = tid; i < bytes / 2; i += stride) d[i] = __ldcg(s + i);
   }
+}
+
+// the grid copies a shard into a peer's slot
+__device__ void grid_copy(void* dst, const void* src, long long bytes) {
+  copy_part(dst, src, bytes, (long long)blockIdx.x * blockDim.x + threadIdx.x,
+            (long long)gridDim.x * blockDim.x);
 }
 
 // row r of an operand lies at (r / R) * bstride + (r % R) * ld elements:
@@ -655,6 +685,437 @@ int grid_for(int tiles) {
   return g > 0 ? g : 1;
 }
 
+int grid_cap(int tiles, int blocks) {
+  if (blocks <= 0) return grid_for(tiles);
+  return tiles < 1 ? 1 : (tiles < blocks ? tiles : blocks);
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// AG-matmul and matmul-RS in bf16 on Hopper's tensor cores (route wgmma).
+//
+// The product of every ring step is wg::mm's main loop (wg.cuh): persistent
+// blocks of three warpgroups, 128 x 128 output tiles (BN 128: 64 fp32
+// accumulators a consumer thread, so no register reallocation is needed), a
+// ring of six 32 KB stages of 64-deep k-blocks that one producer thread fills
+// by TMA (128-byte swizzle, edges read as zeros), two consumer warpgroups on
+// wgmma m64n128k16, the epilogue staged in shared memory and stored a 16-byte
+// chunk of a row at a time (epilogue below).
+// A step's work units are its output tiles; the stage ring and its phases run
+// on across the steps.  The ring protocol is the WMMA kernels' (above), with
+// each part of it moved to the warps that need it:
+//   * ag_wgmma: the producer waits for hop hop0+s-1 to land (an acquire load),
+//     then fence.proxy.async.global, because the peer wrote the slot with
+//     generic stores and TMA reads it through the async proxy; step s's A map
+//     is x's (s = 0) or the slot's (the two slots' maps are encoded once per
+//     address and shape on the host).  Warps 1-3 of the producer warpgroup
+//     forward the shard to the right neighbour's slot (generic 16-byte stores,
+//     so the peer's protocol is unchanged) while the consumers multiply, and
+//     their last block to finish publishes `landed`.  The left neighbour gets
+//     its credit once every block's copy warps are done with the slot and
+//     every block's consumers have waited for its last TMA loads of it (their
+//     `full` mbarriers): loads that completed, not loads that were issued.
+//     Row r of a step lands at (r / t) n t + src t + r % t of out.
+//   * rs_wgmma: the producer needs no flag (A is x, B is w).  The consumers
+//     run each step's main loop first and wait for `landed` (the arriving
+//     accumulator) and `credit` (the right neighbour's slot is free) only
+//     before the step's first epilogue, so a hop's latency hides behind the
+//     step's products.  The epilogue keeps the WMMA kernel's arithmetic bit for
+//     bit: the contribution rounded to bf16, plus the arriving bf16 partial in
+//     fp32, rounded once, into the right neighbour's slot (or out at the last
+//     step); over tokens, A's 128-row box stays inside the destination chunk
+//     (the route takes chunk % 128 == 0).
+// Every wait (flags and mbarriers) traps after the ring's spin timeout.  The
+// flags' loads, stores and fences take the .gpu scope when every peer lies on
+// this card (peers_local: the loopback ring, rank processes sharing a card) and
+// .sys otherwise; a block publishes its writes with one fence, by the thread
+// that counts its arrival after a barrier of the writers.  One block an SM
+// (about 193 KB of shared memory), so the grid is resident whenever it is at
+// most the SM count, or the caller's block cap.
+// ---------------------------------------------------------------------------
+namespace ringtc {
+using namespace hopper;
+
+constexpr int BM = wg::BM, BK = wg::BK, BN = 128, THREADS = wg::THREADS;
+using Tl = wg::Tile<BN>;
+// a consumer warpgroup's 64 x BN bf16 tile, staged for the epilogue's coalesced stores
+constexpr int EPI_BYTES = 64 * BN * 2;
+constexpr int EPI_OFFSET = (Tl::NST * Tl::STAGE + 2 * Tl::NST * 8 + 127) / 128 * 128;
+constexpr size_t SMEM = 1024 + EPI_OFFSET + 2 * EPI_BYTES;
+static_assert(SMEM <= 232448, "shared memory of a block");
+constexpr int COPY_THREADS = 96;                      // warps 1-3: the forward copy
+// named barriers (0 is __syncthreads): the consumers, the copy warps, each consumer warpgroup
+enum { BAR_CONSUMERS = 1, BAR_COPY = 2, BAR_WG = 3 };
+
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The flags' memory scope: .gpu when every peer of the ring lies on this card
+// (the loopback ring, or rank processes sharing one card), else .sys.  The
+// system scope costs the loopback ring of two ~25% of a call.
+__device__ __forceinline__ u64 acquire(const u64* p, bool local) {
+  if (!local) return ld_acquire(p);
+  u64 v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void release(u64* p, u64 v, bool local) {
+  if (local)
+    asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+  else
+    st_release(p, v);
+}
+__device__ __forceinline__ void fence(bool local) {
+  if (local)
+    __threadfence();
+  else
+    __threadfence_system();
+}
+
+// one thread spins until *p >= target (trap after timeout_ns)
+__device__ __forceinline__ void spin_geq(const u64* p, u64 target, u64 timeout_ns, bool local) {
+  const u64 t0 = now_ns();
+  while (acquire(p, local) < target) {
+    __nanosleep(100);
+    if (now_ns() - t0 > timeout_ns) __trap();
+  }
+  __threadfence();
+}
+
+// one count of this block toward `target` arrivals, by one thread after a barrier of the
+// threads whose writes it publishes (the barrier orders their writes before its fence, as
+// a grid barrier does); true in the last arrival
+__device__ __forceinline__ bool arrive_one(unsigned int* counter, unsigned int target,
+                                           bool local) {
+  fence(local);
+  const bool last = atomicAdd(counter, 1u) == target - 1;
+  if (last) fence(local);
+  return last;
+}
+
+// an mbarrier wait that traps after the ring's timeout (a stage may wait on a peer)
+struct RingWait {
+  u64 timeout_ns;
+  __device__ __forceinline__ void operator()(uint64_t* b, int parity) const {
+    if (bar_try(b, parity)) return;
+    const u64 t0 = now_ns();
+    while (!bar_try(b, parity))
+      if (now_ns() - t0 > timeout_ns) __trap();
+  }
+};
+
+__device__ __forceinline__ void init_stages(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Tl::NST; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 2);  // one arrival from each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The epilogue of consumer warpgroup c's 64 rows of a tile (first row m0, first column
+// n0) from its fp32 sums: each sum rounded to bf16 into the warpgroup's staging buffer
+// (64 rows of 16-byte chunks, a row's chunks XOR-swizzled by the row so that neither
+// phase has bank conflicts), then a 16-byte chunk a thread, row by row: row m (m0 + m < M,
+// columns n0.. < N, N a multiple of 8) goes to dst(m0 + m) + n0, the arriving row
+// in(m0 + m) + n0 added first (in fp32, rounded once) when `in` is given.  The stores of
+// a warp cover whole 256-byte row segments where the register layout would scatter
+// 4-byte pairs over eight rows.
+template <typename Dst, typename In>
+__device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], uint8_t* buf, int c, int tt,
+                                         int m0, int n0, int M, int N, Dst dst, In in) {
+  const int lane = tt % 32, r0 = (tt / 32) * 16 + lane / 4;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(buf + r * (BN * 2) + ((i ^ (r & 7)) << 4) +
+                                         (lane % 4) * 4) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+  }
+  named_sync(BAR_WG + c, 128);
+  constexpr int CHUNKS = BN / 8;                      // 16-byte chunks a row
+#pragma unroll 4
+  for (int k = tt; k < 64 * CHUNKS; k += 128) {
+    const int r = k / CHUNKS, ch = k % CHUNKS, m = m0 + r, col = n0 + 8 * ch;
+    if (m >= M || col >= N) continue;
+    uint4 v = *reinterpret_cast<const uint4*>(buf + r * (BN * 2) + ((ch ^ (r & 7)) << 4));
+    const bf16* src = in(m);
+    if (src != nullptr) {
+      const uint4 p = __ldcg(reinterpret_cast<const uint4*>(src + col));
+      const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&p);
+      __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fa = __bfloat1622float2(a[j]), fy = __bfloat1622float2(y[j]);
+        y[j] = __floats2bfloat162_rn(fa.x + fy.x, fa.y + fy.y);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst(m) + col) = v;
+  }
+  named_sync(BAR_WG + c, 128);                        // the buffer is free again
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+ag_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap smap0,
+         const __grid_constant__ CUtensorMap smap1, const __grid_constant__ CUtensorMap wmap,
+         const bf16* __restrict__ x, bf16* __restrict__ out, Ring rg, int b, int t, int h,
+         int o, int local) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tl::NST * Tl::STAGE);
+  uint64_t* empty = full + Tl::NST;
+  const int n = rg.n, M = b * t;
+  const int mt = cdiv(M, BM), nt = cdiv(o, BN), kbt = cdiv(h, BK), units = mt * nt;
+  const RingWait wait{rg.timeout_ns};
+  init_stages(full, empty);
+
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0) {  // the producer
+      int it = 0;
+      for (int s = 0; s < n; ++s) {
+        const CUtensorMap* am = &xmap;
+        if (s > 0) {
+          const u64 hin = rg.hop0 + s - 1;
+          spin_geq(rg.my_landed, hin + 1, rg.timeout_ns, local);
+          asm volatile("fence.proxy.async.global;\n" ::: "memory");
+          am = (hin & 1) ? &smap1 : &smap0;
+        }
+        for (int u = blockIdx.x; u < units; u += gridDim.x) {
+          const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
+          wg::load_unit<BN, false, false, false>(ring, full, empty, am, &wmap, &wmap, w.m0, w.n0,
+                                                0, kbt, it, wait);
+        }
+      }
+    } else if (threadIdx.x >= 32) {  // the copy warps
+      const int ct = threadIdx.x - 32;
+      const long long bytes = (long long)M * h * sizeof(bf16);
+      for (int s = 0; s < n; ++s) {
+        const char* cur = reinterpret_cast<const char*>(x);
+        if (s > 0) {
+          const u64 hin = rg.hop0 + s - 1;
+          if (ct == 0) spin_geq(rg.my_landed, hin + 1, rg.timeout_ns, local);
+          cur = rg.my_slot[hin & 1];
+        }
+        if (s < n - 1) {
+          const u64 hout = rg.hop0 + s;
+          if (ct == 0 && hout >= 2) spin_geq(rg.my_credit, hout - 1, rg.timeout_ns, local);
+          named_sync(BAR_COPY, COPY_THREADS);
+          copy_part(rg.right_slot[hout & 1], cur, bytes, (long long)blockIdx.x * COPY_THREADS + ct,
+                    (long long)gridDim.x * COPY_THREADS);
+          named_sync(BAR_COPY, COPY_THREADS);
+          if (ct == 0 && arrive_one(&rg.counters[2 * s], gridDim.x, local))
+            release(rg.right_landed, hout + 1, local);
+        }
+        // this block's copy warps are done with the slot of hop hop0+s-1
+        if (s > 0 && ct == 0 && arrive_one(&rg.counters[2 * s + 1], 2 * gridDim.x, local))
+          release(rg.left_credit, rg.hop0 + s, local);
+      }
+    }
+    return;
+  }
+
+  const int c = threadIdx.x / 128 - 1, tt = threadIdx.x % 128;
+  uint8_t* buf = ring + EPI_OFFSET + c * EPI_BYTES;
+  float acc[BN / 2], accb[BN / 2];  // accb: unused (the gated form's)
+  int it = 0;
+  for (int s = 0; s < n; ++s) {
+    const int src = (rg.me - s + n) % n;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
+      wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, it,
+                                            wait);
+      // row m of the step lands at (m / t) n t + src t + m % t of out
+      epilogue(acc, buf, c, tt, w.m0 + c * 64, w.n0, M, o,
+               [&](int m) { return out + ((long long)(m / t) * n * t + (long long)src * t +
+                                          m % t) * o; },
+               [](int) -> const bf16* { return nullptr; });
+    }
+    // every TMA load of the slot of hop hop0+s-1 in this block has completed (the
+    // consumers waited for each one's mbarrier)
+    if (s > 0 && threadIdx.x == 128 &&
+        arrive_one(&rg.counters[2 * s + 1], 2 * gridDim.x, local))
+      release(rg.left_credit, rg.hop0 + s, local);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+rs_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+         bf16* __restrict__ out, Ring rg, int b, int t, int h, int o, int scatter_last,
+         int local) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tl::NST * Tl::STAGE);
+  uint64_t* empty = full + Tl::NST;
+  const int n = rg.n;
+  const int chunk = scatter_last ? o / n : t / n;
+  const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
+  const int mt = cdiv(M, BM), nt = cdiv(N, BN), kbt = cdiv(h, BK), units = mt * nt;
+  const RingWait wait{rg.timeout_ns};
+  init_stages(full, empty);
+
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0) {  // the producer: A is x's rows of the step, B w's columns
+      int it = 0;
+      for (int s = 0; s < n; ++s) {
+        const int dest = (rg.me + n - 1 - s) % n;
+        for (int u = blockIdx.x; u < units; u += gridDim.x) {
+          const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
+          const int arow = scatter_last ? w.m0 : (w.m0 / chunk) * t + dest * chunk + w.m0 % chunk;
+          const int bcol = scatter_last ? dest * chunk + w.n0 : w.n0;
+          wg::load_unit<BN, false, false, false>(ring, full, empty, &xmap, &wmap, &wmap, arow,
+                                                bcol, 0, kbt, it, wait);
+        }
+      }
+    }
+    return;
+  }
+
+  const int c = threadIdx.x / 128 - 1, tt = threadIdx.x % 128;
+  uint8_t* buf = ring + EPI_OFFSET + c * EPI_BYTES;
+  float acc[BN / 2], accb[BN / 2];
+  int it = 0;
+  for (int s = 0; s < n; ++s) {
+    const bf16* in = s > 0 ? reinterpret_cast<const bf16*>(rg.my_slot[(rg.hop0 + s - 1) & 1])
+                           : nullptr;  // the arriving accumulator
+    const u64 hout = rg.hop0 + s;
+    bf16* dst = s < n - 1 ? reinterpret_cast<bf16*>(rg.right_slot[hout & 1]) : out;
+    bool waited = false;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
+      wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, it,
+                                            wait);
+      if (!waited) {  // only the epilogue needs the hop: wait after the first main loop
+        if (threadIdx.x == 128) {
+          if (s > 0) spin_geq(rg.my_landed, hout, rg.timeout_ns, local);
+          if (s < n - 1 && hout >= 2) spin_geq(rg.my_credit, hout - 1, rg.timeout_ns, local);
+        }
+        named_sync(BAR_CONSUMERS, 256);
+        waited = true;
+      }
+      // the contribution, stored in bf16; then the arriving partial added in fp32
+      epilogue(acc, buf, c, tt, w.m0 + c * 64, w.n0, M, N,
+               [&](int m) { return dst + (long long)m * N; },
+               [&](int m) { return in ? in + (long long)m * N : nullptr; });
+    }
+    // every block has written its tiles of the hop and read its tiles of the arriving one
+    named_sync(BAR_CONSUMERS, 256);
+    if (threadIdx.x == 128 && arrive_one(&rg.counters[2 * s], gridDim.x, local)) {
+      if (s < n - 1) release(rg.right_landed, hout + 1, local);
+      if (s > 0) release(rg.left_credit, hout, local);
+    }
+  }
+}
+
+// the encoded TMA maps of the receive slots, by address and shape: a slot's
+// address is fixed for the buffer's life, so each is encoded once
+static bool slot_map(CUtensorMap* m, const void* base, long long inner, long long outer) {
+  struct Entry {
+    const void* base;
+    long long inner, outer;
+    CUtensorMap map;
+  };
+  constexpr int CAP = 64;
+  static Entry cache[CAP];
+  static int used = 0, next = 0;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].base == base && cache[i].inner == inner && cache[i].outer == outer) {
+      *m = cache[i].map;
+      return true;
+    }
+  if (!wg::map2d(m, base, inner, outer, inner, BM)) return false;
+  Entry& e = cache[used < CAP ? used++ : next++ % CAP];
+  e.base = base;
+  e.inner = inner;
+  e.outer = outer;
+  e.map = *m;
+  return true;
+}
+
+// whether the ring's peers (the right neighbour's flags and slots, the left one's credit)
+// lie on this card, by the pointers' attributes, kept per address (asked once, so never
+// while a CUDA graph captures the launch)
+static bool peers_local(const Ring& r) {
+  struct Entry {
+    const void* right;
+    const void* left;
+    bool local;
+  };
+  constexpr int CAP = 64;
+  static Entry cache[CAP];
+  static int used = 0, next = 0;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].right == r.right_landed && cache[i].left == r.left_credit) return cache[i].local;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  bool local = true;
+  for (const void* p : {(const void*)r.right_landed, (const void*)r.left_credit}) {
+    cudaPointerAttributes a;
+    if (cudaPointerGetAttributes(&a, p) != cudaSuccess || a.device != dev) {
+      cudaGetLastError();
+      local = false;
+    }
+  }
+  Entry& e = cache[used < CAP ? used++ : next++ % CAP];
+  e.right = r.right_landed;
+  e.left = r.left_credit;
+  e.local = local;
+  return local;
+}
+
+static int launch_ag(const bf16* x, const bf16* w, bf16* out, const Ring& r, int b, int t, int h,
+                     int o, int blocks, cudaStream_t st) {
+  if (o % 8) return (int)cudaErrorInvalidValue;                  // 16-byte chunks of a row
+  const long long M = (long long)b * t;
+  CUtensorMap xm, s0, s1, wm;
+  if (!wg::map2d(&xm, x, h, M, h, BM) || !slot_map(&s0, r.my_slot[0], h, M) ||
+      !slot_map(&s1, r.my_slot[1], h, M) || !wg::map2d(&wm, w, o, h, o, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(ag_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  const int units = cdiv((int)M, BM) * cdiv(o, BN);
+  ag_wgmma<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(xm, s0, s1, wm, x, out, r, b, t, h, o,
+                                                           peers_local(r));
+  return (int)cudaGetLastError();
+}
+
+static int launch_rs(const bf16* x, const bf16* w, bf16* out, const Ring& r, int b, int t, int h,
+                     int o, int scatter_last, int blocks, cudaStream_t st) {
+  const int chunk = scatter_last ? o / r.n : t / r.n;
+  const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
+  if (!scatter_last && chunk % BM) return (int)cudaErrorInvalidValue;  // a box crosses a chunk
+  if (N % 8) return (int)cudaErrorInvalidValue;                  // 16-byte chunks of a row
+  CUtensorMap xm, wm;
+  if (!wg::map2d(&xm, x, h, (long long)b * t, h, BM) || !wg::map2d(&wm, w, o, h, o, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(rs_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  const int units = cdiv(M, BM) * cdiv(N, BN);
+  rs_wgmma<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(xm, wm, out, r, b, t, h, o,
+                                                           scatter_last, peers_local(r));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace ringtc
+
+namespace {
+
+// blocks of `kernel` that one SM holds at once
+template <typename K>
+int occupancy_of(K kernel, int threads, size_t smem, int* per_sm) {
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
+}
+
+// the block count of a tile-loop launch, or the error of a route that does not take the dtype
+int tile_route(int impl, int dtype) {
+  return impl == (dtype == DT_BF16 ? RING_WMMA : RING_SIMT) ? 0 : (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -694,12 +1155,21 @@ int hk_pingpong(void* my_flag, void* peer_flag, int rounds, int role, unsigned l
   return (int)cudaGetLastError();
 }
 
+// AG-matmul on the route `impl` (RING_*: wgmma for bf16 operands TMA can
+// address, the tile loop otherwise: wmma for bf16, simt for fp32).  `blocks`
+// caps the grid (0: one block an SM at most, the process ring; the loopback
+// ring passes its share of the card so that every rank's grid is resident).
 int hk_ring_ag_matmul(const void* x, const void* w, void* out, const unsigned long long* ring,
-                      int b, int t, int h, int o, int dtype, void* stream) {
+                      int b, int t, int h, int o, int dtype, int impl, int blocks, void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  const int g = grid_for(cdiv(b * t, TBM) * cdiv(o, TBN));
   cudaStream_t st = (cudaStream_t)stream;
+  if (impl == RING_WGMMA)
+    return dtype == DT_BF16 ? ringtc::launch_ag((const bf16*)x, (const bf16*)w, (bf16*)out, rg,
+                                                b, t, h, o, blocks, st)
+                            : (int)cudaErrorInvalidValue;
+  if (tile_route(impl, dtype)) return (int)cudaErrorInvalidValue;
+  const int g = grid_cap(cdiv(b * t, TBM) * cdiv(o, TBN), blocks);
   if (dtype == DT_BF16)
     ring_ag_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out, rg,
                                                b, t, h, o);
@@ -709,14 +1179,22 @@ int hk_ring_ag_matmul(const void* x, const void* w, void* out, const unsigned lo
   return (int)cudaGetLastError();
 }
 
+// matmul-RS on the route `impl`, as hk_ring_ag_matmul's; the wgmma route
+// over tokens takes chunks of whole 128-row boxes and even row lengths.
 int hk_ring_matmul_rs(const void* x, const void* w, void* out, const unsigned long long* ring,
-                      int b, int t, int h, int o, int scatter_last, int dtype, void* stream) {
+                      int b, int t, int h, int o, int scatter_last, int dtype, int impl,
+                      int blocks, void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (impl == RING_WGMMA)
+    return dtype == DT_BF16 ? ringtc::launch_rs((const bf16*)x, (const bf16*)w, (bf16*)out, rg,
+                                                b, t, h, o, scatter_last, blocks, st)
+                            : (int)cudaErrorInvalidValue;
+  if (tile_route(impl, dtype)) return (int)cudaErrorInvalidValue;
   const int chunk = scatter_last ? o / rg.n : t / rg.n;
   const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
-  const int g = grid_for(cdiv(M, TBM) * cdiv(N, TBN));
-  cudaStream_t st = (cudaStream_t)stream;
+  const int g = grid_cap(cdiv(M, TBM) * cdiv(N, TBN), blocks);
   if (dtype == DT_BF16)
     ring_rs_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out, rg,
                                                b, t, h, o, scatter_last);
@@ -728,10 +1206,10 @@ int hk_ring_matmul_rs(const void* x, const void* w, void* out, const unsigned lo
 
 int hk_ring_ag_matmul_contract(const void* x, const void* w, void* out, void* acc,
                                const unsigned long long* ring, int m, int hl, int o, int dtype,
-                               int out_dtype, void* stream) {
+                               int out_dtype, int blocks, void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  const int g = grid_for(cdiv(m, TBM) * cdiv(o, TBN));
+  const int g = grid_cap(cdiv(m, TBM) * cdiv(o, TBN), blocks);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DT_BF16 && out_dtype == DT_BF16)
     ring_contract_kernel<bf16, bf16><<<g, THREADS, 0, st>>>(
@@ -747,10 +1225,10 @@ int hk_ring_ag_matmul_contract(const void* x, const void* w, void* out, void* ac
 
 int hk_ring_ag_matmul_int8(const void* x, const void* pair, const void* w, void* out,
                            const unsigned long long* ring, int b, int t, int h, int o, int dtype,
-                           void* stream) {
+                           int blocks, void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  const int g = grid_for(cdiv(b * t, TBM) * cdiv(o, TBN));
+  const int g = grid_cap(cdiv(b * t, TBM) * cdiv(o, TBN), blocks);
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned char* p = (const unsigned char*)pair;
   if (dtype == DT_BF16)
@@ -762,15 +1240,16 @@ int hk_ring_ag_matmul_int8(const void* x, const void* pair, const void* w, void*
   return (int)cudaGetLastError();
 }
 
+// the grid barrier needs every block resident: `blocks` (or one an SM) keeps it so
 int hk_ring_matmul_rs_int8(const void* x, const void* w, void* out, void* work,
                            const unsigned long long* ring, int b, int t, int h, int o,
-                           int scatter_last, int split, int dtype, void* stream) {
+                           int scatter_last, int split, int dtype, int blocks, void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
   const int chunk = scatter_last ? o / rg.n : t / rg.n;
   const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
   if (split < 0 || split >= N) return (int)cudaErrorInvalidValue;
-  const int g = grid_for(cdiv(M, TBM) * cdiv(N, TBN));
+  const int g = grid_cap(cdiv(M, TBM) * cdiv(N, TBN), blocks);
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DT_BF16)
     ring_rs_int8_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out,
@@ -785,10 +1264,10 @@ int hk_ring_matmul_rs_int8(const void* x, const void* w, void* out, void* work,
 
 int hk_ring_ag_matmul_contract_int8(const void* x, const void* pair, const void* w, void* out,
                                     void* acc, const unsigned long long* ring, int m, int hl,
-                                    int o, int dtype, int out_dtype, void* stream) {
+                                    int o, int dtype, int out_dtype, int blocks, void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  const int g = grid_for(cdiv(m, TBM) * cdiv(o, TBN));
+  const int g = grid_cap(cdiv(m, TBM) * cdiv(o, TBN), blocks);
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned char* p = (const unsigned char*)pair;
   if (dtype == DT_BF16 && out_dtype == DT_BF16)
@@ -801,6 +1280,42 @@ int hk_ring_ag_matmul_contract_int8(const void* x, const void* pair, const void*
     ring_contract_int8_kernel<float, float><<<g, THREADS, 0, st>>>(
         (const float*)x, p, (const float*)w, (float*)out, (float*)acc, rg, m, hl, o);
   return (int)cudaGetLastError();
+}
+
+// Blocks of one ring kernel that an SM holds at once (*per_sm) and the SM count
+// (*sms), for the kernel a launch would take: kernel 0 AG-matmul, 1 matmul-RS,
+// 2 the contracted AG-matmul, 3-5 their int8 variants; dtype and out_dtype as the
+// launch's, impl the route (AG-matmul and matmul-RS; the others run the tile loop).
+int hk_ring_occupancy(int kernel, int dtype, int out_dtype, int impl, int* per_sm, int* sms) {
+  *sms = sm_count();
+  const bool bf = dtype == DT_BF16, obf = out_dtype == DT_BF16;
+  if (impl == RING_WGMMA && bf && (kernel == 0 || kernel == 1))
+    return kernel == 0 ? occupancy_of(ringtc::ag_wgmma, ringtc::THREADS, ringtc::SMEM, per_sm)
+                       : occupancy_of(ringtc::rs_wgmma, ringtc::THREADS, ringtc::SMEM, per_sm);
+  switch (kernel) {
+    case 0:
+      return bf ? occupancy_of(ring_ag_kernel<bf16>, THREADS, 0, per_sm)
+                : occupancy_of(ring_ag_kernel<float>, THREADS, 0, per_sm);
+    case 1:
+      return bf ? occupancy_of(ring_rs_kernel<bf16>, THREADS, 0, per_sm)
+                : occupancy_of(ring_rs_kernel<float>, THREADS, 0, per_sm);
+    case 2:
+      return bf ? (obf ? occupancy_of(ring_contract_kernel<bf16, bf16>, THREADS, 0, per_sm)
+                       : occupancy_of(ring_contract_kernel<bf16, float>, THREADS, 0, per_sm))
+                : occupancy_of(ring_contract_kernel<float, float>, THREADS, 0, per_sm);
+    case 3:
+      return bf ? occupancy_of(ring_ag_int8_kernel<bf16>, THREADS, 0, per_sm)
+                : occupancy_of(ring_ag_int8_kernel<float>, THREADS, 0, per_sm);
+    case 4:
+      return bf ? occupancy_of(ring_rs_int8_kernel<bf16>, THREADS, 0, per_sm)
+                : occupancy_of(ring_rs_int8_kernel<float>, THREADS, 0, per_sm);
+    case 5:
+      return bf ? (obf ? occupancy_of(ring_contract_int8_kernel<bf16, bf16>, THREADS, 0, per_sm)
+                       : occupancy_of(ring_contract_int8_kernel<bf16, float>, THREADS, 0, per_sm))
+                : occupancy_of(ring_contract_int8_kernel<float, float>, THREADS, 0, per_sm);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

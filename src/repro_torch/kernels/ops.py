@@ -52,14 +52,17 @@ LAUNCHES: Dict[str, int] = {"matmul": 0, "gated_matmul": 0, "flash_attention": 0
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and the attention, matmul and SSD wrappers' per-path
-    counts (``flash_attention.IMPL_LAUNCHES``, ``matmul.IMPL_LAUNCHES``,
-    ``ssd.IMPL_LAUNCHES``)."""
+    """Zero ``LAUNCHES`` and the attention, matmul, SSD and ring wrappers'
+    per-path counts (``flash_attention.IMPL_LAUNCHES``,
+    ``matmul.IMPL_LAUNCHES``, ``ssd.IMPL_LAUNCHES``,
+    ``ring_matmul.IMPL_LAUNCHES``)."""
+    from repro_torch.kernels import ring_matmul as _rm   # it imports this module
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     _fa.reset_impl_launches()
     _mm.reset_impl_launches()
     _ssd.reset_impl_launches()
+    _rm.reset_impl_launches()
 
 
 def _on_cpu(x: torch.Tensor) -> bool:

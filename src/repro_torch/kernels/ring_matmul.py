@@ -27,7 +27,15 @@ A tensor on the CUDA card launches the ring kernels of
 inside, through the symmetric buffers whose addresses ``comm.ring``
 hands each launch) and counts the launch in ``ops.LAUNCHES`` under its
 own key (``ag_matmul``, ``matmul_rs``, ``ag_matmul_contract`` and the
-int8 variants ``*_int8``); a tensor on the CPU, or ``plain=True``, takes
+int8 variants ``*_int8``).  AG-matmul and matmul-RS take one of three
+routes (``IMPLS``), which :func:`ring_impl` picks from the dtype, shapes
+and strides alone: ``wgmma`` (bf16 on the tensor cores, operands staged
+by TMA: wg::mm's main loop), ``wmma`` (the bf16 tile loop, for operands
+TMA cannot address) and ``simt`` (fp32); ``IMPL_LAUNCHES`` counts each
+route's launches.  Every launch takes a block cap (0: one block an SM
+at most, the process ring); ``kernels/ring_loopback.py`` runs all n
+ranks of a ring in one process on n streams with its own descriptors
+and counters.  A tensor on the CPU, or ``plain=True``, takes
 the plain versions of ``kernels/ref.py`` (bulk collectives and one fp32
 matmul; under int8 the shards quantized once, the RS as a ring that
 requantizes its accumulator at every hop).  All ops run inside a grid
@@ -37,12 +45,12 @@ world, on per-rank blocks, as the JAX ops run inside ``shard_map``.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import quant as Q
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, matmul, ops, ref
 from repro_torch.parallel import comm
 
 BLOCK_M, BLOCK_N, BLOCK_K = 128, 128, 512
@@ -140,30 +148,129 @@ def fused_ok_contract(x_shape, w_shape, n: int, itemsize: int = 4) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the CUDA launches: each takes the ring descriptor of ``comm.ring``
+# the routes of AG-matmul and matmul-RS, and the kernels' occupancy
+# ---------------------------------------------------------------------------
+
+# the routes of AG-matmul and matmul-RS (numbered as csrc/ring_matmul.cu's
+# RING_*): the tensor cores through TMA and wgmma, or the tile loop on WMMA
+# (bf16) or SIMT (fp32); the contracted ring and the int8 variants run the
+# tile loop only
+IMPLS = ("wgmma", "wmma", "simt")
+WG_BM = 128                        # rows of a wgmma tile (a TMA box of A)
+# the kernels a launch takes, numbered as hk_ring_occupancy's
+KERNEL_IDS = {"ag_matmul": 0, "matmul_rs": 1, "ag_matmul_contract": 2, "ag_matmul_int8": 3,
+              "matmul_rs_int8": 4, "ag_matmul_contract_int8": 5}
+
+# launches per route, counted where each wrapper launches its kernel
+IMPL_LAUNCHES: Dict[str, Dict[str, int]] = {"ag_matmul": {p: 0 for p in IMPLS},
+                                            "matmul_rs": {p: 0 for p in IMPLS}}
+
+
+def reset_impl_launches() -> None:
+    """Zero ``IMPL_LAUNCHES``."""
+    for counts in IMPL_LAUNCHES.values():
+        for route in counts:
+            counts[route] = 0
+
+
+def _dense(shape, strides) -> bool:
+    """Row-major with no gaps (dims of extent 1 may carry any stride)."""
+    want = 1
+    for size, st in zip(reversed(tuple(shape)), reversed(tuple(strides))):
+        if size > 1 and st != want:
+            return False
+        want *= size
+    return True
+
+
+def ring_impl(dtype: torch.dtype, shapes, strides, n: int,
+              scatter_dim: Optional[int] = None, ptr_align: int = 16) -> str:
+    """The route of one AG-matmul (``scatter_dim`` None) or matmul-RS launch
+    of x [b,t,h] @ w [h,o] on a ring of ``n``, from the dtype, ``shapes``
+    (x's, w's), ``strides`` (x's, w's, in elements) and ``ptr_align`` (the
+    byte alignment both addresses share) alone, as ``matmul.mm_impl``:
+
+    * ``"simt"`` for fp32;
+    * ``"wgmma"`` for bf16 that TMA can address: both operands dense, their
+      rows (h, o) and addresses on 16 bytes; for matmul-RS over tokens the
+      chunk t / n whole 128-row boxes (a box of A must not cross into the
+      next destination's rows), over columns a chunk o / n on 16 bytes (the
+      hop's rows, stored a 16-byte chunk at a time);
+    * ``"wmma"`` for every other bf16 launch (the backward's ragged and
+      off-8 extents)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    (xs, ws), (xst, wst) = shapes, strides
+    b, t, h = xs
+    o = ws[-1]
+    ok = (min(b, t, h, o) >= 1 and _dense(xs, xst) and _dense(ws, wst) and h % 8 == 0
+          and o % 8 == 0 and ptr_align % 16 == 0)
+    if scatter_dim is not None:
+        if scatter_dim % len(xs) == len(xs) - 1:
+            ok = ok and o % n == 0 and (o // n) % 8 == 0
+        else:
+            ok = ok and t % n == 0 and (t // n) % WG_BM == 0
+    return "wgmma" if ok else "wmma"
+
+
+def _choose(impl: Optional[str], chosen: str, dtype: torch.dtype) -> str:
+    """``impl`` (or the chosen route) after checking that it takes these
+    operands."""
+    impl = impl or chosen
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if (impl == "simt") != (dtype == torch.float32):
+        raise TypeError(f"the {impl} route does not take {dtype}")
+    if impl == "wgmma" and chosen != "wgmma":
+        raise ValueError("TMA cannot address these operands: the wgmma route does not take them")
+    return impl
+
+
+def occupancy(kernel: str, dtype: torch.dtype, impl: Optional[str] = None,
+              out_dtype: Optional[torch.dtype] = None) -> Tuple[int, int]:
+    """(blocks an SM holds at once, SMs) of the kernel that a launch of
+    ``kernel`` (a key of ``KERNEL_IDS``) on ``impl`` takes."""
+    lib = build.library("ring_matmul")
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    route = IMPLS.index(impl) if impl else IMPLS.index("simt" if dtype == torch.float32
+                                                       else "wmma")
+    build.check(lib, lib.hk_ring_occupancy(KERNEL_IDS[kernel], DTYPES[dtype],
+                                           DTYPES[out_dtype or dtype], route,
+                                           ctypes.byref(per_sm), ctypes.byref(sms)),
+                "hk_ring_occupancy")
+    return per_sm.value, sms.value
+
+
+# ---------------------------------------------------------------------------
+# the CUDA launches: each takes its ring descriptor from ``ring_of(nbytes)``
+# (``comm.ring`` for the process ring), the block counters and a block cap
 # ---------------------------------------------------------------------------
 
 _COUNTERS = {}
 
 
+def new_counters(device) -> torch.Tensor:
+    """One launch's counters of the kernel's blocks (2 arrival counts per
+    ring step, then one grid-barrier count per step)."""
+    return torch.zeros(3 * MAX_STEPS, dtype=torch.int32, device=device)
+
+
 def _counters(device) -> torch.Tensor:
-    """Per-call counters of the kernel's blocks (2 arrival counts per ring
-    step, then one grid-barrier count per step), zeroed on the stream
-    before each launch."""
+    """The process ring's counters, zeroed on the stream before each launch."""
     if device not in _COUNTERS:
-        _COUNTERS[device] = torch.zeros(3 * MAX_STEPS, dtype=torch.int32, device=device)
-    c = _COUNTERS[device]
-    c.zero_()
-    return c
+        _COUNTERS[device] = new_counters(device)
+    return _COUNTERS[device]
 
 
-def _ring_args(ring: Tuple[int, ...], device):
+def _ring_args(ring: Tuple[int, ...], counters: torch.Tensor):
     """The kernel's argument array: the descriptor's eight addresses, the
-    block counters, then hop0, n, me and the spin timeout."""
+    block counters (zeroed here, on the launch's stream), then hop0, n, me
+    and the spin timeout."""
     n = ring[9]
     if not 2 <= n <= MAX_STEPS:
         raise ValueError(f"the ring kernels take rings of 2..{MAX_STEPS}, got {n}")
-    vals = list(ring[:8]) + [_counters(device).data_ptr()] + list(ring[8:]) + [
+    counters.zero_()
+    vals = list(ring[:8]) + [counters.data_ptr()] + list(ring[8:]) + [
         int(SPIN_TIMEOUT_S * 1e9)]
     return (ctypes.c_ulonglong * len(vals))(*vals)
 
@@ -202,31 +309,44 @@ def _quant_pair(x2: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def _launch_ag(x, w, ax: str, n: int, int8: bool = False) -> torch.Tensor:
+def _route(x, w, n: int, scatter_dim: Optional[int], impl: Optional[str]) -> str:
+    chosen = ring_impl(x.dtype, (tuple(x.shape), tuple(w.shape)), (x.stride(), w.stride()), n,
+                       scatter_dim, matmul.shared_align(x, w))
+    return _choose(impl, chosen, x.dtype)
+
+
+def _launch_ag(x, w, ring_of: Callable, n: int, int8: bool = False, *,
+               counters: Optional[torch.Tensor] = None, blocks: int = 0,
+               impl: Optional[str] = None) -> torch.Tensor:
     x, w = x.contiguous(), w.contiguous()
     _check(x, w)
     b, t, h = x.shape
     o = w.shape[1]
+    counters = _counters(x.device) if counters is None else counters
     out = torch.empty((b, n * t, o), dtype=x.dtype, device=x.device)
     lib = build.library("ring_matmul")
     if int8:
         pair = _quant_pair(x.view(b * t, h))
-        ring = _ring_args(comm.ring(ax, n, pair.numel()), x.device)
+        ring = _ring_args(ring_of(pair.numel()), counters)
         build.check(lib, lib.hk_ring_ag_matmul_int8(
             x.data_ptr(), pair.data_ptr(), w.data_ptr(), out.data_ptr(), ring, b, t, h, o,
-            DTYPES[x.dtype], _stream(x)), "hk_ring_ag_matmul_int8")
+            DTYPES[x.dtype], blocks, _stream(x)), "hk_ring_ag_matmul_int8")
         ops.LAUNCHES["ag_matmul_int8"] += 1
         return out
-    ring = _ring_args(comm.ring(ax, n, x.numel() * x.element_size()), x.device)
+    impl = _route(x, w, n, None, impl)
+    ring = _ring_args(ring_of(x.numel() * x.element_size()), counters)
     build.check(lib, lib.hk_ring_ag_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(), ring,
-                                           b, t, h, o, DTYPES[x.dtype], _stream(x)),
+                                           b, t, h, o, DTYPES[x.dtype], IMPLS.index(impl),
+                                           blocks, _stream(x)),
                 "hk_ring_ag_matmul")
     ops.LAUNCHES["ag_matmul"] += 1
+    IMPL_LAUNCHES["ag_matmul"][impl] += 1
     return out
 
 
-def _launch_rs(x, w, ax: str, scatter_dim: int, n: int, int8: bool = False,
-               split: int = 0) -> torch.Tensor:
+def _launch_rs(x, w, ring_of: Callable, scatter_dim: int, n: int, int8: bool = False,
+               split: int = 0, *, counters: Optional[torch.Tensor] = None, blocks: int = 0,
+               impl: Optional[str] = None) -> torch.Tensor:
     """``split`` (int8, the gated pair): the column where the second half of
     each accumulator row starts; each half crosses with its own scale."""
     x, w = x.contiguous(), w.contiguous()
@@ -237,27 +357,31 @@ def _launch_rs(x, w, ax: str, scatter_dim: int, n: int, int8: bool = False,
     if (o if last else t) % n:
         raise ValueError(f"matmul-RS: extent {o if last else t} does not chunk by ring {n}")
     shape = (b, t, o // n) if last else (b, t // n, o)
+    counters = _counters(x.device) if counters is None else counters
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     lib = build.library("ring_matmul")
     if int8:
         rows, cols = out.numel() // shape[-1], shape[-1]
         work = torch.empty_like(out)
-        ring = _ring_args(comm.ring(ax, n, _qpair_bytes(rows, cols, 2 if split else 1)),
-                          x.device)
+        ring = _ring_args(ring_of(_qpair_bytes(rows, cols, 2 if split else 1)), counters)
         build.check(lib, lib.hk_ring_matmul_rs_int8(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(), ring, b, t, h, o,
-            int(last), split, DTYPES[x.dtype], _stream(x)), "hk_ring_matmul_rs_int8")
+            int(last), split, DTYPES[x.dtype], blocks, _stream(x)), "hk_ring_matmul_rs_int8")
         ops.LAUNCHES["matmul_rs_int8"] += 1
         return out
-    ring = _ring_args(comm.ring(ax, n, out.numel() * out.element_size()), x.device)
+    impl = _route(x, w, n, scatter_dim, impl)
+    ring = _ring_args(ring_of(out.numel() * out.element_size()), counters)
     build.check(lib, lib.hk_ring_matmul_rs(x.data_ptr(), w.data_ptr(), out.data_ptr(), ring,
-                                           b, t, h, o, int(last), DTYPES[x.dtype], _stream(x)),
+                                           b, t, h, o, int(last), DTYPES[x.dtype],
+                                           IMPLS.index(impl), blocks, _stream(x)),
                 "hk_ring_matmul_rs")
     ops.LAUNCHES["matmul_rs"] += 1
+    IMPL_LAUNCHES["matmul_rs"][impl] += 1
     return out
 
 
-def _launch_contract(x, w, ax: str, n: int, out_dtype, int8: bool = False) -> torch.Tensor:
+def _launch_contract(x, w, ring_of: Callable, n: int, out_dtype, int8: bool = False, *,
+                     counters: Optional[torch.Tensor] = None, blocks: int = 0) -> torch.Tensor:
     x, w = x.contiguous(), w.contiguous()
     _check(x, w)
     b, t, hl = x.shape
@@ -266,24 +390,30 @@ def _launch_contract(x, w, ax: str, n: int, out_dtype, int8: bool = False) -> to
         raise ValueError(f"contracted ring: w rows {w.shape[0]} != {n} x {hl}")
     if out_dtype not in (x.dtype, torch.float32):
         raise TypeError(f"out_dtype must be {x.dtype} or float32")
+    counters = _counters(x.device) if counters is None else counters
     out = torch.empty((b, t, o), dtype=out_dtype, device=x.device)
     acc = torch.empty((b * t, o), dtype=torch.float32, device=x.device)
     lib = build.library("ring_matmul")
     if int8:
         pair = _quant_pair(x.view(b * t, hl))
-        ring = _ring_args(comm.ring(ax, n, pair.numel()), x.device)
+        ring = _ring_args(ring_of(pair.numel()), counters)
         build.check(lib, lib.hk_ring_ag_matmul_contract_int8(
             x.data_ptr(), pair.data_ptr(), w.data_ptr(), out.data_ptr(), acc.data_ptr(), ring,
-            b * t, hl, o, DTYPES[x.dtype], DTYPES[out_dtype], _stream(x)),
+            b * t, hl, o, DTYPES[x.dtype], DTYPES[out_dtype], blocks, _stream(x)),
             "hk_ring_ag_matmul_contract_int8")
         ops.LAUNCHES["ag_matmul_contract_int8"] += 1
         return out
-    ring = _ring_args(comm.ring(ax, n, x.numel() * x.element_size()), x.device)
+    ring = _ring_args(ring_of(x.numel() * x.element_size()), counters)
     build.check(lib, lib.hk_ring_ag_matmul_contract(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), acc.data_ptr(), ring, b * t, hl, o,
-        DTYPES[x.dtype], DTYPES[out_dtype], _stream(x)), "hk_ring_ag_matmul_contract")
+        DTYPES[x.dtype], DTYPES[out_dtype], blocks, _stream(x)), "hk_ring_ag_matmul_contract")
     ops.LAUNCHES["ag_matmul_contract"] += 1
     return out
+
+
+def _process_ring(ax: str, n: int) -> Callable:
+    """The process ring's descriptor of axis ``ax`` (``comm.ring``)."""
+    return lambda nbytes: comm.ring(ax, n, nbytes)
 
 
 def pingpong(ax: str, rounds: int = 200) -> float:
@@ -308,7 +438,7 @@ def ag_fwd(x, w, ax: str, dim: int, n: int, comm_dtype: str = "bf16", plain: boo
     int8 = Q.hop_int8(comm_dtype, x.shape, x.dtype)
     if _plain_route(x, plain):
         return (ref.ag_matmul_int8_plain if int8 else ref.ag_matmul_plain)(x, w, ax, dim=dim)
-    return _launch_ag(x, w, ax, n, int8)
+    return _launch_ag(x, w, _process_ring(ax, n), n, int8)
 
 
 def _rs_out_shape(x, o: int, scatter_dim: int, n: int):
@@ -326,7 +456,7 @@ def rs_fwd(x, w, ax: str, scatter_dim: int, n: int, comm_dtype: str = "bf16",
     if _plain_route(x, plain):
         return (ref.matmul_rs_int8_plain if int8 else ref.matmul_rs_plain)(
             x, w, ax, scatter_dim=scatter_dim)
-    return _launch_rs(x, w, ax, scatter_dim, n, int8)
+    return _launch_rs(x, w, _process_ring(ax, n), scatter_dim, n, int8)
 
 
 def contract_fwd(x, w, ax: str, n: int, out_dtype=None, comm_dtype: str = "bf16",
@@ -338,7 +468,7 @@ def contract_fwd(x, w, ax: str, n: int, out_dtype=None, comm_dtype: str = "bf16"
     if _plain_route(x, plain):
         return (ref.ag_matmul_contract_int8_plain if int8 else ref.ag_matmul_contract_plain)(
             x, w, ax, out_dtype=dt)
-    return _launch_contract(x, w, ax, n, dt, int8)
+    return _launch_contract(x, w, _process_ring(ax, n), n, dt, int8)
 
 
 def pair_fwd(x, w1, w1b, ax: str, scatter_dim: int, n: int, comm_dtype: str = "bf16",
@@ -358,7 +488,7 @@ def pair_fwd(x, w1, w1b, ax: str, scatter_dim: int, n: int, comm_dtype: str = "b
     # one kernel over the column-concatenated weights: each x tile is read
     # once for both products (the shared-x-tile trick), halves split after;
     # on the int8 wire each half of a row crosses with its own scale
-    y = _launch_rs(x, torch.cat([w1, w1b], dim=1), ax, scatter_dim, n, int8,
+    y = _launch_rs(x, torch.cat([w1, w1b], dim=1), _process_ring(ax, n), scatter_dim, n, int8,
                    split=o1 if int8 else 0)
     return y[..., :o1].contiguous(), y[..., o1:].contiguous()
 

@@ -154,8 +154,9 @@ def run_grid(args, teacher=None, keep_logits: bool = False) -> dict:
     instead of the greedy one, so every tick's logits can be held against
     another path's; ``keep_logits`` returns each rank's logits of the
     prefill and of every tick.  Returns the tokens of every row, the
-    prefill's and the ticks' seconds, and each rank's kernel launches in
-    prefill and in decode."""
+    prefill's and the ticks' seconds, each rank's kernel launches in
+    prefill and in decode, and its prefill's ring launches by route
+    (``ring_paths``)."""
     import numpy as np
     from repro_torch import resolve_device
     from repro_torch.config import get_config, get_smoke_config
@@ -179,6 +180,7 @@ def run_grid(args, teacher=None, keep_logits: bool = False) -> dict:
             "decode_tok_s": args.slots * (args.gen - 1) / max(r0["decode_s"], 1e-9),
             "launches": {r: {"prefill": res[r]["prefill_launches"],
                              "decode": res[r]["decode_launches"]} for r in sorted(res)},
+            "ring_paths": {r: res[r]["prefill_ring_paths"] for r in sorted(res)},
             "logits": {r: res[r]["logits"] for r in sorted(res)} if keep_logits else None,
             "rows": {r: res[r]["rows"] for r in sorted(res)},
             "world": world, "wall_s": time.perf_counter() - t0}
@@ -190,6 +192,7 @@ def _grid_rank(rank: int, opts: dict, teacher, keep_logits: bool, init_file: str
     from repro_torch import resolve_device
     from repro_torch.config import ParallelConfig, RunConfig, get_config, get_smoke_config
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_matmul as RM
     from repro_torch.launch.mesh import MODEL, Grid
     from repro_torch.models import lm
     from repro_torch.parallel import comm, specs
@@ -228,6 +231,7 @@ def _grid_rank(rank: int, opts: dict, teacher, keep_logits: bool, init_file: str
             sync()
             prefill_s = time.perf_counter() - t0
             prefill_launches = dict(ops.LAUNCHES)
+            prefill_ring_paths = {k: dict(v) for k, v in RM.IMPL_LAUNCHES.items()}
             ops.reset_launches()
             toks = [SRV.greedy_sample(logits)[:, 0].cpu()]
             if keep_logits:
@@ -247,6 +251,7 @@ def _grid_rank(rank: int, opts: dict, teacher, keep_logits: bool, init_file: str
         return {"tokens": torch.stack(toks, dim=1).numpy(), "prefill_s": prefill_s,
                 "decode_s": decode_s, "prefill_launches": prefill_launches,
                 "decode_launches": dict(ops.LAUNCHES), "logits": kept,
+                "prefill_ring_paths": prefill_ring_paths,
                 "rows": (rows.start, rows.stop), "model_index": grid.axis_index(MODEL)}
     finally:
         comm.shutdown()

@@ -424,6 +424,7 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import matmul as MM
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_matmul as RM
     from repro_torch.launch.mesh import Grid
     from repro_torch.models import lm
     from repro_torch.parallel import comm, specs
@@ -559,7 +560,8 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
                 for (path, k), (_, q), t0 in zip(lm.flatten(state["params"]),
                                                  lm.flatten(plain_params), init)}
         paths = {"attention": {k: dict(v) for k, v in FA.IMPL_LAUNCHES.items()},
-                 "matmul": {k: dict(v) for k, v in MM.IMPL_LAUNCHES.items()}}
+                 "matmul": {k: dict(v) for k, v in MM.IMPL_LAUNCHES.items()},
+                 "ring": {k: dict(v) for k, v in RM.IMPL_LAUNCHES.items()}}
         comm.barrier()
         return {"history": state["history"], "grad_norms": grad_norms, "lrs": lrs,
                 "stage": grid.axis_index("pod"), "paths": paths,

@@ -293,13 +293,20 @@ def ring(ax: str, n: int, nbytes: int) -> Tuple[int, ...]:
     if nbytes > SLOT_BYTES:
         raise ValueError(f"a {nbytes}-byte shard exceeds the {SLOT_BYTES}-byte slot "
                          "(comm.SLOT_BYTES)")
-    me = w.grid.axis_index(ax)
-    c = RING_AXES.index(ax)
-    base, right = w.bases[w.grid.rank], w.bases[ranks[(me + 1) % n]]
-    left = w.bases[ranks[(me - 1) % n]]
-    f, sl = 64 * c, _slots_offset(c)
     hop0 = w.hops[ax]
     w.hops[ax] = hop0 + n - 1
+    return ring_desc([w.bases[r] for r in ranks], w.grid.axis_index(ax), n,
+                     RING_AXES.index(ax), hop0)
+
+
+def ring_desc(bases: Sequence[int], me: int, n: int, c: int, hop0: int) -> Tuple[int, ...]:
+    """The ring descriptor of :func:`ring` from addresses alone: ``bases``
+    holds the ``n`` ranks' symmetric-buffer addresses in ring order, ``me``
+    this rank's place in it, ``c`` the axis's index in ``RING_AXES`` (its
+    counters at ``64 c``, its slots at ``_slots_offset(c)``) and ``hop0``
+    the launch's first hop."""
+    base, right, left = bases[me], bases[(me + 1) % n], bases[(me - 1) % n]
+    f, sl = 64 * c, _slots_offset(c)
     return (base + f, right + f, base + f + 8, left + f + 8, base + sl, base + sl + SLOT_BYTES,
             right + sl, right + sl + SLOT_BYTES, hop0, n, me)
 

@@ -242,11 +242,25 @@ CUDA_RING_CASES = (
 )
 
 
+def run_fwd(kernel, x, w, w1b, ax, n, sd):
+    """The forward kernel of one CUDA_RING_CASES case on the bf16 wire."""
+    from repro_torch.kernels import ring_matmul as RM
+    if kernel == "ag_matmul":
+        return RM.ag_fwd(x, w, ax, 1, n)
+    if kernel == "matmul_rs":
+        return RM.rs_fwd(x, w, ax, sd, n)
+    if kernel == "matmul_rs_pair":
+        return RM.pair_fwd(x, w, w1b, ax, sd, n)
+    return RM.contract_fwd(x, w, ax, n)
+
+
 def cuda_ring_job(grid, ax="my"):
     """Each ring kernel over the ``ax`` ring (forward, and its backward
     through the transposed rings) against the plain route on the same
     inputs, on the bf16 wire (keyed by the case and dtype) and on the int8
-    wire (the key and "int8"); on a ring of two, also the probe's time."""
+    wire (the key and "int8"); on the bf16 wire also the forward's launches
+    by route (``ring_matmul.IMPL_LAUNCHES``, keyed "routes" + the key); on a
+    ring of two, also the probe's time."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ring_matmul as RM
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -285,6 +299,12 @@ def cuda_ring_job(grid, ax="my"):
             launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
             key = (kernel, xs, o, sd, str(dtype)) + (("int8",) if wire == "int8" else ())
             res[key] = (kern, run(True), launched)
+            if wire == "bf16":            # the forward alone, by route
+                was = {k: dict(v) for k, v in RM.IMPL_LAUNCHES.items()}
+                with torch.no_grad():
+                    run_fwd(kernel, x, w, w1b, ax, n, sd)
+                res[("routes",) + key] = {k: {p: RM.IMPL_LAUNCHES[k][p] - was[k][p] for p in v}
+                                          for k, v in was.items()}
     torch.cuda.synchronize()
     return dict(probe_s=secs, cases=res)
 
@@ -332,6 +352,63 @@ def cuda_grid_job(grid):
 # ---------------------------------------------------------------------------
 
 QHOP_CASES = (("f32", torch.float32), ("bf16", torch.bfloat16), ("narrow", torch.float32))
+
+
+# the loopback ring's reference against the plain rings: (kernel, x, o,
+# scatter_dim, gated pair), every hopped shard 16 wide or more (quant_ok);
+# the contracted ring's w has n x h rows
+LOOPBACK_REF_CASES = (
+    ("ag_matmul", (2, 8, 32), 24, None, False),
+    ("matmul_rs", (2, 8, 32), 24, 1, False),
+    ("matmul_rs", (2, 8, 32), 64, 2, False),
+    ("matmul_rs", (2, 8, 32), 24, 1, True),
+    ("ag_matmul_contract", (2, 8, 32), 24, None, False),
+)
+
+
+def loopback_ref_job(grid, axes=("my", "model")):
+    """On each ring of ``axes``: every rank makes all n ranks' inputs from
+    one seed, computes ``ring_loopback.reference`` for the whole ring, and
+    returns its own rank's part beside the plain ring's (``kernels/ref.py``
+    over this world) on the same inputs, both wires, fp32 and bf16."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ring_loopback as LB
+    out = {}
+    for ax in axes:
+        n, me = grid.size(ax), grid.axis_index(ax)
+        for i, (kernel, xs, o, sd, pair) in enumerate(LOOPBACK_REF_CASES):
+            rows = n * xs[2] if kernel == "ag_matmul_contract" else xs[2]
+            g = torch.Generator().manual_seed(10 * i + n)
+            for dtype in (torch.float32, torch.bfloat16):
+                xl = [torch.randn(xs, generator=g).to(dtype) for _ in range(n)]
+                wl = [(torch.randn(rows, o, generator=g) / rows ** 0.5).to(dtype)
+                      for _ in range(n)]
+                w1b = [(torch.randn(rows, o, generator=g) / rows ** 0.5).to(dtype)
+                       for _ in range(n)]
+                for int8 in (False, True):
+                    x, w = xl[me], wl[me]
+                    if kernel == "ag_matmul":
+                        plain = (ref.ag_matmul_int8_plain if int8 else ref.ag_matmul_plain)(
+                            x, w, ax, dim=1)
+                        want = LB.reference(kernel, xl, wl, int8=int8)[me]
+                    elif kernel == "ag_matmul_contract":
+                        plain = (ref.ag_matmul_contract_int8_plain if int8
+                                 else ref.ag_matmul_contract_plain)(x, w, ax)
+                        want = LB.reference(kernel, xl, wl, int8=int8)[me]
+                    elif pair:
+                        plain = torch.cat((ref.matmul_rs_pair_int8_plain if int8
+                                           else ref.matmul_rs_pair_plain)(
+                            x, w, w1b[me], ax, scatter_dim=sd), dim=-1)
+                        wc = [torch.cat([a, b], dim=1) for a, b in zip(wl, w1b)]
+                        want = LB.reference(kernel, xl, wc, sd, int8=int8,
+                                            split=o if int8 else 0)[me]
+                    else:
+                        plain = (ref.matmul_rs_int8_plain if int8 else ref.matmul_rs_plain)(
+                            x, w, ax, scatter_dim=sd)
+                        want = LB.reference(kernel, xl, wl, sd, int8=int8)[me]
+                    out[(ax, i, str(dtype), int8)] = (want.float().numpy(),
+                                                      plain.float().numpy())
+    return out
 
 
 def qhop_job(grid, ref_path):
