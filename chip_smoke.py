@@ -12,8 +12,11 @@ Phases, each fatal on failure:
    flash-attention, matmul, ssd and ring libraries holds (``cuobjdump
    -sass``), and fail unless each tensor-core attention kernel, the wgmma
    matmul (``wg::mm`` and its gated form ``wg::mm_gated``), the
-   tensor-core scan (``tc::ssd``) and the tensor-core AG-matmul and
-   matmul-RS (``ringtc::ag_wgmma``, ``ringtc::rs_wgmma``) hold HGMMA;
+   tensor-core scan (``tc::ssd``) and the tensor-core ring kernels (the
+   AG-matmul and matmul-RS, ``ringtc::ag_wgmma<false>``,
+   ``ringtc::rs_wgmma``; the int8 wire's AG-matmul and contracted
+   AG-matmul, ``ringtc::ag_wgmma<true>``, ``ringtc::contract_int8_wgmma``)
+   hold HGMMA;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (qwen3-0.6b at full
    width), in fp32 and bf16, with the tolerance and its reason; time the
@@ -68,8 +71,10 @@ Phases, each fatal on failure:
    case timed by CUDA-graph replays of one call (n streams forked from
    one and joined to it) beside one batched ``torch.matmul`` of the n
    ranks' products and n x a rank's bound; a bf16 AG-matmul or matmul-RS
-   on the wgmma route is held and timed on the wmma route too, in turns
-   (``case`` lines with ``"loopback": true`` and ``"route"``).  These are
+   on the wgmma route, on either wire for the AG-matmul and on the int8
+   wire for the contracted AG-matmul, is held and timed on the wmma route
+   too, in turns (``case`` lines with ``"loopback": true`` and
+   ``"route"``).  These are
    the ring kernels' own times, and the main rows of the kernels line;
 8. ``ring_kernels``: two rank processes on the card, one ring of n = 2
    through the symmetric buffers: a ping-pong probe of the cross-process
@@ -106,7 +111,9 @@ Phases, each fatal on failure:
    time-sliced ranks on one card make no grid speed;
 10. ``grid_train_int8``: the same grid step on the int8 wire
    (``--comm-dtype int8``, 2 steps, full width, 2 layers): every rank
-   launches each of the three int8 ring-kernel variants, every step's
+   launches each of the three int8 ring-kernel variants, every int8
+   AG-matmul and contracted AG-matmul on the wgmma route
+   (``grid_train_int8_ring_paths``), every step's
    loss and grad norm within 1e-3 and 1e-2 of the plain int8 grid, the
    first loss within 5e-2 of the bf16 wire's (JAX's QUANT_RTOL); the
    ``ring_kernels`` phase also holds the int8 variants against their
@@ -115,7 +122,9 @@ Phases, each fatal on failure:
    wire's kernel fails the same check, which it prints;
 11. ``grid_bidir``: ``--overlap bidir --comm-dtype int8`` at 2 layers for
    one step (the -1 hops through the symmetric buffers; no kernel of its
-   own), against the plain grid;
+   own), against the plain grid; its ``grid_bidir_ring_paths`` line must
+   show no int8 AG-matmul or contracted AG-matmul launch at all, since the
+   two-way rings fuse no ring kernel;
 11b. ``grid_megatron``: the paper's baseline, ``--strategy megatron`` on
    the same four ranks (one ``model`` ring of four, the seq residual,
    ``overlap="fused"``), full width at 2 layers, bf16, batch 8 x 512, 2
@@ -441,12 +450,16 @@ TC_FUNCTIONS = ("_ZN2tc3fwd", "_ZN2tc6bwd_dq", "_ZN2tc8bwd_dkdv")
 WG_FUNCTIONS = ("_ZN2wg2mm", "_ZN2wg8mm_gated")
 # the tensor-core SSD scan tc::ssd, likewise in the ssd library's SASS
 SSD_TC_FUNCTIONS = ("_ZN2tc3ssd",)
-# the tensor-core ring kernels ringtc::ag_wgmma and ringtc::rs_wgmma (rows 5 and 6 on
-# wgmma), likewise in the ring library's SASS
-RING_TC_FUNCTIONS = ("_ZN6ringtc8ag_wgmma", "_ZN6ringtc8rs_wgmma")
+# the tensor-core ring kernels ringtc::ag_wgmma<false> and ringtc::rs_wgmma (rows 5 and
+# 6 on wgmma), ringtc::ag_wgmma<true> and ringtc::contract_int8_wgmma (rows 5i and 7i),
+# likewise in the ring library's SASS
+RING_TC_FUNCTIONS = ("_ZN6ringtc8ag_wgmmaILb0E", "_ZN6ringtc8rs_wgmma", "_ZN6ringtc8ag_wgmmaILb1E",
+                     "_ZN6ringtc19contract_int8_wgmma")
 # the ring kernels that take a route (ring_matmul.ring_impl): every bf16 launch
-# of these at the grid phases' full-width blocks must be on wgmma
+# of these at the grid phases' full-width blocks must be on wgmma, on the bf16
+# wire and on the int8 wire
 ROUTED_RING = ("ag_matmul", "matmul_rs")
+ROUTED_INT8 = ("ag_matmul_int8", "ag_matmul_contract_int8")
 # the loopback ring (kernels/ring_loopback.py): all n ranks of one ring in this
 # process, on n streams: (n, the axis whose buffer layout it takes, the cases)
 LOOPBACK_RINGS = ((2, "my", RING_CASES), (4, "model", MEG_RING_CASES))
@@ -1844,9 +1857,14 @@ def _loopback_case(lb, idx, kernel, label, xs, ws, sd, main, dtype, wire):
     result in fp32 (``ring_loopback.reference``), after one call from hop 0
     and two more that carry the hops on (the credit protocol across calls);
     timed by CUDA-graph replays beside one batched ``torch.matmul`` of all
-    n ranks' products and n x a rank's bound.  A bf16 AG-matmul or
-    matmul-RS on the wgmma route is held and timed on the wmma route too,
-    the two in turns.  Returns the case rows (the chosen route's first)."""
+    n ranks' products and n x a rank's bound.  A bf16 case on the wgmma
+    route (the AG-matmul and matmul-RS on the bf16 wire, the AG-matmul and
+    contracted AG-matmul on the int8 wire) is held and timed on the wmma
+    route too, the two in turns.  An int8 AG-matmul or contracted AG-matmul
+    must also have hopped ``quant_int8``'s pair bit for bit, on every route
+    (``ringtc::quant_pair`` quantizes the shard in a launch of its own
+    before the ring kernel).  Returns the case rows (the chosen route's
+    first)."""
     n = lb.n
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7000 + 100 * n + idx)
     int8 = wire == "int8"
@@ -1863,7 +1881,7 @@ def _loopback_case(lb, idx, kernel, label, xs, ws, sd, main, dtype, wire):
         want_fn = lambda: LB.reference(kernel, xl, wl, int8=int8)
         lib_a, lib_b = torch.cat(xl, dim=1).reshape(-1, h), torch.cat(wl, dim=1)
     elif kernel == "ag_matmul_contract":
-        run = lambda p=None, reset=False: LB.ag_matmul_contract(lb, xl, wl, int8=int8,
+        run = lambda p=None, reset=False: LB.ag_matmul_contract(lb, xl, wl, int8=int8, impl=p,
                                                                 reset=reset)
         want_fn = lambda: LB.reference(kernel, xl, wl, int8=int8)
         lib_a, lib_b = torch.cat(xl, dim=2).reshape(-1, n * h), torch.cat(wl, dim=1)
@@ -1876,11 +1894,14 @@ def _loopback_case(lb, idx, kernel, label, xs, ws, sd, main, dtype, wire):
     b_ms, b_by = bound(n * nbytes, n * nops, dtype)
     want = want_fn()
     mags = LB.partial_magnitudes(xl, wl, sd) if kernel == "matmul_rs" else None
+    name = kernel + ("_int8" if int8 else "")
+    routed = name in (ROUTED_INT8 if int8 else ROUTED_RING)
     routes = [None]
-    if kernel in ROUTED_RING and not int8:
+    if routed:
         chosen = krm.ring_impl(dtype, (xs, tuple(wl[0].shape)),
                                (xl[0].stride(), wl[0].stride()), n,
-                               sd if kernel == "matmul_rs" else None)
+                               sd if kernel == "matmul_rs" else None, int8=int8,
+                               contract=kernel == "ag_matmul_contract")
         routes = [chosen] + (["wmma"] if chosen == "wgmma" else [])
     checks = {}
     for p in routes:                            # held first, then timed
@@ -1888,13 +1909,18 @@ def _loopback_case(lb, idx, kernel, label, xs, ws, sd, main, dtype, wire):
         for reset in (True, False, False):
             ok_c, err_c, fields = _ring_errs(kernel, run(p, reset), want, dtype, n, int8, mags)
             ok, err = ok and ok_c, max(err, err_c)
+        if int8 and kernel != "matmul_rs":
+            # the pair that crossed the last hop, bit for bit quant_int8's
+            run(p, True)
+            torch.cuda.synchronize()
+            fields = dict(fields, pair_exact=all(torch.equal(a, b)
+                                                 for a, b in LB.hopped_pairs(lb, xl)))
+            ok &= fields["pair_exact"]
         checks[p] = ok, err, fields
     calls = {p: [lambda p=p: run(p, True)] for p in routes}
     times = paired_ms(bench_ms, calls) if len(routes) > 1 else \
         {routes[0]: bench_ms(calls[routes[0]])}
     lib_ms, plain_ms = bench_ms([lambda: torch.matmul(lib_a, lib_b)]), bench_ms([want_fn])
-    name = kernel + ("_int8" if int8 else "")
-    routed = kernel in ROUTED_RING and not int8
     rows = []
     for p in routes:
         route = p or ("simt" if dtype == torch.float32 else "wmma")
@@ -1953,13 +1979,19 @@ def ring_loopback_phase():
     return results, ok
 
 
-def ring_route_check(name, paths, launches):
-    """Each rank's AG-matmul and matmul-RS launches by route (``paths``:
-    {rank: ring_matmul.IMPL_LAUNCHES}), printed; ok when every rank launched
-    both and every launch took wgmma (the grid phases run bf16 at the
-    full-width blocks, which the tensor cores take)."""
-    ok = all(paths[rk][k]["wgmma"] == launches[rk][k] > 0 for rk in paths for k in ROUTED_RING)
-    log(f"{name}_ring_paths " + json.dumps(dict(paths, ok=ok)))
+def ring_route_check(name, paths, launches, kernels=ROUTED_RING, need=True, fused=True):
+    """Each rank's launches of the routed ring ``kernels`` by route
+    (``paths``: {rank: ring_matmul.IMPL_LAUNCHES}), printed; ok when every
+    launch took wgmma (the grid phases run bf16 at the full-width blocks,
+    which the tensor cores take) and, ``need``, every rank launched each.
+    Not ``fused`` (the two-way rings, which fuse no ring kernel): ok only
+    when no rank launched any of them."""
+    if fused:
+        ok = all(paths[rk][k]["wgmma"] == launches[rk][k] and (launches[rk][k] > 0 or not need)
+                 for rk in paths for k in kernels)
+    else:
+        ok = all(launches[rk][k] == 0 for rk in paths for k in kernels)
+    log(f"{name}_ring_paths " + json.dumps(dict(paths, ok=ok, checked=list(kernels))))
     return ok
 
 def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID_STEPS,
@@ -1970,10 +2002,12 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
     data parallelism, ``--pod-role data``) through the training
     launcher's grid entry under ``strategy`` and ``overlap`` on the
     ``wire``, beside the plain grid from the same parameters.  Every rank
-    must launch each of ``kernels``; on the bf16 wire every rank's
-    AG-matmul and matmul-RS launches must all be on wgmma (printed by
-    route).  On the bf16 wire the first loss is held against the
-    single-device port's (1e-3); on the int8 wire against it and
+    must launch each of ``kernels``; every rank's AG-matmul and matmul-RS
+    launches (on the int8 wire its int8 AG-matmul and contracted AG-matmul
+    launches) must all be on wgmma (printed by route), or under
+    ``overlap="bidir"``, which fuses no ring kernel, must be none.  On the bf16 wire
+    the first loss is held against the single-device port's (1e-3); on the
+    int8 wire against it and
     ``bf16_step0`` (the bf16 wire's first loss) to QUANT_RTOL.
     Returns (ok, launches summed over the ranks, the first loss, each
     rank's NoP bytes per step by route)."""
@@ -2001,8 +2035,10 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
     wire_rel = None if bf16_step0 is None else rel(losses[0], bf16_step0)
     worst_leaf = max(checks["param_rel"], key=checks["param_rel"].get)
     launches = r["launches"]
-    ok_routes = wire != "bf16" or ring_route_check(
-        name, {rk: p["ring"] for rk, p in r["pipeline"]["paths"].items()}, launches)
+    routed = ROUTED_RING if wire == "bf16" else ROUTED_INT8
+    ok_routes = ring_route_check(
+        name, {rk: p["ring"] for rk, p in r["pipeline"]["paths"].items()}, launches, routed,
+        need=bool(set(routed) & set(kernels)), fused=overlap != "bidir")
     ok = (all(math.isfinite(x) for x in losses + gnorms) and len(loss_rel) == steps
           and max(loss_rel) <= GRID_LOSS_TOL and single_rel <= single_tol
           and len(gnorm_rel) == steps and max(gnorm_rel) <= GRID_GNORM_TOL

@@ -26,10 +26,13 @@
 // landed/credit handshake: one copy writes both into the slot, one release
 // publishes them.
 //   * hk_ring_ag_matmul_int8 / hk_ring_ag_matmul_contract_int8: the shard is
-//     quantized once before the launch and circulates unchanged; a tile of an
-//     arriving shard dequantizes (q * scale, fp32, then the input dtype) as
-//     it loads; this rank's own shard is used as it is (the emulated ring's
-//     step 0); the contracted ring's fp32 accumulator never quantizes.
+//     quantized once, by a kernel of its own (quant_pair, a block a row) on
+//     the stream just before the ring kernel, on every route, and circulates
+//     unchanged; a tile of an arriving shard dequantizes (q * scale, fp32,
+//     then the input dtype) on its way into the product (the tile loop as it
+//     loads; the wgmma route in registers between TMA and wgmma, wg.cuh); this
+//     rank's own shard is used as it is (the emulated ring's step 0); the
+//     contracted ring's fp32 accumulator never quantizes.
 //   * hk_ring_matmul_rs_int8: the accumulator changes every hop and its row
 //     scale needs the whole row, so each step folds dequant(arriving) + this
 //     step's tile, each rounded to the input dtype, into a full-width buffer,
@@ -37,9 +40,10 @@
 //     quantize whole rows into the right neighbour's slot.  Only the hop is
 //     int8; the buffer, the fp32 tiles and the output are not.
 // Quantization is core/quant.quant_int8's: scale = max|x| / 127 by an IEEE
-// division (1 for a zero row), rint (half to even), clipped to +-127; build.py
-// passes no fast-math flag, and the dequantizing product is __fmul_rn so it
-// is never contracted into an FMA.
+// division (1 for a zero row), rint (half to even), clipped to +-127 (one
+// function, quant_rows, for the pair and the RS's hops alike); build.py passes
+// no fast-math flag, and the dequantizing product is __fmul_rn so it is never
+// contracted into an FMA.
 //
 // The ring protocol.  The ranks are processes on one or more cards; each
 // owns a symmetric buffer (hk_sym_alloc) that every peer maps through its
@@ -68,12 +72,13 @@
 // bf16 against the operand, output and hop bytes at 3.35 TB/s (an int8 hop:
 // the payload plus 4 bytes of scale per row).
 //
-// Two product loops.  bf16 AG-matmul and matmul-RS whose operands TMA can
-// address take the tensor cores (route wgmma, namespace ringtc below: wg::mm's
-// TMA-fed wgmma main loop, wg.cuh).  Every other launch, and the contracted
-// ring and the int8 variants always, runs the simple tile loop (64 x 64 output
-// tiles, a K step of 32 through shared memory, WMMA m16n16k16 for bf16 (route
-// wmma) and SIMT fp32 (route simt), masked edges, any extent).  The wrapper
+// Two product loops.  bf16 AG-matmul, matmul-RS, int8 AG-matmul and int8
+// contracted AG-matmul whose operands TMA can address take the tensor cores
+// (route wgmma, namespace ringtc below: wg::mm's TMA-fed wgmma main loop,
+// wg.cuh).  Every other launch, and the bf16 contracted ring and the int8
+// matmul-RS always, runs the simple tile loop (64 x 64 output tiles, a K step
+// of 32 through shared memory, WMMA m16n16k16 for bf16 (route wmma) and SIMT
+// fp32 (route simt), masked edges, any extent).  The wrapper
 // (kernels/ring_matmul.py, ring_impl) picks the route from the dtype, shapes
 // and strides alone.  Every host entry takes a block cap: 0 keeps one block an
 // SM at most (the process ring); a loopback ring of n streams in one process
@@ -510,9 +515,20 @@ __device__ void quant_rows(const T* src, int M, int N, int split, signed char* q
   }
 }
 
+// The int8 AG kernels' pair: x [M, h] quantized into `pair` (the payload, then an fp32
+// scale a row at align16(M h)), a block a row, on the stream before the ring kernel that
+// circulates it.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    quant_pair(const T* __restrict__ x, unsigned char* __restrict__ pair, int M, int h) {
+  __shared__ float red[THREADS / 32];
+  quant_rows<T>(x, M, h, 0, reinterpret_cast<signed char*>(pair),
+                reinterpret_cast<float*>(pair + align16((long long)M * h)), red);
+}
+
 // AG-matmul over the int8 wire: x [b,t,h] is this rank's own shard, used as
-// it is at step 0; `pair` is x quantized once (before the launch), which is
-// what circulates.  A tile of an arriving shard dequantizes as it loads.
+// it is at step 0; `pair` is x quantized once (quant_pair, before the ring
+// kernel), which is what circulates.  A tile of an arriving shard dequantizes as it loads.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     ring_ag_int8_kernel(const T* __restrict__ x, const unsigned char* __restrict__ pair,
@@ -693,7 +709,8 @@ int grid_cap(int tiles, int blocks) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// AG-matmul and matmul-RS in bf16 on Hopper's tensor cores (route wgmma).
+// AG-matmul, matmul-RS, and the int8 wire's AG-matmul and contracted AG-matmul, in bf16 on
+// Hopper's tensor cores (route wgmma).
 //
 // The product of every ring step is wg::mm's main loop (wg.cuh): persistent
 // blocks of three warpgroups, 128 x 128 output tiles (BN 128: 64 fp32
@@ -717,6 +734,27 @@ int grid_cap(int tiles, int blocks) {
 //     every block's consumers have waited for its last TMA loads of it (their
 //     `full` mbarriers): loads that completed, not loads that were issued.
 //     Row r of a step lands at (r / t) n t + src t + r % t of out.
+//   * ag_wgmma<true> (the int8 wire): the same block.  What circulates is the
+//     pair (int8 payload, then an fp32 scale a row), which quant_pair
+//     writes from x just before, as on the tile loop; the copy warps forward
+//     it as they forward a bf16 shard; step 0 multiplies x itself through x's bf16 map.  At a step
+//     s >= 1 the producer TMA-loads the slot's payload as int8 boxes of 128
+//     rows x 64 bytes (8 KB, in the stage's A region; the stage's `full`
+//     barrier expects their bytes), and each consumer warpgroup dequantizes
+//     its 64 rows straight into wgmma's A fragment in registers (wg.cuh,
+//     mma_unit_q) and runs the m64n128k16 product with A from registers and B
+//     from the stage.  Register A needs no bf16 copy of the tile: six 32 KB
+//     stages and the epilogue's staging stay as they are (230,528 bytes, one
+//     block an SM), where a bf16 copy beside the int8 box would have cut the
+//     ring to four stages.  The row scales are read once a unit, around L1,
+//     after the unit's first stage has landed; both consumer warpgroups meet
+//     before the credit, which covers their scale reads.
+//   * contract_int8_wgmma: step s multiplies the shard of rank me - s (x, or
+//     the arriving pair through the same dequantizing stage) by w's row block
+//     of that rank, one map of w [n hl, o] read src hl rows on.  A block that
+//     owns at most one output tile keeps its 64 fp32 sums a thread in
+//     registers across all n steps and stores once; otherwise each step adds
+//     its sums into an fp32 buffer in device memory, as the tile loop does.
 //   * rs_wgmma: the producer needs no flag (A is x, B is w).  The consumers
 //     run each step's main loop first and wait for `landed` (the arriving
 //     accumulator) and `credit` (the right neighbour's slot is free) only
@@ -731,7 +769,7 @@ int grid_cap(int tiles, int blocks) {
 // this card (peers_local: the loopback ring, rank processes sharing a card) and
 // .sys otherwise; a block publishes its writes with one fence, by the thread
 // that counts its arrival after a barrier of the writers.  One block an SM
-// (about 193 KB of shared memory), so the grid is resident whenever it is at
+// (230,528 bytes of shared memory), so the grid is resident whenever it is at
 // most the SM count, or the caller's block cap.
 // ---------------------------------------------------------------------------
 namespace ringtc {
@@ -861,10 +899,85 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], uint8_t* bu
   named_sync(BAR_WG + c, 128);                        // the buffer is free again
 }
 
+// The epilogue of consumer warpgroup c's 64 rows of a tile straight from its fp32 sums, two
+// neighbouring columns a call: f(m, col, v0, v1) for row m0 + .. < M and col < N (N even).
+template <typename F>
+__device__ __forceinline__ void epilogue_pairs(const float (&acc)[BN / 2], int tt, int m0, int n0,
+                                               int M, int N, F f) {
+  const int lane = tt % 32, r0 = m0 + (tt / 32) * 16 + lane / 4;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int m = r0 + 8 * hh;
+    if (m >= M) continue;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * (lane % 4);
+      if (col < N) f(m, col, acc[4 * i + 2 * hh], acc[4 * i + 2 * hh + 1]);
+    }
+  }
+}
+
+// The producer's wait for hop hop0+s-1 and the A map of step s: x's (s = 0) or the slot's;
+// the peer wrote the slot with generic stores and TMA reads it through the async proxy.
+__device__ __forceinline__ const CUtensorMap* step_map(const Ring& rg, int s, bool local,
+                                                       const CUtensorMap* xmap,
+                                                       const CUtensorMap* smap0,
+                                                       const CUtensorMap* smap1) {
+  if (s == 0) return xmap;
+  const u64 hin = rg.hop0 + s - 1;
+  spin_geq(rg.my_landed, hin + 1, rg.timeout_ns, local);
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  return (hin & 1) ? smap1 : smap0;
+}
+
+// Warps 1-3 of an AG kernel's producer warpgroup: forward each step's shard (`own`, this
+// rank's own, at step 0: x, or on the int8 wire its pair; then the slot of hop hop0+s-1),
+// `bytes` of it, to the right neighbour's slot, the last block publishing `landed`; and count
+// this block's copy done with each arriving slot toward the left neighbour's credit.
+__device__ __forceinline__ void copy_warps(const void* own, long long bytes, const Ring& rg,
+                                           bool local) {
+  const int ct = threadIdx.x - 32;
+  for (int s = 0; s < rg.n; ++s) {
+    const char* cur = reinterpret_cast<const char*>(own);
+    if (s > 0) {
+      const u64 hin = rg.hop0 + s - 1;
+      if (ct == 0) spin_geq(rg.my_landed, hin + 1, rg.timeout_ns, local);
+      cur = rg.my_slot[hin & 1];
+    }
+    if (s < rg.n - 1) {
+      const u64 hout = rg.hop0 + s;
+      if (ct == 0 && hout >= 2) spin_geq(rg.my_credit, hout - 1, rg.timeout_ns, local);
+      named_sync(BAR_COPY, COPY_THREADS);
+      copy_part(rg.right_slot[hout & 1], cur, bytes, (long long)blockIdx.x * COPY_THREADS + ct,
+                (long long)gridDim.x * COPY_THREADS);
+      named_sync(BAR_COPY, COPY_THREADS);
+      if (ct == 0 && arrive_one(&rg.counters[2 * s], gridDim.x, local))
+        release(rg.right_landed, hout + 1, local);
+    }
+    // this block's copy warps are done with the slot of hop hop0+s-1
+    if (s > 0 && ct == 0 && arrive_one(&rg.counters[2 * s + 1], 2 * gridDim.x, local))
+      release(rg.left_credit, rg.hop0 + s, local);
+  }
+}
+
+// The consumers' half of the left neighbour's credit after step s > 0: every TMA load of the
+// slot in this block has completed (the consumers waited for each one's mbarrier) and, on the
+// int8 wire (`q8`), both warpgroups have read their row scales from it.
+__device__ __forceinline__ void consumers_done(const Ring& rg, int s, bool q8, bool local) {
+  if (s == 0) return;
+  if (q8) named_sync(BAR_CONSUMERS, 256);
+  if (threadIdx.x == 128 && arrive_one(&rg.counters[2 * s + 1], 2 * gridDim.x, local))
+    release(rg.left_credit, rg.hop0 + s, local);
+}
+
+// The AG-matmul; Q8: over the int8 wire, where `shard` is the pair (x quantized once) that
+// circulates, the steps s >= 1 take their A through the dequantizing stage (wg.cuh), and step
+// 0 multiplies x itself; else `shard` is x.
+template <bool Q8>
 __global__ void __launch_bounds__(THREADS, 1)
 ag_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap smap0,
          const __grid_constant__ CUtensorMap smap1, const __grid_constant__ CUtensorMap wmap,
-         const bf16* __restrict__ x, bf16* __restrict__ out, Ring rg, int b, int t, int h,
+         const void* __restrict__ shard, bf16* __restrict__ out, Ring rg, int b, int t, int h,
          int o, int local) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1k(smem_raw);
@@ -879,43 +992,16 @@ ag_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
     if (threadIdx.x == 0) {  // the producer
       int it = 0;
       for (int s = 0; s < n; ++s) {
-        const CUtensorMap* am = &xmap;
-        if (s > 0) {
-          const u64 hin = rg.hop0 + s - 1;
-          spin_geq(rg.my_landed, hin + 1, rg.timeout_ns, local);
-          asm volatile("fence.proxy.async.global;\n" ::: "memory");
-          am = (hin & 1) ? &smap1 : &smap0;
-        }
+        const CUtensorMap* am = step_map(rg, s, local, &xmap, &smap0, &smap1);
+        const int ab = Q8 && s > 0 ? wg::A8_BYTES : wg::A_BYTES;
         for (int u = blockIdx.x; u < units; u += gridDim.x) {
           const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
           wg::load_unit<BN, false, false, false>(ring, full, empty, am, &wmap, &wmap, w.m0, w.n0,
-                                                0, kbt, it, wait);
+                                                0, kbt, it, wait, ab);
         }
       }
-    } else if (threadIdx.x >= 32) {  // the copy warps
-      const int ct = threadIdx.x - 32;
-      const long long bytes = (long long)M * h * sizeof(bf16);
-      for (int s = 0; s < n; ++s) {
-        const char* cur = reinterpret_cast<const char*>(x);
-        if (s > 0) {
-          const u64 hin = rg.hop0 + s - 1;
-          if (ct == 0) spin_geq(rg.my_landed, hin + 1, rg.timeout_ns, local);
-          cur = rg.my_slot[hin & 1];
-        }
-        if (s < n - 1) {
-          const u64 hout = rg.hop0 + s;
-          if (ct == 0 && hout >= 2) spin_geq(rg.my_credit, hout - 1, rg.timeout_ns, local);
-          named_sync(BAR_COPY, COPY_THREADS);
-          copy_part(rg.right_slot[hout & 1], cur, bytes, (long long)blockIdx.x * COPY_THREADS + ct,
-                    (long long)gridDim.x * COPY_THREADS);
-          named_sync(BAR_COPY, COPY_THREADS);
-          if (ct == 0 && arrive_one(&rg.counters[2 * s], gridDim.x, local))
-            release(rg.right_landed, hout + 1, local);
-        }
-        // this block's copy warps are done with the slot of hop hop0+s-1
-        if (s > 0 && ct == 0 && arrive_one(&rg.counters[2 * s + 1], 2 * gridDim.x, local))
-          release(rg.left_credit, rg.hop0 + s, local);
-      }
+    } else if (threadIdx.x >= 32) {
+      copy_warps(shard, Q8 ? qpair_bytes(M, h, 1) : (long long)M * h * sizeof(bf16), rg, local);
     }
     return;
   }
@@ -926,21 +1012,110 @@ ag_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
   int it = 0;
   for (int s = 0; s < n; ++s) {
     const int src = (rg.me - s + n) % n;
+    // the arriving pair's row scales follow its payload
+    const float* scale = reinterpret_cast<const float*>(
+        rg.my_slot[(rg.hop0 + s - 1) & 1] + align16((long long)M * h));
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
-      wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, it,
-                                            wait);
+      if (Q8 && s > 0)
+        wg::mma_unit_q(ring, full, empty, acc, scale + w.m0, M - w.m0, 0, kbt, c, tt, it, wait);
+      else
+        wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, it,
+                                              wait);
       // row m of the step lands at (m / t) n t + src t + m % t of out
       epilogue(acc, buf, c, tt, w.m0 + c * 64, w.n0, M, o,
                [&](int m) { return out + ((long long)(m / t) * n * t + (long long)src * t +
                                           m % t) * o; },
                [](int) -> const bf16* { return nullptr; });
     }
-    // every TMA load of the slot of hop hop0+s-1 in this block has completed (the
-    // consumers waited for each one's mbarrier)
-    if (s > 0 && threadIdx.x == 128 &&
-        arrive_one(&rg.counters[2 * s + 1], 2 * gridDim.x, local))
-      release(rg.left_credit, rg.hop0 + s, local);
+    consumers_done(rg, s, Q8, local);
+  }
+}
+
+// The contracted AG-matmul over the int8 wire: `pair` (x [m, hl] quantized once) circulates;
+// step s multiplies the shard of rank src = me - s (x at s = 0, in bf16; the arriving pair
+// through the dequantizing stage after) by
+// w's row block [src hl, (src + 1) hl), one TMA map of w [n hl, o] read `src hl` rows on.  A
+// block that owns at most one unit (units <= the grid) keeps its fp32 sums in registers across
+// all n steps and stores once, after the last; otherwise each step's sums go through the fp32
+// `accg` [m, o] in device memory, added in fp32 as the tile loop does.  The output is bf16
+// (staged, from the registers) or fp32 (`out_f32`, two columns a store).
+__global__ void __launch_bounds__(THREADS, 1)
+contract_int8_wgmma(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap smap0,
+                    const __grid_constant__ CUtensorMap smap1,
+                    const __grid_constant__ CUtensorMap wmap, const void* __restrict__ pair,
+                    void* __restrict__ out, float* __restrict__ accg, Ring rg, int m, int hl,
+                    int o, int out_f32, int local) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tl::NST * Tl::STAGE);
+  uint64_t* empty = full + Tl::NST;
+  const int n = rg.n;
+  const int mt = cdiv(m, BM), nt = cdiv(o, BN), kbt = cdiv(hl, BK), units = mt * nt;
+  const bool regs = units <= (int)gridDim.x;
+  const RingWait wait{rg.timeout_ns};
+  init_stages(full, empty);
+
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0) {  // the producer
+      int it = 0;
+      for (int s = 0; s < n; ++s) {
+        const int src = (rg.me - s + n) % n;
+        const CUtensorMap* am = step_map(rg, s, local, &xmap, &smap0, &smap1);
+        for (int u = blockIdx.x; u < units; u += gridDim.x) {
+          const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
+          wg::load_unit<BN, false, false, false>(ring, full, empty, am, &wmap, &wmap, w.m0, w.n0,
+                                                0, kbt, it, wait,
+                                                s > 0 ? wg::A8_BYTES : wg::A_BYTES, src * hl);
+        }
+      }
+    } else if (threadIdx.x >= 32) {
+      copy_warps(pair, qpair_bytes(m, hl, 1), rg, local);
+    }
+    return;
+  }
+
+  const int c = threadIdx.x / 128 - 1, tt = threadIdx.x % 128;
+  uint8_t* buf = ring + EPI_OFFSET + c * EPI_BYTES;
+  float acc[BN / 2], accb[BN / 2];  // accb: unused (the gated form's)
+  int it = 0;
+  for (int s = 0; s < n; ++s) {
+    const float* scale = reinterpret_cast<const float*>(
+        rg.my_slot[(rg.hop0 + s - 1) & 1] + align16((long long)m * hl));
+    const bool fresh = s == 0 || !regs, last = s == n - 1;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
+      if (s == 0)
+        wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, it,
+                                              wait, fresh);
+      else
+        wg::mma_unit_q(ring, full, empty, acc, scale + w.m0, m - w.m0, 0, kbt, c, tt, it, wait,
+                       fresh);
+      if (regs && !last) continue;                    // the sums stay in registers
+      const int m0 = w.m0 + c * 64;
+      if (regs && !out_f32) {
+        epilogue(acc, buf, c, tt, m0, w.n0, m, o,
+                 [&](int r) { return reinterpret_cast<bf16*>(out) + (long long)r * o; },
+                 [](int) -> const bf16* { return nullptr; });
+        continue;
+      }
+      epilogue_pairs(acc, tt, m0, w.n0, m, o, [&](int r, int col, float v0, float v1) {
+        const long long i = (long long)r * o + col;
+        if (!regs && s > 0) {                         // this thread's own sums of step s - 1
+          const float2 a = *reinterpret_cast<const float2*>(accg + i);
+          v0 = a.x + v0;
+          v1 = a.y + v1;
+        }
+        if (!last)
+          wg::store2(accg + i, v0, v1);
+        else if (out_f32)
+          wg::store2(reinterpret_cast<float*>(out) + i, v0, v1);
+        else
+          wg::store2(reinterpret_cast<bf16*>(out) + i, v0, v1);
+      });
+    }
+    consumers_done(rg, s, true, local);
   }
 }
 
@@ -1012,27 +1187,37 @@ rs_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
   }
 }
 
-// the encoded TMA maps of the receive slots, by address and shape: a slot's
-// address is fixed for the buffer's life, so each is encoded once
-static bool slot_map(CUtensorMap* m, const void* base, long long inner, long long outer) {
+// the encoded TMA maps of the receive slots, by address, shape, element type (bf16, or the
+// int8 wire's payload: `u8`) and box: a slot's address is fixed for the buffer's life, so each
+// is encoded once.  One slot carries the bf16 wire's shard and the int8 wire's pair in turn
+// (the same ring, the same [outer, inner] block), so the type is part of the key.
+static bool slot_map(CUtensorMap* m, const void* base, long long inner, long long outer, bool u8,
+                     int box_outer) {
   struct Entry {
     const void* base;
     long long inner, outer;
+    bool u8;
+    int box_outer;
     CUtensorMap map;
   };
   constexpr int CAP = 64;
   static Entry cache[CAP];
   static int used = 0, next = 0;
-  for (int i = 0; i < used; ++i)
-    if (cache[i].base == base && cache[i].inner == inner && cache[i].outer == outer) {
-      *m = cache[i].map;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.base == base && e.inner == inner && e.outer == outer && e.u8 == u8 &&
+        e.box_outer == box_outer) {
+      *m = e.map;
       return true;
     }
-  if (!wg::map2d(m, base, inner, outer, inner, BM)) return false;
+  }
+  if (!wg::map2d(m, base, inner, outer, inner, box_outer, u8)) return false;
   Entry& e = cache[used < CAP ? used++ : next++ % CAP];
   e.base = base;
   e.inner = inner;
   e.outer = outer;
+  e.u8 = u8;
+  e.box_outer = box_outer;
   e.map = *m;
   return true;
 }
@@ -1068,18 +1253,41 @@ static bool peers_local(const Ring& r) {
   return local;
 }
 
-static int launch_ag(const bf16* x, const bf16* w, bf16* out, const Ring& r, int b, int t, int h,
-                     int o, int blocks, cudaStream_t st) {
-  if (o % 8) return (int)cudaErrorInvalidValue;                  // 16-byte chunks of a row
+// the AG-matmul; `pair` given: over the int8 wire (the payload's rows on 16 bytes, h % 16 ==
+// 0), the pair quant_pair wrote from x
+static int launch_ag(const bf16* x, void* pair, const bf16* w, bf16* out, const Ring& r, int b,
+                     int t, int h, int o, int blocks, cudaStream_t st) {
+  const bool q8 = pair != nullptr;
+  if (o % 8 || (q8 && h % 16)) return (int)cudaErrorInvalidValue;  // 16-byte chunks of a row
   const long long M = (long long)b * t;
   CUtensorMap xm, s0, s1, wm;
-  if (!wg::map2d(&xm, x, h, M, h, BM) || !slot_map(&s0, r.my_slot[0], h, M) ||
-      !slot_map(&s1, r.my_slot[1], h, M) || !wg::map2d(&wm, w, o, h, o, 64))
+  if (!wg::map2d(&xm, x, h, M, h, BM) || !slot_map(&s0, r.my_slot[0], h, M, q8, BM) ||
+      !slot_map(&s1, r.my_slot[1], h, M, q8, BM) || !wg::map2d(&wm, w, o, h, o, 64))
     return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(ag_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  auto kernel = q8 ? ag_wgmma<true> : ag_wgmma<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   const int units = cdiv((int)M, BM) * cdiv(o, BN);
-  ag_wgmma<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(xm, s0, s1, wm, x, out, r, b, t, h, o,
-                                                           peers_local(r));
+  kernel<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(
+      xm, s0, s1, wm, q8 ? (const void*)pair : (const void*)x, out, r, b, t, h, o,
+      peers_local(r));
+  return (int)cudaGetLastError();
+}
+
+// the contracted AG-matmul over the int8 wire (hl % 16 == 0); out bf16 or fp32 (`out_f32`)
+static int launch_contract_int8(const bf16* x, void* pair, const bf16* w, void* out,
+                                float* acc, const Ring& r, int m, int hl, int o, int out_f32,
+                                int blocks, cudaStream_t st) {
+  if (o % 8 || hl % 16) return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, s0, s1, wm;
+  if (!wg::map2d(&xm, x, hl, m, hl, BM) || !slot_map(&s0, r.my_slot[0], hl, m, true, BM) ||
+      !slot_map(&s1, r.my_slot[1], hl, m, true, BM) ||
+      !wg::map2d(&wm, w, o, (long long)r.n * hl, o, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(contract_int8_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)SMEM);
+  const int units = cdiv(m, BM) * cdiv(o, BN);
+  contract_int8_wgmma<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(
+      xm, s0, s1, wm, pair, out, acc, r, m, hl, o, out_f32, peers_local(r));
   return (int)cudaGetLastError();
 }
 
@@ -1114,6 +1322,16 @@ int occupancy_of(K kernel, int threads, size_t smem, int* per_sm) {
 // the block count of a tile-loop launch, or the error of a route that does not take the dtype
 int tile_route(int impl, int dtype) {
   return impl == (dtype == DT_BF16 ? RING_WMMA : RING_SIMT) ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// x [M, h] quantized into the int8 pair at `pair` on `st`, before an int8 AG kernel on any route
+int launch_quant_pair(const void* x, void* pair, int M, int h, int dtype, cudaStream_t st) {
+  unsigned char* p = (unsigned char*)pair;
+  if (dtype == DT_BF16)
+    quant_pair<bf16><<<M, THREADS, 0, st>>>((const bf16*)x, p, M, h);
+  else
+    quant_pair<float><<<M, THREADS, 0, st>>>((const float*)x, p, M, h);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1165,8 +1383,8 @@ int hk_ring_ag_matmul(const void* x, const void* w, void* out, const unsigned lo
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (impl == RING_WGMMA)
-    return dtype == DT_BF16 ? ringtc::launch_ag((const bf16*)x, (const bf16*)w, (bf16*)out, rg,
-                                                b, t, h, o, blocks, st)
+    return dtype == DT_BF16 ? ringtc::launch_ag((const bf16*)x, nullptr, (const bf16*)w,
+                                                (bf16*)out, rg, b, t, h, o, blocks, st)
                             : (int)cudaErrorInvalidValue;
   if (tile_route(impl, dtype)) return (int)cudaErrorInvalidValue;
   const int g = grid_cap(cdiv(b * t, TBM) * cdiv(o, TBN), blocks);
@@ -1223,14 +1441,23 @@ int hk_ring_ag_matmul_contract(const void* x, const void* w, void* out, void* ac
   return (int)cudaGetLastError();
 }
 
-int hk_ring_ag_matmul_int8(const void* x, const void* pair, const void* w, void* out,
+// the AG-matmul over the int8 wire on the route `impl`, as hk_ring_ag_matmul's (wgmma: bf16
+// with the payload's rows on 16 bytes); `pair` (qpair_bytes(b t, h, 1), scratch) takes x
+// quantized once by quant_pair, on every route, and the ring circulates it
+int hk_ring_ag_matmul_int8(const void* x, void* pair, const void* w, void* out,
                            const unsigned long long* ring, int b, int t, int h, int o, int dtype,
-                           int blocks, void* stream) {
+                           int impl, int blocks, void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  const int g = grid_cap(cdiv(b * t, TBM) * cdiv(o, TBN), blocks);
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned char* p = (const unsigned char*)pair;
+  if (const int e = launch_quant_pair(x, pair, b * t, h, dtype, st)) return e;
+  if (impl == RING_WGMMA)
+    return dtype == DT_BF16 ? ringtc::launch_ag((const bf16*)x, pair, (const bf16*)w,
+                                                (bf16*)out, rg, b, t, h, o, blocks, st)
+                            : (int)cudaErrorInvalidValue;
+  if (tile_route(impl, dtype)) return (int)cudaErrorInvalidValue;
+  const int g = grid_cap(cdiv(b * t, TBM) * cdiv(o, TBN), blocks);
   if (dtype == DT_BF16)
     ring_ag_int8_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, p, (const bf16*)w,
                                                     (bf16*)out, rg, b, t, h, o);
@@ -1262,14 +1489,23 @@ int hk_ring_matmul_rs_int8(const void* x, const void* w, void* out, void* work,
   return (int)cudaGetLastError();
 }
 
-int hk_ring_ag_matmul_contract_int8(const void* x, const void* pair, const void* w, void* out,
+// the contracted AG-matmul over the int8 wire on the route `impl`, as hk_ring_ag_matmul_int8's
+int hk_ring_ag_matmul_contract_int8(const void* x, void* pair, const void* w, void* out,
                                     void* acc, const unsigned long long* ring, int m, int hl,
-                                    int o, int dtype, int out_dtype, int blocks, void* stream) {
+                                    int o, int dtype, int out_dtype, int impl, int blocks,
+                                    void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  const int g = grid_cap(cdiv(m, TBM) * cdiv(o, TBN), blocks);
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned char* p = (const unsigned char*)pair;
+  if (const int e = launch_quant_pair(x, pair, m, hl, dtype, st)) return e;
+  if (impl == RING_WGMMA)
+    return dtype == DT_BF16 ? ringtc::launch_contract_int8((const bf16*)x, pair, (const bf16*)w,
+                                                           out, (float*)acc, rg, m, hl, o,
+                                                           out_dtype == DT_F32, blocks, st)
+                            : (int)cudaErrorInvalidValue;
+  if (tile_route(impl, dtype)) return (int)cudaErrorInvalidValue;
+  const int g = grid_cap(cdiv(m, TBM) * cdiv(o, TBN), blocks);
   if (dtype == DT_BF16 && out_dtype == DT_BF16)
     ring_contract_int8_kernel<bf16, bf16><<<g, THREADS, 0, st>>>(
         (const bf16*)x, p, (const bf16*)w, (bf16*)out, (float*)acc, rg, m, hl, o);
@@ -1285,13 +1521,22 @@ int hk_ring_ag_matmul_contract_int8(const void* x, const void* pair, const void*
 // Blocks of one ring kernel that an SM holds at once (*per_sm) and the SM count
 // (*sms), for the kernel a launch would take: kernel 0 AG-matmul, 1 matmul-RS,
 // 2 the contracted AG-matmul, 3-5 their int8 variants; dtype and out_dtype as the
-// launch's, impl the route (AG-matmul and matmul-RS; the others run the tile loop).
+// launch's, impl the route (AG-matmul, matmul-RS and the int8 AG-matmul and
+// contracted AG-matmul; the others run the tile loop).
 int hk_ring_occupancy(int kernel, int dtype, int out_dtype, int impl, int* per_sm, int* sms) {
   *sms = sm_count();
   const bool bf = dtype == DT_BF16, obf = out_dtype == DT_BF16;
-  if (impl == RING_WGMMA && bf && (kernel == 0 || kernel == 1))
-    return kernel == 0 ? occupancy_of(ringtc::ag_wgmma, ringtc::THREADS, ringtc::SMEM, per_sm)
-                       : occupancy_of(ringtc::rs_wgmma, ringtc::THREADS, ringtc::SMEM, per_sm);
+  if (impl == RING_WGMMA && bf) {
+    constexpr int th = ringtc::THREADS;
+    constexpr size_t sm = ringtc::SMEM;
+    switch (kernel) {
+      case 0: return occupancy_of(ringtc::ag_wgmma<false>, th, sm, per_sm);
+      case 1: return occupancy_of(ringtc::rs_wgmma, th, sm, per_sm);
+      case 3: return occupancy_of(ringtc::ag_wgmma<true>, th, sm, per_sm);
+      case 5: return occupancy_of(ringtc::contract_int8_wgmma, th, sm, per_sm);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (kernel) {
     case 0:
       return bf ? occupancy_of(ring_ag_kernel<bf16>, THREADS, 0, per_sm)

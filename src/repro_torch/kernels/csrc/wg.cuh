@@ -5,12 +5,16 @@
 // role of a warp-specialised block (matmul.cu's wgmma section says how they
 // fit together):
 //   * load_unit: the producer thread's TMA loads of one unit's k-blocks into
-//     the ring of stages, each stage's `full` mbarrier expecting its bytes;
+//     the ring of stages, each stage's `full` mbarrier expecting its bytes
+//     (a bf16 A box, or an int8 one of half the bytes);
 //   * mma_unit: a consumer warpgroup's wgmma over the same k-blocks into its
-//     fp32 accumulators, releasing each stage (`empty`) once its products are done.
-// Both take the mbarrier wait as an argument: wg::mm waits with hopper's trap
+//     fp32 accumulators (zeroed first, or summed on), releasing each stage
+//     (`empty`) once its products are done;
+//   * mma_unit_q: the same over stages whose A is an int8 box with one fp32
+//     scale a row: the dequantizing stage between TMA and wgmma (below).
+// They take the mbarrier wait as an argument: wg::mm waits with hopper's trap
 // after ~15 s, the ring kernels with their own spin timeout, since their stages
-// may wait on a peer.  Also the host's 2-D TMA map of a bf16 matrix.
+// may wait on a peer.  Also the host's 2-D TMA maps of a bf16 and an int8 matrix.
 #pragma once
 
 #include <cuda.h>
@@ -27,6 +31,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128, BK = 64, GM = 16, THREADS = 384;
 constexpr int A_BYTES = BM * BK * 2;  // 16 KB
+constexpr int A8_BYTES = BM * BK;     // an int8 A box of 128 rows of 64 bytes, 8 KB
 constexpr int BOX = 64 * 128;         // one 64-row box of 128-byte rows, 8 KB
 
 template <int BN, bool GATED = false>
@@ -175,18 +180,21 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // The producer's loads of one unit: k-blocks [kb0, kb1) of the A tile whose first row (or,
 // for an MN-major A, first column) is `arow` and of the B tile whose first column is `bcol`,
 // into the next stages of the ring; `it` counts stages over every unit the block has loaded.
+// `a_bytes` is the A box's size: A_BYTES (bf16) or A8_BYTES (a K-major int8 box through
+// map2d(..., u8), in the first half of the stage's A region); B's k-blocks start `bk0` rows on.
 template <int BN, bool TA, bool TB, bool GATED, typename Wait>
 __device__ __forceinline__ void load_unit(uint8_t* ring, uint64_t* full, uint64_t* empty,
                                           const CUtensorMap* amap, const CUtensorMap* bmap,
                                           const CUtensorMap* bmap2, int arow, int bcol, int kb0,
-                                          int kb1, int& it, Wait wait) {
+                                          int kb1, int& it, Wait wait, int a_bytes = A_BYTES,
+                                          int bk0 = 0) {
   using T = Tile<BN, GATED>;
   for (int kb = kb0; kb < kb1; ++kb, ++it) {
     const int s = it % T::NST;
     if (it >= T::NST) wait(&empty[s], (it / T::NST - 1) & 1);
     uint8_t* as = ring + s * T::STAGE;
     uint8_t* bs = as + A_BYTES;
-    bar_expect(&full[s], T::STAGE);
+    bar_expect(&full[s], T::STAGE - A_BYTES + a_bytes);  // every box's bytes, edges included
     if (TA) {
       tma_load(as, amap, &full[s], arow, kb * BK);
       tma_load(as + BOX, amap, &full[s], arow + 64, kb * BK);
@@ -194,29 +202,33 @@ __device__ __forceinline__ void load_unit(uint8_t* ring, uint64_t* full, uint64_
       tma_load(as, amap, &full[s], kb * BK, arow);
     }
     if (TB) {
-      tma_load(bs, bmap, &full[s], kb * BK, bcol);
+      tma_load(bs, bmap, &full[s], bk0 + kb * BK, bcol);
     } else {
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j) {
-        tma_load(bs + j * BOX, bmap, &full[s], bcol + 64 * j, kb * BK);
-        if (GATED) tma_load(bs + T::B_BYTES + j * BOX, bmap2, &full[s], bcol + 64 * j, kb * BK);
+        tma_load(bs + j * BOX, bmap, &full[s], bcol + 64 * j, bk0 + kb * BK);
+        if (GATED)
+          tma_load(bs + T::B_BYTES + j * BOX, bmap2, &full[s], bcol + 64 * j, bk0 + kb * BK);
       }
     }
   }
 }
 
 // Consumer warpgroup c's products of one unit (k-blocks [kb0, kb1)) into acc (and, gated, accb),
-// overwritten; `t` is the thread's index in its warpgroup and `it` counts stages as load_unit's.
-// A stage is released once the products that read it have completed (one wgmma group stays in
-// flight across the next stage's wait); on return every product is done and every stage the
-// unit used is released.
+// overwritten (or, `fresh` false, summed onto what they hold); `t` is the thread's index in its
+// warpgroup and `it` counts stages as load_unit's.  A stage is released once the products that
+// read it have completed (one wgmma group stays in flight across the next stage's wait); on
+// return every product is done and every stage the unit used is released.
 template <int BN, bool TA, bool TB, bool GATED, typename Wait>
 __device__ __forceinline__ void mma_unit(uint8_t* ring, uint64_t* full, uint64_t* empty,
                                          float (&acc)[BN / 2], float (&accb)[BN / 2], int kb0,
-                                         int kb1, int c, int t, int& it, Wait wait) {
+                                         int kb1, int c, int t, int& it, Wait wait,
+                                         bool fresh = true) {
   using T = Tile<BN, GATED>;
-  zero(acc);
-  if (GATED) zero(accb);
+  if (fresh) {
+    zero(acc);
+    if (GATED) zero(accb);
+  }
   int prev = -1;
   for (int kb = kb0; kb < kb1; ++kb, ++it) {
     const int s = it % T::NST;
@@ -242,20 +254,110 @@ __device__ __forceinline__ void mma_unit(uint8_t* ring, uint64_t* full, uint64_t
   if (prev >= 0 && t == 0) bar_arrive(&empty[prev]);
 }
 
+// ---- the dequantizing stage ----
+//
+// An int8 A stage holds a box of 128 rows of 64 k-bytes (one k-block), 64-byte swizzled: the
+// 16-byte chunk j of row r lies at chunk j ^ (r >> 1 & 3), so the loads below, eight rows of a
+// warp on two words each, fall on 16 distinct banks.  Each consumer thread turns its share of
+// its warpgroup's 64 rows straight into wgmma's A fragment, in registers: thread (warp w, lane
+// l) holds rows r = 16 w + l / 4 and r + 8, k pairs 2 (l % 4) and 2 (l % 4) + 8 of each 16-deep
+// k-step, register 4 j + i of k-step j being (row r, low pair), (r + 8, low), (r, high),
+// (r + 8, high).  Every value is bf16(q * scale) with one fp32 product, never an FMA (the tile
+// loop's and core/quant.dequant_int8's rounding); q reaches fp32 exactly through its biased
+// byte in a float's mantissa (2^23 + q + 128) less 2^23 + 128.  No bf16 copy of the tile is
+// stored: wgmma reads A from the registers and B from the stage.
+
+// bytes `sel` and `sel` + 1 (of 0..3) of the sign-flipped word x as q, each times `scale`,
+// packed into one bf16 pair (the lower k in the low half)
+__device__ __forceinline__ uint32_t dequant2(uint32_t x, uint32_t sel, float scale) {
+  const float a = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7540u | sel)) - 8388736.f;
+  const float b = __int_as_float(__byte_perm(x, 0x4B000000u, 0x7540u | (sel + 1))) - 8388736.f;
+  const __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(a, scale), __fmul_rn(b, scale));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// warpgroup c's A fragments of the k-block in the int8 box at `box` (its 64 rows start at row
+// 64 c), this thread's two rows scaled by s0 and s1
+__device__ __forceinline__ void dequant_frags(const uint8_t* box, uint32_t (&f)[BK / 4], int c,
+                                              int t, float s0, float s1) {
+  const int l = t % 32, g = l / 4, swz = (g >> 1) & 3;
+  const uint8_t* r0 = box + (c * 64 + (t / 32) * 16 + g) * BK + 4 * ((l % 4) >> 1);
+  const uint8_t* r1 = r0 + 8 * BK;
+  const uint32_t sel = 2 * (l % 2);
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+    const int off = (j ^ swz) * 16;
+    f[4 * j + 0] = dequant2(*reinterpret_cast<const uint32_t*>(r0 + off) ^ 0x80808080u, sel, s0);
+    f[4 * j + 1] = dequant2(*reinterpret_cast<const uint32_t*>(r1 + off) ^ 0x80808080u, sel, s1);
+    f[4 * j + 2] =
+        dequant2(*reinterpret_cast<const uint32_t*>(r0 + off + 8) ^ 0x80808080u, sel, s0);
+    f[4 * j + 3] =
+        dequant2(*reinterpret_cast<const uint32_t*>(r1 + off + 8) ^ 0x80808080u, sel, s1);
+  }
+}
+
+// mma_unit (BN 128, K-major A, MN-major B) over stages whose A is an int8 box: row r of the
+// unit's A is scaled by scale[r], read (around L1: a peer wrote them) once the unit's first
+// stage has landed; rows at or past `rows` read as zero.  Each stage's fragments stay live
+// until the products that read them complete, so two sets alternate.
+template <typename Wait>
+__device__ __forceinline__ void mma_unit_q(uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                           float (&acc)[64], const float* scale, int rows,
+                                           int kb0, int kb1, int c, int t, int& it, Wait wait,
+                                           bool fresh = true) {
+  using T = Tile<128>;
+  if (fresh) zero(acc);
+  const int r = c * 64 + (t / 32) * 16 + (t % 32) / 4;
+  float s0 = 0.f, s1 = 0.f;
+  uint32_t fa[BK / 4], fb[BK / 4];
+  int prev = -1;
+  auto kblock = [&](int kb, uint32_t (&f)[BK / 4], uint32_t (&other)[BK / 4]) {
+    const int s = it % T::NST;
+    wait(&full[s], (it / T::NST) & 1);
+    if (kb == kb0) {
+      s0 = r < rows ? __ldcg(scale + r) : 0.f;
+      s1 = r + 8 < rows ? __ldcg(scale + r + 8) : 0.f;
+    }
+    dequant_frags(ring + s * T::STAGE, f, c, t, s0, s1);
+    const uint32_t b = saddr(ring + s * T::STAGE + A_BYTES);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k) wgmma_rs_n128(acc, &f[4 * k], desc(b + k * 2048, BOX));
+    wg_commit();
+    wg_wait<1>();  // the previous stage's products are done: its fragments and stage are free
+    keep(other);
+    if (prev >= 0 && t == 0) bar_arrive(&empty[prev]);
+    prev = s;
+    ++it;
+  };
+  for (int kb = kb0; kb < kb1; kb += 2) {
+    kblock(kb, fa, fb);
+    if (kb + 1 < kb1) kblock(kb + 1, fb, fa);
+  }
+  wg_wait<0>();
+  keep(acc);
+  keep(fa);
+  keep(fb);
+  if (prev >= 0 && t == 0) bar_arrive(&empty[prev]);
+}
+
 // ---- host side ----
 
 // A bf16 matrix of `outer` rows of `inner` elements, rows `ld` elements apart, as a 2-D
 // TMA map with a box of 64 x box_outer, 128-byte swizzled; elements past the dims read 0.
+// `u8`: an int8 matrix instead (`ld` bytes apart, a multiple of 16), its 64-byte box rows
+// 64-byte swizzled (the dequantizing stage's layout).
 static bool map2d(CUtensorMap* m, const void* base, long long inner, long long outer,
-                  long long ld, int box_outer) {
+                  long long ld, int box_outer, bool u8 = false) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * (u8 ? 1 : 2)};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
   const cuuint32_t unit[2] = {1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(m, u8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            u8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -84,6 +84,11 @@ class LoopbackRing:
             self._caps[key] = block_cap(*RM.occupancy(kernel, dtype, impl, out_dtype), self.n)
         return self._caps[key]
 
+    def slot(self, rank: int, parity: int, nbytes: int) -> torch.Tensor:
+        """The first ``nbytes`` of rank ``rank``'s receive slot ``parity``."""
+        off = comm._slots_offset(self.c) + parity * comm.SLOT_BYTES
+        return self.bufs[rank][off:off + nbytes]
+
     def run(self, launch: Callable, reset: bool = False) -> List:
         """``launch(rank, ring_of, counters)`` for every rank, each on its own
         stream between one event of the caller's stream and the caller's
@@ -118,11 +123,8 @@ def ag_matmul(lb: LoopbackRing, xs: Sequence[torch.Tensor], ws: Sequence[torch.T
               int8: bool = False, impl: Optional[str] = None, reset: bool = False):
     """Each rank's all_gather(x over the ring, tokens) @ its w."""
     n = lb.n
-    if int8:
-        blocks = lb.cap("ag_matmul_int8", xs[0].dtype)
-    else:
-        impl = RM._route(xs[0], ws[0], n, None, impl)
-        blocks = lb.cap("ag_matmul", xs[0].dtype, impl)
+    impl = RM._route(xs[0], ws[0], n, None, impl, int8=int8)
+    blocks = lb.cap("ag_matmul_int8" if int8 else "ag_matmul", xs[0].dtype, impl)
     return lb.run(lambda r, ring_of, cnt: RM._launch_ag(
         xs[r], ws[r], ring_of, n, int8, counters=cnt, blocks=blocks, impl=impl), reset)
 
@@ -143,13 +145,35 @@ def matmul_rs(lb: LoopbackRing, xs, ws, scatter_dim: int, *, int8: bool = False,
 
 
 def ag_matmul_contract(lb: LoopbackRing, xs, ws, *, out_dtype=None, int8: bool = False,
-                       reset: bool = False):
-    """Each rank's all_gather(x over the ring, its last dim) @ its w."""
+                       impl: Optional[str] = None, reset: bool = False):
+    """Each rank's all_gather(x over the ring, its last dim) @ its w (``impl``:
+    the int8 wire's route)."""
     n, dt = lb.n, out_dtype or xs[0].dtype
+    if int8:
+        impl = RM._route(xs[0], ws[0], n, None, impl, int8=True, contract=True)
     blocks = lb.cap("ag_matmul_contract_int8" if int8 else "ag_matmul_contract", xs[0].dtype,
-                    None, dt)
+                    impl if int8 else None, dt)
     return lb.run(lambda r, ring_of, cnt: RM._launch_contract(
-        xs[r], ws[r], ring_of, n, dt, int8, counters=cnt, blocks=blocks), reset)
+        xs[r], ws[r], ring_of, n, dt, int8, counters=cnt, blocks=blocks, impl=impl), reset)
+
+
+def hopped_pairs(lb: LoopbackRing, xs) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """After a ``reset=True`` call of an int8 AG-matmul or contracted
+    AG-matmul: for each rank d, the int8 pair its slot of the call's last
+    hop holds (that of rank d + 1, the step n - 2 of rank d - 1), and
+    ``quant_int8`` of that rank's shard in the slot's layout; the payload
+    and the scales only, not the padding."""
+    n = lb.n
+    out = []
+    for d in range(n):
+        x2 = xs[(d + 1) % n].reshape(-1, xs[0].shape[-1])
+        rows, cols = x2.shape
+        q, s = Q.quant_int8(x2)
+        want = torch.cat([q.reshape(-1).view(torch.uint8), s.reshape(-1).view(torch.uint8)])
+        got = lb.slot(d, (n - 2) % 2, RM._qpair_bytes(rows, cols))
+        off = RM._align16(rows * cols)
+        out.append((torch.cat([got[:rows * cols], got[off:off + 4 * rows]]), want))
+    return out
 
 
 # ---------------------------------------------------------------------------

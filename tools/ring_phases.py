@@ -1,6 +1,6 @@
 """Where the tensor-core ring kernels (``ringtc::ag_wgmma``,
-``ringtc::rs_wgmma`` in ``csrc/ring_matmul.cu``) spend a loopback call's
-time, on the card.
+``ringtc::rs_wgmma``, ``ringtc::contract_int8_wgmma`` in
+``csrc/ring_matmul.cu``) spend a loopback call's time, on the card.
 
     python3 tools/ring_phases.py           # one H100
 
@@ -12,7 +12,9 @@ place of the ring library (``build._libs``), and runs the loopback ring
 (``kernels/ring_loopback.py``) at three full-width blocks of
 ``chip_smoke.py``: the K/V in-projection AG-matmul and the K/V input
 gradient's matmul-RS over tokens on a ring of two, megatron's
-O-projection matmul-RS on the ring of four.  Each case is checked
+O-projection matmul-RS on the ring of four; then on the int8 wire the
+K/V and FFN-down AG-matmuls and the O-projection's contracted AG-matmul
+on a ring of two.  Each case is checked
 against ``ring_loopback.reference``, timed as ``chip_smoke.py`` times it
 (CUDA-graph replays, ``bench_ms``), and its stamps are read from the last
 replay.  One JSON line a case: the time a call, and for each rank the
@@ -20,7 +22,8 @@ median over its blocks (and the latest block) of each stamp, in us after
 the first block of any rank entered.  The phases (``s`` the step):
 ``enter`` (the producer starts), ``landed_s`` (AG: the producer saw
 hop s - 1 land), ``copy_start_s`` / ``copy_done_s`` (AG: the forward of
-step s began, after the credit wait / was counted), ``loop_s`` (the
+step s began, after the credit wait / was counted; on the int8 wire the
+shard was quantized before the ring kernel, by ``quant_pair``), ``loop_s`` (the
 consumers' first main loop of step s done), ``step_s`` (the consumers
 began step s), ``waited_s`` (RS: the hop and the credit of step s seen),
 ``arrived_s`` (RS: the step's tiles counted).  The markers are placed by
@@ -58,23 +61,35 @@ __device__ __forceinline__ void stamp_at(int me, int k) {{
 # (line of csrc/ring_matmul.cu, the stamp, put before or after it, times the line appears)
 MARKS = (
     ("    if (threadIdx.x == 0) {  // the producer\n      int it = 0;\n",
-     "      stamp_at(rg.me, 0);\n", "after", 1),
+     "      stamp_at(rg.me, 0);\n", "after", 2),
     ("    if (threadIdx.x == 0) {  // the producer: A is x's rows of the step, B w's columns\n"
      "      int it = 0;\n", "      stamp_at(rg.me, 0);\n", "after", 1),
-    ("          am = (hin & 1) ? &smap1 : &smap0;\n",
-     "          if (s < 4) stamp_at(rg.me, 4 + s);\n", "after", 1),
-    ("          if (ct == 0 && hout >= 2) spin_geq(rg.my_credit, hout - 1, rg.timeout_ns, "
-     "local);\n", "          if (ct == 0 && s < 4) stamp_at(rg.me, 8 + s);\n", "after", 1),
-    ("            release(rg.right_landed, hout + 1, local);\n        }\n",
-     "        if (ct == 0 && s < 4 && s < n - 1) stamp_at(rg.me, 12 + s);\n", "after", 1),
+    ("  asm volatile(\"fence.proxy.async.global;\\n\" ::: \"memory\");\n"
+     "  return (hin & 1) ? smap1 : smap0;\n", "  if (s < 4) stamp_at(rg.me, 4 + s);\n", "before",
+     1),
+    ("      if (ct == 0 && hout >= 2) spin_geq(rg.my_credit, hout - 1, rg.timeout_ns, local);\n",
+     "      if (ct == 0 && s < 4) stamp_at(rg.me, 8 + s);\n", "after", 1),
+    ("        release(rg.right_landed, hout + 1, local);\n    }\n",
+     "    if (ct == 0 && s < 4 && s < rg.n - 1) stamp_at(rg.me, 12 + s);\n", "after", 1),
+    # the consumers: AG-matmul (either wire), the int8 contracted AG-matmul, matmul-RS
+    ("      // row m of the step lands at (m / t) n t + src t + m % t of out\n",
+     "      if (threadIdx.x == 128 && u == (int)blockIdx.x && s < 4) stamp_at(rg.me, 16 + s);\n",
+     "before", 1),
+    ("      if (regs && !last) continue;                    // the sums stay in registers\n",
+     "      if (threadIdx.x == 128 && u == (int)blockIdx.x && s < 4) stamp_at(rg.me, 16 + s);\n",
+     "before", 1),
     ("      wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, "
      "it,\n                                            wait);\n",
      "      if (threadIdx.x == 128 && u == (int)blockIdx.x && s < 4) stamp_at(rg.me, 16 + s);\n",
-     "after", 2),
+     "after", 1),
+    ("        rg.my_slot[(rg.hop0 + s - 1) & 1] + align16((long long)M * h));\n",
+     "    if (threadIdx.x == 128 && s < 4) stamp_at(rg.me, 20 + s);\n", "after", 1),
+    ("        rg.my_slot[(rg.hop0 + s - 1) & 1] + align16((long long)m * hl));\n",
+     "    if (threadIdx.x == 128 && s < 4) stamp_at(rg.me, 20 + s);\n", "after", 1),
     ("    for (int u = blockIdx.x; u < units; u += gridDim.x) {\n"
      "      const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);\n"
      "      wg::mma_unit",
-     "    if (threadIdx.x == 128 && s < 4) stamp_at(rg.me, 20 + s);\n", "before", 2),
+     "    if (threadIdx.x == 128 && s < 4) stamp_at(rg.me, 20 + s);\n", "before", 1),
     ("        named_sync(BAR_CONSUMERS, 256);\n        waited = true;\n",
      "        if (threadIdx.x == 128 && s < 4) stamp_at(rg.me, 24 + s);\n", "after", 1),
     ("      if (s > 0) release(rg.left_credit, hout, local);\n    }\n",
@@ -84,8 +99,10 @@ PHASES = {0: "enter"}
 for base, name in ((4, "landed"), (8, "copy_start"), (12, "copy_done"), (16, "loop"),
                    (20, "step"), (24, "waited"), (28, "arrived")):
     PHASES.update({base + s: f"{name}_{s}" for s in range(4)})
-CASES = ((2, "my", cs.RING_CASES[0]), (2, "my", cs.RING_CASES[5]),
-         (4, "model", cs.MEG_RING_CASES[0]))
+# (n, axis, case, wire)
+CASES = ((2, "my", cs.RING_CASES[0], "bf16"), (2, "my", cs.RING_CASES[5], "bf16"),
+         (4, "model", cs.MEG_RING_CASES[0], "bf16"), (2, "my", cs.RING_CASES[0], "int8"),
+         (2, "my", cs.RING_CASES[1], "int8"), (2, "my", cs.RING_CASES[4], "int8"))
 
 
 def stamped_source():
@@ -124,23 +141,30 @@ def main():
     lib.hk_stamps.argtypes = [ctypes.c_void_p]
     build._libs["ring_matmul"] = lib
     torch.backends.cuda.matmul.allow_tf32 = False
-    for n, ax, (kernel, label, xs, ws, sd, _) in CASES:
+    for n, ax, (kernel, label, xs, ws, sd, _), wire in CASES:
         lb = LB.LoopbackRing(n, ax)
         gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
         xl = [cs.randn(gen, xs, torch.bfloat16) for _ in range(n)]
         wl = [cs.randn(gen, ws, torch.bfloat16, ws[0] ** -0.5) for _ in range(n)]
-        run = (lambda r=True: LB.ag_matmul(lb, xl, wl, impl="wgmma", reset=r)) \
-            if kernel == "ag_matmul" else \
-            (lambda r=True: LB.matmul_rs(lb, xl, wl, sd, impl="wgmma", reset=r))
+        int8 = wire == "int8"
+        if kernel == "ag_matmul":
+            run = lambda r=True: LB.ag_matmul(lb, xl, wl, int8=int8, impl="wgmma",  # noqa: E731
+                                              reset=r)
+        elif kernel == "ag_matmul_contract":
+            run = lambda r=True: LB.ag_matmul_contract(  # noqa: E731
+                lb, xl, wl, int8=int8, impl="wgmma", reset=r)
+        else:
+            run = lambda r=True: LB.matmul_rs(lb, xl, wl, sd, impl="wgmma", reset=r)  # noqa: E731
         mags = LB.partial_magnitudes(xl, wl, sd) if kernel == "matmul_rs" else None
-        ok = cs._ring_errs(kernel, run(), LB.reference(kernel, xl, wl, sd), torch.bfloat16, n,
-                           False, mags)[0]
+        ok = cs._ring_errs(kernel, run(), LB.reference(kernel, xl, wl, sd, int8=int8),
+                           torch.bfloat16, n, int8, mags)[0]
         ms = cs.bench_ms([run])            # every replay stamps the same slots anew
         st = np.zeros((RANKS, BLOCKS, SLOTS), dtype=np.uint64)
         torch.cuda.synchronize()
         if lib.hk_stamps(st.ctypes.data):
             raise RuntimeError("hk_stamps failed")
-        blocks = lb.cap(kernel, torch.bfloat16, "wgmma")
+        kname = kernel + ("_int8" if int8 else "")
+        blocks = lb.cap(kname, torch.bfloat16, "wgmma", torch.bfloat16)
         got = st[:n, :blocks].astype(np.int64)
         t0 = got[:, :, 0][got[:, :, 0] > 0].min()
         ranks = {}
@@ -153,7 +177,7 @@ def main():
                     ph[name] = [round(float(np.median(v) - t0) / 1e3, 2),
                                 round(float(v.max() - t0) / 1e3, 2)]
             ranks[f"rank{rk}"] = ph
-        print(json.dumps(dict(case=label, kernel=kernel, n=n, blocks=blocks, ok=ok,
+        print(json.dumps(dict(case=label, kernel=kname, n=n, blocks=blocks, ok=ok,
                               graph_us_per_call=1e3 * ms, phases_us_median_latest=ranks)),
               flush=True)
     return 0
