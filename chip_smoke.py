@@ -13,10 +13,11 @@ Phases, each fatal on failure:
    -sass``), and fail unless each tensor-core attention kernel, the wgmma
    matmul (``wg::mm`` and its gated form ``wg::mm_gated``), the
    tensor-core scan (``tc::ssd``) and the tensor-core ring kernels (the
-   AG-matmul and matmul-RS, ``ringtc::ag_wgmma<false>``,
-   ``ringtc::rs_wgmma``; the int8 wire's AG-matmul and contracted
-   AG-matmul, ``ringtc::ag_wgmma<true>``, ``ringtc::contract_int8_wgmma``)
-   hold HGMMA;
+   AG-matmul, matmul-RS and contracted AG-matmul,
+   ``ringtc::ag_wgmma<false>``, ``ringtc::rs_wgmma``,
+   ``ringtc::contract_wgmma<false>``; their int8 wire's forms,
+   ``ringtc::ag_wgmma<true>``, ``ringtc::rs_int8_wgmma``,
+   ``ringtc::contract_wgmma<true>``) hold HGMMA;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (qwen3-0.6b at full
    width), in fp32 and bf16, with the tolerance and its reason; time the
@@ -70,10 +71,9 @@ Phases, each fatal on failure:
    hop 0, two carrying the hops on), at ``_ring_case``'s bounds; each
    case timed by CUDA-graph replays of one call (n streams forked from
    one and joined to it) beside one batched ``torch.matmul`` of the n
-   ranks' products and n x a rank's bound; a bf16 AG-matmul or matmul-RS
-   on the wgmma route, on either wire for the AG-matmul and on the int8
-   wire for the contracted AG-matmul, is held and timed on the wmma route
-   too, in turns (``case`` lines with ``"loopback": true`` and
+   ranks' products and n x a rank's bound; a bf16 case of any ring kernel
+   on the wgmma route, on either wire, is held and timed on the wmma
+   route too, in turns (``case`` lines with ``"loopback": true`` and
    ``"route"``).  These are
    the ring kernels' own times, and the main rows of the kernels line;
 8. ``ring_kernels``: two rank processes on the card, one ring of n = 2
@@ -99,10 +99,11 @@ Phases, each fatal on failure:
    (``overlap="fused"``, bf16 over fp32 masters, batch 8 x 512, 2
    microbatches, remat fusion, 3 steps) through the training launcher's
    grid entry: its route table, every rank's launches (each of the three
-   ring kernels must launch on every rank, every AG-matmul and matmul-RS
-   on the wgmma route, ``grid_train_ring_paths``; likewise in
-   ``grid_megatron``, ``grid_pipeline_hecaton``, ``grid_pod_data`` and
-   ``grid_serve``'s prefill), every step's loss and grad
+   ring kernels must launch on every rank, every one on the wgmma route,
+   ``grid_train_ring_paths``; likewise in ``grid_pipeline_hecaton``,
+   ``grid_pod_data`` and ``grid_serve``'s prefill, and in
+   ``grid_megatron``, which must launch its AG-matmul and matmul-RS and
+   launches no contracted ring), every step's loss and grad
    norm against the same grid trained through the plain versions from
    the same parameters (1e-3 and 1e-2 relative), the first step's loss
    against the single-device port on the same parameters and batch
@@ -111,9 +112,8 @@ Phases, each fatal on failure:
    time-sliced ranks on one card make no grid speed;
 10. ``grid_train_int8``: the same grid step on the int8 wire
    (``--comm-dtype int8``, 2 steps, full width, 2 layers): every rank
-   launches each of the three int8 ring-kernel variants, every int8
-   AG-matmul and contracted AG-matmul on the wgmma route
-   (``grid_train_int8_ring_paths``), every step's
+   launches each of the three int8 ring-kernel variants, every one on the
+   wgmma route (``grid_train_int8_ring_paths``), every step's
    loss and grad norm within 1e-3 and 1e-2 of the plain int8 grid, the
    first loss within 5e-2 of the bf16 wire's (JAX's QUANT_RTOL); the
    ``ring_kernels`` phase also holds the int8 variants against their
@@ -275,10 +275,12 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -450,16 +452,18 @@ TC_FUNCTIONS = ("_ZN2tc3fwd", "_ZN2tc6bwd_dq", "_ZN2tc8bwd_dkdv")
 WG_FUNCTIONS = ("_ZN2wg2mm", "_ZN2wg8mm_gated")
 # the tensor-core SSD scan tc::ssd, likewise in the ssd library's SASS
 SSD_TC_FUNCTIONS = ("_ZN2tc3ssd",)
-# the tensor-core ring kernels ringtc::ag_wgmma<false> and ringtc::rs_wgmma (rows 5 and
-# 6 on wgmma), ringtc::ag_wgmma<true> and ringtc::contract_int8_wgmma (rows 5i and 7i),
-# likewise in the ring library's SASS
-RING_TC_FUNCTIONS = ("_ZN6ringtc8ag_wgmmaILb0E", "_ZN6ringtc8rs_wgmma", "_ZN6ringtc8ag_wgmmaILb1E",
-                     "_ZN6ringtc19contract_int8_wgmma")
+# the tensor-core ring kernels ringtc::ag_wgmma<false>, ringtc::rs_wgmma and
+# ringtc::contract_wgmma<false> (rows 5, 6 and 7 on wgmma), ringtc::ag_wgmma<true>,
+# ringtc::rs_int8_wgmma and ringtc::contract_wgmma<true> (rows 5i, 6i and 7i), likewise
+# in the ring library's SASS
+RING_TC_FUNCTIONS = ("_ZN6ringtc8ag_wgmmaILb0E", "_ZN6ringtc8rs_wgmma",
+                     "_ZN6ringtc14contract_wgmmaILb0E", "_ZN6ringtc8ag_wgmmaILb1E",
+                     "_ZN6ringtc13rs_int8_wgmma", "_ZN6ringtc14contract_wgmmaILb1E")
 # the ring kernels that take a route (ring_matmul.ring_impl): every bf16 launch
 # of these at the grid phases' full-width blocks must be on wgmma, on the bf16
 # wire and on the int8 wire
-ROUTED_RING = ("ag_matmul", "matmul_rs")
-ROUTED_INT8 = ("ag_matmul_int8", "ag_matmul_contract_int8")
+ROUTED_RING = ("ag_matmul", "matmul_rs", "ag_matmul_contract")
+ROUTED_INT8 = ("ag_matmul_int8", "matmul_rs_int8", "ag_matmul_contract_int8")
 # the loopback ring (kernels/ring_loopback.py): all n ranks of one ring in this
 # process, on n streams: (n, the axis whose buffer layout it takes, the cases)
 LOOPBACK_RINGS = ((2, "my", RING_CASES), (4, "model", MEG_RING_CASES))
@@ -914,15 +918,11 @@ def _sass(libname):
     bindir = os.path.dirname(build.nvcc_path())
     sass = subprocess.run([os.path.join(bindir, "cuobjdump"), "-sass", lib], check=True,
                           capture_output=True, text=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        line = line.strip()
-        if line.startswith("Function :"):
-            name = line.split(":", 1)[1].strip()
-            counts[name] = {"HGMMA": 0, "HMMA": 0}
-        elif name is not None:
-            counts[name]["HGMMA"] += " HGMMA." in line
-            counts[name]["HMMA"] += " HMMA." in line
+    # a function's text runs from its "Function :" line to the next; an
+    # instruction line holds one opcode
+    parts = re.split(r"^[ \t]*Function :(.*)$", sass, flags=re.M)
+    counts = {name.strip(): {"HGMMA": body.count(" HGMMA."), "HMMA": body.count(" HMMA.")}
+              for name, body in zip(parts[1::2], parts[2::2])}
     names = list(counts)
     filt = os.path.join(bindir, "cu++filt")
     if os.path.exists(filt):
@@ -938,11 +938,15 @@ def sass_counts():
     of the flash-attention, matmul, ssd and ring libraries, from ``cuobjdump
     -sass``; ok when every tensor-core attention kernel (TC_FUNCTIONS), the
     wgmma matmul (WG_FUNCTIONS), the tensor-core scan (SSD_TC_FUNCTIONS) and
-    the tensor-core AG-matmul and matmul-RS (RING_TC_FUNCTIONS) hold HGMMA."""
+    the tensor-core ring kernels (RING_TC_FUNCTIONS) hold HGMMA."""
     shown, ok = {}, True
-    for libname, prefixes in (("flash_attention", TC_FUNCTIONS), ("matmul", WG_FUNCTIONS),
-                              ("ssd", SSD_TC_FUNCTIONS), ("ring_matmul", RING_TC_FUNCTIONS)):
-        lib, counts, short = _sass(libname)
+    libs = (("flash_attention", TC_FUNCTIONS), ("matmul", WG_FUNCTIONS),
+            ("ssd", SSD_TC_FUNCTIONS), ("ring_matmul", RING_TC_FUNCTIONS))
+    for name, _ in libs:                       # loaded here, dumped in parallel below
+        build.library(name)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        dumps = list(pool.map(_sass, [name for name, _ in libs]))
+    for (_, prefixes), (lib, counts, short) in zip(libs, dumps):
         shown[lib] = short
         ok &= all(any(m.startswith(pre) and c["HGMMA"] > 0 for m, c in counts.items())
                   for pre in prefixes)
@@ -1858,11 +1862,10 @@ def _loopback_case(lb, idx, kernel, label, xs, ws, sd, main, dtype, wire):
     and two more that carry the hops on (the credit protocol across calls);
     timed by CUDA-graph replays beside one batched ``torch.matmul`` of all
     n ranks' products and n x a rank's bound.  A bf16 case on the wgmma
-    route (the AG-matmul and matmul-RS on the bf16 wire, the AG-matmul and
-    contracted AG-matmul on the int8 wire) is held and timed on the wmma
+    route (every ring kernel, on either wire) is held and timed on the wmma
     route too, the two in turns.  An int8 AG-matmul or contracted AG-matmul
     must also have hopped ``quant_int8``'s pair bit for bit, on every route
-    (``ringtc::quant_pair`` quantizes the shard in a launch of its own
+    (``quant_pair`` quantizes the shard in a launch of its own
     before the ring kernel).  Returns the case rows (the chosen route's
     first)."""
     n = lb.n
@@ -1901,7 +1904,7 @@ def _loopback_case(lb, idx, kernel, label, xs, ws, sd, main, dtype, wire):
         chosen = krm.ring_impl(dtype, (xs, tuple(wl[0].shape)),
                                (xl[0].stride(), wl[0].stride()), n,
                                sd if kernel == "matmul_rs" else None, int8=int8,
-                               contract=kernel == "ag_matmul_contract")
+                               contract=kernel == "ag_matmul_contract", split=split)
         routes = [chosen] + (["wmma"] if chosen == "wgmma" else [])
     checks = {}
     for p in routes:                            # held first, then timed
@@ -1979,19 +1982,22 @@ def ring_loopback_phase():
     return results, ok
 
 
-def ring_route_check(name, paths, launches, kernels=ROUTED_RING, need=True, fused=True):
+def ring_route_check(name, paths, launches, kernels=ROUTED_RING, need=None, fused=True):
     """Each rank's launches of the routed ring ``kernels`` by route
     (``paths``: {rank: ring_matmul.IMPL_LAUNCHES}), printed; ok when every
     launch took wgmma (the grid phases run bf16 at the full-width blocks,
-    which the tensor cores take) and, ``need``, every rank launched each.
-    Not ``fused`` (the two-way rings, which fuse no ring kernel): ok only
-    when no rank launched any of them."""
+    which the tensor cores take) and every rank launched each kernel of
+    ``need`` (those of ``kernels`` that the phase's own kernel list names;
+    default all of them).  Not ``fused`` (the two-way rings, which fuse no
+    ring kernel): ok only when no rank launched any of them."""
+    need = kernels if need is None else need
     if fused:
-        ok = all(paths[rk][k]["wgmma"] == launches[rk][k] and (launches[rk][k] > 0 or not need)
+        ok = all(paths[rk][k]["wgmma"] == launches[rk][k] and (launches[rk][k] > 0 or k not in need)
                  for rk in paths for k in kernels)
     else:
         ok = all(launches[rk][k] == 0 for rk in paths for k in kernels)
-    log(f"{name}_ring_paths " + json.dumps(dict(paths, ok=ok, checked=list(kernels))))
+    log(f"{name}_ring_paths " + json.dumps(dict(paths, ok=ok, checked=list(kernels),
+                                                needed=list(need))))
     return ok
 
 def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID_STEPS,
@@ -2038,7 +2044,7 @@ def grid_train_phase(name="grid_train", overlap="fused", wire="bf16", steps=GRID
     routed = ROUTED_RING if wire == "bf16" else ROUTED_INT8
     ok_routes = ring_route_check(
         name, {rk: p["ring"] for rk, p in r["pipeline"]["paths"].items()}, launches, routed,
-        need=bool(set(routed) & set(kernels)), fused=overlap != "bidir")
+        need=tuple(k for k in routed if k in kernels), fused=overlap != "bidir")
     ok = (all(math.isfinite(x) for x in losses + gnorms) and len(loss_rel) == steps
           and max(loss_rel) <= GRID_LOSS_TOL and single_rel <= single_tol
           and len(gnorm_rel) == steps and max(gnorm_rel) <= GRID_GNORM_TOL

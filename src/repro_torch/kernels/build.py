@@ -72,9 +72,9 @@ ARGTYPES = {
         "hk_pingpong": [_P, _P, _I, _I, _U, _U, _P, _P],
         "hk_ring_ag_matmul": [_P, _P, _P, _P] + [_I] * 7 + [_P],
         "hk_ring_matmul_rs": [_P, _P, _P, _P] + [_I] * 8 + [_P],
-        "hk_ring_ag_matmul_contract": [_P] * 5 + [_I] * 6 + [_P],
+        "hk_ring_ag_matmul_contract": [_P] * 5 + [_I] * 7 + [_P],
         "hk_ring_ag_matmul_int8": [_P] * 5 + [_I] * 7 + [_P],
-        "hk_ring_matmul_rs_int8": [_P] * 5 + [_I] * 8 + [_P],
+        "hk_ring_matmul_rs_int8": [_P] * 5 + [_I] * 9 + [_P],
         "hk_ring_ag_matmul_contract_int8": [_P] * 6 + [_I] * 7 + [_P],
         "hk_ring_occupancy": [_I] * 4 + [_P, _P],
     },

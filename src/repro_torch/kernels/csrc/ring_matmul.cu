@@ -26,7 +26,7 @@
 // landed/credit handshake: one copy writes both into the slot, one release
 // publishes them.
 //   * hk_ring_ag_matmul_int8 / hk_ring_ag_matmul_contract_int8: the shard is
-//     quantized once, by a kernel of its own (quant_pair, a block a row) on
+//     quantized once, by a kernel of its own (quant_pair, a warp a row) on
 //     the stream just before the ring kernel, on every route, and circulates
 //     unchanged; a tile of an arriving shard dequantizes (q * scale, fp32,
 //     then the input dtype) on its way into the product (the tile loop as it
@@ -37,13 +37,13 @@
 //     scale needs the whole row, so each step folds dequant(arriving) + this
 //     step's tile, each rounded to the input dtype, into a full-width buffer,
 //     then a grid-wide barrier (every block is resident) lets the blocks
-//     quantize whole rows into the right neighbour's slot.  Only the hop is
-//     int8; the buffer, the fp32 tiles and the output are not.
+//     quantize whole rows into the right neighbour's slot, on both routes.
+//     Only the hop is int8; the buffer, the fp32 tiles and the output are not.
 // Quantization is core/quant.quant_int8's: scale = max|x| / 127 by an IEEE
 // division (1 for a zero row), rint (half to even), clipped to +-127 (one
-// function, quant_rows, for the pair and the RS's hops alike); build.py passes
-// no fast-math flag, and the dequantizing product is __fmul_rn so it is never
-// contracted into an FMA.
+// function, quant_rows, a warp a row, for the pair and the RS's hops alike, on
+// every route); build.py passes no fast-math flag, and the dequantizing product
+// is __fmul_rn so it is never contracted into an FMA.
 //
 // The ring protocol.  The ranks are processes on one or more cards; each
 // owns a symmetric buffer (hk_sym_alloc) that every peer maps through its
@@ -72,13 +72,12 @@
 // bf16 against the operand, output and hop bytes at 3.35 TB/s (an int8 hop:
 // the payload plus 4 bytes of scale per row).
 //
-// Two product loops.  bf16 AG-matmul, matmul-RS, int8 AG-matmul and int8
-// contracted AG-matmul whose operands TMA can address take the tensor cores
-// (route wgmma, namespace ringtc below: wg::mm's TMA-fed wgmma main loop,
-// wg.cuh).  Every other launch, and the bf16 contracted ring and the int8
-// matmul-RS always, runs the simple tile loop (64 x 64 output tiles, a K step
-// of 32 through shared memory, WMMA m16n16k16 for bf16 (route wmma) and SIMT
-// fp32 (route simt), masked edges, any extent).  The wrapper
+// Two product loops.  Every ring kernel, on either wire, whose bf16 operands
+// TMA can address takes the tensor cores (route wgmma, namespace ringtc below:
+// wg::mm's TMA-fed wgmma main loop, wg.cuh).  Every other launch runs the
+// simple tile loop (64 x 64 output tiles, a K step of 32 through shared
+// memory, WMMA m16n16k16 for bf16 (route wmma) and SIMT fp32 (route simt),
+// masked edges, any extent).  The wrapper
 // (kernels/ring_matmul.py, ring_impl) picks the route from the dtype, shapes
 // and strides alone.  Every host entry takes a block cap: 0 keeps one block an
 // SM at most (the process ring); a loopback ring of n streams in one process
@@ -460,70 +459,101 @@ __device__ __forceinline__ unsigned int ld_acquire_gpu(const unsigned int* p) {
   return v;
 }
 
-// every block of the grid arrives before any leaves; sound because every
-// block is resident (at most one per SM).  `counter` is zeroed before the launch.
+// Every block of the grid arrives before any goes on, by one thread after a barrier of the
+// threads whose writes it publishes; sound because every block is resident (one an SM, or the
+// loopback's cap).  `counter` is zeroed before the launch.
+__device__ __forceinline__ void grid_sync(unsigned int* counter, u64 timeout_ns) {
+  __threadfence();
+  atomicAdd(counter, 1u);
+  const u64 t0 = now_ns();
+  while (ld_acquire_gpu(counter) < gridDim.x) {
+    __nanosleep(100);
+    if (now_ns() - t0 > timeout_ns) __trap();
+  }
+  __threadfence();
+}
+
+// grid_sync called by every thread of the block
 __device__ void grid_barrier(unsigned int* counter, u64 timeout_ns) {
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(counter, 1u);
-    const u64 t0 = now_ns();
-    while (ld_acquire_gpu(counter) < gridDim.x) {
-      __nanosleep(100);
-      if (now_ns() - t0 > timeout_ns) __trap();
-    }
-    __threadfence();
+  if (threadIdx.x == 0) grid_sync(counter, timeout_ns);
+  __syncthreads();
+}
+
+__device__ __forceinline__ signed char quant1(float v, float sc) {
+  return (signed char)fminf(fmaxf(rintf(v / sc), -127.f), 127.f);  // an IEEE division
+}
+
+// eight bf16 values quantized by `sc` and stored as eight int8 at q
+__device__ __forceinline__ void quant8(const uint4& p, float sc, signed char* q) {
+  const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&p);
+  uint32_t word[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(v[j]);
+    word[j / 2] |= ((uint32_t)(uint8_t)quant1(f.x, sc) << (16 * (j % 2))) |
+                   ((uint32_t)(uint8_t)quant1(f.y, sc) << (16 * (j % 2) + 8));
   }
-  __syncthreads();
+  *reinterpret_cast<uint2*>(q) = make_uint2(word[0], word[1]);
 }
 
-// the block's max of v (called by every thread; `red` holds THREADS / 32 floats)
-__device__ float block_max(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();                       // the previous call's readers are done
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float m = red[0];
-  for (int i = 1; i < THREADS / 32; ++i) m = fmaxf(m, red[i]);
-  return m;
-}
-
-// quantize rows of src [M, N] (this block's rows: blockIdx.x + k * gridDim.x)
-// into the pair at q / scale: per row segment ([0, split), [split, N); one
-// segment when split is 0) scale = max|x| / 127 (1 for a zero segment) and
-// q = rint(x / scale) clipped to 127, as core/quant.quant_int8.  src was
-// written by other blocks: read around L1.
+// Quantize rows of src [M, N] into the pair at q / scale, a warp a row: warp `wid` of the
+// `nw` taking part quantizes rows wid, wid + nw, ...  Per row segment ([0, split), [split,
+// N); one segment when split is 0) scale = max|x| / 127 (1 for a zero segment) and q =
+// rint(x / scale) clipped to 127, as core/quant.quant_int8 (a max is exact in any order, so
+// the integers do not depend on who takes part).  src was written by other blocks: read
+// around L1, twice (its max, then its quantization): a bf16 row whose segments lie on 16 bytes
+// 8 elements a lane, any other one element a lane.
 template <typename T>
 __device__ void quant_rows(const T* src, int M, int N, int split, signed char* q, float* scale,
-                           float* red) {
-  const int nseg = split > 0 ? 2 : 1;
-  for (int r = blockIdx.x; r < M; r += gridDim.x) {
+                           int wid, int nw) {
+  const int lane = threadIdx.x % 32, nseg = split > 0 ? 2 : 1;
+  bool vec = false;
+  if constexpr (std::is_same<T, bf16>::value)
+    vec = N % 8 == 0 && split % 8 == 0 && ((uintptr_t)src & 15) == 0 && ((uintptr_t)q & 7) == 0;
+  for (int r = wid; r < M; r += nw) {
     const T* row = src + (long long)r * N;
+    signed char* qr = q + (long long)r * N;
     for (int g = 0; g < nseg; ++g) {
       const int c0 = g == 0 ? 0 : split, c1 = nseg == 2 && g == 0 ? split : N;
       float m = 0.f;
-      for (int c = c0 + threadIdx.x; c < c1; c += THREADS)
-        m = fmaxf(m, fabsf(to_f<T>(ldcg(row + c))));
-      m = block_max(m, red);
-      const float sc = m > 0.f ? m / 127.f : 1.f;      // an IEEE division, as in PyTorch
-      for (int c = c0 + threadIdx.x; c < c1; c += THREADS) {
-        const float v = rintf(to_f<T>(ldcg(row + c)) / sc);
-        q[(long long)r * N + c] = (signed char)fminf(fmaxf(v, -127.f), 127.f);
+      if (vec) {
+        for (int c = c0 + 8 * lane; c < c1; c += 256) {
+          const uint4 p = __ldcg(reinterpret_cast<const uint4*>(row + c));
+          const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(&p);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 f = __bfloat1622float2(v[j]);
+            m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
+          }
+        }
+      } else {
+        for (int c = c0 + lane; c < c1; c += 32) m = fmaxf(m, fabsf(to_f<T>(ldcg(row + c))));
       }
-      if (threadIdx.x == 0) scale[(long long)r * nseg + g] = sc;
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const float sc = m > 0.f ? m / 127.f : 1.f;      // an IEEE division, as in PyTorch
+      if (vec) {
+        for (int c = c0 + 8 * lane; c < c1; c += 256)
+          quant8(__ldcg(reinterpret_cast<const uint4*>(row + c)), sc, qr + c);
+      } else {
+        for (int c = c0 + lane; c < c1; c += 32) qr[c] = quant1(to_f<T>(ldcg(row + c)), sc);
+      }
+      if (lane == 0) scale[(long long)r * nseg + g] = sc;
     }
   }
 }
 
 // The int8 AG kernels' pair: x [M, h] quantized into `pair` (the payload, then an fp32
-// scale a row at align16(M h)), a block a row, on the stream before the ring kernel that
+// scale a row at align16(M h)), a warp a row, on the stream before the ring kernel that
 // circulates it.
+constexpr int WARPS = THREADS / 32;
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     quant_pair(const T* __restrict__ x, unsigned char* __restrict__ pair, int M, int h) {
-  __shared__ float red[THREADS / 32];
   quant_rows<T>(x, M, h, 0, reinterpret_cast<signed char*>(pair),
-                reinterpret_cast<float*>(pair + align16((long long)M * h)), red);
+                reinterpret_cast<float*>(pair + align16((long long)M * h)),
+                blockIdx.x * WARPS + threadIdx.x / 32, gridDim.x * WARPS);
 }
 
 // AG-matmul over the int8 wire: x [b,t,h] is this rank's own shard, used as
@@ -605,7 +635,8 @@ __global__ void __launch_bounds__(THREADS)
       if (hout >= 2) wait_geq(rg.my_credit, hout - 1, rg.timeout_ns);
       unsigned char* dst = reinterpret_cast<unsigned char*>(rg.right_slot[hout & 1]);
       quant_rows<T>(acc, M, N, split, reinterpret_cast<signed char*>(dst),
-                    reinterpret_cast<float*>(dst + soff), reinterpret_cast<float*>(smem));
+                    reinterpret_cast<float*>(dst + soff), blockIdx.x * WARPS + threadIdx.x / 32,
+                    gridDim.x * WARPS);
       if (arrive_last(&rg.counters[2 * s]) && threadIdx.x == 0)
         st_release(rg.right_landed, hout + 1);
     } else if (s > 0) {
@@ -709,8 +740,8 @@ int grid_cap(int tiles, int blocks) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// AG-matmul, matmul-RS, and the int8 wire's AG-matmul and contracted AG-matmul, in bf16 on
-// Hopper's tensor cores (route wgmma).
+// AG-matmul, matmul-RS and the contracted AG-matmul, on the bf16 wire and the int8 wire, in
+// bf16 on Hopper's tensor cores (route wgmma).
 //
 // The product of every ring step is wg::mm's main loop (wg.cuh): persistent
 // blocks of three warpgroups, 128 x 128 output tiles (BN 128: 64 fp32
@@ -749,9 +780,11 @@ int grid_cap(int tiles, int blocks) {
 //     ring to four stages.  The row scales are read once a unit, around L1,
 //     after the unit's first stage has landed; both consumer warpgroups meet
 //     before the credit, which covers their scale reads.
-//   * contract_int8_wgmma: step s multiplies the shard of rank me - s (x, or
-//     the arriving pair through the same dequantizing stage) by w's row block
-//     of that rank, one map of w [n hl, o] read src hl rows on.  A block that
+//   * contract_wgmma<Q8>: step s multiplies the shard of rank me - s by w's
+//     row block of that rank, one map of w [n hl, o] read src hl rows on.  On
+//     the bf16 wire (Q8 false) the shard is x or the slot's bf16 shard, which
+//     the copy warps forward as ag_wgmma's do; on the int8 wire x at step 0,
+//     then the arriving pair through the dequantizing stage.  A block that
 //     owns at most one output tile keeps its 64 fp32 sums a thread in
 //     registers across all n steps and stores once; otherwise each step adds
 //     its sums into an fp32 buffer in device memory, as the tile loop does.
@@ -764,6 +797,18 @@ int grid_cap(int tiles, int blocks) {
 //     fp32, rounded once, into the right neighbour's slot (or out at the last
 //     step); over tokens, A's 128-row box stays inside the destination chunk
 //     (the route takes chunk % 128 == 0).
+//   * rs_int8_wgmma (the int8 wire): rs_wgmma's producer, main loop and wait
+//     for `landed` after the step's first main loop.  The fold is the tile
+//     loop's arithmetic: bf16(bf16(q s) + bf16(contribution)), the product by
+//     __fmul_rn and the sum in fp32, rounded once, from an 8-byte read of the
+//     arriving payload per 16-byte output chunk and the row segment's scale,
+//     into a full-width bf16 buffer (work and out in turn; out at the last
+//     step).  After the step's folds a grid barrier; then the credit for the
+//     right neighbour's slot, and the consumer warps and the producer
+//     warpgroup's idle warps 1-3 quantize whole rows of the buffer into it,
+//     a warp a row (quant_rows); the last block publishes `landed`.  The left
+//     neighbour's credit follows the barrier (every block's folds, the last
+//     reads of the arriving pair, are done).
 // Every wait (flags and mbarriers) traps after the ring's spin timeout.  The
 // flags' loads, stores and fences take the .gpu scope when every peer lies on
 // this card (peers_local: the loopback ring, rank processes sharing a card) and
@@ -783,8 +828,10 @@ constexpr int EPI_OFFSET = (Tl::NST * Tl::STAGE + 2 * Tl::NST * 8 + 127) / 128 *
 constexpr size_t SMEM = 1024 + EPI_OFFSET + 2 * EPI_BYTES;
 static_assert(SMEM <= 232448, "shared memory of a block");
 constexpr int COPY_THREADS = 96;                      // warps 1-3: the forward copy
+constexpr int QUANT_WARPS = 11;                       // rs_int8_wgmma: all but the producer's
 // named barriers (0 is __syncthreads): the consumers, the copy warps, each consumer warpgroup
-enum { BAR_CONSUMERS = 1, BAR_COPY = 2, BAR_WG = 3 };
+// (3 and 4), the quantizing warps
+enum { BAR_CONSUMERS = 1, BAR_COPY = 2, BAR_WG = 3, BAR_QUANT = 5 };
 
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -858,14 +905,14 @@ __device__ __forceinline__ void init_stages(uint64_t* full, uint64_t* empty) {
 // The epilogue of consumer warpgroup c's 64 rows of a tile (first row m0, first column
 // n0) from its fp32 sums: each sum rounded to bf16 into the warpgroup's staging buffer
 // (64 rows of 16-byte chunks, a row's chunks XOR-swizzled by the row so that neither
-// phase has bank conflicts), then a 16-byte chunk a thread, row by row: row m (m0 + m < M,
-// columns n0.. < N, N a multiple of 8) goes to dst(m0 + m) + n0, the arriving row
-// in(m0 + m) + n0 added first (in fp32, rounded once) when `in` is given.  The stores of
-// a warp cover whole 256-byte row segments where the register layout would scatter
-// 4-byte pairs over eight rows.
-template <typename Dst, typename In>
+// phase has bank conflicts), then a 16-byte chunk a thread, row by row: the chunk of row
+// m (m0 + m < M) at column col (n0.. < N, N a multiple of 8), eight bf16 values, goes
+// through fold(m, col, chunk), which adds the arriving row's values in place (or
+// nothing), to dst(m) + col.  The stores of a warp cover whole 256-byte row segments
+// where the register layout would scatter 4-byte pairs over eight rows.
+template <typename Dst, typename Fold>
 __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], uint8_t* buf, int c, int tt,
-                                         int m0, int n0, int M, int N, Dst dst, In in) {
+                                         int m0, int n0, int M, int N, Dst dst, Fold fold) {
   const int lane = tt % 32, r0 = (tt / 32) * 16 + lane / 4;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
@@ -883,21 +930,52 @@ __device__ __forceinline__ void epilogue(const float (&acc)[BN / 2], uint8_t* bu
     const int r = k / CHUNKS, ch = k % CHUNKS, m = m0 + r, col = n0 + 8 * ch;
     if (m >= M || col >= N) continue;
     uint4 v = *reinterpret_cast<const uint4*>(buf + r * (BN * 2) + ((ch ^ (r & 7)) << 4));
-    const bf16* src = in(m);
-    if (src != nullptr) {
-      const uint4 p = __ldcg(reinterpret_cast<const uint4*>(src + col));
-      const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&p);
-      __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 fa = __bfloat1622float2(a[j]), fy = __bfloat1622float2(y[j]);
-        y[j] = __floats2bfloat162_rn(fa.x + fy.x, fa.y + fy.y);
-      }
-    }
+    fold(m, col, v);
     *reinterpret_cast<uint4*>(dst(m) + col) = v;
   }
   named_sync(BAR_WG + c, 128);                        // the buffer is free again
 }
+
+// the epilogue's folds: nothing arrives (AG-matmul), the bf16 wire's arriving partial, or the
+// int8 wire's pair; each added in fp32 to the stored contribution and rounded once
+struct NoFold {
+  __device__ __forceinline__ void operator()(int, int, uint4&) const {}
+};
+struct FoldBf16 {                 // the arriving [., N] bf16 rows at `in` (none: nullptr)
+  const bf16* in;
+  int N;
+  __device__ __forceinline__ void operator()(int m, int col, uint4& v) const {
+    if (in == nullptr) return;
+    const uint4 p = __ldcg(reinterpret_cast<const uint4*>(in + (long long)m * N + col));
+    const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&p);
+    __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 fa = __bfloat1622float2(a[j]), fy = __bfloat1622float2(y[j]);
+      y[j] = __floats2bfloat162_rn(fa.x + fy.x, fa.y + fy.y);
+    }
+  }
+};
+struct FoldQ8 {                   // the arriving pair: int8 [., N] at q, nseg scales a row
+  const signed char* q;           // (none: nullptr)
+  const float* scale;
+  int N, split, nseg;
+  __device__ __forceinline__ void operator()(int m, int col, uint4& v) const {
+    if (q == nullptr) return;
+    const uint2 p = __ldcg(reinterpret_cast<const uint2*>(q + (long long)m * N + col));
+    const float sc = __ldcg(scale + (long long)m * nseg + (split > 0 && col >= split));
+    const signed char* qa = reinterpret_cast<const signed char*>(&p);
+    __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // bf16(q s) from one fp32 product, never contracted into an FMA, as the tile loop's
+      const float a0 = __bfloat162float(__float2bfloat16(__fmul_rn((float)qa[2 * j], sc)));
+      const float a1 = __bfloat162float(__float2bfloat16(__fmul_rn((float)qa[2 * j + 1], sc)));
+      const float2 fy = __bfloat1622float2(y[j]);
+      y[j] = __floats2bfloat162_rn(a0 + fy.x, a1 + fy.y);
+    }
+  }
+};
 
 // The epilogue of consumer warpgroup c's 64 rows of a tile straight from its fp32 sums, two
 // neighbouring columns a call: f(m, col, v0, v1) for row m0 + .. < M and col < N (N even).
@@ -1026,27 +1104,26 @@ ag_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
       epilogue(acc, buf, c, tt, w.m0 + c * 64, w.n0, M, o,
                [&](int m) { return out + ((long long)(m / t) * n * t + (long long)src * t +
                                           m % t) * o; },
-               [](int) -> const bf16* { return nullptr; });
+               NoFold{});
     }
     consumers_done(rg, s, Q8, local);
   }
 }
 
-// The contracted AG-matmul over the int8 wire: `pair` (x [m, hl] quantized once) circulates;
-// step s multiplies the shard of rank src = me - s (x at s = 0, in bf16; the arriving pair
-// through the dequantizing stage after) by
-// w's row block [src hl, (src + 1) hl), one TMA map of w [n hl, o] read `src hl` rows on.  A
-// block that owns at most one unit (units <= the grid) keeps its fp32 sums in registers across
-// all n steps and stores once, after the last; otherwise each step's sums go through the fp32
-// `accg` [m, o] in device memory, added in fp32 as the tile loop does.  The output is bf16
-// (staged, from the registers) or fp32 (`out_f32`, two columns a store).
+// The contracted AG-matmul: `shard` circulates, x [m, hl] itself on the bf16 wire, or on the
+// int8 wire (Q8) the pair (x quantized once); step s multiplies the shard of rank src = me - s
+// (x at s = 0; then the slot's bf16 shard, or the arriving pair through the dequantizing
+// stage) by w's row block [src hl, (src + 1) hl), one TMA map of w [n hl, o] read `src hl`
+// rows on.  A block that owns at most one unit (units <= the grid) keeps its fp32 sums in
+// registers across all n steps and stores once, after the last; otherwise each step's sums
+// go through the fp32 `accg` [m, o] in device memory, added in fp32 as the tile loop does.
+// The output is bf16 (staged, from the registers) or fp32 (`out_f32`, two columns a store).
+template <bool Q8>
 __global__ void __launch_bounds__(THREADS, 1)
-contract_int8_wgmma(const __grid_constant__ CUtensorMap xmap,
-                    const __grid_constant__ CUtensorMap smap0,
-                    const __grid_constant__ CUtensorMap smap1,
-                    const __grid_constant__ CUtensorMap wmap, const void* __restrict__ pair,
-                    void* __restrict__ out, float* __restrict__ accg, Ring rg, int m, int hl,
-                    int o, int out_f32, int local) {
+contract_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap smap0,
+               const __grid_constant__ CUtensorMap smap1, const __grid_constant__ CUtensorMap wmap,
+               const void* __restrict__ shard, void* __restrict__ out, float* __restrict__ accg,
+               Ring rg, int m, int hl, int o, int out_f32, int local) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1k(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tl::NST * Tl::STAGE);
@@ -1067,11 +1144,11 @@ contract_int8_wgmma(const __grid_constant__ CUtensorMap xmap,
           const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
           wg::load_unit<BN, false, false, false>(ring, full, empty, am, &wmap, &wmap, w.m0, w.n0,
                                                 0, kbt, it, wait,
-                                                s > 0 ? wg::A8_BYTES : wg::A_BYTES, src * hl);
+                                                Q8 && s > 0 ? wg::A8_BYTES : wg::A_BYTES, src * hl);
         }
       }
     } else if (threadIdx.x >= 32) {
-      copy_warps(pair, qpair_bytes(m, hl, 1), rg, local);
+      copy_warps(shard, Q8 ? qpair_bytes(m, hl, 1) : (long long)m * hl * sizeof(bf16), rg, local);
     }
     return;
   }
@@ -1086,18 +1163,18 @@ contract_int8_wgmma(const __grid_constant__ CUtensorMap xmap,
     const bool fresh = s == 0 || !regs, last = s == n - 1;
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
-      if (s == 0)
-        wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, it,
-                                              wait, fresh);
-      else
+      if (Q8 && s > 0)
         wg::mma_unit_q(ring, full, empty, acc, scale + w.m0, m - w.m0, 0, kbt, c, tt, it, wait,
                        fresh);
+      else
+        wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, it,
+                                              wait, fresh);
       if (regs && !last) continue;                    // the sums stay in registers
       const int m0 = w.m0 + c * 64;
       if (regs && !out_f32) {
         epilogue(acc, buf, c, tt, m0, w.n0, m, o,
                  [&](int r) { return reinterpret_cast<bf16*>(out) + (long long)r * o; },
-                 [](int) -> const bf16* { return nullptr; });
+                 NoFold{});
         continue;
       }
       epilogue_pairs(acc, tt, m0, w.n0, m, o, [&](int r, int col, float v0, float v1) {
@@ -1115,7 +1192,27 @@ contract_int8_wgmma(const __grid_constant__ CUtensorMap xmap,
           wg::store2(reinterpret_cast<bf16*>(out) + i, v0, v1);
       });
     }
-    consumers_done(rg, s, true, local);
+    consumers_done(rg, s, Q8, local);
+  }
+}
+
+// The matmul-RS kernels' producer thread: A is x's rows of the step's destination, B w's
+// columns; no flag (x and w are this rank's own).
+__device__ __forceinline__ void rs_producer(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                                            uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                            const Ring& rg, int t, int chunk, int scatter_last,
+                                            int mt, int nt, int kbt, const RingWait& wait) {
+  const int n = rg.n, units = mt * nt;
+  int it = 0;
+  for (int s = 0; s < n; ++s) {
+    const int dest = (rg.me + n - 1 - s) % n;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
+      const int arow = scatter_last ? w.m0 : (w.m0 / chunk) * t + dest * chunk + w.m0 % chunk;
+      const int bcol = scatter_last ? dest * chunk + w.n0 : w.n0;
+      wg::load_unit<BN, false, false, false>(ring, full, empty, xmap, wmap, wmap, arow, bcol, 0,
+                                            kbt, it, wait);
+    }
   }
 }
 
@@ -1136,17 +1233,7 @@ rs_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
 
   if (threadIdx.x < 128) {
     if (threadIdx.x == 0) {  // the producer: A is x's rows of the step, B w's columns
-      int it = 0;
-      for (int s = 0; s < n; ++s) {
-        const int dest = (rg.me + n - 1 - s) % n;
-        for (int u = blockIdx.x; u < units; u += gridDim.x) {
-          const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
-          const int arow = scatter_last ? w.m0 : (w.m0 / chunk) * t + dest * chunk + w.m0 % chunk;
-          const int bcol = scatter_last ? dest * chunk + w.n0 : w.n0;
-          wg::load_unit<BN, false, false, false>(ring, full, empty, &xmap, &wmap, &wmap, arow,
-                                                bcol, 0, kbt, it, wait);
-        }
-      }
+      rs_producer(&xmap, &wmap, ring, full, empty, rg, t, chunk, scatter_last, mt, nt, kbt, wait);
     }
     return;
   }
@@ -1175,8 +1262,7 @@ rs_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
       }
       // the contribution, stored in bf16; then the arriving partial added in fp32
       epilogue(acc, buf, c, tt, w.m0 + c * 64, w.n0, M, N,
-               [&](int m) { return dst + (long long)m * N; },
-               [&](int m) { return in ? in + (long long)m * N : nullptr; });
+               [&](int m) { return dst + (long long)m * N; }, FoldBf16{in, N});
     }
     // every block has written its tiles of the hop and read its tiles of the arriving one
     named_sync(BAR_CONSUMERS, 256);
@@ -1184,6 +1270,98 @@ rs_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUten
       if (s < n - 1) release(rg.right_landed, hout + 1, local);
       if (s > 0) release(rg.left_credit, hout, local);
     }
+  }
+}
+
+// The matmul-RS over the int8 wire: rs_wgmma's producer and main loop; each step's fold
+// (FoldQ8: the arriving pair dequantized and added to the stored contribution) goes into a
+// full-width bf16 buffer, `work` and `out` in turn, out at the last step.  Before each hop a
+// grid barrier, then every warp but the producer's quantizes whole rows of the buffer into
+// the right neighbour's slot (quant_rows: the payload, then nseg fp32 scales a row at
+// align16(M N)).  Two buffers: step s + 2 folds into the buffer that step s's rows were
+// quantized from only after the barrier of step s + 1, which every block reaches after its
+// share of step s's quantization.
+__global__ void __launch_bounds__(THREADS, 1)
+rs_int8_wgmma(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+              bf16* __restrict__ out, bf16* __restrict__ work, Ring rg, int b, int t, int h,
+              int o, int scatter_last, int split, int local) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + Tl::NST * Tl::STAGE);
+  uint64_t* empty = full + Tl::NST;
+  const int n = rg.n;
+  const int chunk = scatter_last ? o / n : t / n;
+  const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
+  const int mt = cdiv(M, BM), nt = cdiv(N, BN), kbt = cdiv(h, BK), units = mt * nt;
+  const int nseg = split > 0 ? 2 : 1;
+  const long long soff = align16((long long)M * N);
+  const RingWait wait{rg.timeout_ns};
+  init_stages(full, empty);
+  // the hop of step s: the rows of its buffer quantized into the right neighbour's slot, a
+  // warp a row over the grid's quantizing warps
+  auto requant = [&](int s) {
+    signed char* q = reinterpret_cast<signed char*>(rg.right_slot[(rg.hop0 + s) & 1]);
+    quant_rows<bf16>(((n - 1 - s) & 1) ? work : out, M, N, split, q,
+                     reinterpret_cast<float*>(q + soff),
+                     blockIdx.x * QUANT_WARPS + threadIdx.x / 32 - 1, gridDim.x * QUANT_WARPS);
+  };
+
+  if (threadIdx.x < 128) {
+    if (threadIdx.x == 0) {  // the producer: A is x's rows of the step, B w's columns
+      rs_producer(&xmap, &wmap, ring, full, empty, rg, t, chunk, scatter_last, mt, nt, kbt, wait);
+    } else if (threadIdx.x >= 32) {  // warps 1-3 quantize beside the consumers
+      for (int s = 0; s < n - 1; ++s) {
+        named_sync(BAR_QUANT, 32 * QUANT_WARPS);
+        requant(s);
+        named_sync(BAR_QUANT, 32 * QUANT_WARPS);
+      }
+    }
+    return;
+  }
+
+  const int c = threadIdx.x / 128 - 1, tt = threadIdx.x % 128;
+  uint8_t* buf = ring + EPI_OFFSET + c * EPI_BYTES;
+  float acc[BN / 2], accb[BN / 2];
+  int it = 0;
+  for (int s = 0; s < n; ++s) {
+    const unsigned char* in =
+        s > 0 ? reinterpret_cast<const unsigned char*>(rg.my_slot[(rg.hop0 + s - 1) & 1])
+              : nullptr;  // the arriving pair
+    const FoldQ8 fold{reinterpret_cast<const signed char*>(in),
+                      in ? reinterpret_cast<const float*>(in + soff) : nullptr, N, split, nseg};
+    const u64 hout = rg.hop0 + s;
+    bf16* dst = ((n - 1 - s) & 1) ? work : out;
+    bool waited = false;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const wg::Unit w = wg::unit_at<BN>(u, mt, nt, 1, kbt, kbt);
+      wg::mma_unit<BN, false, false, false>(ring, full, empty, acc, accb, 0, kbt, c, tt, it,
+                                            wait);
+      if (!waited) {  // only the fold needs the hop: wait after the first main loop
+        if (threadIdx.x == 128 && s > 0) spin_geq(rg.my_landed, hout, rg.timeout_ns, local);
+        named_sync(BAR_CONSUMERS, 256);
+        waited = true;
+      }
+      epilogue(acc, buf, c, tt, w.m0 + c * 64, w.n0, M, N,
+               [&](int m) { return dst + (long long)m * N; }, fold);
+    }
+    named_sync(BAR_CONSUMERS, 256);  // this block's folds of step s are in the buffer
+    if (s == n - 1) {                // every block has read the arriving pair: the credit
+      if (threadIdx.x == 128 && arrive_one(&rg.counters[2 * s], gridDim.x, local))
+        release(rg.left_credit, hout, local);
+      break;
+    }
+    if (threadIdx.x == 128) {
+      grid_sync(&rg.counters[2 * MAX_STEPS + s], rg.timeout_ns);
+      // every block's folds, the last reads of the arriving pair, are done; then wait until
+      // the right neighbour's slot is free
+      if (s > 0 && blockIdx.x == 0) release(rg.left_credit, hout, local);
+      if (hout >= 2) spin_geq(rg.my_credit, hout - 1, rg.timeout_ns, local);
+    }
+    named_sync(BAR_QUANT, 32 * QUANT_WARPS);
+    requant(s);
+    named_sync(BAR_QUANT, 32 * QUANT_WARPS);  // this block's rows of the hop are written
+    if (threadIdx.x == 128 && arrive_one(&rg.counters[2 * s], gridDim.x, local))
+      release(rg.right_landed, hout + 1, local);
   }
 }
 
@@ -1273,21 +1451,24 @@ static int launch_ag(const bf16* x, void* pair, const bf16* w, bf16* out, const 
   return (int)cudaGetLastError();
 }
 
-// the contracted AG-matmul over the int8 wire (hl % 16 == 0); out bf16 or fp32 (`out_f32`)
-static int launch_contract_int8(const bf16* x, void* pair, const bf16* w, void* out,
-                                float* acc, const Ring& r, int m, int hl, int o, int out_f32,
-                                int blocks, cudaStream_t st) {
-  if (o % 8 || hl % 16) return (int)cudaErrorInvalidValue;
+// the contracted AG-matmul; `pair` given: over the int8 wire (hl % 16 == 0), the pair
+// quant_pair wrote from x; out bf16 or fp32 (`out_f32`)
+static int launch_contract(const bf16* x, void* pair, const bf16* w, void* out, float* acc,
+                           const Ring& r, int m, int hl, int o, int out_f32, int blocks,
+                           cudaStream_t st) {
+  const bool q8 = pair != nullptr;
+  if (o % 8 || hl % (q8 ? 16 : 8)) return (int)cudaErrorInvalidValue;
   CUtensorMap xm, s0, s1, wm;
-  if (!wg::map2d(&xm, x, hl, m, hl, BM) || !slot_map(&s0, r.my_slot[0], hl, m, true, BM) ||
-      !slot_map(&s1, r.my_slot[1], hl, m, true, BM) ||
+  if (!wg::map2d(&xm, x, hl, m, hl, BM) || !slot_map(&s0, r.my_slot[0], hl, m, q8, BM) ||
+      !slot_map(&s1, r.my_slot[1], hl, m, q8, BM) ||
       !wg::map2d(&wm, w, o, (long long)r.n * hl, o, 64))
     return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(contract_int8_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)SMEM);
+  auto kernel = q8 ? contract_wgmma<true> : contract_wgmma<false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   const int units = cdiv(m, BM) * cdiv(o, BN);
-  contract_int8_wgmma<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(
-      xm, s0, s1, wm, pair, out, acc, r, m, hl, o, out_f32, peers_local(r));
+  kernel<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(
+      xm, s0, s1, wm, q8 ? (const void*)pair : (const void*)x, out, acc, r, m, hl, o, out_f32,
+      peers_local(r));
   return (int)cudaGetLastError();
 }
 
@@ -1304,6 +1485,25 @@ static int launch_rs(const bf16* x, const bf16* w, bf16* out, const Ring& r, int
   const int units = cdiv(M, BM) * cdiv(N, BN);
   rs_wgmma<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(xm, wm, out, r, b, t, h, o,
                                                            scatter_last, peers_local(r));
+  return (int)cudaGetLastError();
+}
+
+// the matmul-RS over the int8 wire: as launch_rs, and the gated pair's second segment on 8
+// columns (a 16-byte output chunk takes one scale); `work` is a second buffer of out's shape
+static int launch_rs_int8(const bf16* x, const bf16* w, bf16* out, bf16* work, const Ring& r,
+                          int b, int t, int h, int o, int scatter_last, int split, int blocks,
+                          cudaStream_t st) {
+  const int chunk = scatter_last ? o / r.n : t / r.n;
+  const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
+  if (!scatter_last && chunk % BM) return (int)cudaErrorInvalidValue;  // a box crosses a chunk
+  if (N % 8 || split % 8) return (int)cudaErrorInvalidValue;     // 16-byte chunks of a row
+  CUtensorMap xm, wm;
+  if (!wg::map2d(&xm, x, h, (long long)b * t, h, BM) || !wg::map2d(&wm, w, o, h, o, 64))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(rs_int8_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  const int units = cdiv(M, BM) * cdiv(N, BN);
+  rs_int8_wgmma<<<grid_cap(units, blocks), THREADS, SMEM, st>>>(
+      xm, wm, out, work, r, b, t, h, o, scatter_last, split, peers_local(r));
   return (int)cudaGetLastError();
 }
 
@@ -1328,9 +1528,9 @@ int tile_route(int impl, int dtype) {
 int launch_quant_pair(const void* x, void* pair, int M, int h, int dtype, cudaStream_t st) {
   unsigned char* p = (unsigned char*)pair;
   if (dtype == DT_BF16)
-    quant_pair<bf16><<<M, THREADS, 0, st>>>((const bf16*)x, p, M, h);
+    quant_pair<bf16><<<cdiv(M, WARPS), THREADS, 0, st>>>((const bf16*)x, p, M, h);
   else
-    quant_pair<float><<<M, THREADS, 0, st>>>((const float*)x, p, M, h);
+    quant_pair<float><<<cdiv(M, WARPS), THREADS, 0, st>>>((const float*)x, p, M, h);
   return (int)cudaGetLastError();
 }
 
@@ -1422,13 +1622,21 @@ int hk_ring_matmul_rs(const void* x, const void* w, void* out, const unsigned lo
   return (int)cudaGetLastError();
 }
 
+// the contracted AG-matmul on the route `impl`, as hk_ring_ag_matmul's (wgmma: bf16 TMA can
+// address, the sums in registers where a block owns at most one tile); out bf16 or fp32
 int hk_ring_ag_matmul_contract(const void* x, const void* w, void* out, void* acc,
                                const unsigned long long* ring, int m, int hl, int o, int dtype,
-                               int out_dtype, int blocks, void* stream) {
+                               int out_dtype, int impl, int blocks, void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
-  const int g = grid_cap(cdiv(m, TBM) * cdiv(o, TBN), blocks);
   cudaStream_t st = (cudaStream_t)stream;
+  if (impl == RING_WGMMA)
+    return dtype == DT_BF16 ? ringtc::launch_contract((const bf16*)x, nullptr, (const bf16*)w,
+                                                      out, (float*)acc, rg, m, hl, o,
+                                                      out_dtype == DT_F32, blocks, st)
+                            : (int)cudaErrorInvalidValue;
+  if (tile_route(impl, dtype)) return (int)cudaErrorInvalidValue;
+  const int g = grid_cap(cdiv(m, TBM) * cdiv(o, TBN), blocks);
   if (dtype == DT_BF16 && out_dtype == DT_BF16)
     ring_contract_kernel<bf16, bf16><<<g, THREADS, 0, st>>>(
         (const bf16*)x, (const bf16*)w, (bf16*)out, (float*)acc, rg, m, hl, o);
@@ -1467,17 +1675,26 @@ int hk_ring_ag_matmul_int8(const void* x, void* pair, const void* w, void* out,
   return (int)cudaGetLastError();
 }
 
-// the grid barrier needs every block resident: `blocks` (or one an SM) keeps it so
+// the matmul-RS over the int8 wire on the route `impl`, as hk_ring_matmul_rs's (wgmma: the
+// gated pair's `split` on 8 columns too); `work` is a second buffer of out's shape.  The grid
+// barrier of both routes needs every block resident: `blocks` (or one an SM) keeps it so
 int hk_ring_matmul_rs_int8(const void* x, const void* w, void* out, void* work,
                            const unsigned long long* ring, int b, int t, int h, int o,
-                           int scatter_last, int split, int dtype, int blocks, void* stream) {
+                           int scatter_last, int split, int dtype, int impl, int blocks,
+                           void* stream) {
   const Ring rg = unpack(ring);
   if (rg.n < 2 || rg.n > MAX_STEPS) return (int)cudaErrorInvalidValue;
   const int chunk = scatter_last ? o / rg.n : t / rg.n;
   const int M = scatter_last ? b * t : b * chunk, N = scatter_last ? chunk : o;
   if (split < 0 || split >= N) return (int)cudaErrorInvalidValue;
-  const int g = grid_cap(cdiv(M, TBM) * cdiv(N, TBN), blocks);
   cudaStream_t st = (cudaStream_t)stream;
+  if (impl == RING_WGMMA)
+    return dtype == DT_BF16 ? ringtc::launch_rs_int8((const bf16*)x, (const bf16*)w, (bf16*)out,
+                                                     (bf16*)work, rg, b, t, h, o, scatter_last,
+                                                     split, blocks, st)
+                            : (int)cudaErrorInvalidValue;
+  if (tile_route(impl, dtype)) return (int)cudaErrorInvalidValue;
+  const int g = grid_cap(cdiv(M, TBM) * cdiv(N, TBN), blocks);
   if (dtype == DT_BF16)
     ring_rs_int8_kernel<bf16><<<g, THREADS, 0, st>>>((const bf16*)x, (const bf16*)w, (bf16*)out,
                                                     (bf16*)work, rg, b, t, h, o, scatter_last,
@@ -1500,9 +1717,9 @@ int hk_ring_ag_matmul_contract_int8(const void* x, void* pair, const void* w, vo
   const unsigned char* p = (const unsigned char*)pair;
   if (const int e = launch_quant_pair(x, pair, m, hl, dtype, st)) return e;
   if (impl == RING_WGMMA)
-    return dtype == DT_BF16 ? ringtc::launch_contract_int8((const bf16*)x, pair, (const bf16*)w,
-                                                           out, (float*)acc, rg, m, hl, o,
-                                                           out_dtype == DT_F32, blocks, st)
+    return dtype == DT_BF16 ? ringtc::launch_contract((const bf16*)x, pair, (const bf16*)w, out,
+                                                      (float*)acc, rg, m, hl, o,
+                                                      out_dtype == DT_F32, blocks, st)
                             : (int)cudaErrorInvalidValue;
   if (tile_route(impl, dtype)) return (int)cudaErrorInvalidValue;
   const int g = grid_cap(cdiv(m, TBM) * cdiv(o, TBN), blocks);
@@ -1521,8 +1738,7 @@ int hk_ring_ag_matmul_contract_int8(const void* x, void* pair, const void* w, vo
 // Blocks of one ring kernel that an SM holds at once (*per_sm) and the SM count
 // (*sms), for the kernel a launch would take: kernel 0 AG-matmul, 1 matmul-RS,
 // 2 the contracted AG-matmul, 3-5 their int8 variants; dtype and out_dtype as the
-// launch's, impl the route (AG-matmul, matmul-RS and the int8 AG-matmul and
-// contracted AG-matmul; the others run the tile loop).
+// launch's, impl the route.
 int hk_ring_occupancy(int kernel, int dtype, int out_dtype, int impl, int* per_sm, int* sms) {
   *sms = sm_count();
   const bool bf = dtype == DT_BF16, obf = out_dtype == DT_BF16;
@@ -1532,8 +1748,10 @@ int hk_ring_occupancy(int kernel, int dtype, int out_dtype, int impl, int* per_s
     switch (kernel) {
       case 0: return occupancy_of(ringtc::ag_wgmma<false>, th, sm, per_sm);
       case 1: return occupancy_of(ringtc::rs_wgmma, th, sm, per_sm);
+      case 2: return occupancy_of(ringtc::contract_wgmma<false>, th, sm, per_sm);
       case 3: return occupancy_of(ringtc::ag_wgmma<true>, th, sm, per_sm);
-      case 5: return occupancy_of(ringtc::contract_int8_wgmma, th, sm, per_sm);
+      case 4: return occupancy_of(ringtc::rs_int8_wgmma, th, sm, per_sm);
+      case 5: return occupancy_of(ringtc::contract_wgmma<true>, th, sm, per_sm);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -134,11 +134,8 @@ def matmul_rs(lb: LoopbackRing, xs, ws, scatter_dim: int, *, int8: bool = False,
     """Each rank's chunk of sum_r x_r @ w_r, scattered over ``scatter_dim``
     (``split``: the int8 gated pair's second half's first column)."""
     n = lb.n
-    if int8:
-        blocks = lb.cap("matmul_rs_int8", xs[0].dtype)
-    else:
-        impl = RM._route(xs[0], ws[0], n, scatter_dim, impl)
-        blocks = lb.cap("matmul_rs", xs[0].dtype, impl)
+    impl = RM._route(xs[0], ws[0], n, scatter_dim, impl, int8=int8, split=split)
+    blocks = lb.cap("matmul_rs_int8" if int8 else "matmul_rs", xs[0].dtype, impl)
     return lb.run(lambda r, ring_of, cnt: RM._launch_rs(
         xs[r], ws[r], ring_of, scatter_dim, n, int8, split, counters=cnt, blocks=blocks,
         impl=impl), reset)
@@ -146,13 +143,11 @@ def matmul_rs(lb: LoopbackRing, xs, ws, scatter_dim: int, *, int8: bool = False,
 
 def ag_matmul_contract(lb: LoopbackRing, xs, ws, *, out_dtype=None, int8: bool = False,
                        impl: Optional[str] = None, reset: bool = False):
-    """Each rank's all_gather(x over the ring, its last dim) @ its w (``impl``:
-    the int8 wire's route)."""
+    """Each rank's all_gather(x over the ring, its last dim) @ its w."""
     n, dt = lb.n, out_dtype or xs[0].dtype
-    if int8:
-        impl = RM._route(xs[0], ws[0], n, None, impl, int8=True, contract=True)
+    impl = RM._route(xs[0], ws[0], n, None, impl, int8=int8, contract=True)
     blocks = lb.cap("ag_matmul_contract_int8" if int8 else "ag_matmul_contract", xs[0].dtype,
-                    impl if int8 else None, dt)
+                    impl, dt)
     return lb.run(lambda r, ring_of, cnt: RM._launch_contract(
         xs[r], ws[r], ring_of, n, dt, int8, counters=cnt, blocks=blocks, impl=impl), reset)
 

@@ -27,15 +27,15 @@ A tensor on the CUDA card launches the ring kernels of
 inside, through the symmetric buffers whose addresses ``comm.ring``
 hands each launch) and counts the launch in ``ops.LAUNCHES`` under its
 own key (``ag_matmul``, ``matmul_rs``, ``ag_matmul_contract`` and the
-int8 variants ``*_int8``).  AG-matmul, matmul-RS and the int8 wire's
-AG-matmul and contracted AG-matmul take one of three routes (``IMPLS``),
-which :func:`ring_impl` picks from the dtype, shapes and strides alone:
-``wgmma`` (bf16 on the tensor cores, operands staged by TMA: wg::mm's
-main loop; on the int8 wire an arriving shard's A dequantized in
-registers between TMA and wgmma), ``wmma`` (the bf16 tile loop, for
-operands TMA cannot address) and ``simt`` (fp32); ``IMPL_LAUNCHES``
-counts each route's launches.  The bf16 contracted ring and the int8
-matmul-RS run the tile loop only.  Every launch takes a block cap (0:
+int8 variants ``*_int8``).  Each of the six takes one of three routes
+(``IMPLS``), which :func:`ring_impl` picks from the dtype, shapes and
+strides alone: ``wgmma`` (bf16 on the tensor cores, operands staged by
+TMA: wg::mm's main loop; on the int8 wire an arriving shard's A
+dequantized in registers between TMA and wgmma, and the matmul-RS's
+arriving pair dequantized in its epilogue, its rows requantized after a
+grid barrier), ``wmma`` (the bf16 tile loop, for operands TMA cannot
+address) and ``simt`` (fp32); ``IMPL_LAUNCHES`` counts each route's
+launches.  Every launch takes a block cap (0:
 one block an SM at most, the process ring); ``kernels/ring_loopback.py``
 runs all n ranks of a ring in one process on n streams with its own
 descriptors and counters.  A tensor on the CPU, or ``plain=True``, takes
@@ -151,13 +151,12 @@ def fused_ok_contract(x_shape, w_shape, n: int, itemsize: int = 4) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the routes of AG-matmul and matmul-RS, and the kernels' occupancy
+# the routes of the ring kernels, and their occupancy
 # ---------------------------------------------------------------------------
 
-# the routes of AG-matmul, matmul-RS and the int8 AG-matmul and contracted
-# AG-matmul (numbered as csrc/ring_matmul.cu's RING_*): the tensor cores
-# through TMA and wgmma, or the tile loop on WMMA (bf16) or SIMT (fp32); the
-# bf16 contracted ring and the int8 matmul-RS run the tile loop only
+# the routes of every ring kernel on either wire (numbered as
+# csrc/ring_matmul.cu's RING_*): the tensor cores through TMA and wgmma, or the
+# tile loop on WMMA (bf16) or SIMT (fp32)
 IMPLS = ("wgmma", "wmma", "simt")
 WG_BM = 128                        # rows of a wgmma tile (a TMA box of A)
 # the kernels a launch takes, numbered as hk_ring_occupancy's
@@ -165,7 +164,8 @@ KERNEL_IDS = {"ag_matmul": 0, "matmul_rs": 1, "ag_matmul_contract": 2, "ag_matmu
               "matmul_rs_int8": 4, "ag_matmul_contract_int8": 5}
 
 # the kernels that take a route, by their keys in ops.LAUNCHES
-ROUTED = ("ag_matmul", "matmul_rs", "ag_matmul_int8", "ag_matmul_contract_int8")
+ROUTED = ("ag_matmul", "matmul_rs", "ag_matmul_contract", "ag_matmul_int8", "matmul_rs_int8",
+          "ag_matmul_contract_int8")
 # launches per route, counted where each wrapper launches its kernel
 IMPL_LAUNCHES: Dict[str, Dict[str, int]] = {k: {p: 0 for p in IMPLS} for k in ROUTED}
 
@@ -189,33 +189,34 @@ def _dense(shape, strides) -> bool:
 
 def ring_impl(dtype: torch.dtype, shapes, strides, n: int,
               scatter_dim: Optional[int] = None, ptr_align: int = 16, *, int8: bool = False,
-              contract: bool = False) -> str:
+              contract: bool = False, split: int = 0) -> str:
     """The route of one AG-matmul (``scatter_dim`` None) or matmul-RS launch
     of x [b,t,h] @ w [h,o], or (``contract``) contracted AG-matmul of x
     [b,t,h] @ w [n h,o], on a ring of ``n`` on the bf16 wire or (``int8``)
     the int8 wire, from the dtype, ``shapes`` (x's, w's), ``strides`` (x's,
-    w's, in elements) and ``ptr_align`` (the byte alignment both addresses
-    share) alone, as ``matmul.mm_impl``:
+    w's, in elements), ``ptr_align`` (the byte alignment both addresses
+    share) and ``split`` (the int8 gated pair's second half's first column)
+    alone, as ``matmul.mm_impl``:
 
     * ``"simt"`` for fp32;
     * ``"wgmma"`` for bf16 that TMA can address: both operands dense, their
-      rows (h, o) and addresses on 16 bytes, and on the int8 wire the
-      hopped payload's rows too (h % 16 == 0); for matmul-RS over tokens
-      the chunk t / n whole 128-row boxes (a box of A must not cross into
-      the next destination's rows), over columns a chunk o / n on 16 bytes
-      (the hop's rows, stored a 16-byte chunk at a time);
+      rows (h, o) and addresses on 16 bytes, and on the int8 wire the AG
+      rings' hopped payload rows too (h % 16 == 0); for matmul-RS over
+      tokens the chunk t / n whole 128-row boxes (a box of A must not cross
+      into the next destination's rows), over columns a chunk o / n on 16
+      bytes (the hop's rows, stored a 16-byte chunk at a time), and on the
+      int8 wire ``split`` on 8 columns (a 16-byte output chunk takes one
+      scale);
     * ``"wmma"`` for every other bf16 launch (the backward's ragged and
-      off-8 extents), and always for the bf16 contracted ring and the int8
-      matmul-RS, which run the tile loop only."""
+      off-8 extents)."""
     if dtype != torch.bfloat16:
         return "simt"
-    if (contract and not int8) or (int8 and scatter_dim is not None):
-        return "wmma"
     (xs, ws), (xst, wst) = shapes, strides
     b, t, h = xs
     o = ws[-1]
     ok = (min(b, t, h, o) >= 1 and _dense(xs, xst) and _dense(ws, wst)
-          and h % (16 if int8 else 8) == 0 and o % 8 == 0 and ptr_align % 16 == 0)
+          and h % (16 if int8 and scatter_dim is None else 8) == 0 and o % 8 == 0
+          and ptr_align % 16 == 0 and split % 8 == 0)
     if scatter_dim is not None:
         if scatter_dim % len(xs) == len(xs) - 1:
             ok = ok and o % n == 0 and (o // n) % 8 == 0
@@ -317,9 +318,10 @@ def _pair(rows: int, cols: int, device) -> torch.Tensor:
 
 
 def _route(x, w, n: int, scatter_dim: Optional[int], impl: Optional[str], *,
-           int8: bool = False, contract: bool = False) -> str:
+           int8: bool = False, contract: bool = False, split: int = 0) -> str:
     chosen = ring_impl(x.dtype, (tuple(x.shape), tuple(w.shape)), (x.stride(), w.stride()), n,
-                       scatter_dim, matmul.shared_align(x, w), int8=int8, contract=contract)
+                       scatter_dim, matmul.shared_align(x, w), int8=int8, contract=contract,
+                       split=split)
     return _choose(impl, chosen, x.dtype)
 
 
@@ -369,16 +371,18 @@ def _launch_rs(x, w, ring_of: Callable, scatter_dim: int, n: int, int8: bool = F
     counters = _counters(x.device) if counters is None else counters
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     lib = build.library("ring_matmul")
+    impl = _route(x, w, n, scatter_dim, impl, int8=int8, split=split)
     if int8:
         rows, cols = out.numel() // shape[-1], shape[-1]
         work = torch.empty_like(out)
         ring = _ring_args(ring_of(_qpair_bytes(rows, cols, 2 if split else 1)), counters)
         build.check(lib, lib.hk_ring_matmul_rs_int8(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), work.data_ptr(), ring, b, t, h, o,
-            int(last), split, DTYPES[x.dtype], blocks, _stream(x)), "hk_ring_matmul_rs_int8")
+            int(last), split, DTYPES[x.dtype], IMPLS.index(impl), blocks, _stream(x)),
+            "hk_ring_matmul_rs_int8")
         ops.LAUNCHES["matmul_rs_int8"] += 1
+        IMPL_LAUNCHES["matmul_rs_int8"][impl] += 1
         return out
-    impl = _route(x, w, n, scatter_dim, impl)
     ring = _ring_args(ring_of(out.numel() * out.element_size()), counters)
     build.check(lib, lib.hk_ring_matmul_rs(x.data_ptr(), w.data_ptr(), out.data_ptr(), ring,
                                            b, t, h, o, int(last), DTYPES[x.dtype],
@@ -392,8 +396,6 @@ def _launch_rs(x, w, ring_of: Callable, scatter_dim: int, n: int, int8: bool = F
 def _launch_contract(x, w, ring_of: Callable, n: int, out_dtype, int8: bool = False, *,
                      counters: Optional[torch.Tensor] = None, blocks: int = 0,
                      impl: Optional[str] = None) -> torch.Tensor:
-    """``impl``: the int8 wire's route (the bf16 wire's contracted ring runs
-    the tile loop)."""
     x, w = x.contiguous(), w.contiguous()
     _check(x, w)
     b, t, hl = x.shape
@@ -406,8 +408,8 @@ def _launch_contract(x, w, ring_of: Callable, n: int, out_dtype, int8: bool = Fa
     out = torch.empty((b, t, o), dtype=out_dtype, device=x.device)
     acc = torch.empty((b * t, o), dtype=torch.float32, device=x.device)
     lib = build.library("ring_matmul")
+    impl = _route(x, w, n, None, impl, int8=int8, contract=True)
     if int8:
-        impl = _route(x, w, n, None, impl, int8=True, contract=True)
         pair = _pair(b * t, hl, x.device)
         ring = _ring_args(ring_of(pair.numel()), counters)
         build.check(lib, lib.hk_ring_ag_matmul_contract_int8(
@@ -417,13 +419,13 @@ def _launch_contract(x, w, ring_of: Callable, n: int, out_dtype, int8: bool = Fa
         ops.LAUNCHES["ag_matmul_contract_int8"] += 1
         IMPL_LAUNCHES["ag_matmul_contract_int8"][impl] += 1
         return out
-    if impl not in (None, "wmma" if x.dtype == torch.bfloat16 else "simt"):
-        raise ValueError(f"the bf16 wire's contracted ring runs the tile loop, not {impl!r}")
     ring = _ring_args(ring_of(x.numel() * x.element_size()), counters)
     build.check(lib, lib.hk_ring_ag_matmul_contract(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), acc.data_ptr(), ring, b * t, hl, o,
-        DTYPES[x.dtype], DTYPES[out_dtype], blocks, _stream(x)), "hk_ring_ag_matmul_contract")
+        DTYPES[x.dtype], DTYPES[out_dtype], IMPLS.index(impl), blocks, _stream(x)),
+        "hk_ring_ag_matmul_contract")
     ops.LAUNCHES["ag_matmul_contract"] += 1
+    IMPL_LAUNCHES["ag_matmul_contract"][impl] += 1
     return out
 
 

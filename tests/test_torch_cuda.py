@@ -17,7 +17,7 @@ ring kernels run in rank processes on the card (``tests/_torch_world.py``:
 two ranks for the kernels and their backward rings, four for two grid
 training steps), each held against the plain route on the same inputs,
 on the bf16 wire and on the int8 wire, and each forward counted on its
-route (AG-matmul and matmul-RS: wgmma, wmma or simt).  MLA's absorbed decode kernel
+route (wgmma, wmma or simt).  MLA's absorbed decode kernel
 (fp32 out of fp32 or bf16 inputs: the fp32 bound either way), attention
 at MLA's dk 96 / dv 64 (natively on the tensor cores, zero-padded on the
 SIMT path) and at head dims off every kernel (zero-padded), and an MLA
@@ -563,10 +563,10 @@ def test_ring_kernel_and_backward_match_plain(ring_cuda, case, dtype):
 @pytest.mark.parametrize("dtype", ["torch.float32", "torch.bfloat16"])
 @pytest.mark.parametrize("case", range(13))
 def test_ring_forward_counted_on_its_route(ring_cuda, case, dtype):
-    """The forward's launch of AG-matmul and matmul-RS (the gated pair is
-    one matmul-RS over [w1 | w1b]) counted once on ``ring_impl``'s route:
-    wgmma for bf16 blocks TMA can address, wmma for the others, simt for
-    fp32; the contracted ring takes no route."""
+    """The forward's launch of AG-matmul, matmul-RS (the gated pair is one
+    matmul-RS over [w1 | w1b]) and the contracted AG-matmul counted once on
+    ``ring_impl``'s route: wgmma for bf16 blocks TMA can address, wmma for
+    the others, simt for fp32."""
     from repro_torch.kernels import ring_matmul as RM
     TW = _world()
     kernel, xs, o, sd = TW.CUDA_RING_CASES[case]
@@ -576,11 +576,9 @@ def test_ring_forward_counted_on_its_route(ring_cuda, case, dtype):
     ws = (xs[2], 2 * o if kernel == "matmul_rs_pair" else o)
     for rank, res in ring_cuda.items():
         routes = res["cases"][("routes", kernel, xs, o, sd, dtype)]
-        if kernel == "ag_matmul_contract":
-            assert all(v == 0 for r in routes.values() for v in r.values()), routes
-            continue
         want = RM.ring_impl(dt, (xs, ws), ((xs[1] * xs[2], xs[2], 1), (ws[1], 1)), n,
-                            sd if name == "matmul_rs" else None)
+                            sd if name == "matmul_rs" else None,
+                            contract=kernel == "ag_matmul_contract")
         assert routes[name] == {p: int(p == want) for p in RM.IMPLS}, (rank, routes)
 
 

@@ -8,8 +8,8 @@ On the CPU:
   strides alone: ``wgmma`` for the int8 grid's AG-matmul and contracted
   blocks (``chip_smoke.RING_CASES`` on the ring of two, megatron's on the
   ring of four), ``simt`` for fp32, ``wmma`` for a shard whose int8 rows
-  are off 16 bytes or an output off 8 columns; the int8 matmul-RS and the
-  bf16 contracted ring keep the tile loop;
+  are off 16 bytes or an output off 8 columns (the int8 matmul-RS and the
+  bf16 contracted ring: ``tests/test_torch_ring_rs_int8_tc.py``);
 * an emulation of the routes' arithmetic: this rank's own shard exact,
   every other one quantized (``quant_int8``) and dequantized as bf16(q s)
   from one fp32 product, summed in fp32 over the 64-deep k-blocks in ring
@@ -95,7 +95,8 @@ def test_int8_off_blocks_take_the_tile_loop(block):
 def test_int8_route_needs_sixteen_byte_rows_and_keeps_the_others_on_the_tile_loop():
     """h 24 is on 16 bytes in bf16 but not in int8; a gap in x's rows or an
     address off 16 bytes takes the tile loop; the int8 matmul-RS and the bf16
-    contracted ring take no other route."""
+    contracted ring take wgmma too at a full-width block
+    (tests/test_torch_ring_rs_int8_tc.py holds their routes)."""
     xs, ws = (2, 64, 24), (24, 64)
     assert RM.ring_impl(BF, (xs, ws), (_strides(xs), _strides(ws)), 2) == "wgmma"
     assert _impl(BF, "ag_matmul", xs, ws, 2) == "wmma"
@@ -104,9 +105,9 @@ def test_int8_route_needs_sixteen_byte_rows_and_keeps_the_others_on_the_tile_loo
     assert RM.ring_impl(BF, (xs, (32, 64)), ((64 * 48, 48, 1), (64, 1)), 2, int8=True) == "wmma"
     assert _impl(BF, "ag_matmul", xs, (32, 64), 2, ptr_align=8) == "wmma"
     assert RM.ring_impl(BF, ((4, 512, 512), (512, 1024)), ((512 * 512, 512, 1), (1024, 1)), 2,
-                        1, int8=True) == "wmma"
+                        1, int8=True) == "wgmma"
     assert RM.ring_impl(BF, ((4, 512, 512), (1024, 512)), ((512 * 512, 512, 1), (512, 1)), 2,
-                        contract=True) == "wmma"
+                        contract=True) == "wgmma"
     assert set(RM.ROUTED) <= set(RM.IMPL_LAUNCHES)
     assert {"ag_matmul_int8", "ag_matmul_contract_int8"} <= set(RM.KERNEL_IDS)
 

@@ -394,8 +394,9 @@ def test_loopback_routes_match_global(dev, case, dtype):
 
 @pytest.mark.cuda
 def test_loopback_int8_and_contract_match_global(dev):
-    """The tile loop's other kernels over the loopback: the contracted ring
-    and the three int8 variants (the int8 wire's emulated semantics)."""
+    """The tile loop's other kernels over the loopback (fp32: the simt route,
+    named): the contracted ring and the three int8 variants (the int8
+    wire's emulated semantics)."""
     n, xs, o = 2, (2, 64, 96), 80
     lb = LB.LoopbackRing(n, "my", dev)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -403,11 +404,12 @@ def test_loopback_int8_and_contract_match_global(dev):
     wl = [torch.randn(xs[2], o, generator=g, device=dev) / xs[2] ** 0.5 for _ in range(n)]
     wc = [torch.randn(n * xs[2], o, generator=g, device=dev) / (n * xs[2]) ** 0.5
           for _ in range(n)]
-    runs = (("ag_matmul_contract", LB.ag_matmul_contract(lb, xl, wc, reset=True), wc, None,
-             False),
-            ("ag_matmul", LB.ag_matmul(lb, xl, wl, int8=True), wl, None, True),
-            ("matmul_rs", LB.matmul_rs(lb, xl, wl, 1, int8=True), wl, 1, True),
-            ("ag_matmul_contract", LB.ag_matmul_contract(lb, xl, wc, int8=True), wc, None, True))
+    runs = (("ag_matmul_contract", LB.ag_matmul_contract(lb, xl, wc, impl="simt", reset=True),
+             wc, None, False),
+            ("ag_matmul", LB.ag_matmul(lb, xl, wl, int8=True, impl="simt"), wl, None, True),
+            ("matmul_rs", LB.matmul_rs(lb, xl, wl, 1, int8=True, impl="simt"), wl, 1, True),
+            ("ag_matmul_contract", LB.ag_matmul_contract(lb, xl, wc, int8=True, impl="simt"), wc,
+             None, True))
     torch.cuda.synchronize()
     for kernel, outs, ws, sd, int8 in runs:
         want = LB.reference(kernel, xl, ws, sd, int8=int8)
