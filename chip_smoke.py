@@ -9,8 +9,10 @@ Phases, each fatal on failure:
    (one process per source, in parallel) and print the seconds; print the
    card's name and power limit as nvidia-smi reports them; print how many
    HGMMA (wgmma) and HMMA instructions each kernel function of the
-   flash-attention, matmul, ssd and ring libraries holds (``cuobjdump
-   -sass``), and fail unless each tensor-core attention kernel, the wgmma
+   flash-attention, matmul, ssd, ring and MLA-decode libraries holds
+   (``cuobjdump -sass``), and fail unless each tensor-core attention
+   kernel, the absorbed decode's tensor-core kernel
+   (``mla::decode_wgmma``), the wgmma
    matmul (``wg::mm`` and its gated form ``wg::mm_gated``), the
    tensor-core scan (``tc::ssd``) and the tensor-core ring kernels (the
    AG-matmul, matmul-RS and contracted AG-matmul,
@@ -155,7 +157,7 @@ Phases, each fatal on failure:
    (1e-3); stalls, writes and restore times as above;
 14. ``runtime``: the training runtime (``runtime/``) on the training cell
    (bf16 over fp32 masters, batch 8 x 512, 2 microbatches, remat fusion,
-   the kernels on): ``guard_skip`` (28 layers) runs 5 guarded steps with
+   the kernels on): ``guard_skip`` (2 layers) runs 5 guarded steps with
    batch 2's ``loss_mask`` all NaN: ``update_skipped`` only at step 2,
    every parameter and moment ``torch.equal`` across it, the other
    losses against two runs over the stream without batch 2 (the ``ckpt``
@@ -234,7 +236,9 @@ Phases, each fatal on failure:
    decode kernel (``csrc/mla_decode.cu``) against its plain version at
    the serving tick (4 slots over the pool's 544-row page view, one slot
    idle; the kernels line's row) and off it (B 1 to 3, T 64, off the
-   32-key tile, an empty row), bf16 and fp32, fp32 out held to 2e-4; the
+   key tiles, an empty row), bf16 and fp32, fp32 out held to 2e-4; every
+   bf16 case on the tensor cores (``mla::decode_wgmma``), the SIMT route
+   held and timed in turns beside it, fp32 on SIMT; the
    attention forward (the three prefills, the training microbatch) and
    backward at dk 96 / dv 64, natively on the tensor cores in bf16 (the
    route that padded v to 96 and all three to 128 held and timed in
@@ -243,16 +247,18 @@ Phases, each fatal on failure:
 22. ``mla_model_check``: a 300-token prefill and 8 decode steps through
    the kernels against the plain path, bf16 at 62 layers, fp32 at 2 (the
    ``ssm_model_check`` gates); the absorbed decode launched once a layer
-   and step, every bf16 prefill's attention on the tensor cores at
-   (96, 64), natively;
+   and step (bf16 on wgmma, fp32 on SIMT), every bf16 prefill's
+   attention on the tensor cores at (96, 64), natively;
 23. ``serve_mla``: full-width minicpm3-4b served in bf16 through the
    serving entry point (the serve phase's trace, prompts 64/256/512):
    the serve gates, every decode tick (the warm-up's too) launching the
-   absorbed decode kernel 62 times, every prefill's attention on wgmma
-   at (96, 64), natively;
+   absorbed decode kernel 62 times, every launch on the tensor cores
+   (``mla::decode_wgmma``), every prefill's attention on wgmma at (96,
+   64), natively;
 24. ``serve_mla_quant_kv``: the same trace through ``--quant-kv`` (the
    ``serve_quant_kv`` gates; one int8 latent block exactly (256 + 4 + 32
-   + 4) / 576 of bf16's; every prefill's attention native at (96, 64));
+   + 4) / 576 of bf16's; every prefill's attention native at (96, 64);
+   every absorbed decode launch on the tensor cores);
 25. ``train_mla``: full-width minicpm3-4b at 8 of its 62 layers through
    the training launcher (bf16 over fp32 masters, batch 8 x 512, 2
    microbatches, remat fusion, 4 steps): every training kernel, every
@@ -459,6 +465,9 @@ SSD_TC_FUNCTIONS = ("_ZN2tc3ssd",)
 RING_TC_FUNCTIONS = ("_ZN6ringtc8ag_wgmmaILb0E", "_ZN6ringtc8rs_wgmma",
                      "_ZN6ringtc14contract_wgmmaILb0E", "_ZN6ringtc8ag_wgmmaILb1E",
                      "_ZN6ringtc13rs_int8_wgmma", "_ZN6ringtc14contract_wgmmaILb1E")
+# the absorbed MLA decode's tensor-core kernel mla::decode_wgmma, likewise in the
+# mla_decode library's SASS
+MLA_TC_FUNCTIONS = ("_ZN3mla12decode_wgmma",)
 # the ring kernels that take a route (ring_matmul.ring_impl): every bf16 launch
 # of these at the grid phases' full-width blocks must be on wgmma, on the bf16
 # wire and on the int8 wire
@@ -482,8 +491,10 @@ CKPT_RESUME_AT, CKPT_EVERY, CKPT_KEEP, CKPT_WRITERS = 4, 2, 2, 2
 # on the grid: full width at BIDIR_LAYERS layers, saving after every step
 GRID_CKPT_STEPS = 2
 NO_SAVE = "1000000"                       # --ckpt-every of a run that only restores
-# the runtime phase: guard_skip poisons batch GUARD_NAN_AT of GUARD_STEPS;
-# rollback (RUNTIME_LAYERS layers) poisons data RB_POISON of RB_STEPS,
+# the runtime phase (RUNTIME_LAYERS layers but ckpt_procs, which repeats the
+# ckpt phase's run; guard_skip cut from 28 to keep the script's time):
+# guard_skip poisons batch GUARD_NAN_AT of GUARD_STEPS;
+# rollback poisons data RB_POISON of RB_STEPS,
 # saving every RB_EVERY steps with skip_cap RB_SKIP_CAP, and after the
 # rollback holds loop step HANG_STEP past HANG_TIMEOUT_S by a host sleep
 GUARD_STEPS, GUARD_NAN_AT = 5, 2
@@ -935,13 +946,15 @@ def _sass(libname):
 
 def sass_counts():
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel function
-    of the flash-attention, matmul, ssd and ring libraries, from ``cuobjdump
-    -sass``; ok when every tensor-core attention kernel (TC_FUNCTIONS), the
-    wgmma matmul (WG_FUNCTIONS), the tensor-core scan (SSD_TC_FUNCTIONS) and
-    the tensor-core ring kernels (RING_TC_FUNCTIONS) hold HGMMA."""
+    of the flash-attention, matmul, ssd, ring and MLA-decode libraries, from
+    ``cuobjdump -sass``; ok when every tensor-core attention kernel
+    (TC_FUNCTIONS), the wgmma matmul (WG_FUNCTIONS), the tensor-core scan
+    (SSD_TC_FUNCTIONS), the tensor-core ring kernels (RING_TC_FUNCTIONS) and
+    the absorbed decode's (MLA_TC_FUNCTIONS) hold HGMMA."""
     shown, ok = {}, True
     libs = (("flash_attention", TC_FUNCTIONS), ("matmul", WG_FUNCTIONS),
-            ("ssd", SSD_TC_FUNCTIONS), ("ring_matmul", RING_TC_FUNCTIONS))
+            ("ssd", SSD_TC_FUNCTIONS), ("ring_matmul", RING_TC_FUNCTIONS),
+            ("mla_decode", MLA_TC_FUNCTIONS))
     for name, _ in libs:                       # loaded here, dumped in parallel below
         build.library(name)
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -2454,7 +2467,7 @@ def _guarded_step(cfg, gc):
 
 
 def guard_skip_part(cfg):
-    """Five guarded full-width steps with batch GUARD_NAN_AT's loss mask
+    """Five guarded steps at full width with batch GUARD_NAN_AT's loss mask
     NaN: the skip, the state across it, the other losses against two runs
     over the stream without that batch."""
     gc = GuardConfig(grad_spike_factor=1e9)
@@ -2697,9 +2710,8 @@ def runtime_phase(ckpt_refs):
     root = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
     parts = {}
     try:
-        cfg = get_config(ARCH)
-        cfg4 = cfg.scaled(num_layers=RUNTIME_LAYERS)
-        for name, fn in (("guard_skip", lambda: guard_skip_part(cfg)),
+        cfg4 = get_config(ARCH).scaled(num_layers=RUNTIME_LAYERS)
+        for name, fn in (("guard_skip", lambda: guard_skip_part(cfg4)),
                          ("rollback", lambda: rollback_part(cfg4, root)),
                          ("kill9", lambda: kill9_part(cfg4, root)),
                          ("ckpt_procs", lambda: procs_part(ckpt_refs, root)
@@ -2913,6 +2925,7 @@ def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     dims = dict(kfa.DIM_LAUNCHES)
+    md = dict(kfa.IMPL_LAUNCHES["mla_decode"])
     fin = r["finished"]
     ok_fin = len(fin) == REQUESTS and all(len(f.tokens) == GEN for f in fin.values())
     ratio = r["block_bytes"] / r["dense_block_bytes"]
@@ -2923,6 +2936,8 @@ def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
     # MLA: every prefill's attention at (96, 64), natively on the tensor cores
     ok_dims = cfg.mla is None or \
         native_launches(dims, "flash_attention", mla_dims(cfg)) == launches["flash_attention"]
+    # MLA: every absorbed decode on the tensor cores
+    ok_md = cfg.mla is None or (md["wgmma"] == launches["mla_decode"] > 0 and md["simt"] == 0)
     params = r["engine"].params
     rng = np.random.default_rng(SEED + 1)
     lens = [prompt_lens[i % len(prompt_lens)] for i in range(SLOTS)]
@@ -2949,7 +2964,7 @@ def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
     torch.cuda.synchronize()
     rel = _max_rel(logits[True], logits[False])
     argmax_same = bool((logits[True].argmax(-1) == logits[False].argmax(-1)).all())
-    ok = (ok_fin and ok_ratio and ok_gather and rel <= logit_tol and ok_dims
+    ok = (ok_fin and ok_ratio and ok_gather and rel <= logit_tol and ok_dims and ok_md
           and all(launches[k] > 0 for k in kernels))
     log(f"{name} " + json.dumps(dict(
         arch=arch, dtype="bfloat16", sequences=r["sequences"], ticks=r["ticks"],
@@ -2961,6 +2976,7 @@ def serve_quant_kv_phase(bf16_tok_s, arch=ARCH, prompt_lens=PROMPT_LENS,
         scale_worst_rel=scale_worst, tol_scale_rel=QUANT_SCALE_RTOL, gather_rows=rows,
         tick_logits_rel=rel, tol_tick_logits_rel=logit_tol,
         tick_argmax_same=argmax_same, launches=launches, attention_dims=dims_json(dims),
+        mla_decode_routes=md,
         seconds=time.perf_counter() - t_phase, ok=ok)))
     del pools, logits, r
     return ok, launches
@@ -3042,9 +3058,12 @@ def check_mla_decode(results, gen, B, T, kv_len, dtype, *, main=True, label=""):
     minicpm3-4b's dims (40 heads, latent 256, rope 32, scale 96^-0.5):
     c_kv and k_rope are strided views of one gathered [B, T, 288] buffer,
     as the paged gather hands them over.  fp32 out of both dtypes, held
-    to the fp32 bound.  The yardstick is one F.scaled_dot_product_attention
-    on the concatenated latent (q [B, 40, 1, 288] against one kv head, k
-    = [c_kv | k_rope], v = c_kv, ``scale=``), which the port never calls.
+    to the fp32 bound.  The case takes ``mla_impl``'s route: on the tensor
+    cores (bf16) the SIMT route is held and timed on the same inputs, in
+    turns, and the tensor-core row (the main one) carries its time as
+    ``simt_ms``.  The yardstick is one F.scaled_dot_product_attention on
+    the concatenated latent (q [B, 40, 1, 288] against one kv head, k =
+    [c_kv | k_rope], v = c_kv, ``scale=``), which the port never calls.
     The bound counts the visible latent rows (a row of kv_len 0 reads all
     T) and 2 x 40 x (288 + 256) operations per visible row."""
     nh, (Ld, R) = 40, kfa.MLA_DIMS
@@ -3061,15 +3080,25 @@ def check_mla_decode(results, gen, B, T, kv_len, dtype, *, main=True, label=""):
                      torch.cat([q_lat, q_rope], dim=-1)[:, :, None]))
     mask = (torch.arange(T, device=DEV)[None, :] < kl[:, None])[:, None, None, :]
     args = lambda s: (s[0], s[1], s[2][..., :Ld], s[2][..., Ld:], kl, scale)  # noqa: E731
-    kern = lambda s: kfa.mla_decode(*args(s))  # noqa: E731
+    kern = lambda s, p: kfa.mla_decode(*args(s), impl=p)  # noqa: E731
     plain = lambda s: ref.mla_decode_plain(*args(s))  # noqa: E731
     lib = lambda s: F.scaled_dot_product_attention(  # noqa: E731
         s[3], s[2][:, None], s[2][:, None, :, :Ld], attn_mask=mask, scale=scale,
         enable_gqa=True)
-    return record(results, "mla_decode", f"{label} B={B} nh={nh} T={T} kv_len={kv_len}",
-                  dtype, main, kern(sets[0]), plain(sets[0]),
-                  [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(s) for s in sets],
-                  [lambda s=s: lib(s) for s in sets], nbytes, nops, path="simt")
+    a0 = args(sets[0])[:4]
+    impl = kfa.mla_impl(dtype, B, nh, T, tuple(st for t in a0 for st in t.stride()[:2]),
+                        tuple(t.data_ptr() for t in a0))
+    paths = kfa.IMPLS if impl == "wgmma" else (impl,)
+    calls = {p: [lambda s=s, p=p: kern(s, p) for s in sets] for p in paths}
+    times = paired_ms(bench_ms, calls) if impl == "wgmma" else {impl: None}
+    lib_ms, want, ok = bench_ms([lambda s=s: lib(s) for s in sets]), plain(sets[0]), True
+    for p in times:                     # the chosen route first: its row is the main one
+        extra = dict(simt_ms=times["simt"]) if p == "wgmma" else None
+        ok &= record(results, "mla_decode", f"{label} B={B} nh={nh} T={T} kv_len={kv_len}",
+                     dtype, main and p == impl, kern(sets[0], p), want, calls[p],
+                     [lambda s=s: plain(s) for s in sets], None, nbytes, nops,
+                     kernel_ms=times[p], path=p, library_ms=lib_ms, extra=extra)
+    return ok
 
 
 def mla_dims(cfg):
@@ -3093,8 +3122,8 @@ def mla_kernel_phase(cfg):
     """MLA's kernels at minicpm3-4b's full-width shapes: the absorbed
     decode at the serving tick (4 slots over the pool's 544-row page view,
     one slot idle at length 1; bf16, the kernels line's row) and off it
-    (B 1 to 3, T of 64, off the 32-key tile, 256 with an empty row; fp32
-    and bf16); then rows 3 and 3b at dk 96 / dv 64 (natively on the tensor
+    (B 1 to 3, T of 64, off the key tiles, 256 with an empty row; fp32
+    and bf16; bf16 on the tensor cores beside SIMT, timed in turns); then rows 3 and 3b at dk 96 / dv 64 (natively on the tensor
     cores in bf16, beside the route that padded v to 96 and all three to
     128, timed in turns; padded to 128 on the SIMT path), off the kernels
     line's sums: the three serving prefills, the training microbatch's
@@ -3159,8 +3188,9 @@ def mla_model_check(cfg):
     forward), fp32 at 2 layers; the gates of ``ssm_model_check`` (bf16:
     5e-2 relative, and the kernel path as close to fp32 as the plain bf16
     path, 25% margin; fp32 1e-4).  The kernel path must launch the
-    absorbed decode once a layer and step, and every prefill attention on
-    the tensor cores in bf16, natively at (dk, dv) = (96, 64)."""
+    absorbed decode once a layer and step (bf16 on wgmma, fp32 on SIMT;
+    the routes reported), and every prefill attention on the tensor cores
+    in bf16, natively at (dk, dv) = (96, 64)."""
     t0 = time.perf_counter()
     toks = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, size=MLA_CHECK_PROMPT + MLA_CHECK_DECODE)
@@ -3178,19 +3208,22 @@ def mla_model_check(cfg):
             if name == "kernel":
                 launches = dict(ops.LAUNCHES)
                 fa = dict(kfa.IMPL_LAUNCHES["flash_attention"])
+                md = dict(kfa.IMPL_LAUNCHES["mla_decode"])
                 dims = dict(kfa.DIM_LAUNCHES)
             del params
             torch.cuda.empty_cache()
         rel = lambda a, b: ((logits[a] - logits[b]).norm() / logits[b].norm()).item()  # noqa
         want_fa = "wgmma" if dtype == torch.bfloat16 else "simt"
         ok_launch = (launches["mla_decode"] == MLA_CHECK_DECODE * layers
+                     and md[want_fa] == launches["mla_decode"]
                      and fa[want_fa] == launches["flash_attention"] == layers)
         if dtype == torch.bfloat16:         # every bf16 prefill at (96, 64), natively
             ok_launch &= native_launches(dims, "flash_attention", mla_dims(cfg)) == layers
         entry = dict(layers=layers, prompt=MLA_CHECK_PROMPT, decode_steps=MLA_CHECK_DECODE,
                      max_abs_err=(logits["kernel"] - logits["plain"]).abs().max().item(),
                      rel_kernel_vs_plain=rel("kernel", "plain"),
-                     mla_decode_launches=launches["mla_decode"], attention_paths=fa,
+                     mla_decode_launches=launches["mla_decode"], mla_decode_routes=md,
+                     attention_paths=fa,
                      attention_dims=dims_json(dims))
         good = bool(torch.isfinite(logits["kernel"]).all()) and ok_launch
         if dtype == torch.bfloat16:
@@ -3213,9 +3246,9 @@ def serve_mla_phase():
     """Full-width minicpm3-4b in bf16 through the serving entry point (the
     serve phase's trace, prompts of MLA_PROMPT_LENS): beside the serve
     phase's gates, every decode tick (the warm-up's included) launches the
-    absorbed decode kernel once a layer, the CUDA kernel every time, and
-    every prefill's attention runs on the tensor cores at (dk, dv) =
-    (96, 64), natively."""
+    absorbed decode kernel once a layer, on the tensor cores every time
+    (``mla::decode_wgmma``), and every prefill's attention runs on the
+    tensor cores at (dk, dv) = (96, 64), natively."""
     t0 = time.perf_counter()
     ok, launches = serve_phase(False, MLA_ARCH, MLA_PROMPT_LENS, MLA_SERVE_KERNELS, "_mla")
     cfg = get_config(MLA_ARCH)
@@ -3223,7 +3256,8 @@ def serve_mla_phase():
     fa = dict(kfa.IMPL_LAUNCHES["flash_attention"])
     md = dict(kfa.IMPL_LAUNCHES["mla_decode"])
     dims = dict(kfa.DIM_LAUNCHES)
-    ok_ticks = launches["mla_decode"] == L * (ticks + 1) and md["simt"] == launches["mla_decode"]
+    ok_ticks = (launches["mla_decode"] == L * (ticks + 1) and md["simt"] == 0
+                and md["wgmma"] == launches["mla_decode"])
     ok_prefill = fa["simt"] == 0 and fa["wgmma"] == launches["flash_attention"] > 0 and \
         native_launches(dims, "flash_attention", mla_dims(cfg)) == fa["wgmma"]
     ok &= ok_ticks and ok_prefill

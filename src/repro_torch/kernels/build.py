@@ -58,6 +58,7 @@ ARGTYPES = {
     },
     "mla_decode": {
         "hk_mla_decode": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F, _I, _P, _I, _P],
+        "hk_mla_decode_tc": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F, _I, _P, _P],
     },
     "ssd": {
         "hk_ssd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P],

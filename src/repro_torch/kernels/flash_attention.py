@@ -27,7 +27,10 @@ product, and the scale stays the caller's ``dk ** -0.5``.
 it ran native or padded.
 
 :func:`mla_decode` wraps the absorbed MLA decode (``csrc/mla_decode.cu``):
-row 3's function with one latent kv head shared by every query head.
+row 3's function with one latent kv head shared by every query head, on
+two routes that :func:`mla_impl` chooses between: ``"wgmma"`` (bf16 on the
+tensor cores, the latent tiles by TMA) or ``"simt"`` (fp32 FMAs: fp32
+inputs, and bf16 in a layout TMA does not take).
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ IMPLS = ("wgmma", "simt")
 IMPL_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention": {"wgmma": 0, "simt": 0},
     "flash_attention_bwd": {"wgmma": 0, "simt": 0},
-    "mla_decode": {"simt": 0}}
+    "mla_decode": {"wgmma": 0, "simt": 0}}
 # forward launches by (path, query length), so a run shows which path each
 # prefill length took
 SQ_LAUNCHES: Counter = Counter()
@@ -274,29 +277,51 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 MLA_DIMS = (256, 32)   # (latent, rope) dims the kernel takes: minicpm3-4b's
 MLA_HEADS = 64         # query heads a block takes at most
-MLA_BT = 32            # keys per tile
+MLA_TILE = {"wgmma": 64, "simt": 32}   # keys per tile of each route
 MLA_PART = MLA_DIMS[0] + 4   # floats of a split's partial row
+TMA_MAX_STRIDE = 1 << 40     # bytes: cuTensorMapEncodeTiled takes strides below this
 
 
-def mla_splits(B: int, T: int) -> int:
-    """Blocks the keys of a row are split over: enough for the B rows to
-    cover the card twice, at least one tile of MLA_BT keys each."""
-    tiles = -(-T // MLA_BT)
+def mla_splits(B: int, T: int, impl: str = "simt") -> int:
+    """Blocks the keys of a row are split over on route ``impl``: enough
+    for the B rows to cover the card twice, at least one tile of
+    ``MLA_TILE[impl]`` keys each (the splits cover T in whole tiles)."""
+    tiles = -(-T // MLA_TILE[impl])
     if B >= 2 * SMS:
         return 1
     per = -(-tiles // min(tiles, -(-2 * SMS // B)))           # tiles per split
     return -(-tiles // per)
 
 
+def mla_impl(dtype: torch.dtype, B: int, nh: int, T: int, strides, ptrs) -> str:
+    """The absorbed decode's route, from the dtype, the shapes, ``strides``
+    (the batch and row strides of q_lat, q_rope, c_kv and k_rope in that
+    order, in elements) and ``ptrs`` (their four addresses) alone:
+    ``"wgmma"`` for bf16 whose latent rows TMA can address (c_kv's and
+    k_rope's addresses on 16 bytes, their strides positive multiples of 16
+    bytes below ``TMA_MAX_STRIDE``: a broadcast over the batch, stride 0,
+    is not one), else ``"simt"`` (fp32 inputs, held to the fp32 bound,
+    which a bf16 product cannot meet; and the layouts above)."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    elt = 2
+    tma = all(0 < st * elt < TMA_MAX_STRIDE and st * elt % 16 == 0 for st in strides[4:])
+    tma = tma and all(ptr % 16 == 0 for ptr in ptrs[2:])
+    return "wgmma" if tma and 0 < nh <= MLA_HEADS and B >= 1 and T >= 1 else "simt"
+
+
 def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
-               k_rope: torch.Tensor, kv_len: torch.Tensor, scale: float) -> torch.Tensor:
+               k_rope: torch.Tensor, kv_len: torch.Tensor, scale: float, *,
+               impl: Optional[str] = None) -> torch.Tensor:
     """o_lat fp32 [B, nh, L] of ``ref.mla_decode_plain`` on the card.
 
     q_lat [B, nh, L], q_rope [B, nh, R]; c_kv [B, T, L], k_rope [B, T, R]
     (the gathered latent cache), all fp32 or all bf16, by strides with
     the last dim contiguous (16-byte aligned strides); kv_len a contiguous
     int32 [B] on the same card; (L, R) = ``MLA_DIMS``, nh up to
-    ``MLA_HEADS``, any T."""
+    ``MLA_HEADS``, any T.  ``impl``: the route, by default
+    :func:`mla_impl`'s choice; ``"simt"`` takes every input, ``"wgmma"``
+    raises where :func:`mla_impl` would not choose it."""
     if q_lat.device.type != "cuda":
         raise ValueError(f"CUDA MLA decode kernel got a {q_lat.device} tensor")
     if q_lat.dtype not in DTYPES:
@@ -310,27 +335,33 @@ def mla_decode(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
         raise ValueError(f"the MLA decode takes (L, R) = {MLA_DIMS} and up to {MLA_HEADS} "
                          f"heads: q_lat {tuple(q_lat.shape)}, q_rope {tuple(q_rope.shape)}, "
                          f"c_kv {tuple(c_kv.shape)}, k_rope {tuple(k_rope.shape)}")
+    ts = (q_lat, q_rope, c_kv, k_rope)
     vec = 16 // q_lat.element_size()
-    for t in (q_lat, q_rope, c_kv, k_rope):
+    for t in ts:
         if t.dtype != q_lat.dtype or t.device != q_lat.device or t.stride(2) != 1:
             raise ValueError("q_lat, q_rope, c_kv, k_rope must share dtype and device, "
                              "with the last dim contiguous")
         if any(st % vec for st in t.stride()[:2]) or t.data_ptr() % 16:
             raise ValueError("MLA decode strides must be multiples of 16 bytes, the data "
                              "16-byte aligned")
+    strides = tuple(st for t in ts for st in t.stride()[:2])
+    chosen = mla_impl(q_lat.dtype, B, nh, T, strides, tuple(t.data_ptr() for t in ts))
+    impl = _impl(impl, chosen, q_lat.dtype)
+    if impl == "wgmma" and chosen != "wgmma":
+        raise ValueError("TMA cannot address these latent rows: the wgmma route does not "
+                         "take them")
     kl = _per_batch(kv_len, B, q_lat, "kv_len")
     o = torch.empty((B, nh, Ld), dtype=torch.float32, device=q_lat.device)
-    nsplit = mla_splits(B, T)
+    nsplit = mla_splits(B, T, impl)
     part = (torch.empty(B * nh * nsplit * MLA_PART, dtype=torch.float32, device=q_lat.device)
             if nsplit > 1 else None)
+    args = (*(t.data_ptr() for t in ts), kl, o.data_ptr(), B, nh, T, Ld, R, *strides,
+            float(scale), nsplit, part.data_ptr() if part is not None else None)
     stream = torch.cuda.current_stream(q_lat.device).cuda_stream
     lib = build.library("mla_decode")
-    code = lib.hk_mla_decode(q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
-                             k_rope.data_ptr(), kl, o.data_ptr(), B, nh, T, Ld, R,
-                             *q_lat.stride()[:2], *q_rope.stride()[:2], *c_kv.stride()[:2],
-                             *k_rope.stride()[:2], float(scale), nsplit,
-                             part.data_ptr() if part is not None else None,
-                             DTYPES[q_lat.dtype], stream)
-    build.check(lib, code, "hk_mla_decode")
-    IMPL_LAUNCHES["mla_decode"]["simt"] += 1
+    if impl == "wgmma":
+        build.check(lib, lib.hk_mla_decode_tc(*args, stream), "hk_mla_decode_tc")
+    else:
+        build.check(lib, lib.hk_mla_decode(*args, DTYPES[q_lat.dtype], stream), "hk_mla_decode")
+    IMPL_LAUNCHES["mla_decode"][impl] += 1
     return o

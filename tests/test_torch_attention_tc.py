@@ -325,7 +325,7 @@ def test_card_default_paths_and_counts(dev):
     kfa.flash_attention(q[:, :, :1], k, v, causal=True, q_offset=kl - 1, kv_len=kl)
     assert kfa.IMPL_LAUNCHES == {"flash_attention": {"wgmma": 1, "simt": 1},
                                  "flash_attention_bwd": {"wgmma": 1, "simt": 0},
-                                 "mla_decode": {"simt": 0}}
+                                 "mla_decode": {"wgmma": 0, "simt": 0}}
     assert kfa.SQ_LAUNCHES == {("wgmma", 64): 1, ("simt", 1): 1}
     with pytest.raises(TypeError, match="bf16"):
         kfa.flash_attention(q.float(), k.float(), v.float(), impl="wgmma")

@@ -644,19 +644,21 @@ def test_grid_steps_through_ring_kernels_match_plain(grid_cuda):
 def test_mla_decode_kernel(dev, dtype, B, T, kv_len):
     """o_lat of the absorbed decode at minicpm3-4b's dims (40 heads, latent
     256, rope 32) against ``ref.mla_decode_plain``: ragged ``kv_len``, T
-    off the 32-key tile, a row with no key (the uniform average of c_kv);
-    c_kv and k_rope are strided views of one [B, T, 288] buffer.  The
-    output is fp32 (both compute from the same inputs in fp32): 2e-4."""
+    off the 32- and 64-key tiles, a row with no key (the uniform average
+    of c_kv); c_kv and k_rope are strided views of one [B, T, 288] buffer.
+    bf16 launches on the tensor cores (wgmma), fp32 on SIMT.  The output
+    is fp32 (both compute from the same inputs in fp32): 2e-4."""
     nh, Ld, R = 40, 256, 32
     q_lat = _randn((B, nh, Ld), dtype, dev, 40)
     q_rope = _randn((B, nh, R), dtype, dev, 41)
     kv = _randn((B, T, Ld + R), dtype, dev, 42)
     kl = torch.tensor(kv_len, dtype=torch.int32, device=dev)
     args = (q_lat, q_rope, kv[..., :Ld], kv[..., Ld:], kl, 96 ** -0.5)
-    before = kfa.IMPL_LAUNCHES["mla_decode"]["simt"]
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    before = dict(kfa.IMPL_LAUNCHES["mla_decode"])
     got = kfa.mla_decode(*args)
     assert got.dtype == torch.float32 and got.shape == (B, nh, Ld)
-    assert kfa.IMPL_LAUNCHES["mla_decode"]["simt"] == before + 1
+    assert kfa.IMPL_LAUNCHES["mla_decode"] == {r: before[r] + (r == route) for r in before}
     _close(got, ref.mla_decode_plain(*args))
     if kv_len[0] == 0:
         _close(got[0], kv[0, :, :Ld].float().mean(dim=0)[None].expand(nh, Ld))
