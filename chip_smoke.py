@@ -139,8 +139,9 @@ Phases, each fatal on failure:
    ``overlap.route_bytes``) beside the ``grid_train`` hecaton run's, in
    ``grid_nop_bytes``;
 12. ``ckpt``: checkpoints of the training cell on one card through the
-   launcher's ``--ckpt-*`` flags, in a temporary directory (the depth cut
-   only if two checkpoints do not fit on its disk): two uninterrupted
+   launcher's ``--ckpt-*`` flags, in a temporary directory, at 8 of the
+   28 layers (CKPT_LAYERS; cut further only if two checkpoints do not fit
+   on its disk): two uninterrupted
    6-step references (bit-equal, or their spread sets the gate), a run
    saving async every 2 steps (keep 2, 2 writers) to step 4, a fresh run
    that must restore step 4 and meet the gate on steps 4 and 5; one
@@ -266,7 +267,41 @@ Phases, each fatal on failure:
    memory; then the loss and
    every gradient of one microbatch against the plain path
    (``mla_grad_check``, the ``grad_check`` gates at 8 and 2 layers);
-26. print every phase's seconds (``phase_s``), then one JSON line of
+26. ``moe_kernels``: the MoE's expert kernels (``csrc/moe.cu``) against
+   their plain versions: the grouped gated product and the grouped
+   down-projection at granite-moe-3b-a800m's widths (E 40, H 1536, F 512,
+   swiglu) at C = 1, 16, 37, 64 and 128 rows an expert (the first five
+   experts' slots empty, the next five half empty), bf16 (C 1 and 16 on
+   the gemv route, the rest on wgmma) and fp32 at C 1 and 37 (simt); one
+   layer of grok-1-314b's experts (E 8, H 6144, F 32768, geglu) at C 1 and
+   160 in bf16; the combine at T 4 and 512 tokens, k 8, over a real
+   dispatch's slots (dropped assignments included), bf16 and fp32, which
+   must equal its plain version bit for bit; each case with its bound and
+   a library yardstick (one ``torch.bmm`` for the down-projection, two for
+   the gated product's products only; one ``F.embedding_bag`` for the
+   combine);
+27. ``moe_model_check``: granite-moe-3b-a800m at full width, a 300-token
+   prefill and 8 decode steps through the kernels against the plain
+   path, every path on the kernel path's routing (each layer's top-k
+   choices replayed: a near-tie flips between two paths and the flipped
+   tokens' rows spread): bf16 at 8 layers within 5e-2 of the plain bf16
+   path and as close to the plain fp32 forward as the plain bf16 path
+   (25% margin), where controls (the gated product's products rounded to
+   bf16 as JAX rounds them; the expert weights rounded to fp8 e4m3 and
+   e5m2) are held to the same gates and the fp8 ones must fail them;
+   bf16 at all 32 layers, the fp32-distance gate; fp32 at 32 layers
+   within 1e-4; every grouped launch on the route its C calls for (the
+   prefill's C 75 on wgmma, decode's C 1 on gemv; fp32 on simt), each
+   MoE kernel once a layer and step; reported beside them the two bf16
+   paths' gap at 32 layers and, per layer, the top-k choices they differ
+   on, each routing freely;
+28. ``serve_moe``: full-width granite-moe-3b-a800m served in bf16 through
+   the serving entry point (the serve phase's trace, prompts 64/256/512):
+   the serve gates, each MoE kernel launched once a layer in every
+   prefill and tick (the warm-up's too), decode and the 64-token prefills
+   (C <= 16) on gemv, the other prefills on wgmma, none on simt
+   (``serve_moe_paths``);
+29. print every phase's seconds (``phase_s``), then one JSON line of
    per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
@@ -303,12 +338,14 @@ from repro_torch.kernels import ring_matmul as krm  # noqa: E402
 from repro_torch.kernels import ring_loopback as LB  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import matmul as kmm  # noqa: E402
+from repro_torch.kernels import moe as kmoe  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels import swiglu as ksw  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import Grid  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import mlp as MLP  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.parallel import comm  # noqa: E402
 from repro_torch.parallel.context import PCtx  # noqa: E402
@@ -368,6 +405,12 @@ KERNELS = {
     # form's einsums of apply_mla
     "mla_decode": ("src/repro_torch/kernels/csrc/mla_decode.cu",
                    "src/repro/models/attention.py:511"),
+    # the MoE's experts have no pallas_call: these replace _moe_local's
+    # einsums (the gated up-projection, the down-projection) and its
+    # scatter-add
+    "moe_grouped_gated": ("src/repro_torch/kernels/csrc/moe.cu", "src/repro/models/mlp.py:115"),
+    "moe_grouped_mm": ("src/repro_torch/kernels/csrc/moe.cu", "src/repro/models/mlp.py:126"),
+    "moe_combine": ("src/repro_torch/kernels/csrc/moe.cu", "src/repro/models/mlp.py:130"),
 }
 RING_KERNELS = ("ag_matmul", "matmul_rs", "ag_matmul_contract")
 INT8_KERNELS = tuple(k + "_int8" for k in RING_KERNELS)
@@ -468,6 +511,9 @@ RING_TC_FUNCTIONS = ("_ZN6ringtc8ag_wgmmaILb0E", "_ZN6ringtc8rs_wgmma",
 # the absorbed MLA decode's tensor-core kernel mla::decode_wgmma, likewise in the
 # mla_decode library's SASS
 MLA_TC_FUNCTIONS = ("_ZN3mla12decode_wgmma",)
+# the MoE's grouped wgmma products moe::grouped_wgmma<false> and <true> (the
+# gated form), likewise in the moe library's SASS
+MOE_TC_FUNCTIONS = ("_ZN3moe13grouped_wgmmaILb0E", "_ZN3moe13grouped_wgmmaILb1E")
 # the ring kernels that take a route (ring_matmul.ring_impl): every bf16 launch
 # of these at the grid phases' full-width blocks must be on wgmma, on the bf16
 # wire and on the int8 wire
@@ -488,6 +534,10 @@ OLD_PATH = {"wgmma": "wmma", "gemv": "skinny"}
 # run that saves stops at CKPT_RESUME_AT, saving async every CKPT_EVERY
 # steps (keep CKPT_KEEP, CKPT_WRITERS writers); the resume runs the last two
 CKPT_RESUME_AT, CKPT_EVERY, CKPT_KEEP, CKPT_WRITERS = 4, 2, 2, 2
+# the depth of the ckpt phase's runs and of runtime's ckpt_procs, which
+# repeats them (cut from 28 to keep the script's time; cut further only if
+# two checkpoints do not fit on the disk)
+CKPT_LAYERS = 8
 # on the grid: full width at BIDIR_LAYERS layers, saving after every step
 GRID_CKPT_STEPS = 2
 NO_SAVE = "1000000"                       # --ckpt-every of a run that only restores
@@ -562,6 +612,24 @@ MLA_SERVE_KERNELS = ("matmul", "gated_matmul", "flash_attention", "mla_decode")
 # one int8 latent block against bf16's: (256 + 4 + 32 + 4) / (2 (256 + 32))
 MLA_QUANT_RATIO = (256 + 4 + 32 + 4) / 576
 MLA_QUANT_LOGIT_TOL = 0.06               # 0.0349 measured on an H100 80GB HBM3, 700 W
+# the MoE slice: granite-moe-3b-a800m at full width (32 layers, d 1536, 40
+# experts top-8 of d_ff 512, cf 1.25).  Its grouped products at each C a
+# serving step gives them (C = int(8 T 1.25 / 40): a 4-slot decode tick
+# 1, prefills of 64 / 256 / 512 tokens 16 / 64 / 128; the kernels line's
+# rows) and 37 (ragged), some experts' slots empty; one layer of grok-1-314b's
+# experts (E 8, H 6144, F 32768, geglu) at C 1 and 160 (a 512-token prefill);
+# the combine at T 4 and 512 tokens, k 8
+MOE_ARCH, GROK_ARCH = "granite-moe-3b-a800m", "grok-1-314b"
+MOE_PROMPT_LENS = (64, 256, 512)
+MOE_CS, MOE_MAIN_CS, GROK_CS, COMBINE_TS = (1, 16, 37, 64, 128), (1, 16, 64, 128), (1, 160), \
+    (4, 512)
+MOE_CHECK_PROMPT, MOE_CHECK_DECODE = 300, 8
+# moe_model_check: the depth of the bf16 5e-2 gate (at 32 layers the plain bf16
+# path alone stands ~0.11 from fp32), its controls, and those that must fail it
+MOE_GATE_LAYERS = 8
+MOE_CONTROLS, MOE_CONTROLS_FAIL = ("h_bf16", "w_e4m3", "w_e5m2"), ("w_e4m3", "w_e5m2")
+MOE_KERNELS = ("moe_grouped_gated", "moe_grouped_mm", "moe_combine")
+MOE_SERVE_KERNELS = ("matmul", "flash_attention") + MOE_KERNELS
 
 
 def log(*a):
@@ -946,15 +1014,16 @@ def _sass(libname):
 
 def sass_counts():
     """HGMMA (wgmma) and HMMA (mma.sync) instructions in each kernel function
-    of the flash-attention, matmul, ssd, ring and MLA-decode libraries, from
-    ``cuobjdump -sass``; ok when every tensor-core attention kernel
+    of the flash-attention, matmul, ssd, ring, MLA-decode and MoE libraries,
+    from ``cuobjdump -sass``; ok when every tensor-core attention kernel
     (TC_FUNCTIONS), the wgmma matmul (WG_FUNCTIONS), the tensor-core scan
-    (SSD_TC_FUNCTIONS), the tensor-core ring kernels (RING_TC_FUNCTIONS) and
-    the absorbed decode's (MLA_TC_FUNCTIONS) hold HGMMA."""
+    (SSD_TC_FUNCTIONS), the tensor-core ring kernels (RING_TC_FUNCTIONS),
+    the absorbed decode's (MLA_TC_FUNCTIONS) and the MoE's grouped products
+    (MOE_TC_FUNCTIONS) hold HGMMA."""
     shown, ok = {}, True
     libs = (("flash_attention", TC_FUNCTIONS), ("matmul", WG_FUNCTIONS),
             ("ssd", SSD_TC_FUNCTIONS), ("ring_matmul", RING_TC_FUNCTIONS),
-            ("mla_decode", MLA_TC_FUNCTIONS))
+            ("mla_decode", MLA_TC_FUNCTIONS), ("moe", MOE_TC_FUNCTIONS))
     for name, _ in libs:                       # loaded here, dumped in parallel below
         build.library(name)
     with ThreadPoolExecutor(len(libs)) as pool:
@@ -1508,6 +1577,7 @@ def profile_train(cfg, params, opt, rc, batch):
 
 SERVE_TOK_S = {}                          # decode tok/s of each arch's serve run
 SERVE_TICKS = {}                          # decode ticks of each arch's serve run
+SERVE_PREFILLS = {}                       # prefills of each arch's serve run (warm-up's too)
 
 
 def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNELS,
@@ -1539,6 +1609,7 @@ def serve_phase(profile, arch=ARCH, prompt_lens=PROMPT_LENS, kernels=SERVE_KERNE
     log(f"serve{suffix} " + json.dumps(dict({k: r[k] for k in keys}, arch=arch)))
     SERVE_TOK_S[arch] = r["decode_tok_s"]
     SERVE_TICKS[arch] = r["ticks"]
+    SERVE_PREFILLS[arch] = len(set(prompt_lens)) + len(r["engine"].stats["prefill_s"])
     log(f"kernels{suffix} " + json.dumps(launches))
     # every served (bf16) matmul and gate with M > 16 (a prefill) went
     # through wgmma, every one with M <= 16 (decode) through gemv: none on
@@ -2256,15 +2327,16 @@ def ckpt_phase():
             r["log"] = lines
             return r
 
-        # the state's bytes at full depth decide whether two checkpoints fit
+        # the state's bytes at CKPT_LAYERS decide whether two checkpoints fit
+        cfg = cfg.scaled(num_layers=CKPT_LAYERS)
         params, opt = train_step.init_train_state(cfg, device=DEV)
         nbytes = _leaf_bytes({"params": params, "opt_state": opt})
         del params, opt
         torch.cuda.empty_cache()
         free = shutil.disk_usage(root).free
-        layers, cut = 0, None
+        layers, cut = CKPT_LAYERS, None
         if free < 2.2 * nbytes:
-            layers = max(2, int(cfg.num_layers * free / (2.2 * nbytes)))
+            layers = max(2, int(CKPT_LAYERS * free / (2.2 * nbytes)))
             cut = f"{free / 1e9:.1f} GB free for two {nbytes / 1e9:.2f} GB checkpoints: " \
                   f"{layers} layers"
         refs = []
@@ -3157,7 +3229,7 @@ def mla_kernel_phase(cfg):
     return results, ok
 
 
-def _mla_logits(cfg, params, toks, plen, dtype, plain):
+def _paged_logits(cfg, params, toks, plen, dtype, plain):
     """Logits of a ``plen``-token prefill into a fresh paged pool, then one
     decode step per remaining token of ``toks`` (fed, not sampled, so both
     paths see the same inputs) at its position: [len(toks), V] fp32."""
@@ -3204,7 +3276,7 @@ def mla_model_check(cfg):
         for name, dt_, plain in paths:
             params = lm.init_params(c, seed=SEED, device=DEV, dtype=dt_)
             ops.reset_launches()
-            logits[name] = _mla_logits(c, params, toks, MLA_CHECK_PROMPT, dt_, plain)
+            logits[name] = _paged_logits(c, params, toks, MLA_CHECK_PROMPT, dt_, plain)
             if name == "kernel":
                 launches = dict(ops.LAUNCHES)
                 fa = dict(kfa.IMPL_LAUNCHES["flash_attention"])
@@ -3319,6 +3391,308 @@ def train_mla_phase():
     return ok and ok_g, launches
 
 
+def check_moe_grouped(results, gen, E, C, K, N, dtype, *, gated, act, main=True, label="",
+                      empty=0):
+    """One grouped product of E experts, C rows each, [C, K] x [K, N] (and
+    a second weight when ``gated``), against its plain version on the
+    route ``kmoe.grouped_impl`` chooses; ``empty`` experts' slots all
+    zero (an expert no token chose) and as many more half zero.  The
+    library yardstick: one ``torch.bmm`` (the down-projection) or two
+    (the gated product's products only, as the gated matmul's
+    ``products_only``)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nw = 2 if gated else 1
+    nbytes = (E * C * K + nw * E * K * N + E * C * N) * elt
+    sets = []
+    for _ in range(n_copies(nbytes)):
+        x = randn(gen, (E, C, K), dtype)
+        x[:empty] = 0
+        x[empty:2 * empty, C // 2:] = 0
+        sets.append((x, [randn(gen, (E, K, N), dtype, K ** -0.5) for _ in range(nw)]))
+    name = "moe_grouped_gated" if gated else "moe_grouped_mm"
+    impl = kmoe.grouped_impl(dtype, C)
+    kern = lambda s: kmoe.grouped(s[0], *s[1], act=act)  # noqa: E731
+    plain = (lambda s: ref.grouped_gated_plain(s[0], *s[1], act=act)) if gated else \
+        (lambda s: ref.grouped_mm_plain(s[0], s[1][0], act=act))
+    lib = [(lambda s=s: [torch.bmm(s[0], w) for w in s[1]]) for s in sets]
+    before = kmoe.IMPL_LAUNCHES[name][impl]
+    out = kern(sets[0])
+    on_route = kmoe.IMPL_LAUNCHES[name][impl] == before + 1
+    big = nbytes > 4e9                    # grok-1's layer: event windows, no graph of its plain
+    timer = (lambda calls: event_ms(calls[0], reps=2, windows=3)) if big else bench_ms
+    case = f"E={E} C={C} K={K} N={N} act={act}" + (f" {label}" if label else "")
+    ok = record(results, name, case, dtype, main, out, plain(sets[0]),
+                [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(s) for s in sets], lib,
+                nbytes, nw * 2 * E * C * K * N, timer=timer, path=impl,
+                extra=dict(route_counted=on_route,
+                           library="torch.bmm" + (" x 2: the products only" if gated else "")))
+    del sets, out
+    torch.cuda.empty_cache()
+    return ok and on_route
+
+
+def _moe_slots(gen, T, k, E, cap):
+    """A real dispatch of T tokens' random top-k choices: slot_of [T, k]
+    int32 (-1 where dropped) and the count of valid assignments."""
+    scores = torch.rand((T, E), generator=gen, device=DEV)
+    idx = MLP.top_k(scores, k)[1]
+    st = MLP._dispatch_indices(idx.reshape(-1), E, 0, cap)
+    slot_of = MLP.slot_of_assignments(st, T * k).reshape(T, k)
+    return slot_of, int((slot_of >= 0).sum().item())
+
+
+def check_moe_combine(results, gen, T, k, E, H, dtype, *, main=True):
+    """The combine of T tokens' k expert rows over a real dispatch (C at
+    the model's capacity, dropped assignments -1) against its plain
+    version, which it must equal bit for bit; the bound counts the valid
+    rows read once, the gates, the slots and the output.  The library
+    yardstick: one ``F.embedding_bag`` (mode sum, the gates as per-sample
+    weights) over the rows, a dropped assignment given row 0 and gate 0
+    and the gates cast to yd's dtype (which it requires) outside the
+    timed call."""
+    cap = max(1, int(k * T * 1.25 / E))
+    elt = torch.tensor([], dtype=dtype).element_size()
+    slot_of, n_valid = _moe_slots(gen, T, k, E, cap)
+    nbytes = n_valid * H * elt + T * k * 8 + T * H * elt
+    sets = []
+    for _ in range(n_copies(E * cap * H * elt)):
+        gate = torch.rand((T, k), generator=gen, device=DEV)
+        sets.append((randn(gen, (E, cap, H), dtype), gate / gate.sum(-1, keepdim=True),
+                     slot_of))
+    bags = [(s[0].view(-1, H), slot_of.clamp(min=0),
+             torch.where(slot_of >= 0, s[1], 0.0).to(dtype)) for s in sets]
+    lib = [(lambda b=b: F.embedding_bag(b[1], b[0], per_sample_weights=b[2], mode="sum"))
+           for b in bags]
+    before = kmoe.IMPL_LAUNCHES["moe_combine"]["token"]
+    out = kmoe.combine(*sets[0])
+    want = ref.moe_combine_plain(*sets[0])
+    exact = bool(torch.equal(out, want))
+    lib_err = (lib[0]().float() - want.float()).abs().max().item()
+    ok = record(results, "moe_combine", f"T={T} k={k} E={E} C={cap} H={H}", dtype, main, out,
+                want, [lambda s=s: kmoe.combine(*s) for s in sets],
+                [lambda s=s: ref.moe_combine_plain(*s) for s in sets], lib, nbytes,
+                2 * n_valid * H, path="token",
+                extra=dict(valid=n_valid, dropped=T * k - n_valid, exact=exact,
+                           route_counted=kmoe.IMPL_LAUNCHES["moe_combine"]["token"] ==
+                           before + 1,
+                           library="F.embedding_bag(mode='sum', per_sample_weights)",
+                           library_max_err=lib_err))
+    return ok and exact
+
+
+def moe_kernel_phase():
+    """The MoE's kernels at the serving shapes of granite-moe-3b-a800m and
+    one layer of grok-1-314b (module docstring, phase 26)."""
+    cfg, grok = get_config(MOE_ARCH), get_config(GROK_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    results, ok = [], True
+    E, H, F = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    for C in MOE_CS:
+        for dtype in (torch.bfloat16, torch.float32) if C in (1, 37) else (torch.bfloat16,):
+            main = dtype == torch.bfloat16 and C in MOE_MAIN_CS
+            ok &= check_moe_grouped(results, gen, E, C, H, F, dtype, gated=True, act="silu",
+                                    main=main, empty=5)
+            ok &= check_moe_grouped(results, gen, E, C, F, H, dtype, gated=False, act="none",
+                                    main=main, empty=5)
+    Eg, Hg, Fg = grok.moe.num_experts, grok.d_model, grok.d_ff
+    for C in GROK_CS:
+        ok &= check_moe_grouped(results, gen, Eg, C, Hg, Fg, torch.bfloat16, gated=True,
+                                act="gelu", main=False, label="grok-1")
+        ok &= check_moe_grouped(results, gen, Eg, C, Fg, Hg, torch.bfloat16, gated=False,
+                                act="none", main=False, label="grok-1")
+    for T in COMBINE_TS:
+        for dtype in (torch.bfloat16, torch.float32) if T == COMBINE_TS[0] else \
+                (torch.bfloat16,):
+            ok &= check_moe_combine(results, gen, T, cfg.moe.top_k, E, H, dtype,
+                                    main=dtype == torch.bfloat16)
+    return results, ok
+
+
+def _moe_control(kind, gated, mm):
+    """The kernel path's grouped products (``gated``, ``mm``: the ops) with
+    one change, for ``moe_model_check``'s controls: ``h_bf16`` rounds each
+    product of the gated form to bf16 before the activation and the gate
+    multiply, and the activation too (JAX's roundings); ``w_e4m3`` and
+    ``w_e5m2`` round the expert weights to fp8 (3 and 2 mantissa bits)
+    before the kernels take them."""
+    if kind == "h_bf16":
+        def gated_h(xd, w1, w1b, *, act):
+            a, b = kmoe.grouped(xd, w1), kmoe.grouped(xd, w1b)
+            return (ref.EPILOGUE_ACTS[act](a.float()).to(a.dtype).float() * b.float()).to(
+                a.dtype)
+        return gated_h, mm
+    fp8 = {"w_e4m3": torch.float8_e4m3fn, "w_e5m2": torch.float8_e5m2}[kind]
+    q = lambda w: w.to(fp8).to(w.dtype)  # noqa: E731
+    return (lambda xd, w1, w1b, *, act: gated(xd, q(w1), q(w1b), act=act),
+            lambda h, w, *, act="none": mm(h, q(w), act=act))
+
+
+def moe_model_check(cfg):
+    """granite-moe-3b-a800m at full width: a MOE_CHECK_PROMPT-token prefill
+    and MOE_CHECK_DECODE decode steps through the kernels against the plain
+    path (module docstring, phase 27).  A top-k choice flips between two
+    paths where two experts' router probabilities nearly tie, and a
+    flipped token's expert rows then differ wholly and spread, so every
+    gate compares paths on one routing: the kernel path's choices, each
+    layer's replayed in call order into the other paths (their gates
+    re-weighed from their own probabilities).  bf16 at MOE_GATE_LAYERS
+    layers: ``mla_model_check``'s gates, the kernel path within 5e-2 of
+    the plain bf16 path and as close to the plain fp32 forward as the
+    plain bf16 path (25% margin); controls, the kernel path with one
+    change each (``_moe_control``), held to the same gates, of which the
+    fp8 ones must fail them.  bf16 at all 32 layers, where the plain bf16
+    path itself stands ~0.11 from fp32: the fp32-distance gate, and,
+    reported beside it, the two bf16 paths' gap on one routing and each
+    routing freely, and per layer the top-k choices they differ on.  fp32
+    at 32 layers: within 1e-4 of the plain path."""
+    t0 = time.perf_counter()
+    toks = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=MOE_CHECK_PROMPT + MOE_CHECK_DECODE)
+    c_pre = MLP.capacity(cfg, MOE_CHECK_PROMPT)
+    steps = 1 + MOE_CHECK_DECODE
+    ok, report = True, {}
+    chosen, mode = {}, {"path": None, "replay": None, "i": 0}
+    real_top_k, replayed = MLP.top_k, {}
+    real_ops = (ops.moe_grouped_gated, ops.moe_grouped_mm)
+
+    def routing_top_k(probs, k):
+        if mode["replay"] is not None:         # the kernel path's choices, in call order
+            idx = mode["replay"][mode["i"]]
+            mode["i"] += 1
+            return probs.gather(-1, idx), idx
+        vals, idx = real_top_k(probs, k)
+        chosen.setdefault(mode["path"], []).append(idx)
+        return vals, idx
+
+    MLP.top_k = routing_top_k
+    try:
+        for dtype, L in ((torch.bfloat16, MOE_GATE_LAYERS), (torch.bfloat16, cfg.num_layers),
+                         (torch.float32, cfg.num_layers)):
+            c = cfg.scaled(num_layers=L)
+            gate_depth = dtype == torch.bfloat16 and L == MOE_GATE_LAYERS
+            # (name, dtype, plain, on the kernel path's routing, control)
+            paths = [("kernel", dtype, False, False, None),
+                     ("plain_pinned", dtype, True, True, None)]
+            if dtype == torch.bfloat16:
+                paths.append(("fp32_pinned", torch.float32, True, True, None))
+                paths += [(f"control_{k}", dtype, False, True, k) for k in MOE_CONTROLS] \
+                    if gate_depth else [("plain", dtype, True, False, None)]
+            logits = {}
+            chosen.clear()
+            for name, dt_, plain, pinned, control in paths:
+                params = lm.init_params(c, seed=SEED, device=DEV, dtype=dt_)
+                ops.reset_launches()
+                mode.update(path=name, i=0, replay=chosen["kernel"] if pinned else None)
+                if control is not None:
+                    ops.moe_grouped_gated, ops.moe_grouped_mm = _moe_control(control, *real_ops)
+                try:
+                    logits[name] = _paged_logits(c, params, toks, MOE_CHECK_PROMPT, dt_, plain)
+                finally:
+                    ops.moe_grouped_gated, ops.moe_grouped_mm = real_ops
+                if name == "kernel":
+                    launches = dict(ops.LAUNCHES)
+                    routes = {k: dict(kmoe.IMPL_LAUNCHES[k]) for k in MOE_KERNELS}
+                replayed[name] = mode["i"]
+                del params
+                torch.cuda.empty_cache()
+            rel = lambda a, b: ((logits[a] - logits[b]).norm() / logits[b].norm()).item()  # noqa
+            if dtype == torch.bfloat16:
+                want = {"moe_grouped_gated": {"wgmma": L, "gemv": MOE_CHECK_DECODE * L,
+                                              "simt": 0}}
+            else:
+                want = {"moe_grouped_gated": {"wgmma": 0, "gemv": 0, "simt": steps * L}}
+            want["moe_grouped_mm"] = want["moe_grouped_gated"]
+            ok_launch = (all(launches[k] == steps * L for k in MOE_KERNELS)
+                         and all(routes[k] == want[k] for k in want)
+                         and routes["moe_combine"]["token"] == steps * L
+                         and all(replayed[n] == steps * L for n, _, _, pin, _ in paths if pin))
+            entry = dict(layers=L, prompt=MOE_CHECK_PROMPT, decode_steps=MOE_CHECK_DECODE,
+                         prefill_capacity=c_pre, decode_capacity=MLP.capacity(cfg, 1),
+                         max_abs_err=(logits["kernel"] - logits["plain_pinned"]).abs().max()
+                         .item(),
+                         rel_kernel_vs_plain=rel("kernel", "plain_pinned"),
+                         launches={k: launches[k] for k in MOE_KERNELS}, routes=routes)
+            good = bool(torch.isfinite(logits["kernel"]).all()) and ok_launch
+            if dtype == torch.bfloat16:
+                floor = rel("plain_pinned", "fp32_pinned")
+                passes = lambda n: ((not gate_depth or rel(n, "plain_pinned") <= 5e-2)  # noqa
+                                    and rel(n, "fp32_pinned") <= 1.25 * floor + 1e-3)
+                entry.update(rel_kernel_vs_fp32=rel("kernel", "fp32_pinned"),
+                             rel_plain_vs_fp32=floor, tol_fp32=1.25 * floor + 1e-3)
+                good &= passes("kernel")
+                if gate_depth:
+                    entry["tol_rel"] = 5e-2
+                    entry["controls"] = {k: dict(
+                        rel_vs_plain=rel(f"control_{k}", "plain_pinned"),
+                        rel_vs_fp32=rel(f"control_{k}", "fp32_pinned"),
+                        passes_gates=passes(f"control_{k}"), must_fail=k in MOE_CONTROLS_FAIL)
+                        for k in MOE_CONTROLS}
+                    entry["controls_failed_as_required"] = not any(
+                        entry["controls"][k]["passes_gates"] for k in MOE_CONTROLS_FAIL)
+                    good &= entry["controls_failed_as_required"]
+                else:
+                    # per layer: the top-k choices (over the prefill and every step) where
+                    # the kernel path and the plain bf16 path, each routing freely, differ
+                    diff = []
+                    for i in range(L):
+                        n = 0
+                        for s in range(steps):
+                            a = chosen["kernel"][s * L + i]
+                            b = chosen["plain"][s * L + i]
+                            oa = torch.zeros(a.shape[0], cfg.moe.num_experts, device=DEV)
+                            ob = torch.zeros_like(oa)
+                            oa.scatter_(1, a, 1.0)
+                            ob.scatter_(1, b, 1.0)
+                            n += int((oa * (1 - ob)).sum().item())
+                        diff.append(n)
+                    entry.update(rel_kernel_vs_plain_free=rel("kernel", "plain"),
+                                 topk_diff_per_layer=diff,
+                                 topk_choices_per_layer=(MOE_CHECK_PROMPT + MOE_CHECK_DECODE)
+                                 * cfg.moe.top_k)
+            else:
+                entry["tol_rel"] = 1e-4
+                good &= entry["rel_kernel_vs_plain"] <= 1e-4
+            entry["ok"] = good
+            ok &= good
+            report[f"{str(dtype).replace('torch.', '')}_{L}"] = entry
+    finally:
+        MLP.top_k = real_top_k
+    report["seconds"] = time.perf_counter() - t0
+    log("moe_model_check " + json.dumps(report))
+    return ok
+
+
+def serve_moe_phase():
+    """Full-width granite-moe-3b-a800m in bf16 through the serving entry
+    point (module docstring, phase 28)."""
+    t0 = time.perf_counter()
+    ok, launches = serve_phase(False, MOE_ARCH, MOE_PROMPT_LENS, MOE_SERVE_KERNELS, "_moe")
+    cfg = get_config(MOE_ARCH)
+    L, ticks, prefills = cfg.num_layers, SERVE_TICKS[MOE_ARCH], SERVE_PREFILLS[MOE_ARCH]
+    routes = {k: dict(kmoe.IMPL_LAUNCHES[k]) for k in MOE_KERNELS}
+    steps = ticks + 1 + prefills             # the warm-up's tick and prefills included
+    # prefills whose C is at most 16 (gemv): the warm-up's and the trace's
+    # 64-token prompts, when nothing was preempted (a re-admitted prompt is longer)
+    small = [n for n in MOE_PROMPT_LENS if MLP.capacity(cfg, n) <= kmoe.GEMV_MAX_C]
+    trace = [MOE_PROMPT_LENS[i % len(MOE_PROMPT_LENS)] for i in range(REQUESTS)]
+    n_small = len(small) + sum(n in small for n in trace)
+    exact = prefills == len(MOE_PROMPT_LENS) + REQUESTS
+    ok_paths = all(launches[k] == L * steps for k in MOE_KERNELS) and \
+        routes["moe_combine"]["token"] == L * steps
+    for k in ("moe_grouped_gated", "moe_grouped_mm"):
+        r = routes[k]
+        ok_paths &= r["simt"] == 0 and r["wgmma"] + r["gemv"] == launches[k]
+        ok_paths &= (r["gemv"] == L * (ticks + 1 + n_small) and
+                     r["wgmma"] == L * (prefills - n_small)) if exact else \
+            r["gemv"] >= L * (ticks + 1) and r["wgmma"] > 0
+    ok &= ok_paths
+    log("serve_moe_paths " + json.dumps(dict(
+        routes=routes, per_step={k: launches[k] / steps for k in MOE_KERNELS}, layers=L,
+        ticks=ticks, warmup_ticks=1, prefills=prefills, gemv_prefills=n_small if exact else None,
+        seconds=time.perf_counter() - t0, ok=ok_paths)))
+    return ok, launches
+
+
 PHASE_S = {}                              # seconds of each phase, in run order
 
 
@@ -3413,14 +3787,20 @@ def main(argv=None):
                      MLA_ARCH, MLA_PROMPT_LENS, MLA_QUANT_RATIO, MLA_QUANT_LOGIT_TOL,
                      MLA_SERVE_KERNELS, "serve_mla_quant_kv")
     ok_mt, _ = timed("train_mla", train_mla_phase)
+    torch.cuda.empty_cache()
+    x_results, ok_xk = timed("moe_kernels", moe_kernel_phase)
+    results += x_results
+    ok_xm = timed("moe_model_check", moe_model_check, get_config(MOE_ARCH))
+    ok_xs, xs_launches = timed("serve_moe", serve_moe_phase)
     log("phase_s " + json.dumps(dict(PHASE_S, total=time.perf_counter() - t_start)))
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
     # serving run, the ring kernels' from the bf16 grid run and their int8
     # variants' from the int8 grid run (summed over the four ranks), the
-    # absorbed decode's from the MLA serving run, the training kernels'
-    # from the training run
+    # absorbed decode's from the MLA serving run, the MoE's from the MoE
+    # serving run, the training kernels' from the training run
     launches = {k: (ms_launches if k == "mla_decode" else ss_launches if k == "ssd"
+                    else xs_launches if k in MOE_KERNELS
                     else s_launches if k in SERVE_KERNELS
                     else g_launches if k in RING_KERNELS
                     else q_launches if k in INT8_KERNELS else t_launches).get(k, 0)
@@ -3460,7 +3840,8 @@ def main(argv=None):
                               ("serve_quant_kv", ok_sq), ("grid_serve", ok_gs),
                               ("mla_kernels", ok_mk), ("mla_model_check", ok_mm),
                               ("serve_mla", ok_ms), ("serve_mla_quant_kv", ok_mq),
-                              ("train_mla", ok_mt),
+                              ("train_mla", ok_mt), ("moe_kernels", ok_xk),
+                              ("moe_model_check", ok_xm), ("serve_moe", ok_xs),
                               ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]

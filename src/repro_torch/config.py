@@ -1,14 +1,15 @@
-"""Configuration for the port (dense decoder and SSM fields).
+"""Configuration for the port (dense decoder, MoE and SSM fields).
 
 A copy of the parts of ``repro/config.py`` the ported slices read: the
 frozen :class:`ModelConfig` with ``padded_vocab``/``resolved_head_dim``/
-``scaled``, :class:`SSMConfig` (the Mamba2 mixer), :class:`MLAConfig`
-(multi-head latent attention), the arch registry, and
+``scaled``, :class:`MoEConfig` (the routed experts), :class:`SSMConfig`
+(the Mamba2 mixer), :class:`MLAConfig` (multi-head latent attention),
+the arch registry, and
 the fields of :class:`ParallelConfig`, :class:`GuardConfig` and
 :class:`RunConfig` that the training steps read (one device and the
 hecaton grid), with the JAX package's defaults, and
-:class:`CheckpointConfig` whole.  MoE/hybrid/enc-dec fields arrive
-with the slices that use them.
+:class:`CheckpointConfig` whole.  Hybrid/enc-dec fields arrive with the
+slices that use them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,16 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    # router jitter / z-loss coefficients
+    router_z_loss: float = 1e-3
+    aux_loss: float = 1e-2
 
 
 @dataclass(frozen=True)
@@ -42,7 +53,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | ssm
+    family: str                  # dense | moe | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -56,6 +67,7 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     embed_dropout: float = 0.0              # train mode only
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     mla: Optional[MLAConfig] = None
 

@@ -34,7 +34,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("matmul", "flash_attention", "swiglu_bwd", "ssd", "ring_matmul", "mla_decode")
+SOURCES = ("matmul", "flash_attention", "swiglu_bwd", "ssd", "ring_matmul", "mla_decode", "moe")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
@@ -59,6 +59,10 @@ ARGTYPES = {
     "mla_decode": {
         "hk_mla_decode": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F, _I, _P, _I, _P],
         "hk_mla_decode_tc": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F, _I, _P, _P],
+    },
+    "moe": {
+        "hk_moe_grouped": [_P] * 4 + [_I] * 8 + [_P],
+        "hk_moe_combine": [_P] * 4 + [_I] * 4 + [_P],
     },
     "ssd": {
         "hk_ssd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P],

@@ -70,6 +70,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(b)), "r"(d), "r"(s), "r"(h), "r"(bb)
       : "memory");
 }
+// One box of a 3-D map at (x, y, z); elements past the map's dims read as 0.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* b, int x,
+                                         int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(b)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
 // One box of a 2-D map at (inner x, outer y); elements past the map's dims read as 0.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* b, int x,
                                          int y) {

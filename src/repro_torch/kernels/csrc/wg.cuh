@@ -14,7 +14,8 @@
 //     scale a row: the dequantizing stage between TMA and wgmma (below).
 // They take the mbarrier wait as an argument: wg::mm waits with hopper's trap
 // after ~15 s, the ring kernels with their own spin timeout, since their stages
-// may wait on a peer.  Also the host's 2-D TMA maps of a bf16 and an int8 matrix.
+// may wait on a peer.  Also the host's 2-D TMA maps of a bf16 and an int8 matrix, and
+// the 3-D map of a stack of bf16 matrices (the experts of matmul.cuh's gemv and moe.cu).
 #pragma once
 
 #include <cuda.h>
@@ -358,6 +359,22 @@ static bool map2d(CUtensorMap* m, const void* base, long long inner, long long o
   return fn(m, u8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
             const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             u8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A contiguous bf16 [experts, outer, inner] tensor as a 3-D TMA map whose box is 64 x
+// box_outer of one expert, 128-byte swizzled; elements past inner or outer read 0, so a box
+// never reads across an expert's rows (experts = 1: one matrix).
+static bool map3d(CUtensorMap* m, const void* base, long long inner, long long outer,
+                  long long experts, int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)experts};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2, (cuuint64_t)(outer * inner) * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_outer, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

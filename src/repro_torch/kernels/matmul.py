@@ -144,14 +144,16 @@ def wg_plan(M: int, N: int, K: int, gated: bool = False) -> Tuple[int, int]:
     return bn, splits
 
 
-def gemv_plan(M: int, N: int, K: int, gated: bool = False) -> int:
+def gemv_plan(M: int, N: int, K: int, gated: bool = False, experts: int = 1) -> int:
     """K splits of a gemv product: the 128-column panels split until they
     make at least one block per SM (ranges of kblocks // ceil(SMS / panels)
     64-deep k-blocks, at least one), or further where x's rows of a range
     would not fit in a block's shared memory beside the ring of stages, up
     to GV_MAX_SPLITS, the blocks of one cluster; none left empty.  Raises
-    where even that many ranges do not fit."""
-    kb, panels = -(-K // GV_BK), -(-N // GV_BN)
+    where even that many ranges do not fit.  ``experts``: the MoE's grouped
+    form (``kernels/moe.py``), one such product an expert, whose panels
+    all fill the SMs together."""
+    kb, panels = -(-K // GV_BK), experts * -(-N // GV_BN)
     room = (GV_SMEM - GV_RING[gated] - 2048) // (2 * M) - 8      # x's elements a row
     kper = max(1, min(kb // -(-SMS // panels), room // GV_BK), -(-kb // GV_MAX_SPLITS))
     if kper * GV_BK > room:

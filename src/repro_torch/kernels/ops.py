@@ -27,7 +27,9 @@ Without a gradient (:func:`needs_grad` false: serving, under
 ``inference_mode``) ``matmul``, ``gated_matmul`` and ``attention`` launch
 their forward kernels directly, without the custom ops' dispatch cost on
 the host-bound decode tick; ``matmul``, ``ssd`` (the Mamba2 prefill
-scan) and ``mla_decode`` (MLA's absorbed decode attention) are
+scan), ``mla_decode`` (MLA's absorbed decode attention) and the MoE's
+``moe_grouped_gated``, ``moe_grouped_mm`` and ``moe_combine`` (its
+experts' grouped products and their token-major combine) are
 forward-only and raise when asked for a gradient.
 """
 
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
+from repro_torch.kernels import moe as _moe
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import swiglu as _sw
@@ -48,19 +51,21 @@ LAUNCHES: Dict[str, int] = {"matmul": 0, "gated_matmul": 0, "flash_attention": 0
                             "ssd": 0, "ag_matmul": 0, "matmul_rs": 0,
                             "ag_matmul_contract": 0, "ag_matmul_int8": 0,
                             "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0,
-                            "mla_decode": 0}
+                            "mla_decode": 0, "moe_grouped_gated": 0, "moe_grouped_mm": 0,
+                            "moe_combine": 0}
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and the attention, matmul, SSD and ring wrappers'
-    per-path counts (``flash_attention.IMPL_LAUNCHES``,
-    ``matmul.IMPL_LAUNCHES``, ``ssd.IMPL_LAUNCHES``,
-    ``ring_matmul.IMPL_LAUNCHES``)."""
+    """Zero ``LAUNCHES`` and the attention, matmul, MoE, SSD and ring
+    wrappers' per-path counts (``flash_attention.IMPL_LAUNCHES``,
+    ``matmul.IMPL_LAUNCHES``, ``moe.IMPL_LAUNCHES``,
+    ``ssd.IMPL_LAUNCHES``, ``ring_matmul.IMPL_LAUNCHES``)."""
     from repro_torch.kernels import ring_matmul as _rm   # it imports this module
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     _fa.reset_impl_launches()
     _mm.reset_impl_launches()
+    _moe.reset_impl_launches()
     _ssd.reset_impl_launches()
     _rm.reset_impl_launches()
 
@@ -153,6 +158,45 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         return _ref.ssd_plain(x, dt, A, B, C, chunk=chunk, init_state=init_state)
     out = _ssd.ssd(x, dt, A, B, C, chunk=chunk, init_state=init_state)
     LAUNCHES["ssd"] += 1
+    return out
+
+
+def _moe_forward_only(what: str, *ts) -> None:
+    if needs_grad(*ts):
+        raise RuntimeError(f"ops.{what} has no backward; MoE training is not ported yet")
+
+
+def moe_grouped_gated(xd: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *,
+                      act: str = "silu") -> torch.Tensor:
+    """act(xd_e @ w1_e) * (xd_e @ w1b_e) for every expert, one launch;
+    shapes of ``ref.grouped_gated_plain``.  Forward only."""
+    _moe_forward_only("moe_grouped_gated", xd, w1, w1b)
+    if _on_cpu(xd):
+        return _ref.grouped_gated_plain(xd, w1, w1b, act=act)
+    out = _moe.grouped(xd, w1, w1b, act=act)
+    LAUNCHES["moe_grouped_gated"] += 1
+    return out
+
+
+def moe_grouped_mm(h: torch.Tensor, w: torch.Tensor, *, act: str = "none") -> torch.Tensor:
+    """act(h_e @ w_e) for every expert, one launch; shapes of
+    ``ref.grouped_mm_plain``.  Forward only."""
+    _moe_forward_only("moe_grouped_mm", h, w)
+    if _on_cpu(h):
+        return _ref.grouped_mm_plain(h, w, act=act)
+    out = _moe.grouped(h, w, act=act)
+    LAUNCHES["moe_grouped_mm"] += 1
+    return out
+
+
+def moe_combine(yd: torch.Tensor, gate: torch.Tensor, slot_of: torch.Tensor) -> torch.Tensor:
+    """Each token's gated sum of its experts' rows in a fixed order;
+    shapes of ``ref.moe_combine_plain``.  Forward only."""
+    _moe_forward_only("moe_combine", yd, gate)
+    if _on_cpu(yd):
+        return _ref.moe_combine_plain(yd, gate, slot_of)
+    out = _moe.combine(yd, gate, slot_of)
+    LAUNCHES["moe_combine"] += 1
     return out
 
 

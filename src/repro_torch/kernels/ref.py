@@ -142,6 +142,39 @@ def gated_products_plain(x: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *
     return (_epilogue(a, act) * b).to(x.dtype), a, b
 
 
+def grouped_gated_plain(xd: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *,
+                        act: str = "silu") -> torch.Tensor:
+    """act(xd_e @ w1_e) * (xd_e @ w1b_e) for every expert e: xd [E,C,H],
+    w1 and w1b [E,H,F] -> [E,C,F] in xd.dtype; both products and the gate
+    in fp32, one cast (``moe::grouped_gated``)."""
+    xf = xd.float()
+    return (_epilogue(torch.bmm(xf, w1.float()), act) * torch.bmm(xf, w1b.float())
+            ).to(xd.dtype)
+
+
+def grouped_mm_plain(h: torch.Tensor, w: torch.Tensor, *, act: str = "none") -> torch.Tensor:
+    """act(h_e @ w_e) for every expert e: h [E,C,K], w [E,K,N] -> [E,C,N]
+    in h.dtype, fp32 sums and one cast (``moe::grouped_mm``)."""
+    return _epilogue(torch.bmm(h.float(), w.float()), act).to(h.dtype)
+
+
+def moe_combine_plain(yd: torch.Tensor, gate: torch.Tensor,
+                      slot_of: torch.Tensor) -> torch.Tensor:
+    """The token-major combine of the experts' rows (``moe::combine``):
+    ``y[t] = sum_j gate[t,j] * yd[slot_of[t,j]]`` over the valid j
+    (``slot_of >= 0``; -1 is a dropped assignment) in j order, each
+    product and sum in fp32, one cast.  yd [E,C,H] (its rows numbered
+    e*C + c), gate fp32 [T,k], slot_of int [T,k] -> [T,H] in yd.dtype."""
+    H = yd.shape[-1]
+    rows = yd.reshape(-1, H).float()
+    y = torch.zeros((slot_of.shape[0], H), dtype=torch.float32, device=yd.device)
+    for j in range(slot_of.shape[1]):
+        s = slot_of[:, j].long()
+        term = gate[:, j, None].float() * rows[s.clamp(min=0)]
+        y = torch.where((s >= 0)[:, None], y + term, y)
+    return y.to(yd.dtype)
+
+
 def _act_and_grad(a: torch.Tensor, act: str):
     if act == "silu":
         s = torch.sigmoid(a)

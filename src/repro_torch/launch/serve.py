@@ -5,15 +5,19 @@ a synthetic arrival trace (more requests than slots, mixed prompt lengths)
 runs after a warm-up, and prefill latency and decode tok/s are reported
 separately.  ``--device`` defaults to ``cuda`` (the CUDA kernels);
 ``--device cpu`` runs the plain PyTorch versions.  The dense archs,
-``minicpm3-4b`` (MLA: latent caches, the absorbed decode kernel) and
-``mamba2-130m`` (the ssm family, prompts at their exact lengths) serve.
+``minicpm3-4b`` (MLA: latent caches, the absorbed decode kernel),
+``granite-moe-3b-a800m`` (MoE: 40 experts top-8, the grouped expert
+kernels and the token-major combine; ``grok-1-314b``, 8 experts top-2,
+serves at ``--smoke`` size, its 314 B parameters do not fit one card)
+and ``mamba2-130m`` (the ssm family, prompts at their exact lengths)
+serve.
 ``--quant-kv`` keeps the paged K/V as int8 with fp32 row scales and
 prints one block's bytes beside the compute dtype's arena's.
 
 ``--data D --mx X --my Y`` (any of them > 1) serves on the rank grid
 instead: D*X*Y rank processes (as the training launcher spawns them;
 on a one-card machine they share card 0), each holding its blocks of
-the seeded parameters (``serve/step.grid_params``; not MLA), prefill a batch of
+the seeded parameters (``serve/step.grid_params``; not MLA or MoE), prefill a batch of
 ``--slots`` prompts of the longest ``--prompt-lens`` length into sharded
 dense caches (``serve/step.build_prefill``: hecaton's dataflow, the ring
 kernels under ``--overlap fused``) and decode ``--gen`` tokens greedily
@@ -29,6 +33,10 @@ engine does not run on a grid.
         --dtype bfloat16 --prompt-lens 64,200,512 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
         --dtype bfloat16 --prompt-lens 64,256,512 --gen 32 [--quant-kv]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
+        --dtype bfloat16 --prompt-lens 64,256,512 --gen 32 [--quant-kv]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b --smoke \
+        --device cpu
 """
 
 from __future__ import annotations
@@ -165,6 +173,9 @@ def run_grid(args, teacher=None, keep_logits: bool = False) -> dict:
     if cfg.mla:
         raise NotImplementedError(f"MLA ({cfg.name}) does not serve on the rank grid; it serves "
                                   "on one device")
+    if cfg.moe:
+        raise NotImplementedError(f"MoE ({cfg.name}) does not serve on the rank grid: EP x TP "
+                                  "is not ported; it serves on one device")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         from repro_torch.kernels import build

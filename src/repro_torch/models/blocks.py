@@ -1,5 +1,5 @@
 """Pre-norm residual blocks: attention (GQA, or MLA when ``cfg.mla``) +
-MLP, and mamba.  Counterpart of ``repro/models/blocks.py::
+MLP (or MoE when ``cfg.moe``), and mamba.  Counterpart of ``repro/models/blocks.py::
 init_attn_block``/``apply_attn_block`` and ``init_mamba_block``/
 ``apply_mamba_block``."""
 
@@ -24,21 +24,28 @@ def init_attn_block(cfg: ModelConfig, generator: torch.Generator, layers: int):
         "norm2": L.init_norm(cfg.norm_kind, cfg.d_model, dev, (layers,)),
     }
     p["attn"] = (ATT.init_mla if cfg.mla else ATT.init_attn)(cfg, generator, layers)
-    p["mlp"] = MLP.init_mlp(cfg, generator, layers)
+    p["mlp"] = (MLP.init_moe if cfg.moe else MLP.init_mlp)(cfg, generator, layers)
     return p
 
 
 def apply_attn_block(pctx, cfg: ModelConfig, p, x: torch.Tensor, *,
                      positions: torch.Tensor,
-                     cache=None) -> Tuple[torch.Tensor, Any]:
-    """Returns (x, new_cache).  The norms run on the canonical residual
-    (``PCtx.norm``), the mixers gather and scatter internally."""
+                     cache=None) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+    """Returns (x, new_cache, aux): the MoE's load-balance loss (fp32
+    scalar) as ``aux``, None for a dense MLP.  The norms run on the
+    canonical residual (``PCtx.norm``), the mixers gather and scatter
+    internally."""
     h = pctx.norm(cfg.norm_kind, p["norm1"], x)
     mixer = ATT.apply_mla if cfg.mla else ATT.apply_attn
     a, new_cache = mixer(pctx, cfg, p["attn"], h, positions=positions, cache=cache)
     x = x + a
     h = pctx.norm(cfg.norm_kind, p["norm2"], x)
-    return x + MLP.apply_mlp(pctx, cfg, p["mlp"], h).to(x.dtype), new_cache
+    aux = None
+    if cfg.moe:
+        m, aux = MLP.apply_moe(pctx, cfg, p["mlp"], h)
+    else:
+        m = MLP.apply_mlp(pctx, cfg, p["mlp"], h)
+    return x + m.to(x.dtype), new_cache, aux
 
 
 def init_mamba_block(cfg: ModelConfig, generator: torch.Generator, layers: int):

@@ -1,7 +1,7 @@
-"""Decoder-only LM assembly (dense and SSM families).
+"""Decoder-only LM assembly (dense, MoE and SSM families).
 
 Counterpart of ``repro/models/lm.py::init_params``, ``init_caches``,
-``forward`` (dense, MLA and ``ssm`` branches, over the dense, paged and
+``forward`` (dense, MLA, MoE and ``ssm`` branches, over the dense, paged and
 int8 paged caches, with ``remat``, ``skip_head`` and the ``hidden`` output),
 ``xent_loss``, ``head_loss``, ``train_loss`` and ``LMOut``.  Parameters
 are the JAX package's nested dict with stacked ``[L, ...]`` leaves; a
@@ -44,17 +44,19 @@ from repro_torch.parallel import comm
 from repro_torch.parallel import megatron as MEG
 
 # leaves that stay fp32 whatever the compute dtype: norm scales and biases
-# (MLA's q_norm and kv_norm too), and the mamba mixer's small leaves (its
-# dt bias, decay, skip, gated-norm scale and conv taps)
+# (MLA's q_norm and kv_norm too), the mamba mixer's small leaves (its
+# dt bias, decay, skip, gated-norm scale and conv taps), and the MoE router,
+# whose logits JAX takes in fp32 from the fp32 masters
 FP32_LEAVES = ("scale", "bias", "q_norm", "k_norm", "kv_norm", "dt_bias", "A_log", "D",
-               "norm", "conv_w")
-FAMILIES = ("dense", "ssm")
+               "norm", "conv_w", "router")
+FAMILIES = ("dense", "moe", "ssm")
 
 
 class LMOut(NamedTuple):
     logits: Any
     caches: Any
     hidden: Any = None               # post-final-norm states (skip_head)
+    aux: Any = None                  # the MoE's summed aux loss (fp32), else None
 
 
 def _map_leaves(tree, fn, key=None):
@@ -140,14 +142,16 @@ def head_weight(cfg: ModelConfig, params, dtype, pctx=None) -> torch.Tensor:
 
 
 def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
-                 positions: torch.Tensor, remat: str, cache=None) -> torch.Tensor:
+                 positions: torch.Tensor, remat: str, cache=None,
+                 aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """The layer loop: each stacked leaf is unbound once (one backward
     node stacks its per-layer gradients), and each layer runs under the
     remat policy (``core/schedule.py``).  ``cache`` (a KVCache,
     PagedKVCache or QuantPagedKVCache or their MLA counterparts, or for
     the ssm family an SSMState,
     with [L, ...] leaves) gives layer i its rows, which it writes in
-    place."""
+    place.  ``aux``, a list, receives each MoE layer's aux loss in layer
+    order."""
     items = flatten(stacked)
     paths = [p for p, _ in items]
     per_layer = [leaf.unbind(0) for _, leaf in items]
@@ -162,7 +166,10 @@ def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
                 state.ssm.copy_(new.ssm)
             return x
         cache_l = None if cache is None else ATT.layer_cache(cache, i)
-        return BLK.apply_attn_block(pctx, cfg, p, x, positions=positions, cache=cache_l)[0]
+        x, _, aux_l = BLK.apply_attn_block(pctx, cfg, p, x, positions=positions, cache=cache_l)
+        if aux is not None and aux_l is not None:
+            aux.append(aux_l)
+        return x
 
     layer = schedule.apply_remat(layer, remat)
     for i in range(cfg.num_layers):
@@ -176,13 +183,17 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     """batch: tokens [B,S] (+ positions [B,S], "_dtype", "dropout_rng" a
     ``torch.Generator``); caches: {"attn": a KVCache, PagedKVCache or
     QuantPagedKVCache with [L, ...] leaves, or for MLA their latent
-    counterparts MLACache, PagedMLACache, QuantPagedMLACache} (dense) or
-    {"mamba": SSMState
+    counterparts MLACache, PagedMLACache, QuantPagedMLACache} (dense and
+    moe) or {"mamba": SSMState
     with [L, B, ...] leaves} (ssm), updated in place and returned with
     their lengths advanced, or None.  ``skip_head`` returns the
-    post-final-norm ``hidden`` instead of logits (``train_loss``)."""
+    post-final-norm ``hidden`` instead of logits (``train_loss``).  The
+    MoE family's ``aux`` is the sum of its layers' aux losses."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if pctx.mesh is not None and cfg.family == "moe":
+        raise NotImplementedError(f"MoE ({cfg.name}) on the rank grid (EP x TP) is not "
+                                  "ported yet; it runs on one device")
     if pctx.mesh is not None and cfg.family != "dense":
         raise NotImplementedError(f"the grid step takes the dense family, not {cfg.family!r}")
     if pctx.mesh is not None and cfg.mla:
@@ -196,6 +207,7 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
 
+    aux_l: Optional[List[torch.Tensor]] = [] if cfg.moe else None
     x = pctx.embed(params["embed"]["table"], tokens, compute_dtype)
     if cfg.embed_dropout:
         x = pctx.dropout(x, cfg.embed_dropout, batch.get("dropout_rng"))
@@ -205,14 +217,19 @@ def forward(pctx, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
         new_caches = None if states is None else {"mamba": states}
     else:
         attn = None if caches is None else caches["attn"]
-        x = _layer_stack(pctx, cfg, params["blocks"], x, positions, remat, attn)
+        x = _layer_stack(pctx, cfg, params["blocks"], x, positions, remat, attn, aux_l)
         new_caches = None if attn is None else {"attn": ATT.advance(attn, S)}
+    aux = None
+    if aux_l:                                 # 0 + aux_0 + aux_1 + ..., as the scan carries it
+        aux = aux_l[0]
+        for a in aux_l[1:]:
+            aux = aux + a
 
     x = pctx.norm(cfg.norm_kind, params["final_norm"], x)
     if skip_head:
-        return LMOut(None, new_caches, hidden=x)
+        return LMOut(None, new_caches, hidden=x, aux=aux)
     logits = pctx.lm_head(x.to(compute_dtype), head_weight(cfg, params, compute_dtype, pctx))
-    return LMOut(logits, new_caches)
+    return LMOut(logits, new_caches, aux=aux)
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +298,11 @@ def _grid_xent(pctx, logits, labels, mask):
 
 
 def train_loss(pctx, cfg: ModelConfig, params, batch, *, remat: str = "fusion"):
-    """(loss, {"loss", "aux"}); the dense family has no auxiliary loss."""
+    """(loss, {"loss", "aux"}); the dense family has no auxiliary loss.
+    The MoE family is refused: its training is not ported yet."""
+    if cfg.family == "moe":
+        raise NotImplementedError(f"MoE training is not ported yet ({cfg.name}): it serves "
+                                  "on one device")
     out = forward(pctx, cfg, params, batch, remat=remat, skip_head=True)
     loss = head_loss(pctx, cfg, params, out.hidden, batch["labels"],
                      mask=batch.get("loss_mask"),

@@ -5,7 +5,8 @@ Counterpart of ``repro/parallel/context.py``.  Model code calls the
 methods here and never the kernels or the collectives directly.
 
 One device (``mesh=None``): every projection, the FFN, the LM head,
-attention, MLA's absorbed decode and the SSD scan route through
+attention, MLA's absorbed decode, the SSD scan and the MoE's grouped
+expert products and combine route through
 ``kernels/ops.py`` (the CUDA kernel for a CUDA tensor, the plain version
 on the CPU).  One signal
 picks the route, ``ops.needs_grad``: when autograd will differentiate,
@@ -83,7 +84,10 @@ _PLAIN = SimpleNamespace(matmul=ref.matmul_plain,
                          attention=ref.attention_plain,
                          tile_matmul=ref.tile_matmul_plain,
                          ssd=ref.ssd_plain,
-                         mla_decode=ref.mla_decode_plain)
+                         mla_decode=ref.mla_decode_plain,
+                         moe_grouped_gated=ref.grouped_gated_plain,
+                         moe_grouped_mm=ref.grouped_mm_plain,
+                         moe_combine=ref.moe_combine_plain)
 
 MODES = ("serve", "train", "prefill", "decode")
 
@@ -386,6 +390,24 @@ class PCtx:
     # ------------------------------------------------------------------
     # the Mamba2 scan
     # ------------------------------------------------------------------
+    # ------------------------------------------------------------------
+    # the MoE's experts (one device: ``models/mlp.apply_moe`` refuses a grid)
+    # ------------------------------------------------------------------
+    def moe_gated(self, xd, w1, w1b, act: str):
+        """act(xd_e @ w1_e) * (xd_e @ w1b_e) for every expert e, one grouped
+        launch (``ref.grouped_gated_plain``'s shapes)."""
+        return self.ops.moe_grouped_gated(xd, w1, w1b, act=act)
+
+    def moe_mm(self, h, w, act: str = "none"):
+        """act(h_e @ w_e) for every expert e, one grouped launch
+        (``ref.grouped_mm_plain``'s shapes)."""
+        return self.ops.moe_grouped_mm(h, w, act=act)
+
+    def moe_combine(self, yd, gate, slot_of):
+        """Each token's gated sum of its experts' rows, in a fixed order
+        (``ref.moe_combine_plain``'s shapes)."""
+        return self.ops.moe_combine(yd, gate, slot_of)
+
     def ssd(self, x, dt, A, B, C, *, chunk: int, init_state=None):
         """SSD chunked scan -> (y, fp32 final state); ``ref.ssd_plain``'s
         shapes (the kernel on the card)."""

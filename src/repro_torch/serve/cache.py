@@ -1,8 +1,9 @@
 """KV caches of the decode service: the dense layout and the paged block
 pool (docs/DESIGN.md §10).
 
-Counterpart of ``repro/serve/cache.py`` for dense models' attention
-arena and the ssm family's per-slot states: ``init_dense``,
+Counterpart of ``repro/serve/cache.py`` for the attention arena of the
+dense and MoE families (an MoE model's caches are the dense family's:
+the experts keep no state) and the ssm family's per-slot states: ``init_dense``,
 ``dense_cache_bytes``, ``PoolConfig``, ``blocks_for``, ``NULL_BLOCK`` and
 ``CachePool``.
 
@@ -55,7 +56,7 @@ def init_dense(cfg: ModelConfig, batch: int, s_max: int, dtype, device="cuda",
     if cfg.family == "ssm":
         return {"mamba": SSM.init_ssm_state(cfg, cfg.num_layers, batch, dtype,
                                             torch.device(device))}
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"dense caches for family {cfg.family!r} are not ported yet")
     if cfg.mla:
         return {"attn": ATT.init_mla_cache(cfg, batch, s_max, dtype, torch.device(device),
@@ -127,7 +128,7 @@ class CachePool:
 
     def __init__(self, cfg: ModelConfig, pool: PoolConfig, *, device,
                  dtype=torch.float32, quant_kv: bool = False):
-        if cfg.family not in ("dense", "ssm"):
+        if cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(f"paged pool for family {cfg.family!r} "
                                       "is not ported yet")
         self.cfg, self.pool = cfg, pool

@@ -7,8 +7,10 @@ sampling entry point.  PyTorch runs eagerly, so a builder returns a plain
 function where the JAX package returns one to jit.  Random draws come
 from a ``torch.Generator`` the caller seeds.
 
-On the rank grid (``mesh`` a ``launch/mesh.Grid``, the dense family
-without MLA) every rank runs the step on its blocks, as in training:
+On one device the steps serve every ported family (dense, MLA, MoE,
+ssm); an MoE step discards ``LMOut.aux``.  On the rank grid (``mesh`` a
+``launch/mesh.Grid``, the dense family without MLA or MoE) every rank
+runs the step on its blocks, as in training:
 
 * the parameters are this rank's blocks of the master-form tree in the
   compute dtype (:func:`grid_params`), the strategy's tiling with the
@@ -170,6 +172,9 @@ def cache_specs(cfg: ModelConfig, pcfg: ParallelConfig, mesh, batch: int):
     None on one device."""
     if mesh is None:
         return None
+    if cfg.family == "moe":
+        raise NotImplementedError(f"MoE ({cfg.name}) does not serve on the rank grid: EP x TP "
+                                  "is not ported; it serves on one device")
     if cfg.family != "dense":
         raise NotImplementedError(f"grid caches for family {cfg.family!r} are not ported yet")
     if cfg.mla:

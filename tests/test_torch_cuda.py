@@ -22,6 +22,10 @@ route (wgmma, wmma or simt).  MLA's absorbed decode kernel
 at MLA's dk 96 / dv 64 (natively on the tensor cores, zero-padded on the
 SIMT path) and at head dims off every kernel (zero-padded), and an MLA
 model with its latent caches are held against their plain versions too.
+The MoE's grouped expert products (each launch counted on its route:
+gemv, wgmma, simt) are held to the same bounds, its combine to its
+plain version bit for bit, and an MoE model's prefill and decode ticks
+against the plain path.
 """
 
 import numpy as np
@@ -29,9 +33,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import MLAConfig, ModelConfig, ParallelConfig, SSMConfig
+from repro_torch.config import MLAConfig, ModelConfig, MoEConfig, ParallelConfig, SSMConfig
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
+from repro_torch.kernels import moe as kmoe
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd as kssd
 from repro_torch.kernels import swiglu as ksw
@@ -897,4 +902,170 @@ def test_mla_train_loss_and_grads_kernels_match_plain(dev):
                 "tile_matmul", "flash_attention", "flash_attention_bwd")), ops.LAUNCHES
     _close(out[False][0], out[True][0])
     for a, b in zip(out[False][1], out[True][1]):
+        _close(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the MoE's expert kernels (csrc/moe.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("C", [1, 7, 16, 17, 37, 130])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("gated,act", [(True, "silu"), (True, "gelu"), (False, "none"),
+                                       (False, "relu2")])
+def test_moe_grouped_kernel(dev, C, dtype, gated, act):
+    """Every expert's product in one launch, on the route its C and dtype
+    call for (gemv for bf16 C <= 16, wgmma above, simt for fp32), counted
+    there; K (96) and N (136) off the 64- and 128-wide tiles, and the
+    second expert's rows all zero (a slot no token took)."""
+    E, K, N = 5, 96, 136
+    x = _randn((E, C, K), dtype, dev, 1)
+    x[1] = 0
+    ws = [_randn((E, K, N), dtype, dev, 2 + i, K ** -0.5) for i in range(2 if gated else 1)]
+    route = kmoe.grouped_impl(dtype, C)
+    ops.reset_launches()
+    got = kmoe.grouped(x, *ws, act=act)
+    name = "moe_grouped_gated" if gated else "moe_grouped_mm"
+    assert kmoe.IMPL_LAUNCHES[name][route] == 1 == sum(kmoe.IMPL_LAUNCHES[name].values())
+    want = (ref.grouped_gated_plain(x, *ws, act=act) if gated
+            else ref.grouped_mm_plain(x, ws[0], act=act))
+    _close(got, want)
+    assert torch.equal(got, kmoe.grouped(x, *ws, act=act))      # deterministic
+
+
+@pytest.mark.parametrize("C", [1, 16])
+def test_moe_grouped_wgmma_takes_small_c(dev, C):
+    """The wgmma route takes any C (rows past C zero-filled by TMA), so the
+    decode shapes can be held against it."""
+    E, K, N = 3, 64, 128
+    x = _randn((E, C, K), torch.bfloat16, dev, 4)
+    w1, w1b = (_randn((E, K, N), torch.bfloat16, dev, 5 + i, K ** -0.5) for i in range(2))
+    _close(kmoe.launch(x, w1, w1b, act="silu", impl="wgmma"),
+           ref.grouped_gated_plain(x, w1, w1b, act="silu"))
+
+
+@pytest.mark.parametrize("dtype,C,N", [(torch.bfloat16, 4, 17024), (torch.float32, 37, 136)])
+@pytest.mark.parametrize("gated", [False, True])
+def test_moe_gemv_and_simt_routes_are_rows_1_2_kernels(dev, dtype, C, N, gated):
+    """The grouped gemv and simt routes launch rows 1/2's own kernels
+    (``csrc/matmul.cuh``) with the expert in the grid: each expert's rows
+    equal that expert's single product bit for bit (the gemv shape leaves
+    both plans one K range, so the sums run in one order)."""
+    E, K = 2, 512
+    x = _randn((E, C, K), dtype, dev, 11)
+    ws = [_randn((E, K, N), dtype, dev, 12 + i, K ** -0.5) for i in range(2 if gated else 1)]
+    route = kmoe.grouped_impl(dtype, C)
+    if route == "gemv":
+        assert kmm.gemv_plan(C, N, K, gated, experts=E) == kmm.gemv_plan(C, N, K, gated) == 1
+    got = kmoe.grouped(x, *ws, act="silu" if gated else "gelu")
+    for e in range(E):
+        one = (kmm.gated_matmul(x[e], ws[0][e], ws[1][e], act="silu", impl=route) if gated
+               else kmm.matmul(x[e], ws[0][e], act="gelu", impl=route))
+        torch.cuda.synchronize()
+        assert torch.equal(got[e], one), (route, e)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,k,E,C,H", [(4, 8, 40, 1, 1536), (37, 2, 4, 20, 64),
+                                       (1, 3, 2, 2, 6)])
+def test_moe_combine_kernel_equals_plain(dev, dtype, T, k, E, C, H):
+    """The token-major combine equals its plain version bit for bit (the
+    products and sums in fp32 in j order, no FMA), dropped assignments
+    included."""
+    from repro_torch.models import mlp as MLP
+    g = torch.Generator(device=dev).manual_seed(9)
+    idx = MLP.top_k(torch.rand((T, E), generator=g, device=dev), k)[1]
+    slot_of = MLP.slot_of_assignments(MLP._dispatch_indices(idx.reshape(-1), E, 0, C),
+                                      T * k).reshape(T, k)
+    gate = torch.rand((T, k), generator=g, device=dev)
+    yd = _randn((E, C, H), dtype, dev, 10)
+    ops.reset_launches()
+    got = kmoe.combine(yd, gate, slot_of)
+    assert kmoe.IMPL_LAUNCHES["moe_combine"]["token"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.moe_combine_plain(yd, gate, slot_of))
+
+
+def test_moe_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = _randn((2, 20, 64), torch.bfloat16, dev, 1)
+    w = _randn((2, 64, 64), torch.bfloat16, dev, 2)
+    with pytest.raises(ValueError, match="gemv route takes C <= 16"):
+        kmoe.launch(x, w, impl="gemv")
+    with pytest.raises(TypeError, match="does not take"):
+        kmoe.launch(x, w, impl="simt")
+    with pytest.raises(TypeError, match="does not take"):
+        kmoe.launch(x.float(), w.float(), impl="wgmma")
+    with pytest.raises(ValueError, match="contiguous"):
+        kmoe.grouped(x.transpose(1, 2).contiguous().transpose(1, 2)[:, :, :64], w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kmoe.grouped(x[..., :60].contiguous(), w[:, :60].contiguous())
+    with pytest.raises(TypeError, match="int32"):
+        kmoe.combine(x, torch.ones(4, 2, device=dev), torch.zeros(4, 2, device=dev,
+                                                                 dtype=torch.int64))
+
+
+MOE_CFG = ModelConfig(name="cuda-moe", family="moe", num_layers=2, d_model=128,
+                      num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=500, head_dim=64,
+                      moe=MoEConfig(num_experts=8, top_k=2, capacity_factor=1.25))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_prefill_and_decode_kernels_match_plain(dev, dtype, monkeypatch):
+    """An MoE model's 64-token prefill (C 20: wgmma in bf16) and two decode
+    ticks of two slots (C 1: gemv) through the kernels against the plain
+    versions, each MoE kernel launched once a layer and step.  The plain
+    path runs on the kernel path's routing (each layer's top-k choices
+    replayed in call order): in bf16 a near-tie of two experts' router
+    probabilities may flip between the paths, and a flipped token's rows
+    differ wholly."""
+    from repro_torch.models import mlp as MLP
+    real_top_k, chosen, replay = MLP.top_k, [], []
+
+    def routing_top_k(probs, k):
+        if replay:
+            idx = replay.pop(0)
+            return probs.gather(-1, idx), idx
+        vals, idx = real_top_k(probs, k)
+        chosen.append(idx)
+        return vals, idx
+
+    monkeypatch.setattr(MLP, "top_k", routing_top_k)
+    params = lm.init_params(MOE_CFG, seed=5, device=dev, dtype=dtype)
+    logits = {}
+    for plain in (False, True):
+        replay[:] = chosen if plain else []
+        pool = CachePool(MOE_CFG, PoolConfig(2, 16, 11, 80), device=dev, dtype=dtype)
+        ops.reset_launches()
+        got = []
+        rng = np.random.default_rng(6)
+        with torch.inference_mode():
+            for n in (64, 23):
+                slot = pool.admit(n)
+                toks = torch.from_numpy(rng.integers(0, 500, (1, n))).to(dev)
+                got.append(lm.forward(PCtx(plain=plain), MOE_CFG, params,
+                                      {"tokens": toks, "_dtype": dtype},
+                                      caches=pool.prefill_tree(slot)).logits[0, -1])
+                pool.commit_prefill(slot, n)
+            for i in range(2):
+                for s in range(2):
+                    assert pool.ensure_append(s)
+                batch = {"tokens": torch.tensor([[7 + i], [11 + i]], device=dev),
+                         "positions": torch.from_numpy(
+                             pool.lengths.astype(np.int64)[:, None]).to(dev),
+                         "_dtype": dtype}
+                got.append(lm.forward(PCtx(plain=plain), MOE_CFG, params, batch,
+                                      caches=pool.decode_tree()).logits[:, 0])
+                for s in range(2):
+                    pool.advance(s)
+        if not plain:
+            L = MOE_CFG.num_layers
+            assert len(chosen) == 4 * L
+            assert all(ops.LAUNCHES[k] == 4 * L for k in
+                       ("moe_grouped_gated", "moe_grouped_mm", "moe_combine")), ops.LAUNCHES
+            if dtype == torch.bfloat16:   # prefills of 64 (C 20) and 23 (C 7), 2 ticks (C 1)
+                assert kmoe.IMPL_LAUNCHES["moe_grouped_gated"] == \
+                    {"wgmma": L, "gemv": 3 * L, "simt": 0}
+        logits[plain] = got
+    assert not replay                      # the plain path took every recorded choice
+    for a, b in zip(logits[False], logits[True]):
         _close(a, b)

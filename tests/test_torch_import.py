@@ -35,7 +35,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.runtime.guard", "repro_torch.runtime.fault",
             "repro_torch.runtime.procs", "repro_torch.parallel.megatron",
             "repro_torch.parallel.pipeline", "repro_torch.configs.minicpm3_4b",
-            "repro_torch.kernels.flash_attention"} <= set(mods)
+            "repro_torch.kernels.flash_attention", "repro_torch.kernels.moe",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.grok_1_314b"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -136,12 +136,18 @@ def test_ops_take_plain_on_cpu_and_count_nothing():
     assert torch.equal(ops.mla_decode(lat, lat[..., :4], kv[:, 0], kv[:, 1, :, :4], lens, 0.3),
                        ref.mla_decode_plain(lat, lat[..., :4], kv[:, 0], kv[:, 1, :, :4], lens,
                                             0.3))
+    xd, we = x.reshape(2, 2, 32), w.expand(2, 32, 16).contiguous()
+    assert torch.equal(ops.moe_grouped_gated(xd, we, we), ref.grouped_gated_plain(xd, we, we))
+    slots = torch.tensor([[0, -1], [3, 1]], dtype=torch.int32)
+    assert torch.equal(ops.moe_combine(xd, torch.ones(2, 2), slots),
+                       ref.moe_combine_plain(xd, torch.ones(2, 2), slots))
     assert ops.LAUNCHES == {"matmul": 0, "gated_matmul": 0, "flash_attention": 0,
                             "tile_matmul": 0, "swiglu_bwd": 0, "flash_attention_bwd": 0,
                             "ssd": 0, "ag_matmul": 0, "matmul_rs": 0,
                             "ag_matmul_contract": 0, "ag_matmul_int8": 0,
                             "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0,
-                            "mla_decode": 0}
+                            "mla_decode": 0, "moe_grouped_gated": 0, "moe_grouped_mm": 0,
+                            "moe_combine": 0}
     assert torch.equal(ops.tile_matmul(x, w), ref.tile_matmul_plain(x, w))
     assert all(n == 0 for n in ops.LAUNCHES.values())
 
