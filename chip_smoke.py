@@ -9,10 +9,11 @@ Phases, each fatal on failure:
    (one process per source, in parallel) and print the seconds; print the
    card's name and power limit as nvidia-smi reports them; print how many
    HGMMA (wgmma) and HMMA instructions each kernel function of the
-   flash-attention, matmul, ssd, ring and MLA-decode libraries holds
+   flash-attention, matmul, ssd, ring, MLA-decode and MoE libraries holds
    (``cuobjdump -sass``), and fail unless each tensor-core attention
    kernel, the absorbed decode's tensor-core kernel
-   (``mla::decode_wgmma``), the wgmma
+   (``mla::decode_wgmma``), the MoE's grouped products in each layout
+   (``moe::grouped_wgmma``: NN plain and gated, NT, TN), the wgmma
    matmul (``wg::mm`` and its gated form ``wg::mm_gated``), the
    tensor-core scan (``tc::ssd``) and the tensor-core ring kernels (the
    AG-matmul, matmul-RS and contracted AG-matmul,
@@ -301,15 +302,45 @@ Phases, each fatal on failure:
    prefill and tick (the warm-up's too), decode and the 64-token prefills
    (C <= 16) on gemv, the other prefills on wgmma, none on simt
    (``serve_moe_paths``);
-29. print every phase's seconds (``phase_s``), then one JSON line of
+29. ``moe_train_kernels``: the MoE training kernels at granite's training
+   shapes (a microbatch of 2048 tokens: C 512 rows an expert; E 40, H
+   1536, F 512) against their plain versions: the gated product keeping
+   its fp32 products (``keep_ab``, row x1's training form) at C 512, 16
+   and 37; the backward's grouped products on wgmma, NT (dx = g w^T, row
+   x1b) and TN (dw = x^T g, row x2b), at the up- and down-projections'
+   shapes (the kernels line's rows), at C 16 and 37 (off the tile: TN's
+   contraction ends in a partial k-block), and fp32 on simt at C 37; each
+   with its bound and one ``torch.bmm`` on the transposed view as its
+   yardstick, two calls bit-equal; the combine's backward (row x3b) at T
+   2048, k 8 (bf16) and T 512 (fp32) over a real dispatch: dyd bit for
+   bit its plain version's with the empty slots' rows zero, dgate within
+   2e-4, two calls bit-equal, no one-call yardstick; the dispatch's
+   backward on the combine kernel with unit gates (row x3), bit for bit;
+30. ``train_moe``: full-width granite-moe-3b-a800m at 8 of its 32 layers
+   (MOE_TRAIN_LAYERS: ~0.96 B parameters, ~15 GB of fp32 state) through
+   the training launcher (bf16 over fp32 masters, batch 8 x 512, 2
+   microbatches, remat fusion, MOE_TRAIN_STEPS steps, the first a
+   warm-up): finite losses and aux, step ms, tokens/s, peak GiB, every
+   grouped product of the step, forward and backward, on wgmma (none on
+   gemv or simt), the combine's and the dispatch's backward once a layer
+   and microbatch, the NT and TN products three times, every attention
+   launch and tile matmul on wgmma; then ``moe_grad_check``, the loss and
+   every gradient of one microbatch through the kernels against the
+   plain path on one routing (the kernel path's top-k choices replayed
+   in call order into the plain paths): bf16 at 8 layers within 1e-1 and
+   the kernel-vs-fp32 gate of ``grad_check``, fp32 at 2 layers within
+   1e-4; and one MoE block's backward run twice through the kernels, its
+   input's, router's and experts' gradients bit-identical;
+31. print every phase's seconds (``phase_s``), then one JSON line of
    per-kernel numbers, then the result line.
 
 ``--profile`` also traces decode ticks of both serving runs and one
 training step with torch.profiler and prints the device's busy share and
 its time per kernel, also summed by kernel family (``profile_kernels``
 and ``profile_train_kernels``: wg::mm, wg::mm_gated, gv::gemv, the old
-paths, the attention kernels), and one 512-token prefill of the SSM
-model: its device time and the scan's share (``profile_prefill``).
+paths, the attention kernels, the MoE's), one 512-token prefill of the SSM
+model: its device time and the scan's share (``profile_prefill``), and
+one step of the MoE training run (``profile_train_moe``).
 """
 
 import argparse
@@ -411,6 +442,12 @@ KERNELS = {
     "moe_grouped_gated": ("src/repro_torch/kernels/csrc/moe.cu", "src/repro/models/mlp.py:115"),
     "moe_grouped_mm": ("src/repro_torch/kernels/csrc/moe.cu", "src/repro/models/mlp.py:126"),
     "moe_combine": ("src/repro_torch/kernels/csrc/moe.cu", "src/repro/models/mlp.py:130"),
+    # MoE training: the derivatives JAX takes of the same einsums (mlp.py:115-126: dx by
+    # the NT layout, dw by TN) and of the scatter-add (mlp.py:130)
+    "moe_grouped_nt": ("src/repro_torch/kernels/csrc/moe.cu", "src/repro/models/mlp.py:115"),
+    "moe_grouped_tn": ("src/repro_torch/kernels/csrc/moe.cu", "src/repro/models/mlp.py:115"),
+    "moe_combine_bwd": ("src/repro_torch/kernels/csrc/moe.cu",
+                        "src/repro/models/mlp.py:130"),
 }
 RING_KERNELS = ("ag_matmul", "matmul_rs", "ag_matmul_contract")
 INT8_KERNELS = tuple(k + "_int8" for k in RING_KERNELS)
@@ -511,9 +548,11 @@ RING_TC_FUNCTIONS = ("_ZN6ringtc8ag_wgmmaILb0E", "_ZN6ringtc8rs_wgmma",
 # the absorbed MLA decode's tensor-core kernel mla::decode_wgmma, likewise in the
 # mla_decode library's SASS
 MLA_TC_FUNCTIONS = ("_ZN3mla12decode_wgmma",)
-# the MoE's grouped wgmma products moe::grouped_wgmma<false> and <true> (the
-# gated form), likewise in the moe library's SASS
-MOE_TC_FUNCTIONS = ("_ZN3moe13grouped_wgmmaILb0E", "_ZN3moe13grouped_wgmmaILb1E")
+# the MoE's grouped wgmma products moe::grouped_wgmma<GATED, TA, TB>: the forward's
+# <false, false, false> and <true, ...> (the gated form), the backward's NT <false,
+# false, true> and TN <false, true, false>, likewise in the moe library's SASS
+MOE_TC_FUNCTIONS = ("_ZN3moe13grouped_wgmmaILb0ELb0ELb0E", "_ZN3moe13grouped_wgmmaILb1E",
+                    "_ZN3moe13grouped_wgmmaILb0ELb0ELb1E", "_ZN3moe13grouped_wgmmaILb0ELb1ELb0E")
 # the ring kernels that take a route (ring_matmul.ring_impl): every bf16 launch
 # of these at the grid phases' full-width blocks must be on wgmma, on the bf16
 # wire and on the int8 wire
@@ -527,7 +566,8 @@ LOOPBACK_TIMING = ("CUDA-graph replays of one call (n streams forked from and jo
 # kernel families of the device time (--profile): name fragments
 PROFILE_FAMILIES = ("wg::mm<", "wg::mm_gated", "wg::sum_splits", "gv::gemv", "mm_skinny",
                     "mm_splitk_epilogue", "mm_tc_bf16", "tc::fwd", "tc::bwd_dq",
-                    "tc::bwd_dkdv", "flash_", "swiglu")
+                    "tc::bwd_dkdv", "flash_", "swiglu", "moe::grouped_wgmma", "moe::combine<",
+                    "moe::combine_bwd")
 # each bf16 matmul path timed, in turns, against the one it replaced
 OLD_PATH = {"wgmma": "wmma", "gemv": "skinny"}
 # checkpoints on one card: the reference runs CKPT_RESUME_AT + 2 steps; the
@@ -630,6 +670,17 @@ MOE_GATE_LAYERS = 8
 MOE_CONTROLS, MOE_CONTROLS_FAIL = ("h_bf16", "w_e4m3", "w_e5m2"), ("w_e4m3", "w_e5m2")
 MOE_KERNELS = ("moe_grouped_gated", "moe_grouped_mm", "moe_combine")
 MOE_SERVE_KERNELS = ("matmul", "flash_attention") + MOE_KERNELS
+# MoE training: granite at MOE_TRAIN_LAYERS of its 32 layers (full depth's fp32 masters,
+# gradients and moments, ~54 GB, leave no room for activations), the training cell's batch
+# (a microbatch of 2048 tokens: C = int(8 2048 1.25 / 40) = 512), MOE_TRAIN_STEPS steps (1
+# warm-up); the backward's kernels, and the products' C off the wgmma tile (C <= 16, which
+# serving sends to gemv, and 37, off the 64-row k-block of TN's contraction)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 8, 4
+MOE_TRAIN_SMALL_CS = (16, 37)
+MOE_BWD_KERNELS = ("moe_grouped_nt", "moe_grouped_tn", "moe_combine_bwd")
+MOE_GROUPED = ("moe_grouped_gated", "moe_grouped_mm", "moe_grouped_nt", "moe_grouped_tn")
+MOE_TRAIN_PATH = ("tile_matmul", "flash_attention", "flash_attention_bwd", "swiglu_bwd") + \
+    MOE_KERNELS + MOE_BWD_KERNELS + ("moe_dispatch_bwd",)
 
 
 def log(*a):
@@ -1435,45 +1486,81 @@ def _rel(a, b):
     return [((x - y).norm() / y.norm().clamp_min(1e-30)).item() for x, y in zip(a, b)]
 
 
-def grad_check(cfg, name="grad_check"):
+def grad_check(cfg, name="grad_check", pin_routing=False):
     """Loss and every leaf's gradient of one microbatch through the kernels
     against the plain-op path: bf16 at ``cfg``'s depth, fp32 at two
-    layers; logged as ``name``."""
+    layers; logged as ``name``.  ``pin_routing`` (MoE): the plain paths
+    route as the kernel path did, its top-k choices replayed in call order
+    (``mlp.top_k``, as ``moe_model_check`` pins them), since a near-tie
+    that two bf16 paths break apart moves whole expert rows."""
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH // TRAIN_MICRO, seed=SEED)
     batch = {k: torch.from_numpy(v).to(DEV) for k, v in data.batch_at(0).items()}
     ok, report = True, {}
-    for dtype, layers in ((torch.bfloat16, cfg.num_layers), (torch.float32, 2)):
-        c = cfg.scaled(num_layers=layers)
-        params = lm.init_master_params(c, seed=SEED, device=DEV)
-        for _, t in lm.flatten(params):
-            t.requires_grad_(True)
-        paths = [("kernel", False, dtype), ("plain", True, dtype)]
-        if dtype == torch.bfloat16:
-            paths.append(("plain_fp32", True, torch.float32))
-        res = {name: _grads(c, params, batch, plain, dt) for name, plain, dt in paths}
-        names = [".".join(p) for p, _ in lm.flatten(params)]
-        r_kp = _rel(res["kernel"][1], res["plain"][1])
-        worst = max(range(len(names)), key=lambda i: r_kp[i])
-        finite = all(bool(torch.isfinite(g).all()) for g in res["kernel"][1])
-        tol = GRAD_TOL[dtype]
-        good = finite and r_kp[worst] <= tol and \
-            abs(res["kernel"][0] - res["plain"][0]) <= tol * abs(res["plain"][0])
-        entry = dict(layers=layers, loss_kernel=res["kernel"][0], loss_plain=res["plain"][0],
-                     worst_leaf=names[worst], worst_rel=r_kp[worst], tol_rel=tol,
-                     leaves=len(names))
-        if "plain_fp32" in res:
-            r_k32 = max(_rel(res["kernel"][1], res["plain_fp32"][1]))
-            r_p32 = max(_rel(res["plain"][1], res["plain_fp32"][1]))
-            entry.update(loss_plain_fp32=res["plain_fp32"][0], worst_rel_kernel_vs_fp32=r_k32,
-                         worst_rel_plain_vs_fp32=r_p32)
-            good &= r_k32 <= 1.5 * r_p32 + 1e-3
-        entry["ok"] = good
-        ok &= good
-        report[str(dtype).replace("torch.", "")] = entry
-        del params, res
-        torch.cuda.empty_cache()
+    chosen, mode, real_top_k = [], {"replay": False, "i": 0}, MLP.top_k
+
+    def pinned_top_k(probs, k):
+        if mode["replay"]:                     # the kernel path's choices, in call order
+            idx = chosen[mode["i"]]
+            mode["i"] += 1
+            return probs.gather(-1, idx), idx
+        vals, idx = real_top_k(probs, k)
+        chosen.append(idx)
+        return vals, idx
+
+    def grads(c, params, path, plain, dt):
+        mode.update(replay=pin_routing and path != "kernel", i=0)
+        return _grads(c, params, batch, plain, dt)
+
+    if pin_routing:
+        MLP.top_k = pinned_top_k
+    try:
+        for dtype, layers in ((torch.bfloat16, cfg.num_layers), (torch.float32, 2)):
+            ok &= _grad_case(cfg, report, dtype, layers, grads, chosen, mode, pin_routing)
+    finally:
+        MLP.top_k = real_top_k
     log(f"{name} " + json.dumps(report))
     return ok
+
+
+def _grad_case(cfg, report, dtype, layers, grads, chosen, mode, pin_routing):
+    """One depth and dtype of :func:`grad_check`, entered in ``report``."""
+    c = cfg.scaled(num_layers=layers)
+    params = lm.init_master_params(c, seed=SEED, device=DEV)
+    for _, t in lm.flatten(params):
+        t.requires_grad_(True)
+    paths = [("kernel", False, dtype), ("plain", True, dtype)]
+    if dtype == torch.bfloat16:
+        paths.append(("plain_fp32", True, torch.float32))
+    chosen.clear()
+    res, replayed = {}, {}
+    for name, plain, dt in paths:
+        res[name] = grads(c, params, name, plain, dt)
+        replayed[name] = mode["i"]
+    names = [".".join(p) for p, _ in lm.flatten(params)]
+    r_kp = _rel(res["kernel"][1], res["plain"][1])
+    worst = max(range(len(names)), key=lambda i: r_kp[i])
+    finite = all(bool(torch.isfinite(g).all()) for g in res["kernel"][1])
+    tol = GRAD_TOL[dtype]
+    good = finite and r_kp[worst] <= tol and \
+        abs(res["kernel"][0] - res["plain"][0]) <= tol * abs(res["plain"][0])
+    entry = dict(layers=layers, loss_kernel=res["kernel"][0], loss_plain=res["plain"][0],
+                 worst_leaf=names[worst], worst_rel=r_kp[worst], tol_rel=tol,
+                 leaves=len(names))
+    if "plain_fp32" in res:
+        r_k32 = max(_rel(res["kernel"][1], res["plain_fp32"][1]))
+        r_p32 = max(_rel(res["plain"][1], res["plain_fp32"][1]))
+        entry.update(loss_plain_fp32=res["plain_fp32"][0], worst_rel_kernel_vs_fp32=r_k32,
+                     worst_rel_plain_vs_fp32=r_p32)
+        good &= r_k32 <= 1.5 * r_p32 + 1e-3
+    if pin_routing:                        # every plain path replayed every choice
+        entry.update(top_k_calls=len(chosen), replayed=replayed)
+        good &= len(chosen) > 0 and all(replayed[n] == len(chosen) for n in res
+                                        if n != "kernel")
+    entry["ok"] = good
+    report[str(dtype).replace("torch.", "")] = entry
+    del params, res
+    torch.cuda.empty_cache()
+    return good
 
 
 def model_flops(cfg, tokens, seq):
@@ -1555,9 +1642,9 @@ def train_phase(profile):
     return ok, launches
 
 
-def profile_train(cfg, params, opt, rc, batch):
+def profile_train(cfg, params, opt, rc, batch, name="profile_train"):
     """Device time per kernel, and the device's busy share, over one
-    training step (remat fusion)."""
+    training step (remat fusion); logged as ``name``."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     step = train_step.build_train_step(
         cfg, ParallelConfig(microbatches=TRAIN_MICRO, remat="fusion"), rc,
@@ -1569,9 +1656,9 @@ def profile_train(cfg, params, opt, rc, batch):
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     dev = device_ms(events)
-    log("profile_train " + json.dumps(dict(wall_ms=1e3 * wall, device_ms=dev,
-                                           device_busy_share=dev / 1e3 / wall)))
-    log("profile_train_kernels " + json.dumps(family_ms(events)))
+    log(f"{name} " + json.dumps(dict(wall_ms=1e3 * wall, device_ms=dev,
+                                     device_busy_share=dev / 1e3 / wall)))
+    log(f"{name}_kernels " + json.dumps(family_ms(events)))
     log(events.table(sort_by="self_device_time_total", row_limit=40))
 
 
@@ -3392,17 +3479,20 @@ def train_mla_phase():
 
 
 def check_moe_grouped(results, gen, E, C, K, N, dtype, *, gated, act, main=True, label="",
-                      empty=0):
+                      empty=0, keep_ab=False):
     """One grouped product of E experts, C rows each, [C, K] x [K, N] (and
     a second weight when ``gated``), against its plain version on the
     route ``kmoe.grouped_impl`` chooses; ``empty`` experts' slots all
     zero (an expert no token chose) and as many more half zero.  The
     library yardstick: one ``torch.bmm`` (the down-projection) or two
     (the gated product's products only, as the gated matmul's
-    ``products_only``)."""
+    ``products_only``).  ``keep_ab`` (gated, training: the wgmma route at
+    any C) also holds the kept fp32 products against
+    ``ref.grouped_gated_products_plain``."""
     elt = torch.tensor([], dtype=dtype).element_size()
     nw = 2 if gated else 1
-    nbytes = (E * C * K + nw * E * K * N + E * C * N) * elt
+    nbytes = (E * C * K + nw * E * K * N + E * C * N) * elt + \
+        (2 * E * C * N * 4 if keep_ab else 0)
     sets = []
     for _ in range(n_copies(nbytes)):
         x = randn(gen, (E, C, K), dtype)
@@ -3410,9 +3500,10 @@ def check_moe_grouped(results, gen, E, C, K, N, dtype, *, gated, act, main=True,
         x[empty:2 * empty, C // 2:] = 0
         sets.append((x, [randn(gen, (E, K, N), dtype, K ** -0.5) for _ in range(nw)]))
     name = "moe_grouped_gated" if gated else "moe_grouped_mm"
-    impl = kmoe.grouped_impl(dtype, C)
-    kern = lambda s: kmoe.grouped(s[0], *s[1], act=act)  # noqa: E731
-    plain = (lambda s: ref.grouped_gated_plain(s[0], *s[1], act=act)) if gated else \
+    impl = kmoe.grouped_impl(dtype, C, grad=keep_ab)
+    kern = lambda s: kmoe.grouped(s[0], *s[1], act=act, keep_ab=keep_ab)  # noqa: E731
+    plain = (lambda s: (ref.grouped_gated_products_plain if keep_ab else
+                        ref.grouped_gated_plain)(s[0], *s[1], act=act)) if gated else \
         (lambda s: ref.grouped_mm_plain(s[0], s[1][0], act=act))
     lib = [(lambda s=s: [torch.bmm(s[0], w) for w in s[1]]) for s in sets]
     before = kmoe.IMPL_LAUNCHES[name][impl]
@@ -3420,7 +3511,8 @@ def check_moe_grouped(results, gen, E, C, K, N, dtype, *, gated, act, main=True,
     on_route = kmoe.IMPL_LAUNCHES[name][impl] == before + 1
     big = nbytes > 4e9                    # grok-1's layer: event windows, no graph of its plain
     timer = (lambda calls: event_ms(calls[0], reps=2, windows=3)) if big else bench_ms
-    case = f"E={E} C={C} K={K} N={N} act={act}" + (f" {label}" if label else "")
+    case = f"E={E} C={C} K={K} N={N} act={act}" + (" keep_ab" if keep_ab else "") + \
+        (f" {label}" if label else "")
     ok = record(results, name, case, dtype, main, out, plain(sets[0]),
                 [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(s) for s in sets], lib,
                 nbytes, nw * 2 * E * C * K * N, timer=timer, path=impl,
@@ -3433,12 +3525,13 @@ def check_moe_grouped(results, gen, E, C, K, N, dtype, *, gated, act, main=True,
 
 def _moe_slots(gen, T, k, E, cap):
     """A real dispatch of T tokens' random top-k choices: slot_of [T, k]
-    int32 (-1 where dropped) and the count of valid assignments."""
+    int32 (-1 where dropped), the count of valid assignments and the
+    slots' assignments [E, cap] (``_dispatch_indices``; T k where empty)."""
     scores = torch.rand((T, E), generator=gen, device=DEV)
     idx = MLP.top_k(scores, k)[1]
     st = MLP._dispatch_indices(idx.reshape(-1), E, 0, cap)
     slot_of = MLP.slot_of_assignments(st, T * k).reshape(T, k)
-    return slot_of, int((slot_of >= 0).sum().item())
+    return slot_of, int((slot_of >= 0).sum().item()), st
 
 
 def check_moe_combine(results, gen, T, k, E, H, dtype, *, main=True):
@@ -3452,7 +3545,7 @@ def check_moe_combine(results, gen, T, k, E, H, dtype, *, main=True):
     timed call."""
     cap = max(1, int(k * T * 1.25 / E))
     elt = torch.tensor([], dtype=dtype).element_size()
-    slot_of, n_valid = _moe_slots(gen, T, k, E, cap)
+    slot_of, n_valid, _ = _moe_slots(gen, T, k, E, cap)
     nbytes = n_valid * H * elt + T * k * 8 + T * H * elt
     sets = []
     for _ in range(n_copies(E * cap * H * elt)):
@@ -3506,6 +3599,228 @@ def moe_kernel_phase():
             ok &= check_moe_combine(results, gen, T, cfg.moe.top_k, E, H, dtype,
                                     main=dtype == torch.bfloat16)
     return results, ok
+
+
+def check_moe_backward(results, gen, E, C, K, N, dtype, layout, *, main=True, label="",
+                       empty=0):
+    """One backward product of the grouped x [E, C, K] @ w [E, K, N] on the
+    route training takes (``grouped_impl(..., grad=True)``): ``"nt"`` dx =
+    g w^T from g [E, C, N], or ``"tn"`` dw = x^T g, contracted over the C
+    rows; ``empty`` experts' rows of x and g zero (slots no token took) and
+    as many more half zero.  Against ``ref.grouped_nt_plain`` /
+    ``grouped_tn_plain``; the library yardstick is one ``torch.bmm`` on the
+    transposed view."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    out_elems = E * C * K if layout == "nt" else E * K * N
+    nbytes = ((E * C * N + E * K * N) if layout == "nt" else (E * C * K + E * C * N)) * elt + \
+        out_elems * elt
+    sets = []
+    for _ in range(n_copies(nbytes)):
+        x, g = randn(gen, (E, C, K), dtype), randn(gen, (E, C, N), dtype)
+        for t in (x, g):
+            t[:empty] = 0
+            t[empty:2 * empty, C // 2:] = 0
+        w = randn(gen, (E, K, N), dtype, K ** -0.5)
+        sets.append((g, w) if layout == "nt" else (x, g))
+    name = f"moe_grouped_{layout}"
+    impl = kmoe.grouped_impl(dtype, C, grad=True)
+    kern = lambda s: kmoe.grouped_t(*s, layout=layout)  # noqa: E731
+    plain = ref.grouped_nt_plain if layout == "nt" else ref.grouped_tn_plain
+    lib = [(lambda s=s: torch.bmm(s[0], s[1].transpose(1, 2))) if layout == "nt" else
+           (lambda s=s: torch.bmm(s[0].transpose(1, 2), s[1])) for s in sets]
+    before = kmoe.IMPL_LAUNCHES[name][impl]
+    out = kern(sets[0])
+    on_route = kmoe.IMPL_LAUNCHES[name][impl] == before + 1
+    again = kern(sets[0])
+    case = f"E={E} C={C} K={K} N={N} {layout}" + (f" {label}" if label else "")
+    ok = record(results, name, case, dtype, main, out, plain(*sets[0]),
+                [lambda s=s: kern(s) for s in sets], [lambda s=s: plain(*s) for s in sets], lib,
+                nbytes, 2 * E * C * K * N, path=impl,
+                extra=dict(route_counted=on_route, deterministic=bool(torch.equal(out, again)),
+                           library="torch.bmm on the transposed view"))
+    del sets, out, again
+    torch.cuda.empty_cache()
+    return ok and on_route
+
+
+def check_moe_combine_bwd(results, gen, T, k, E, H, dtype, *, main=True):
+    """The combine's backward over a real dispatch (C at the model's
+    capacity, drops and empty slots) against ``ref.moe_combine_bwd_plain``:
+    dyd bit for bit (one fp32 product, one cast; empty slots zero), dgate
+    (fp32 sums in another order) at 2e-4; two calls bit-equal.  The bound
+    counts dy, the valid rows of yd, every row of dyd written, the gates,
+    slots and dgate.  No one PyTorch call computes it."""
+    cap = max(1, int(k * T * 1.25 / E))
+    elt = torch.tensor([], dtype=dtype).element_size()
+    slot_of, n_valid, st = _moe_slots(gen, T, k, E, cap)
+    nbytes = (T * H + n_valid * H + E * cap * H) * elt + T * k * 12 + E * cap * 4
+    sets = []
+    for _ in range(n_copies(nbytes)):
+        gate = torch.rand((T, k), generator=gen, device=DEV)
+        sets.append((randn(gen, (T, H), dtype), randn(gen, (E, cap, H), dtype),
+                     gate / gate.sum(-1, keepdim=True), slot_of))
+    kern = lambda s: kmoe.combine_bwd(*s, st)  # noqa: E731
+    plain = lambda s: ref.moe_combine_bwd_plain(*s)  # noqa: E731
+    before = kmoe.IMPL_LAUNCHES["moe_combine_bwd"]["token"]
+    out, want = kern(sets[0]), plain(sets[0])
+    on_route = kmoe.IMPL_LAUNCHES["moe_combine_bwd"]["token"] == before + 1
+    again = kern(sets[0])
+    exact = bool(torch.equal(out[0], want[0]))
+    det = all(torch.equal(a, b) for a, b in zip(out, again))
+    empty_zero = not bool(out[0].reshape(-1, H)[(st >= T * k).reshape(-1)].any())
+    ok = record(results, "moe_combine_bwd", f"T={T} k={k} E={E} C={cap} H={H}", dtype, main,
+                out, want, [lambda s=s: kern(s) for s in sets],
+                [lambda s=s: plain(s) for s in sets], None, nbytes, 3 * n_valid * H,
+                path="token",
+                extra=dict(valid=n_valid, dropped=T * k - n_valid, dyd_exact=exact,
+                           deterministic=det, empty_rows_zero=empty_zero,
+                           route_counted=on_route,
+                           library="none: no one PyTorch call computes dyd and dgate"))
+    return ok and exact and det and empty_zero and on_route
+
+
+def check_moe_dispatch_bwd(results, gen, T, k, E, H, dtype):
+    """The dispatch gather's backward, dx[t] = sum_j dxd[slot_of[t, j]], on
+    the combine kernel with unit gates (``hk_moe_combine``, row x3), over a
+    real dispatch, against ``ref.moe_dispatch_bwd_plain`` bit for bit; the
+    library yardstick is ``F.embedding_bag`` (mode sum, a dropped
+    assignment weighted 0)."""
+    cap = max(1, int(k * T * 1.25 / E))
+    elt = torch.tensor([], dtype=dtype).element_size()
+    slot_of, n_valid, _ = _moe_slots(gen, T, k, E, cap)
+    nbytes = n_valid * H * elt + T * k * 8 + T * H * elt
+    ones = torch.ones((T, k), device=DEV)
+    sets = [randn(gen, (E, cap, H), dtype) for _ in range(n_copies(E * cap * H * elt))]
+    wts = torch.where(slot_of >= 0, 1.0, 0.0).to(dtype)
+    lib = [(lambda d=d: F.embedding_bag(slot_of.clamp(min=0), d.view(-1, H),
+                                        per_sample_weights=wts, mode="sum")) for d in sets]
+    out = kmoe.combine(sets[0], ones, slot_of)
+    want = ref.moe_dispatch_bwd_plain(sets[0], slot_of)
+    exact = bool(torch.equal(out, want))
+    ok = record(results, "moe_combine", f"T={T} k={k} E={E} C={cap} H={H} dispatch_bwd",
+                dtype, False, out, want, [lambda d=d: kmoe.combine(d, ones, slot_of)
+                                          for d in sets],
+                [lambda d=d: ref.moe_dispatch_bwd_plain(d, slot_of) for d in sets], lib,
+                nbytes, n_valid * H, path="token",
+                extra=dict(valid=n_valid, exact=exact, unit_gates=True,
+                           library="F.embedding_bag(mode='sum', per_sample_weights)"))
+    return ok and exact
+
+
+def moe_train_kernel_phase():
+    """The MoE training kernels at granite-moe-3b-a800m's training shapes
+    (module docstring, phase 29)."""
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    results, ok = [], True
+    E, H, F_, k = cfg.moe.num_experts, cfg.d_model, cfg.d_ff, cfg.moe.top_k
+    C = MLP.capacity(cfg, TRAIN_M)
+    bf = torch.bfloat16
+    for c in (C,) + MOE_TRAIN_SMALL_CS:
+        ok &= check_moe_grouped(results, gen, E, c, H, F_, bf, gated=True, act="silu",
+                                main=False, label="train", empty=5, keep_ab=True)
+    for layout in ("nt", "tn"):
+        for K, N in ((H, F_), (F_, H)):          # the gated up-projection's, the down's
+            ok &= check_moe_backward(results, gen, E, C, K, N, bf, layout, main=True, empty=5)
+        for c in MOE_TRAIN_SMALL_CS:
+            ok &= check_moe_backward(results, gen, E, c, H, F_, bf, layout, main=False,
+                                     label="off the tile", empty=5)
+        ok &= check_moe_backward(results, gen, E, MOE_TRAIN_SMALL_CS[1], H, F_,
+                                 torch.float32, layout, main=False, empty=5)
+    ok &= check_moe_grouped(results, gen, E, MOE_TRAIN_SMALL_CS[1], H, F_, torch.float32,
+                            gated=True, act="silu", main=False, label="train", empty=5,
+                            keep_ab=True)
+    ok &= check_moe_combine_bwd(results, gen, TRAIN_M, k, E, H, bf, main=True)
+    ok &= check_moe_combine_bwd(results, gen, TRAIN_M // 4, k, E, H, torch.float32, main=False)
+    ok &= check_moe_dispatch_bwd(results, gen, TRAIN_M, k, E, H, bf)
+    return results, ok
+
+
+def moe_block_determinism(cfg):
+    """One MoE block of full-width granite (a microbatch of 2048 tokens,
+    bf16 over fp32 masters) forward and backward twice through the
+    kernels: the input's, the router's and every expert weight's gradient
+    must repeat bit for bit (no backward of the path adds with atomics)."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    p = {n: t[0].detach().requires_grad_() for n, t in MLP.init_moe(cfg, gen, 1).items()}
+    x = randn(gen, (TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, cfg.d_model), torch.bfloat16)
+    x.requires_grad_()
+    g = randn(gen, tuple(x.shape), torch.bfloat16)
+    names = ["x"] + sorted(p)
+    runs = []
+    for _ in range(2):
+        ops.reset_launches()
+        y, aux = MLP.apply_moe(PCtx(mode="train"), cfg, p, x)
+        loss = (y.float() * g.float()).sum() + aux
+        runs.append(torch.autograd.grad(loss, [x] + [p[n] for n in sorted(p)]))
+        launches = {k: ops.LAUNCHES[k] for k in MOE_BWD_KERNELS + ("moe_dispatch_bwd",)}
+    equal = {n: bool(torch.equal(a, b)) for n, a, b in zip(names, *runs)}
+    finite = all(bool(torch.isfinite(t).all()) for t in runs[0])
+    return dict(bit_identical=equal, launches=launches,
+                ok=all(equal.values()) and finite and all(launches.values()))
+
+
+def train_moe_phase(profile=False):
+    """Full-width granite-moe-3b-a800m at MOE_TRAIN_LAYERS of its 32 layers
+    through the training launcher (module docstring, phase 30); with
+    ``profile``, one more step under torch.profiler
+    (``profile_train_moe``)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    args = launch_train.parser().parse_args([
+        "--arch", MOE_ARCH, "--layers", str(MOE_TRAIN_LAYERS), "--dtype", "bfloat16",
+        "--device", DEV, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--microbatches", str(TRAIN_MICRO), "--steps", str(MOE_TRAIN_STEPS)])
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    r = launch_train.run(args, log_fn=log)            # the main path
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(ops.LAUNCHES)
+    routes = {k: dict(kmoe.IMPL_LAUNCHES[k]) for k in MOE_GROUPED + ("moe_combine",
+                                                                     "moe_combine_bwd")}
+    paths = {k: dict(kfa.IMPL_LAUNCHES[k]) for k in ("flash_attention", "flash_attention_bwd")}
+    mm_paths = dict(kmm.IMPL_LAUNCHES["tile_matmul"])
+    cfg, losses, auxes = r["cfg"], [loss for _, loss in r["history"]], r["aux"]
+    step_ms_all = [1e3 * t for t in r["step_s"]]
+    step_ms = float(np.median(step_ms_all[1:]))
+    n_bwd = cfg.num_layers * TRAIN_MICRO * MOE_TRAIN_STEPS   # one backward a layer and microbatch
+    ok_routes = all(routes[k]["wgmma"] == launches[k] > 0 and routes[k]["gemv"] == 0
+                    and routes[k]["simt"] == 0 for k in MOE_GROUPED)
+    ok_counts = (launches["moe_combine_bwd"] == launches["moe_dispatch_bwd"] == n_bwd
+                 and launches["moe_grouped_nt"] == launches["moe_grouped_tn"] == 3 * n_bwd
+                 and launches["moe_grouped_gated"] == launches["moe_grouped_mm"]
+                 == launches["moe_combine"] >= n_bwd
+                 and routes["moe_combine_bwd"]["token"] == n_bwd
+                 and routes["moe_combine"]["token"] == launches["moe_combine"] + n_bwd)
+    ok_other = (all(paths[k]["wgmma"] == launches[k] > 0 for k in paths)
+                and mm_paths["wgmma"] == launches["tile_matmul"] > 0
+                and mm_paths["wgmma"] == sum(mm_paths.values()))
+    ok = (all(math.isfinite(x) for x in losses + auxes) and ok_routes and ok_counts
+          and ok_other and all(launches[k] > 0 for k in MOE_TRAIN_PATH))
+    n_params = sum(t.numel() for _, t in lm.flatten(r["state"]["params"]))
+    if profile:
+        data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in data.batch_at(MOE_TRAIN_STEPS).items()}
+        profile_train(cfg, r["state"]["params"], r["state"]["opt_state"],
+                      RunConfig("custom", "train", TRAIN_SEQ, TRAIN_BATCH), batch,
+                      "profile_train_moe")
+    del r
+    torch.cuda.empty_cache()
+    t_run = time.perf_counter() - t0
+    ok_g = grad_check(cfg, "moe_grad_check", pin_routing=True)
+    det = moe_block_determinism(cfg)
+    log("train_moe " + json.dumps(dict(
+        arch=MOE_ARCH, layers=cfg.num_layers, params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=TRAIN_MICRO, capacity=MLP.capacity(cfg, TRAIN_M), remat="fusion",
+        dtype="bfloat16", losses=losses, aux=auxes, step_ms_median=step_ms,
+        step_ms=step_ms_all[1:], warmup_step_ms=step_ms_all[0],
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3), peak_gib=peak_gib,
+        launches=launches, moe_routes=routes, attention_paths=paths, tile_mm_paths=mm_paths,
+        backward_launches_expected=n_bwd, determinism=det, run_seconds=t_run,
+        seconds=time.perf_counter() - t0, ok=ok, grad_check_ok=ok_g)))
+    return ok and ok_g and det["ok"], launches
 
 
 def _moe_control(kind, gated, mm):
@@ -3792,15 +4107,21 @@ def main(argv=None):
     results += x_results
     ok_xm = timed("moe_model_check", moe_model_check, get_config(MOE_ARCH))
     ok_xs, xs_launches = timed("serve_moe", serve_moe_phase)
+    torch.cuda.empty_cache()
+    xt_results, ok_xtk = timed("moe_train_kernels", moe_train_kernel_phase)
+    results += xt_results
+    ok_xt, xt_launches = timed("train_moe", train_moe_phase, args.profile)
     log("phase_s " + json.dumps(dict(PHASE_S, total=time.perf_counter() - t_start)))
     # each kernel's count from the run of the path it serves: the scan's
     # from the SSM serving run, the dense serving kernels' from the dense
     # serving run, the ring kernels' from the bf16 grid run and their int8
     # variants' from the int8 grid run (summed over the four ranks), the
     # absorbed decode's from the MLA serving run, the MoE's from the MoE
-    # serving run, the training kernels' from the training run
+    # serving run, the MoE backward's from the MoE training run, the
+    # training kernels' from the training run
     launches = {k: (ms_launches if k == "mla_decode" else ss_launches if k == "ssd"
                     else xs_launches if k in MOE_KERNELS
+                    else xt_launches if k in MOE_BWD_KERNELS
                     else s_launches if k in SERVE_KERNELS
                     else g_launches if k in RING_KERNELS
                     else q_launches if k in INT8_KERNELS else t_launches).get(k, 0)
@@ -3842,6 +4163,7 @@ def main(argv=None):
                               ("serve_mla", ok_ms), ("serve_mla_quant_kv", ok_mq),
                               ("train_mla", ok_mt), ("moe_kernels", ok_xk),
                               ("moe_model_check", ok_xm), ("serve_moe", ok_xs),
+                              ("moe_train_kernels", ok_xtk), ("train_moe", ok_xt),
                               ("kernel_rows", len(line) == len(KERNELS)),
                               ("launches", all(launches.values())))
               if not ok]

@@ -61,8 +61,9 @@ ARGTYPES = {
         "hk_mla_decode_tc": [_P] * 6 + [_I] * 5 + [_L] * 8 + [_F, _I, _P, _P],
     },
     "moe": {
-        "hk_moe_grouped": [_P] * 4 + [_I] * 8 + [_P],
+        "hk_moe_grouped": [_P] * 6 + [_I] * 9 + [_P],
         "hk_moe_combine": [_P] * 4 + [_I] * 4 + [_P],
+        "hk_moe_combine_bwd": [_P] * 7 + [_I] * 5 + [_P],
     },
     "ssd": {
         "hk_ssd": [_P] * 8 + [_I] * 7 + [_L] * 6 + [_I, _P],

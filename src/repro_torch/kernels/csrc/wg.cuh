@@ -14,8 +14,10 @@
 //     scale a row: the dequantizing stage between TMA and wgmma (below).
 // They take the mbarrier wait as an argument: wg::mm waits with hopper's trap
 // after ~15 s, the ring kernels with their own spin timeout, since their stages
-// may wait on a peer.  Also the host's 2-D TMA maps of a bf16 and an int8 matrix, and
-// the 3-D map of a stack of bf16 matrices (the experts of matmul.cuh's gemv and moe.cu).
+// may wait on a peer.  load_unit also reads one expert's matrices of 3-D maps, which
+// is how moe.cu's grouped products use it.  Also the host's 2-D TMA maps of a bf16 and
+// an int8 matrix, and the 3-D map of a stack of bf16 matrices (the experts of
+// matmul.cuh's gemv and moe.cu).
 #pragma once
 
 #include <cuda.h>
@@ -183,12 +185,14 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // into the next stages of the ring; `it` counts stages over every unit the block has loaded.
 // `a_bytes` is the A box's size: A_BYTES (bf16) or A8_BYTES (a K-major int8 box through
 // map2d(..., u8), in the first half of the stage's A region); B's k-blocks start `bk0` rows on.
+// `e` >= 0 reads expert e's matrices of 3-D maps (map3d: a stack [experts, outer, inner]) at
+// the same 2-D coordinates, in every layout; -1 reads 2-D maps.
 template <int BN, bool TA, bool TB, bool GATED, typename Wait>
 __device__ __forceinline__ void load_unit(uint8_t* ring, uint64_t* full, uint64_t* empty,
                                           const CUtensorMap* amap, const CUtensorMap* bmap,
                                           const CUtensorMap* bmap2, int arow, int bcol, int kb0,
                                           int kb1, int& it, Wait wait, int a_bytes = A_BYTES,
-                                          int bk0 = 0) {
+                                          int bk0 = 0, int e = -1) {
   using T = Tile<BN, GATED>;
   for (int kb = kb0; kb < kb1; ++kb, ++it) {
     const int s = it % T::NST;
@@ -196,20 +200,25 @@ __device__ __forceinline__ void load_unit(uint8_t* ring, uint64_t* full, uint64_
     uint8_t* as = ring + s * T::STAGE;
     uint8_t* bs = as + A_BYTES;
     bar_expect(&full[s], T::STAGE - A_BYTES + a_bytes);  // every box's bytes, edges included
+    const auto box = [&](void* dst, const CUtensorMap* m, int x, int y) {
+      if (e < 0)
+        tma_load(dst, m, &full[s], x, y);
+      else
+        tma_load(dst, m, &full[s], x, y, e);
+    };
     if (TA) {
-      tma_load(as, amap, &full[s], arow, kb * BK);
-      tma_load(as + BOX, amap, &full[s], arow + 64, kb * BK);
+      box(as, amap, arow, kb * BK);
+      box(as + BOX, amap, arow + 64, kb * BK);
     } else {
-      tma_load(as, amap, &full[s], kb * BK, arow);
+      box(as, amap, kb * BK, arow);
     }
     if (TB) {
-      tma_load(bs, bmap, &full[s], bk0 + kb * BK, bcol);
+      box(bs, bmap, bk0 + kb * BK, bcol);
     } else {
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j) {
-        tma_load(bs + j * BOX, bmap, &full[s], bcol + 64 * j, bk0 + kb * BK);
-        if (GATED)
-          tma_load(bs + T::B_BYTES + j * BOX, bmap2, &full[s], bcol + 64 * j, bk0 + kb * BK);
+        box(bs + j * BOX, bmap, bcol + 64 * j, bk0 + kb * BK);
+        if (GATED) box(bs + T::B_BYTES + j * BOX, bmap2, bcol + 64 * j, bk0 + kb * BK);
       }
     }
   }

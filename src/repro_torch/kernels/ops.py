@@ -8,10 +8,11 @@ too), one per call that reached the card, so a run can show which
 kernels its main path went through (:func:`reset_launches` zeroes it).
 Counterpart of ``repro/kernels/ops.py``.
 
-Training differentiates through three ops, each a ``torch.library``
+Training differentiates through these ops, each a ``torch.library``
 custom op with a registered backward (the counterpart of the JAX
-package's ``custom_vjp``), so that a selective-checkpoint policy
-(``core/schedule.py``) can name their outputs:
+package's ``custom_vjp``, or of its autodiff through an einsum), so that
+a selective-checkpoint policy (``core/schedule.py``) can name their
+outputs:
 
 * ``tile_matmul`` (``ring_matmul.tile_matmul``): backward dx = g wᵀ and
   dw = xᵀ g through the same tile kernel, with the transposed operands
@@ -21,16 +22,22 @@ package's ``custom_vjp``), so that a selective-checkpoint policy
   SwiGLU-backward kernel and four tile products;
 * ``attention`` when its inputs need a gradient: the forward kernel also
   writes the row log-sum-exp; the backward is the flash-attention
-  backward kernel.
+  backward kernel;
+* the MoE's ``moe_grouped_gated`` (the grouped gated kernel keeping a
+  and b; backward: the SwiGLU backward, two NT and two TN grouped
+  products), ``moe_grouped_mm`` (backward: one NT, one TN),
+  ``moe_combine`` (backward: the combine's backward kernel) and
+  ``moe_dispatch`` (the gather; backward: the combine kernel with unit
+  gates).  Their backwards use no atomics, so a step repeats bit for
+  bit.  None of them is in ``SAVEABLE``: JAX's ``fusion`` policy saves
+  no dot with a batch dim, and the experts' einsums carry e.
 
 Without a gradient (:func:`needs_grad` false: serving, under
-``inference_mode``) ``matmul``, ``gated_matmul`` and ``attention`` launch
-their forward kernels directly, without the custom ops' dispatch cost on
-the host-bound decode tick; ``matmul``, ``ssd`` (the Mamba2 prefill
-scan), ``mla_decode`` (MLA's absorbed decode attention) and the MoE's
-``moe_grouped_gated``, ``moe_grouped_mm`` and ``moe_combine`` (its
-experts' grouped products and their token-major combine) are
-forward-only and raise when asked for a gradient.
+``inference_mode``) ``matmul``, ``gated_matmul``, ``attention`` and the
+MoE's ops launch their forward kernels directly, without the custom
+ops' dispatch cost on the host-bound decode tick; ``matmul``, ``ssd``
+(the Mamba2 prefill scan) and ``mla_decode`` (MLA's absorbed decode
+attention) are forward-only and raise when asked for a gradient.
 """
 
 from __future__ import annotations
@@ -52,7 +59,8 @@ LAUNCHES: Dict[str, int] = {"matmul": 0, "gated_matmul": 0, "flash_attention": 0
                             "ag_matmul_contract": 0, "ag_matmul_int8": 0,
                             "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0,
                             "mla_decode": 0, "moe_grouped_gated": 0, "moe_grouped_mm": 0,
-                            "moe_combine": 0}
+                            "moe_combine": 0, "moe_grouped_nt": 0, "moe_grouped_tn": 0,
+                            "moe_combine_bwd": 0, "moe_dispatch_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -161,16 +169,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
     return out
 
 
-def _moe_forward_only(what: str, *ts) -> None:
-    if needs_grad(*ts):
-        raise RuntimeError(f"ops.{what} has no backward; MoE training is not ported yet")
-
-
 def moe_grouped_gated(xd: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *,
                       act: str = "silu") -> torch.Tensor:
     """act(xd_e @ w1_e) * (xd_e @ w1b_e) for every expert, one launch;
-    shapes of ``ref.grouped_gated_plain``.  Forward only."""
-    _moe_forward_only("moe_grouped_gated", xd, w1, w1b)
+    shapes of ``ref.grouped_gated_plain``.  Differentiable."""
+    if needs_grad(xd, w1, w1b):
+        return torch.ops.repro_torch.moe_grouped_gated(xd, w1, w1b, act)[0]
     if _on_cpu(xd):
         return _ref.grouped_gated_plain(xd, w1, w1b, act=act)
     out = _moe.grouped(xd, w1, w1b, act=act)
@@ -180,8 +184,12 @@ def moe_grouped_gated(xd: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *,
 
 def moe_grouped_mm(h: torch.Tensor, w: torch.Tensor, *, act: str = "none") -> torch.Tensor:
     """act(h_e @ w_e) for every expert, one launch; shapes of
-    ``ref.grouped_mm_plain``.  Forward only."""
-    _moe_forward_only("moe_grouped_mm", h, w)
+    ``ref.grouped_mm_plain``.  Differentiable: with a gradient the product
+    is the custom op, and an activation follows it in PyTorch on the
+    product in h's dtype (JAX's order: the cast, then ``act``)."""
+    if needs_grad(h, w):
+        y = torch.ops.repro_torch.moe_grouped_mm(h, w)
+        return y if act == "none" else _ref.EPILOGUE_ACTS[act](y)
     if _on_cpu(h):
         return _ref.grouped_mm_plain(h, w, act=act)
     out = _moe.grouped(h, w, act=act)
@@ -189,15 +197,169 @@ def moe_grouped_mm(h: torch.Tensor, w: torch.Tensor, *, act: str = "none") -> to
     return out
 
 
-def moe_combine(yd: torch.Tensor, gate: torch.Tensor, slot_of: torch.Tensor) -> torch.Tensor:
+def moe_combine(yd: torch.Tensor, gate: torch.Tensor, slot_of: torch.Tensor,
+                slot_tok: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Each token's gated sum of its experts' rows in a fixed order;
-    shapes of ``ref.moe_combine_plain``.  Forward only."""
-    _moe_forward_only("moe_combine", yd, gate)
+    shapes of ``ref.moe_combine_plain``.  Differentiable in yd and gate,
+    which needs ``slot_tok`` (``moe.combine_bwd``'s empty slots)."""
+    if needs_grad(yd, gate):
+        if slot_tok is None:
+            raise ValueError("the combine's backward needs slot_tok (the dispatch's slots)")
+        return torch.ops.repro_torch.moe_combine(yd, gate, slot_of, slot_tok)
     if _on_cpu(yd):
         return _ref.moe_combine_plain(yd, gate, slot_of)
     out = _moe.combine(yd, gate, slot_of)
     LAUNCHES["moe_combine"] += 1
     return out
+
+
+def moe_dispatch(x: torch.Tensor, tok_of_slot: torch.Tensor, slot_valid: torch.Tensor,
+                 slot_of: torch.Tensor) -> torch.Tensor:
+    """The dispatch gather ``x[tok_of_slot] * slot_valid`` -> [E, C, H]
+    (``ref.moe_dispatch_plain``, a PyTorch gather on every device).
+    Differentiable in x: the backward sums each token's slot gradients
+    through the combine kernel with unit gates, in a fixed order, where
+    the gather's own backward would scatter-add with atomics."""
+    if needs_grad(x):
+        return torch.ops.repro_torch.moe_dispatch(x, tok_of_slot, slot_valid, slot_of)
+    return _ref.moe_dispatch_plain(x, tok_of_slot, slot_valid)
+
+
+# ---------------------------------------------------------------------------
+# the MoE's grouped products, combine and dispatch with their backwards
+# ---------------------------------------------------------------------------
+
+def _grouped_t(x: torch.Tensor, w: torch.Tensor, layout: str) -> torch.Tensor:
+    """A backward grouped product (``moe.grouped_t``): "nt" g w^T, "tn"
+    x^T g."""
+    if _on_cpu(x):
+        plain = _ref.grouped_nt_plain if layout == "nt" else _ref.grouped_tn_plain
+        return plain(x, w)
+    out = _moe.grouped_t(x, w, layout=layout)
+    LAUNCHES["moe_grouped_" + layout] += 1
+    return out
+
+
+@torch.library.custom_op("repro_torch::moe_grouped_gated", mutates_args=())
+def _moe_gated_op(xd: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor,
+                  act: str) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(act(a) * b, a, b) for every expert: the kernel keeps the fp32
+    products a = xd_e w1_e, b = xd_e w1b_e."""
+    if _on_cpu(xd):
+        return _ref.grouped_gated_products_plain(xd, w1, w1b, act=act)
+    out = _moe.grouped(xd, w1, w1b, act=act, keep_ab=True)
+    LAUNCHES["moe_grouped_gated"] += 1
+    return out
+
+
+def _moe_gated_setup(ctx, inputs, output):
+    xd, w1, w1b, act = inputs
+    _, a, b = output
+    ctx.act = act
+    ctx.save_for_backward(xd, w1, w1b, a, b)
+
+
+def _moe_gated_bwd(ctx, g, _ga, _gb):
+    """``_gated_bwd`` grouped: the SwiGLU backward over the [E C, F] rows,
+    then dxd = da w1^T + db w1b^T (NT) and dw1 = xd^T da, dw1b = xd^T db
+    (TN), each in its operand's dtype."""
+    xd, w1, w1b, a, b = ctx.saved_tensors
+    g = g.to(xd.dtype).contiguous()
+    if _on_cpu(g):
+        da, db = _ref.swiglu_bwd_plain(g, a, b, act=ctx.act)
+    else:
+        da, db = _sw.swiglu_bwd(g, a, b, act=ctx.act)
+        LAUNCHES["swiglu_bwd"] += 1
+    dxd = _grouped_t(da, w1, "nt") + _grouped_t(db, w1b, "nt") \
+        if ctx.needs_input_grad[0] else None
+    dw1 = _grouped_t(xd, da, "tn") if ctx.needs_input_grad[1] else None
+    dw1b = _grouped_t(xd, db, "tn") if ctx.needs_input_grad[2] else None
+    return dxd, dw1, dw1b, None
+
+
+_moe_gated_op.register_autograd(_moe_gated_bwd, setup_context=_moe_gated_setup)
+
+
+@torch.library.custom_op("repro_torch::moe_grouped_mm", mutates_args=())
+def _moe_mm_op(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h_e @ w_e for every expert (no activation: training applies it
+    after the op)."""
+    if _on_cpu(h):
+        return _ref.grouped_mm_plain(h, w)
+    out = _moe.grouped(h, w, grad=True)
+    LAUNCHES["moe_grouped_mm"] += 1
+    return out
+
+
+def _moe_mm_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _moe_mm_bwd(ctx, g):
+    """dh = g w^T (NT), dw = h^T g (TN); g cast to h's dtype."""
+    h, w = ctx.saved_tensors
+    g = g.to(h.dtype).contiguous()
+    dh = _grouped_t(g, w, "nt") if ctx.needs_input_grad[0] else None
+    dw = _grouped_t(h, g, "tn") if ctx.needs_input_grad[1] else None
+    return dh, dw
+
+
+_moe_mm_op.register_autograd(_moe_mm_bwd, setup_context=_moe_mm_setup)
+
+
+@torch.library.custom_op("repro_torch::moe_combine", mutates_args=())
+def _moe_combine_op(yd: torch.Tensor, gate: torch.Tensor, slot_of: torch.Tensor,
+                    slot_tok: torch.Tensor) -> torch.Tensor:
+    if _on_cpu(yd):
+        return _ref.moe_combine_plain(yd, gate, slot_of)
+    out = _moe.combine(yd, gate, slot_of)
+    LAUNCHES["moe_combine"] += 1
+    return out
+
+
+def _moe_combine_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _moe_combine_bwd(ctx, dy):
+    """(dyd, dgate) from the combine's backward kernel: no atomics."""
+    yd, gate, slot_of, slot_tok = ctx.saved_tensors
+    dy = dy.to(yd.dtype).contiguous()
+    if _on_cpu(dy):
+        dyd, dgate = _ref.moe_combine_bwd_plain(dy, yd, gate, slot_of)
+    else:
+        dyd, dgate = _moe.combine_bwd(dy, yd, gate, slot_of, slot_tok)
+        LAUNCHES["moe_combine_bwd"] += 1
+    return dyd, dgate, None, None
+
+
+_moe_combine_op.register_autograd(_moe_combine_bwd, setup_context=_moe_combine_setup)
+
+
+@torch.library.custom_op("repro_torch::moe_dispatch", mutates_args=())
+def _moe_dispatch_op(x: torch.Tensor, tok_of_slot: torch.Tensor, slot_valid: torch.Tensor,
+                     slot_of: torch.Tensor) -> torch.Tensor:
+    return _ref.moe_dispatch_plain(x, tok_of_slot, slot_valid)
+
+
+def _moe_dispatch_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[3])
+
+
+def _moe_dispatch_bwd(ctx, dxd):
+    """dx[t] = sum_j dxd[slot_of[t, j]]: the combine kernel with unit
+    gates (``hk_moe_combine``), token-major in j order."""
+    (slot_of,) = ctx.saved_tensors
+    dxd = dxd.contiguous()
+    if _on_cpu(dxd):
+        return _ref.moe_dispatch_bwd_plain(dxd, slot_of), None, None, None
+    ones = torch.ones(slot_of.shape, dtype=torch.float32, device=dxd.device)
+    dx = _moe.combine(dxd, ones, slot_of)
+    LAUNCHES["moe_dispatch_bwd"] += 1
+    return dx, None, None, None
+
+
+_moe_dispatch_op.register_autograd(_moe_dispatch_bwd, setup_context=_moe_dispatch_setup)
 
 
 # ---------------------------------------------------------------------------

@@ -147,9 +147,7 @@ def grouped_gated_plain(xd: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *
     """act(xd_e @ w1_e) * (xd_e @ w1b_e) for every expert e: xd [E,C,H],
     w1 and w1b [E,H,F] -> [E,C,F] in xd.dtype; both products and the gate
     in fp32, one cast (``moe::grouped_gated``)."""
-    xf = xd.float()
-    return (_epilogue(torch.bmm(xf, w1.float()), act) * torch.bmm(xf, w1b.float())
-            ).to(xd.dtype)
+    return grouped_gated_products_plain(xd, w1, w1b, act=act)[0]
 
 
 def grouped_mm_plain(h: torch.Tensor, w: torch.Tensor, *, act: str = "none") -> torch.Tensor:
@@ -173,6 +171,68 @@ def moe_combine_plain(yd: torch.Tensor, gate: torch.Tensor,
         term = gate[:, j, None].float() * rows[s.clamp(min=0)]
         y = torch.where((s >= 0)[:, None], y + term, y)
     return y.to(yd.dtype)
+
+
+def grouped_gated_products_plain(xd: torch.Tensor, w1: torch.Tensor, w1b: torch.Tensor, *,
+                                 act: str = "silu"):
+    """(act(a) * b in xd.dtype, a, b) for every expert, with the fp32
+    products a = xd_e @ w1_e and b = xd_e @ w1b_e [E,C,F]: the grouped
+    gated kernel's ``keep_ab`` outputs."""
+    xf = xd.float()
+    a, b = torch.bmm(xf, w1.float()), torch.bmm(xf, w1b.float())
+    return (_epilogue(a, act) * b).to(xd.dtype), a, b
+
+
+def grouped_nt_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """g_e @ w_e.T for every expert: g [E,C,N], w [E,K,N] -> [E,C,K] in
+    g.dtype, fp32 sums (the grouped product's NT layout: dx)."""
+    return torch.bmm(g.float(), w.float().transpose(1, 2)).to(g.dtype)
+
+
+def grouped_tn_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x_e.T @ g_e for every expert: x [E,C,K], g [E,C,N] -> [E,K,N] in
+    x.dtype, fp32 sums over the C rows (the grouped product's TN layout:
+    dw)."""
+    return torch.bmm(x.float().transpose(1, 2), g.float()).to(x.dtype)
+
+
+def moe_combine_bwd_plain(dy: torch.Tensor, yd: torch.Tensor, gate: torch.Tensor,
+                          slot_of: torch.Tensor):
+    """The combine's derivative (``moe::combine_bwd``): dyd shaped as yd
+    in dy's dtype, ``dyd[slot_of[t,j]] = gate[t,j] * dy[t]`` (one fp32
+    product, one cast; zero for an empty slot), and dgate fp32 [T,k],
+    ``dgate[t,j] = dy[t] . yd[slot_of[t,j]]`` in fp32 (zero for a
+    dropped assignment)."""
+    H = yd.shape[-1]
+    rows = yd.reshape(-1, H).float()
+    n = rows.shape[0]
+    dyf = dy.float()
+    # a dropped assignment writes the spare row n, cut off at the end (no boolean
+    # indexing, so the function can be captured in a CUDA graph)
+    dyd = torch.zeros((n + 1, H), dtype=dy.dtype, device=dy.device)
+    dgate = torch.zeros(slot_of.shape, dtype=torch.float32, device=dy.device)
+    for j in range(slot_of.shape[1]):
+        s = slot_of[:, j].long()
+        valid = s >= 0
+        dyd[torch.where(valid, s, n)] = (gate[:, j, None].float() * dyf).to(dy.dtype)
+        dgate[:, j] = torch.where(valid, (dyf * rows[s.clamp(min=0)]).sum(-1), 0.0)
+    return dyd[:n].reshape(yd.shape), dgate
+
+
+def moe_dispatch_plain(x: torch.Tensor, tok_of_slot: torch.Tensor,
+                       slot_valid: torch.Tensor) -> torch.Tensor:
+    """The dispatch gather ``x[tok_of_slot] * slot_valid`` (``mlp.py:110``
+    of the JAX package): x [T,H], tok_of_slot and slot_valid [E,C] ->
+    [E,C,H] in x.dtype, an empty slot's row zero."""
+    return x[tok_of_slot.long()] * slot_valid[..., None].to(x.dtype)
+
+
+def moe_dispatch_bwd_plain(dxd: torch.Tensor, slot_of: torch.Tensor) -> torch.Tensor:
+    """The dispatch gather's derivative: ``dx[t] = sum_j dxd[slot_of[t,j]]``
+    over the valid j in j order, in fp32, one cast: the combine with unit
+    gates."""
+    ones = torch.ones(slot_of.shape, dtype=torch.float32, device=dxd.device)
+    return moe_combine_plain(dxd, ones, slot_of)
 
 
 def _act_and_grad(a: torch.Tensor, act: str):

@@ -51,8 +51,13 @@ ends with ``grid[NxDxXxY] final loss ...``.
 ``--device`` defaults to ``cuda`` (the CUDA kernels); ``--device cpu``
 runs the plain PyTorch versions (gloo carries the grid's data).
 
-The MoE family (``granite-moe-3b-a800m``, ``grok-1-314b``) does not
-train yet: every entry refuses it by name.
+The MoE family (``granite-moe-3b-a800m``, ``grok-1-314b``) trains on
+one device: the router, the grouped expert products, the combine and
+the dispatch differentiate through their kernels' backwards, and the
+loss adds ``aux_loss`` times the layers' load-balance loss.
+``--layers`` cuts its depth to fit the card (granite at 8 of its 32
+layers: ~0.96 B parameters, ~15 GB of fp32 state; grok-1 trains at its
+smoke size only).  The rank grid and the pipeline refuse it by name.
 
 ``--arch minicpm3-4b`` (MLA) trains on one device only, its attention
 on the flash kernels at the padded head dim 96 -> 128; ``--layers``
@@ -95,6 +100,8 @@ function.  The learning-rate schedule's horizon is ``LR_HORIZON``
         --dtype bfloat16 --strategy megatron --data 1 --mx 2 --my 2 --overlap fused
     PYTHONPATH=src python -m repro_torch.launch.train --arch paper-tinyllama-1.1b \\
         --dtype bfloat16 --pods 2 --pod-role pipeline --batch 8 --seq 512 --microbatches 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
+        --layers 8 --dtype bfloat16 --batch 8 --seq 512 --microbatches 2
 """
 
 from __future__ import annotations
@@ -270,12 +277,14 @@ def _ckpt_report(state, mgr, start, restore_s, fleet=None) -> dict:
             "fleet_events": list(fleet.events) if fleet is not None else []}
 
 
-def _recording(step, grad_norms, lrs):
-    """``step`` that also keeps each step's grad norm and learning rate."""
+def _recording(step, grad_norms, lrs, auxes):
+    """``step`` that also keeps each step's grad norm, learning rate and
+    aux loss."""
     def wrapped(p, o, b):
         p, o, m = step(p, o, b)
         grad_norms.append(float(m["grad_norm"]))
         lrs.append(float(m["lr"]))
+        auxes.append(float(m["aux"]))
         return p, o, m
     return wrapped
 
@@ -312,10 +321,10 @@ def run(args, log_fn=print) -> dict:
         restore_s = time.perf_counter() - t1
         log_fn(f"restored checkpoint at step {start}")
     gcfg = _guard_cfg(args)
-    grad_norms, lrs = [], []
+    grad_norms, lrs, auxes = [], [], []
     step = _recording(TS.build_train_step(cfg, pcfg, rc, total_steps=LR_HORIZON,
                                           compute_dtype=getattr(torch, args.dtype), guard=gcfg),
-                      grad_norms, lrs)
+                      grad_norms, lrs, auxes)
     ds = SyntheticLM(cfg.vocab_size, args.seq, args.batch)
     tguard, wd, dix, stream = _guard_runtime(args, gcfg, args.ckpt_dir, start, ds.batch_at,
                                              log_fn)
@@ -337,7 +346,8 @@ def run(args, log_fn=print) -> dict:
         log_fn(f"final loss {h[-1][1]:.4f} (first {h[0][1]:.4f})")
     return {"cfg": cfg, "history": h, "step_s": state["step_s"], "setup_s": setup_s,
             "tokens_per_step": args.batch * args.seq, "state": state,
-            "grad_norms": grad_norms, "lrs": lrs, "first_data_index": dix(start),
+            "grad_norms": grad_norms, "lrs": lrs, "aux": auxes,
+            "first_data_index": dix(start),
             "ckpt": _ckpt_report(state, ckpt, start, restore_s, fleet)}
 
 
@@ -346,14 +356,9 @@ def run(args, log_fn=print) -> dict:
 # ---------------------------------------------------------------------------
 
 def _config(args):
-    """The run's config; the MoE family is refused (its training is not
-    ported yet: the grouped products' backward, the aux loss and the
-    router's gradient)."""
+    """The run's config, cut to ``--layers`` when given."""
     from repro_torch.config import get_config, get_smoke_config
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if cfg.family == "moe":
-        raise NotImplementedError(f"MoE training is not ported yet ({args.arch}): MoE serves "
-                                  "on one device (launch/serve.py)")
     return cfg.scaled(num_layers=args.layers) if args.layers else cfg
 
 
@@ -383,9 +388,18 @@ def run_grid(args, log_fn=print, check_plain: bool = False) -> dict:
     from repro_torch.parallel import comm
 
     _check_grid_args(args)
-    if _config(args).mla:
+    cfg0 = _config(args)
+    if cfg0.mla:
         raise NotImplementedError(f"MLA ({args.arch}) trains on one device only: the rank grid "
                                   "and the pod axis do not take it")
+    if cfg0.moe and _stages(args) > 1:
+        from repro_torch.config import ParallelConfig
+        from repro_torch.parallel import pipeline as PIPE
+        PIPE.validate_pipeline(cfg0, ParallelConfig(pods=args.pods,
+                                                    pod_axis_role=args.pod_role))
+    if cfg0.moe:
+        raise NotImplementedError(f"MoE ({args.arch}) on the rank grid (EP x TP) is not "
+                                  "ported; it trains on one device")
     if check_plain and args.ckpt_dir:
         raise ValueError("check_plain trains from the initial parameters: no --ckpt-dir")
     dev = resolve_device(args.device)
@@ -537,8 +551,8 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
             ckpt = CG.GridCheckpointer(mgr, grid, pcfg, runner)
         # every rank runs the same guard on the same values (the loss and
         # the grad norm are global), so all of them skip or raise together
-        grad_norms, lrs, skipped = [], [], []
-        step = _recording(kstep, grad_norms, lrs)
+        grad_norms, lrs, auxes, skipped = [], [], [], []
+        step = _recording(kstep, grad_norms, lrs, auxes)
         if gcfg is not None:
             def step(p, o, b, _inner=step):
                 p, o, m = _inner(p, o, b)
@@ -573,7 +587,7 @@ def _grid_rank(rank: int, opts: dict, init_file: str) -> dict:
                  "ring": {k: dict(v) for k, v in RM.IMPL_LAUNCHES.items()}}
         comm.barrier()
         return {"history": state["history"], "grad_norms": grad_norms, "lrs": lrs,
-                "stage": grid.axis_index("pod"), "paths": paths,
+                "aux": auxes, "stage": grid.axis_index("pod"), "paths": paths,
                 "executed": [(t.kind, t.mb) for t in runner.executed] if pipe else None,
                 "max_stash": runner.max_stash if pipe else None,
                 "boundary_bytes": runner.boundary_bytes if pipe else None,

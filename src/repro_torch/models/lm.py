@@ -151,7 +151,9 @@ def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
     the ssm family an SSMState,
     with [L, ...] leaves) gives layer i its rows, which it writes in
     place.  ``aux``, a list, receives each MoE layer's aux loss in layer
-    order."""
+    order: a MoE layer returns it beside x, so that it leaves the
+    checkpointed function as an output (a backward's recompute of the
+    layer appends nothing)."""
     items = flatten(stacked)
     paths = [p for p, _ in items]
     per_layer = [leaf.unbind(0) for _, leaf in items]
@@ -167,13 +169,15 @@ def _layer_stack(pctx, cfg: ModelConfig, stacked, x: torch.Tensor,
             return x
         cache_l = None if cache is None else ATT.layer_cache(cache, i)
         x, _, aux_l = BLK.apply_attn_block(pctx, cfg, p, x, positions=positions, cache=cache_l)
-        if aux is not None and aux_l is not None:
-            aux.append(aux_l)
-        return x
+        return x if aux_l is None else (x, aux_l)
 
     layer = schedule.apply_remat(layer, remat)
     for i in range(cfg.num_layers):
         x = layer(x, i, *(ls[i] for ls in per_layer))
+        if isinstance(x, tuple):
+            x, aux_l = x
+            if aux is not None:
+                aux.append(aux_l)
     return x
 
 
@@ -298,14 +302,14 @@ def _grid_xent(pctx, logits, labels, mask):
 
 
 def train_loss(pctx, cfg: ModelConfig, params, batch, *, remat: str = "fusion"):
-    """(loss, {"loss", "aux"}); the dense family has no auxiliary loss.
-    The MoE family is refused: its training is not ported yet."""
-    if cfg.family == "moe":
-        raise NotImplementedError(f"MoE training is not ported yet ({cfg.name}): it serves "
-                                  "on one device")
+    """(loss + aux_loss * aux, {"loss", "aux"}), as ``repro/models/lm.py``'s:
+    the MoE family adds its layers' summed load-balance loss at
+    ``cfg.moe.aux_loss``; the dense family has no auxiliary loss (aux 0)."""
     out = forward(pctx, cfg, params, batch, remat=remat, skip_head=True)
     loss = head_loss(pctx, cfg, params, out.hidden, batch["labels"],
                      mask=batch.get("loss_mask"),
                      compute_dtype=batch.get("_dtype", torch.bfloat16))
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"loss": loss, "aux": aux}
+    if out.aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss, {"loss": loss, "aux": aux}
+    return loss + cfg.moe.aux_loss * out.aux, {"loss": loss, "aux": out.aux}

@@ -11,10 +11,17 @@ grouped launches (``PCtx.moe_gated``/``moe_mm``: every expert's
 ``[C, H]`` rows in one kernel), and the combine is token-major
 (``PCtx.moe_combine``): each token gathers its k expert rows and sums
 them in fp32 in a fixed order, where JAX scatter-adds.  The routing
-(softmax, top-k, argsort, searchsorted) and the dispatch gather stay
-PyTorch ops: they compute no product.  EP x TP on the rank grid
-(``mlp.py:157-214`` of the JAX package) is not ported: ``apply_moe``
-refuses a grid.
+(softmax, top-k, argsort, searchsorted) and the dispatch gather
+(``PCtx.moe_dispatch``) stay PyTorch ops: they compute no product.
+
+Training differentiates all of it: the router's fp32 matmul, softmax,
+top-k sort and renormalisation by autograd, the grouped products, the
+combine and the dispatch through their custom ops' backwards on the
+kernel path (``kernels/ops.py``), none of which adds with atomics.  A
+non-gated expert with an activation is trained as JAX computes it, the
+product then the activation in the compute dtype.  EP x TP on the rank
+grid (``mlp.py:157-214`` of the JAX package) is not ported:
+``apply_moe`` refuses a grid.
 """
 
 from __future__ import annotations
@@ -115,7 +122,8 @@ def _moe_local(pctx, p, x: torch.Tensor, *, cfg: ModelConfig, n_local_experts: i
     slot_token = _dispatch_indices(idx.reshape(-1), n_local_experts, e_offset, cap)
     tok_of_slot = torch.clamp(slot_token // k, max=T - 1).long()
     slot_valid = slot_token < T * k
-    xd = x[tok_of_slot] * slot_valid[..., None].to(x.dtype)      # [E_loc, C, H]
+    slot_of = slot_of_assignments(slot_token, T * k).reshape(T, k)
+    xd = pctx.moe_dispatch(x, tok_of_slot, slot_valid, slot_of)   # [E_loc, C, H]
 
     def local(name):
         w = p[name]
@@ -128,7 +136,7 @@ def _moe_local(pctx, p, x: torch.Tensor, *, cfg: ModelConfig, n_local_experts: i
     else:
         h = pctx.moe_mm(xd, local("we1"), act)
     yd = pctx.moe_mm(h, local("we2"))                             # [E_loc, C, H]
-    y = pctx.moe_combine(yd, gate, slot_of_assignments(slot_token, T * k).reshape(T, k))
+    y = pctx.moe_combine(yd, gate, slot_of, slot_token)
     return y, probs
 
 

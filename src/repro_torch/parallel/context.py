@@ -87,7 +87,10 @@ _PLAIN = SimpleNamespace(matmul=ref.matmul_plain,
                          mla_decode=ref.mla_decode_plain,
                          moe_grouped_gated=ref.grouped_gated_plain,
                          moe_grouped_mm=ref.grouped_mm_plain,
-                         moe_combine=ref.moe_combine_plain)
+                         moe_combine=lambda yd, gate, slot_of, slot_tok=None:
+                         ref.moe_combine_plain(yd, gate, slot_of),
+                         moe_dispatch=lambda x, tok_of_slot, slot_valid, slot_of:
+                         ref.moe_dispatch_plain(x, tok_of_slot, slot_valid))
 
 MODES = ("serve", "train", "prefill", "decode")
 
@@ -391,8 +394,16 @@ class PCtx:
     # the Mamba2 scan
     # ------------------------------------------------------------------
     # ------------------------------------------------------------------
-    # the MoE's experts (one device: ``models/mlp.apply_moe`` refuses a grid)
+    # the MoE's experts (one device: ``models/mlp.apply_moe`` refuses a grid).
+    # With a gradient the kernel path takes the differentiable custom ops
+    # (``kernels/ops.py``); the plain path is PyTorch under autograd.
     # ------------------------------------------------------------------
+    def moe_dispatch(self, x, tok_of_slot, slot_valid, slot_of):
+        """The dispatch gather ``x[tok_of_slot] * slot_valid`` -> [E, C, H];
+        its backward on the kernel path sums each token's slot gradients
+        through the combine kernel (``slot_of``: each assignment's slot)."""
+        return self.ops.moe_dispatch(x, tok_of_slot, slot_valid, slot_of)
+
     def moe_gated(self, xd, w1, w1b, act: str):
         """act(xd_e @ w1_e) * (xd_e @ w1b_e) for every expert e, one grouped
         launch (``ref.grouped_gated_plain``'s shapes)."""
@@ -403,10 +414,11 @@ class PCtx:
         (``ref.grouped_mm_plain``'s shapes)."""
         return self.ops.moe_grouped_mm(h, w, act=act)
 
-    def moe_combine(self, yd, gate, slot_of):
+    def moe_combine(self, yd, gate, slot_of, slot_tok=None):
         """Each token's gated sum of its experts' rows, in a fixed order
-        (``ref.moe_combine_plain``'s shapes)."""
-        return self.ops.moe_combine(yd, gate, slot_of)
+        (``ref.moe_combine_plain``'s shapes); ``slot_tok`` (the dispatch's
+        slots) serves the kernel path's backward."""
+        return self.ops.moe_combine(yd, gate, slot_of, slot_tok)
 
     def ssd(self, x, dt, A, B, C, *, chunk: int, init_state=None):
         """SSD chunked scan -> (y, fp32 final state); ``ref.ssd_plain``'s

@@ -197,8 +197,8 @@ def validate_pipeline(cfg: ModelConfig, pcfg: ParallelConfig) -> None:
         raise ValueError("pod_axis_role='pipeline' requires pods > 1 "
                          f"(got pods={pcfg.pods})")
     if cfg.family == "moe":
-        raise NotImplementedError(f"MoE training is not ported yet ({cfg.name}): the "
-                                  "pipeline does not stage it")
+        raise NotImplementedError(f"MoE ({cfg.name}) in the 1F1B pipeline is not ported: "
+                                  "the stages carry no aux loss; it trains on one device")
     pattern = sorted({"mamba"} if cfg.family == "ssm" or cfg.ssm is not None else {"attn"})
     if cfg.family != "dense" or pattern != ["attn"]:
         raise ValueError(

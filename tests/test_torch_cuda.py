@@ -1004,6 +1004,74 @@ def test_moe_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                                                  dtype=torch.int64))
 
 
+@pytest.mark.parametrize("C", [1, 16, 37, 130])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout", ["nt", "tn"])
+def test_moe_backward_products(dev, C, dtype, layout):
+    """The backward's grouped products on the training route (wgmma for
+    bf16 at any C, simt for fp32), counted there: "nt" dx = g w^T and "tn"
+    dw = x^T g, whose contraction over C ends in a partial k-block (TMA
+    zero-fills it); K (96) and N (136) off the tiles, an expert's rows
+    zero."""
+    E, K, N = 5, 96, 136
+    x, g = _randn((E, C, K), dtype, dev, 1), _randn((E, C, N), dtype, dev, 2)
+    x[1], g[1] = 0, 0
+    w = _randn((E, K, N), dtype, dev, 3, K ** -0.5)
+    a, b = (g, w) if layout == "nt" else (x, g)
+    ops.reset_launches()
+    got = kmoe.grouped_t(a, b, layout=layout)
+    route = kmoe.grouped_impl(dtype, C, grad=True)
+    assert route == ("simt" if dtype == torch.float32 else "wgmma")
+    assert kmoe.IMPL_LAUNCHES["moe_grouped_" + layout][route] == 1
+    plain = ref.grouped_nt_plain if layout == "nt" else ref.grouped_tn_plain
+    _close(got, plain(a, b))
+    assert torch.equal(got, kmoe.grouped_t(a, b, layout=layout))      # deterministic
+
+
+@pytest.mark.parametrize("C", [1, 37])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_gated_keeps_its_products(dev, C, dtype):
+    """The gated product's training form also writes the fp32 products a
+    and b (for the SwiGLU backward), on wgmma at any C in bf16."""
+    E, K, N = 3, 64, 136
+    x = _randn((E, C, K), dtype, dev, 4)
+    w1, w1b = (_randn((E, K, N), dtype, dev, 5 + i, K ** -0.5) for i in range(2))
+    ops.reset_launches()
+    got = kmoe.grouped(x, w1, w1b, act="silu", keep_ab=True)
+    route = kmoe.grouped_impl(dtype, C, grad=True)
+    assert kmoe.IMPL_LAUNCHES["moe_grouped_gated"][route] == 1
+    for a, b in zip(got, ref.grouped_gated_products_plain(x, w1, w1b, act="silu")):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,k,E,C,H", [(64, 8, 40, 16, 1536), (37, 2, 4, 10, 64),
+                                       (37, 2, 4, 24, 64)])
+def test_moe_combine_bwd_kernel(dev, dtype, T, k, E, C, H):
+    """The combine's backward: dyd equal to its plain version bit for bit
+    (an empty slot's row zero, over a dirty buffer), dgate at the fp32
+    bound (a dropped assignment's 0), two calls bit-equal; and the
+    dispatch's backward, the combine with unit gates, bit for bit."""
+    from repro_torch.models import mlp as MLP
+    g = torch.Generator(device=dev).manual_seed(9)
+    idx = MLP.top_k(torch.rand((T, E), generator=g, device=dev), k)[1]
+    st = MLP._dispatch_indices(idx.reshape(-1), E, 0, C)
+    slot_of = MLP.slot_of_assignments(st, T * k).reshape(T, k)
+    gate = torch.rand((T, k), generator=g, device=dev)
+    dy, yd = _randn((T, H), dtype, dev, 10), _randn((E, C, H), dtype, dev, 11)
+    ops.reset_launches()
+    dyd, dgate = kmoe.combine_bwd(dy, yd, gate, slot_of, st)
+    assert kmoe.IMPL_LAUNCHES["moe_combine_bwd"]["token"] == 1
+    want = ref.moe_combine_bwd_plain(dy, yd, gate, slot_of)
+    torch.cuda.synchronize()
+    assert torch.equal(dyd, want[0])
+    _close(dgate, want[1])
+    again = kmoe.combine_bwd(dy, yd, gate, slot_of, st)
+    assert torch.equal(again[0], dyd) and torch.equal(again[1], dgate)
+    ones = torch.ones((T, k), device=dev)
+    assert torch.equal(kmoe.combine(yd, ones, slot_of), ref.moe_dispatch_bwd_plain(yd, slot_of))
+
+
 MOE_CFG = ModelConfig(name="cuda-moe", family="moe", num_layers=2, d_model=128,
                       num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=500, head_dim=64,
                       moe=MoEConfig(num_experts=8, top_k=2, capacity_factor=1.25))

@@ -147,7 +147,8 @@ def test_ops_take_plain_on_cpu_and_count_nothing():
                             "ag_matmul_contract": 0, "ag_matmul_int8": 0,
                             "matmul_rs_int8": 0, "ag_matmul_contract_int8": 0,
                             "mla_decode": 0, "moe_grouped_gated": 0, "moe_grouped_mm": 0,
-                            "moe_combine": 0}
+                            "moe_combine": 0, "moe_grouped_nt": 0, "moe_grouped_tn": 0,
+                            "moe_combine_bwd": 0, "moe_dispatch_bwd": 0}
     assert torch.equal(ops.tile_matmul(x, w), ref.tile_matmul_plain(x, w))
     assert all(n == 0 for n in ops.LAUNCHES.values())
 

@@ -22,8 +22,9 @@ every JAX side once.
   tokens, 6 new each, on the paged fp pool and the int8 arena, against
   ``repro.serve.engine.DecodeEngine``;
 * the grouped products' route choice, the serving launcher on the CPU,
-  the forward-only ops, and the refusals of training, the pipeline and
-  the grid, each by name.
+  the ops' CPU launches (none), and the refusals of the pipeline and the
+  grid, each by name (MoE trains on one device:
+  ``tests/test_torch_moe_train.py``).
 """
 
 import jax
@@ -315,19 +316,27 @@ def test_grouped_route_choice_and_gemv_plan():
 
 
 def test_moe_ops_are_forward_only_and_count_no_cpu_launches():
+    """The MoE ops differentiate on the CPU (their plain backwards; the
+    training slice, ``tests/test_torch_moe_train.py``, holds the numbers)
+    and, with a gradient or without, count no launch there."""
     z = torch.zeros(2, 3, 8, requires_grad=True)
-    w = torch.zeros(2, 8, 8)
-    for call in (lambda: ops.moe_grouped_gated(z, w, w, act="silu"),
-                 lambda: ops.moe_grouped_mm(z, w),
-                 lambda: ops.moe_combine(z, torch.ones(4, 2), torch.zeros(4, 2,
-                                                                          dtype=torch.int32))):
-        with pytest.raises(RuntimeError, match="no backward"):
-            call()
+    w = torch.zeros(2, 8, 8, requires_grad=True)
+    slot_of = torch.zeros(4, 2, dtype=torch.int32)
+    slot_tok = torch.zeros(2, 3, dtype=torch.int32)
+    gate = torch.ones(4, 2, requires_grad=True)
     ops.reset_launches()
+    outs = (ops.moe_grouped_gated(z, w, w, act="silu"), ops.moe_grouped_mm(z, w),
+            ops.moe_combine(z, gate, slot_of, slot_tok),
+            ops.moe_dispatch(torch.zeros(4, 8, requires_grad=True), torch.zeros(
+                2, 3, dtype=torch.long), torch.ones(2, 3, dtype=torch.bool), slot_of))
+    for out in outs:
+        assert out.requires_grad
+        out.sum().backward()
+    assert z.grad is not None and w.grad is not None and gate.grad is not None
     with torch.no_grad():
         ops.moe_grouped_gated(z, w, w, act="silu")
-        ops.moe_combine(z, torch.ones(4, 2), torch.zeros(4, 2, dtype=torch.int32))
-    assert ops.LAUNCHES["moe_grouped_gated"] == ops.LAUNCHES["moe_combine"] == 0
+        ops.moe_combine(z, torch.ones(4, 2), slot_of)
+    assert all(ops.LAUNCHES[k] == 0 for k in ops.LAUNCHES if k.startswith("moe_"))
     assert all(c == 0 for counts in kmoe.IMPL_LAUNCHES.values() for c in counts.values())
 
 
@@ -339,18 +348,18 @@ def test_serve_launcher_runs_moe(arch, quant):
     assert r["sequences"] == 8 and all(len(f.tokens) == 16 for f in r["finished"].values())
 
 
-def test_training_refuses_moe_by_name():
+def test_training_refuses_moe_on_grid_and_pipeline_by_name():
+    """MoE trains on one device (``tests/test_torch_moe_train.py``); the
+    rank grid (EP x TP) and the 1F1B pipeline refuse it by name."""
     cfg = get_smoke_config(ARCHS[0])
-    with pytest.raises(NotImplementedError, match="MoE training is not ported"):
-        ttrain.run(ttrain.parser().parse_args(["--arch", ARCHS[0], "--smoke", "--device",
-                                               "cpu", "--steps", "1"]))
-    with pytest.raises(NotImplementedError, match="MoE training is not ported"):
+    with pytest.raises(NotImplementedError, match=r"MoE .* on the rank grid \(EP x TP\)"):
         ttrain.run(ttrain.parser().parse_args(["--arch", ARCHS[0], "--smoke", "--device",
                                                "cpu", "--steps", "1", "--my", "2"]))
-    with pytest.raises(NotImplementedError, match="MoE training is not ported"):
-        tlm.train_loss(PCtx(plain=True), cfg, {}, {"tokens": torch.zeros((1, 4),
-                                                                         dtype=torch.int64)})
-    with pytest.raises(NotImplementedError, match="MoE training is not ported"):
+    with pytest.raises(NotImplementedError, match="MoE .* in the 1F1B pipeline"):
+        ttrain.run(ttrain.parser().parse_args(["--arch", ARCHS[0], "--smoke", "--device",
+                                               "cpu", "--steps", "1", "--pods", "2",
+                                               "--pod-role", "pipeline"]))
+    with pytest.raises(NotImplementedError, match="MoE .* in the 1F1B pipeline"):
         PIPE.validate_pipeline(cfg, ParallelConfig(pods=2, pod_axis_role="pipeline"))
 
 
